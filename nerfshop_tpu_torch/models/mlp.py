@@ -1,0 +1,94 @@
+"""Bias-free MLPs with bf16 operands and fp32 results.
+
+Counterpart of ``nerfshop_tpu/models/mlp.py``. The JAX model casts each
+layer's operands to bf16, takes the product with an fp32 result, and casts
+each hidden activation back to bf16. Here the operands are rounded to bf16
+and the product is taken in fp32 (``torch.matmul`` on bf16 tensors would
+also round the result). A product of two bf16 values is exact in fp32, so
+only the summation order differs from the JAX numerics. TF32 must stay off
+for that: the package sets ``torch.backends.cuda.matmul.allow_tf32 = False``
+when it is imported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional
+
+import torch
+from torch import nn
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    name = (name or "None").lower()
+    return {
+        "relu": torch.relu,
+        "leakyrelu": lambda x: torch.nn.functional.leaky_relu(x, 0.01),
+        "exponential": torch.exp,
+        "sigmoid": torch.sigmoid,
+        "sine": torch.sin,
+        "squareplus": lambda x: 0.5 * (x + torch.sqrt(x * x + 4.0)),
+        "softplus": torch.nn.functional.softplus,
+        "tanh": torch.tanh,
+        "none": lambda x: x,
+    }[name]
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+class MLP(nn.Module):
+    """Width-uniform hidden layers, no biases; ``weights.i`` is [fan_in, fan_out]."""
+
+    def __init__(
+        self,
+        n_input_dims: int,
+        n_output_dims: int,
+        n_neurons: int = 64,
+        n_hidden_layers: int = 1,
+        activation: str = "ReLU",
+        output_activation: str = "None",
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.n_input_dims = n_input_dims
+        self.n_output_dims = n_output_dims
+        self.activation = activation
+        self.output_activation = output_activation
+        ws = []
+        for fan_in, fan_out in self.layer_dims(n_neurons, n_hidden_layers):
+            # He-uniform, matching tcnn's default for ReLU nets
+            bound = (6.0 / fan_in) ** 0.5
+            w = torch.empty((fan_in, fan_out), dtype=torch.float32, device=device)
+            ws.append(nn.Parameter(w.uniform_(-bound, bound, generator=generator)))
+        self.weights = nn.ParameterList(ws)
+
+    def layer_dims(self, n_neurons: int, n_hidden_layers: int) -> List[tuple]:
+        dims = [self.n_input_dims] + [n_neurons] * n_hidden_layers + [self.n_output_dims]
+        return list(zip(dims[:-1], dims[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = activation(self.activation)
+        out_act = activation(self.output_activation)
+        h = _bf16_round(x)
+        n = len(self.weights)
+        for i, w in enumerate(self.weights):
+            h = torch.matmul(h, _bf16_round(w))
+            if i < n - 1:
+                h = _bf16_round(act(h))
+        return out_act(h)
+
+
+def build_network(cfg: dict, n_input_dims: int, n_output_dims: int, device=None, generator=None) -> MLP:
+    """Factory from the JSON ``network`` block (otype FullyFusedMLP/CutlassMLP)."""
+    return MLP(
+        n_input_dims=n_input_dims,
+        n_output_dims=n_output_dims,
+        n_neurons=cfg.get("n_neurons", 64),
+        n_hidden_layers=cfg.get("n_hidden_layers", 1),
+        activation=cfg.get("activation", "ReLU"),
+        output_activation=cfg.get("output_activation", "None"),
+        device=device,
+        generator=generator,
+    )

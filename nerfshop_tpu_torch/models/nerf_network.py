@@ -1,0 +1,138 @@
+"""The NGP NeRF network: hash-encoded density MLP + SH-conditioned RGB MLP.
+
+Counterpart of ``nerfshop_tpu/models/nerf_network.py``::
+
+  pos [0,1]³ ──HashGrid──► density MLP ──► 16 feats (feats[0] = raw σ)
+  dir warped ──SH(deg 4)──┐                 │
+                          └──[feats ∥ SH]──► rgb MLP ──► 3 raw rgb
+
+Parameter names follow the JAX pytree paths (``pos_encoding.table``,
+``density_mlp.weights.0``, ``rgb_mlp.weights.2``), see
+:mod:`nerfshop_tpu_torch.weights`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from nerfshop_tpu_torch.models import encodings as enc
+from nerfshop_tpu_torch.models import mlp as mlp_lib
+
+DENSITY_FEATURES = 16
+EXP_CLAMP = 15.0
+RGB_EXP_CLAMP = 10.0
+
+
+def density_activation_fn(raw: torch.Tensor, kind: str = "exponential") -> torch.Tensor:
+    kind = kind.lower()
+    if kind == "exponential":
+        return torch.exp(torch.clamp(raw, -EXP_CLAMP, EXP_CLAMP))
+    if kind == "relu":
+        return torch.relu(raw)
+    if kind == "logistic":
+        return torch.sigmoid(raw)
+    if kind == "none":
+        return raw
+    raise ValueError(kind)
+
+
+def rgb_activation_fn(raw: torch.Tensor, kind: str = "logistic") -> torch.Tensor:
+    kind = kind.lower()
+    if kind == "logistic":
+        return torch.sigmoid(raw)
+    if kind == "exponential":
+        return torch.exp(torch.clamp(raw, -RGB_EXP_CLAMP, RGB_EXP_CLAMP))
+    if kind == "relu":
+        return torch.relu(raw)
+    if kind == "none":
+        return raw
+    raise ValueError(kind)
+
+
+class NerfNetwork(nn.Module):
+    def __init__(
+        self,
+        pos_encoding: nn.Module,
+        dir_encoding: Optional[nn.Module],
+        density_mlp: mlp_lib.MLP,
+        rgb_mlp: mlp_lib.MLP,
+        density_activation: str = "exponential",
+        rgb_activation: str = "logistic",
+    ):
+        super().__init__()
+        self.pos_encoding = pos_encoding
+        self.dir_encoding = dir_encoding
+        self.density_mlp = density_mlp
+        self.rgb_mlp = rgb_mlp
+        self.density_activation = density_activation
+        self.rgb_activation = rgb_activation
+
+    def density_features(self, pos: torch.Tensor) -> torch.Tensor:
+        """pos warped [N, 3] → [N, 16] density features (feats[:, 0] = raw σ)."""
+        return self.density_mlp(self.pos_encoding(pos))
+
+    def density(self, pos: torch.Tensor, activated: bool = True) -> torch.Tensor:
+        raw = self.density_features(pos)[..., 0]
+        return density_activation_fn(raw, self.density_activation) if activated else raw
+
+    def raw_forward(self, pos: torch.Tensor, direction: Optional[torch.Tensor] = None):
+        """Unactivated (raw_rgb [N, 3], raw_sigma [N])."""
+        feats = self.density_features(pos)
+        raw_sigma = feats[..., 0]
+        if self.dir_encoding is not None:
+            d = self.dir_encoding(direction).float()
+            rgb_in = torch.cat([feats.float(), d], dim=-1)
+        else:
+            rgb_in = feats.float()
+        raw_rgb = self.rgb_mlp(rgb_in)[..., :3]
+        return raw_rgb, raw_sigma
+
+    def forward(self, pos: torch.Tensor, direction: Optional[torch.Tensor] = None):
+        """pos warped [N, 3], direction warped [N, 3] → activated (rgb [N, 3], sigma [N])."""
+        raw_rgb, raw_sigma = self.raw_forward(pos, direction)
+        return (
+            rgb_activation_fn(raw_rgb, self.rgb_activation),
+            density_activation_fn(raw_sigma, self.density_activation),
+        )
+
+
+def build_nerf_network(
+    config: dict,
+    aabb_scale: int = 1,
+    is_hdr: bool = False,
+    desired_resolution: float = 2048.0,
+    device=None,
+    generator: Optional[torch.Generator] = None,
+) -> NerfNetwork:
+    """Construct from the JSON config tree, with the hash grid's automatic
+    per_level_scale = exp(ln(desired_res · aabb_scale / base_res) / (L − 1))."""
+    enc_cfg = dict(config.get("encoding", {}))
+    n_levels = enc_cfg.get("n_levels", 16)
+    base_res = enc_cfg.get("base_resolution", 16)
+    per_level_scale = enc_cfg.get("per_level_scale")
+    if per_level_scale is None and n_levels > 1:
+        per_level_scale = math.exp(math.log(desired_resolution * aabb_scale / base_res) / (n_levels - 1))
+    pos_encoding = enc.build_encoding(enc_cfg, 3, per_level_scale, device, generator)
+
+    dir_cfg = config.get("dir_encoding")
+    dir_encoding = enc.build_encoding(dict(dir_cfg), 3, device=device) if dir_cfg else None
+
+    density_mlp = mlp_lib.build_network(
+        dict(config.get("network", {})), pos_encoding.n_output_dims, DENSITY_FEATURES, device, generator
+    )
+    rgb_in = DENSITY_FEATURES + (dir_encoding.n_output_dims if dir_encoding is not None else 0)
+    rgb_mlp = mlp_lib.build_network(
+        dict(config.get("rgb_network", config.get("network", {}))), rgb_in, 3, device, generator
+    )
+    return NerfNetwork(
+        pos_encoding=pos_encoding,
+        dir_encoding=dir_encoding,
+        density_mlp=density_mlp,
+        rgb_mlp=rgb_mlp,
+        density_activation="exponential",
+        rgb_activation="exponential" if is_hdr else "logistic",
+    )

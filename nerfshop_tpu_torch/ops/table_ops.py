@@ -1,0 +1,128 @@
+"""Hash-grid encode forward and its table gradient.
+
+Counterpart of ``nerfshop_tpu/ops/table_ops.py::make_brick_encode``. The
+forward gathers each sample's 2^D cell corners straight from the canonical
+``[Σm, F]`` table at ``(base + shift_c) mod m`` (no brick tables); on a CUDA
+tensor it is kernel B (``csrc/grid_encode.cu``). The backward sorts each
+level's ``(idx, w1, dout)`` by slot, sums each sorted run with kernel A
+(:mod:`nerfshop_tpu_torch.ops.segsum`), and reduces the brick-row gradient
+back onto canonical slots with one ``torch.roll`` per corner (same sign as
+``jnp.roll``, ``table_ops.py:402-412``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nerfshop_tpu_torch import kernels
+from nerfshop_tpu_torch.ops import segsum
+from nerfshop_tpu_torch.ops.segsum import corner_products
+
+
+def encode_from_fracs(table: torch.Tensor, idx: torch.Tensor, w1: torch.Tensor, enc) -> torch.Tensor:
+    """Plain forward from base slots idx [L, N] and fracs w1 [L, N, D] →
+    [N, L·F]. Differentiable in ``table`` through ordinary autograd (its
+    backward is an index_add)."""
+    L, N = idx.shape
+    F = enc.n_features_per_level
+    shifts = enc.shift_table(idx.device)
+    outs = []
+    for l in range(L):
+        m = enc.level_sizes[l]
+        rows = (idx[l].long()[:, None] + shifts[l][None, :]) % m + enc.level_offsets[l]
+        feats = table[rows]  # [N, C, F]
+        w8 = corner_products(w1[l])  # [N, C]
+        outs.append((w8[:, :, None] * feats).sum(dim=1))
+    return torch.stack(outs, dim=1).reshape(N, L * F)
+
+
+def grid_encode_plain(table: torch.Tensor, x: torch.Tensor, enc):
+    """Plain version of kernel B → (out [N, L·F], idx [L, N] int32, w1 [L, N, D])."""
+    idx, w1 = enc.brick_fracs(x)
+    return encode_from_fracs(table, idx, w1, enc), idx, w1
+
+
+def grid_encode_cuda(table: torch.Tensor, x: torch.Tensor, enc):
+    """Kernel B. Takes D = 3, F = 2 and raises on anything else."""
+    dev = x.device
+    N = x.shape[0]
+    L = enc.n_levels
+    if enc.n_input_dims != 3 or enc.n_features_per_level != 2:
+        raise ValueError("grid_encode kernel supports D=3, F=2 only")
+    kernels.require(x, "x", torch.float32, (N, 3), dev)
+    kernels.require(table, "table", torch.float32, (enc.table_size, 2), dev)
+    meta_i, meta_f = enc.kernel_meta(dev)
+    out = torch.empty((N, L * 2), dtype=torch.float32, device=dev)
+    idx = torch.empty((L, N), dtype=torch.int32, device=dev)
+    w1 = torch.empty((L, N, 3), dtype=torch.float32, device=dev)
+    lib = kernels.load()
+    err = lib.nst_grid_encode(
+        x.data_ptr(), meta_i.data_ptr(), meta_f.data_ptr(), table.data_ptr(),
+        out.data_ptr(), idx.data_ptr(), w1.data_ptr(), N, L, kernels.stream_ptr(dev),
+    )
+    kernels.check(err, "grid_encode")
+    grid_encode_cuda.launches += 1
+    return out, idx, w1
+
+
+#: launches of kernel B since the last reset
+grid_encode_cuda.launches = 0
+
+
+def grid_encode(table: torch.Tensor, x: torch.Tensor, enc):
+    """Encode forward → (out, idx, w1). CPU tensors take the plain version;
+    CUDA tensors launch kernel B or raise."""
+    if x.device.type == "cpu":
+        return grid_encode_plain(table, x, enc)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_encode: unsupported device {x.device}")
+    return grid_encode_cuda(table, x, enc)
+
+
+def table_grad(idx: torch.Tensor, w1: torch.Tensor, dout: torch.Tensor, enc) -> torch.Tensor:
+    """d_table [Σm, F] from the saved idx [L, N], w1 [L, N, D] and the output
+    cotangent dout [N, L·F]: per-level sort, sorted segment sum, corner
+    reduction."""
+    L, N = idx.shape
+    D = enc.n_input_dims
+    F = enc.n_features_per_level
+    C = 1 << D
+    dout = dout.reshape(N, L, F).transpose(0, 1).float()  # [L, N, F]
+    keys_s, perm = torch.sort(idx, dim=1, stable=True)
+    w1_s = torch.gather(w1, 1, perm[:, :, None].expand(L, N, D))
+    dout_s = torch.gather(dout, 1, perm[:, :, None].expand(L, N, F))
+    levels = []
+    for l in range(L):
+        m = enc.level_sizes[l]
+        dB = segsum.sorted_segment_rowsum(
+            keys_s[l].contiguous(), w1_s[l].contiguous(), dout_s[l].contiguous(), m
+        )
+        g = dB.view(m, C, F)
+        acc = None
+        for c, s in enumerate(enc.brick_shifts[l]):
+            gc = g[:, c, :]
+            gc = gc if s == 0 else torch.roll(gc, s, dims=0)
+            acc = gc if acc is None else acc + gc
+        levels.append(acc)
+    return torch.cat(levels, dim=0)
+
+
+class GridEncodeFunction(torch.autograd.Function):
+    """table [Σm, F], x [N, D] in [0,1] → [N, L·F]. Gradient flows to the
+    table only: sample positions carry none while camera optimization is
+    off, and asking for d_x raises."""
+
+    @staticmethod
+    def forward(ctx, table, x, enc):
+        if ctx.needs_input_grad[1]:
+            raise NotImplementedError("grid encode: gradient w.r.t. positions is not ported yet")
+        out, idx, w1 = grid_encode(table, x, enc)
+        ctx.save_for_backward(idx, w1)
+        ctx.enc = enc
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        idx, w1 = ctx.saved_tensors
+        d_table = table_grad(idx, w1, dout, ctx.enc) if ctx.needs_input_grad[0] else None
+        return d_table, None, None

@@ -1,0 +1,45 @@
+"""Move NeRF weights between the JAX params pytree and the port.
+
+The JAX ``NerfNetwork.init`` pytree, converted to numpy, has the leaves
+``pos_encoding/table``, ``density_mlp/weights/i`` and ``rgb_mlp/weights/i``
+(the flat paths of ``nerfshop_tpu/io/snapshot.py``). The port's
+``NerfNetwork`` names the same tensors ``pos_encoding.table``,
+``density_mlp.weights.i`` and ``rgb_mlp.weights.i``, so
+``model.load_state_dict(params_from_jax(tree))`` loads them slot for slot.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+_MLPS = ("density_mlp", "rgb_mlp")
+
+
+def params_from_jax(tree: dict, device=None) -> Dict[str, torch.Tensor]:
+    """JAX params pytree (numpy leaves) → the port's state dict."""
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    out = {"pos_encoding.table": t(tree["pos_encoding"]["table"])}
+    for mlp in _MLPS:
+        for i, w in enumerate(tree[mlp]["weights"]):
+            out[f"{mlp}.weights.{i}"] = t(w)
+    return out
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
+    """The port's state dict → JAX params pytree with numpy leaves (without
+    ``dir_encoding``, which has no trainable leaves)."""
+
+    def np_of(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+
+    tree = {"pos_encoding": {"table": np_of(state["pos_encoding.table"])}}
+    for mlp in _MLPS:
+        n = sum(1 for k in state if k.startswith(f"{mlp}.weights."))
+        tree[mlp] = {"weights": [np_of(state[f"{mlp}.weights.{i}"]) for i in range(n)]}
+    return tree

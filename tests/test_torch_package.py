@@ -1,0 +1,102 @@
+"""The port's package boundary: no JAX anywhere in it, weights that move
+between the two packages, and wrappers that keep CPU tensors on the plain
+path."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from nerfshop_tpu.config import default_nerf_config
+from nerfshop_tpu.models import nerf_network as jnn
+from nerfshop_tpu_torch import kernels, weights
+from nerfshop_tpu_torch.models import nerf_network as tnn
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "nerfshop_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__") for p in PKG.rglob("*.py")
+)
+
+
+def test_import_leaves_jax_out():
+    # a subprocess: this test process already imported jax through conftest
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'msgpack', 'PIL'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")))
+def test_no_jax_import_in_source(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "optax", "flax"), (path, n)
+            if n.startswith("nerfshop_tpu.") or n == "nerfshop_tpu":
+                assert n in ("nerfshop_tpu.common", "nerfshop_tpu.config", "nerfshop_tpu.data", "nerfshop_tpu.data.nerf_loader"), (path, n)
+
+
+@pytest.mark.parametrize("log2_t", [12, 14])
+def test_params_round_trip(log2_t):
+    cfg = default_nerf_config()
+    cfg["encoding"]["log2_hashmap_size"] = log2_t
+    jm = jnn.build_nerf_network(cfg)
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    state = weights.params_from_jax(tree)
+    tm = tnn.build_nerf_network(cfg)
+    assert set(state) == set(tm.state_dict())
+    tm.load_state_dict(state)
+    back = weights.params_to_jax(tm.state_dict())
+    np.testing.assert_array_equal(back["pos_encoding"]["table"], tree["pos_encoding"]["table"])
+    for mlp in ("density_mlp", "rgb_mlp"):
+        assert len(back[mlp]["weights"]) == len(tree[mlp]["weights"])
+        for a, b in zip(back[mlp]["weights"], tree[mlp]["weights"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_default_config_widths():
+    tm = tnn.build_nerf_network(default_nerf_config())
+    enc = tm.pos_encoding
+    assert enc.n_levels == 16 and enc.n_features_per_level == 2
+    assert max(enc.level_sizes) == 1 << 19 and enc.level_res[0] == 16
+    assert [tuple(w.shape) for w in tm.density_mlp.weights] == [(32, 64), (64, 16)]
+    assert [tuple(w.shape) for w in tm.rgb_mlp.weights] == [(32, 64), (64, 64), (64, 3)]
+    assert tm.dir_encoding.n_output_dims == 16
+
+
+def test_kernel_sources_and_build_key():
+    for name in kernels.SOURCES:
+        src = (kernels.CSRC / name).read_text()
+        assert 'extern "C" int nst_' in src and "cudaGetLastError" in src
+    so = kernels.library_path()
+    assert so.parent == kernels.BUILD_DIR and so.name.startswith("libnerfshop_kernels_")
+    assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+def test_require_rejects_bad_tensors():
+    dev = torch.device("cpu")
+    kernels.require(torch.zeros(4, 3), "x", torch.float32, (4, 3), dev)
+    with pytest.raises(ValueError):
+        kernels.require(torch.zeros(4, 3, dtype=torch.float64), "x", torch.float32, (4, 3), dev)
+    with pytest.raises(ValueError):
+        kernels.require(torch.zeros(4, 2), "x", torch.float32, (4, 3), dev)
+    with pytest.raises(ValueError):
+        kernels.require(torch.zeros(3, 4).t(), "x", torch.float32, (4, 3), dev)
