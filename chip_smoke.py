@@ -10,16 +10,26 @@ Phases, each printing one line of its own numbers:
   4. kernel B (hash-grid encode forward) against its plain version;
   5. the encode backward (sort + kernel A + corner rolls) against autograd
      of the plain forward;
-  6. the main path: the default tcnn-parity NeRF (16 levels × 2 features,
-     2^19 table, 64-wide MLPs) trained through ``Testbed.train`` with batch
-     2^18 on an analytic opaque-sphere scene, then one held-out view
-     rendered (march "first", K = 512) and scored in PSNR.
-Then a JSON line with every kernel's launches on the main path, error and
-times, the ``nvidia-smi`` name/power-limit line, and as the last line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
-exits non-zero; without a CUDA device it exits non-zero before printing a
-result. Times are medians over repeated runs, measured with CUDA events
-after a warm-up.
+  6. kernel C (fused MLP forward) against its plain version at 2^20 rows,
+     for the density (32→64→16) and the rgb (32→64→64→3) MLP;
+  7. the training path: the default tcnn-parity NeRF (16 levels × 2
+     features, 2^19 table, 64-wide MLPs) trained through ``Testbed.train``
+     with batch 2^18 on an analytic opaque-sphere scene;
+  8. the render path: ``Testbed.render(1920, 1080, exact=True)`` of the
+     trained model (one warm-up frame, then the median of 3), plus one
+     256×256 frame each in Depth and Cost mode;
+  9. the viewer path: ``Testbed.frame()`` (no training) three times into a
+     1920×1080 frame buffer, through ``render_dynamic``'s dynamic
+     resolution and its on-device bilinear upsample;
+ 10. held-out: one 128×128 view through ``Testbed.render``, scored in PSNR;
+ 11. snapshot: ``save_snapshot`` → a fresh ``Testbed`` → ``load_snapshot``
+     renders the same view as before saving.
+Then a JSON line with every kernel's launches on the main paths (training
+render and frame), error and times, the ``nvidia-smi`` name/power-limit line, and
+as the last line ``{"ok": true, "device": {...}}``. Any failed check
+raises, so the script exits non-zero; without a CUDA device it exits
+non-zero before printing a result. Kernel times are medians over repeated
+runs, measured with CUDA events after a warm-up.
 """
 
 from __future__ import annotations
@@ -29,7 +39,9 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -116,28 +128,6 @@ def sphere_dataset(device, seed=0):
     intr = [CameraIntrinsics(focal, principal, np.zeros(4, np.float32), np.array([RES, RES], np.int32))] * N_VIEWS
     ds = NerfDataset(images=np.stack(images), xforms=np.stack(xforms), intrinsics=intr, paths=[""] * N_VIEWS, aabb_scale=1)
     return ds, focal, principal
-
-
-@torch.no_grad()
-def render_view(tb, xf, focal, principal, chunk=2048):
-    """Held-out view: march "first" (K = 512) → network (EMA params) → composite on black."""
-    from nerfshop_tpu_torch.ops import composite as comp, coords, march
-
-    dev = tb.device
-    cfg = tb.train_config
-    aabb = coords.BoundingBox.from_aabb_scale(cfg.aabb_scale, device=dev)
-    bundle = view_rays(xf, focal, principal, dev)
-    params = tb.inference_params
-    out = []
-    for i in range(0, RES * RES, chunk):
-        o, d = bundle.origins[i : i + chunk], bundle.directions[i : i + chunk]
-        s = march.march_rays(o, d, tb.grid.occupancy, aabb.min, aabb.max, cfg.cone_angle, k_samples=512, t_start_min=0.05)
-        R, K = s.t.shape
-        pos_w, dir_w = march.samples_to_network_inputs(s, o, d, aabb)
-        rgb, sigma = torch.func.functional_call(tb.model, params, (pos_w.reshape(-1, 3), dir_w.reshape(-1, 3)))
-        res = comp.composite(sigma.reshape(R, K), rgb.reshape(R, K, 3), s.dt, s.t, s.valid, 1e-4)
-        out.append(comp.composite_with_background(res, torch.zeros(3, device=dev)))
-    return torch.cat(out).reshape(RES, RES, 3).cpu().numpy()
 
 
 # -------------------------------------------------------------------- phases
@@ -286,10 +276,70 @@ def phase_backward(dev, g):
     return err, ms, plain_ms
 
 
+def phase_mlp(dev, g):
+    """Kernel C against its plain version at N = 2^20 rows. Bound: 99.5% of
+    outputs within 1e-6 + 1e-5·|plain|, and all within 1e-2·max|plain|.
+    Both round the same operands to bf16 and every product is exact in
+    fp32, but the fp32 sums run in another order; where a hidden value lies
+    within an ulp of a bf16 rounding tie, the two round it to neighbouring
+    bf16 values (2^-8 relative), which moves every output of that row. Each
+    row has 64 (density) or 128 (rgb) such re-roundings."""
+    from nerfshop_tpu_torch.ops import fused_mlp
+
+    N = 1 << 20
+    result = {}
+    for label, dims in (("density", (32, 64, 16)), ("rgb", (32, 64, 64, 3))):
+        x = torch.randn((N, dims[0]), generator=g, device=dev)
+        ws = [
+            (torch.rand((a, b), generator=g, device=dev) * 2 - 1) * (6.0 / a) ** 0.5
+            for a, b in zip(dims[:-1], dims[1:])
+        ]
+        ker = fused_mlp.fused_mlp_cuda(x, ws)
+        plain = fused_mlp.fused_mlp_plain(x, ws)
+        torch.cuda.synchronize()
+        err = (ker - plain).abs()
+        within = float((err <= 1e-6 + 1e-5 * plain.abs()).float().mean())
+        ref_max = float(plain.abs().max())
+        check(ker.shape == plain.shape and bool(torch.isfinite(ker).all()), f"kernel C output bad ({label})")
+        check(within >= 0.995 and float(err.max()) <= 1e-2 * ref_max,
+              f"kernel C disagrees ({label}): {within:.5f} within 1e-5 rel, max err {float(err.max()):.3e} of {ref_max:.3e}")
+        ms = median_ms(lambda: fused_mlp.fused_mlp_cuda(x, ws))
+        plain_ms = median_ms(lambda: fused_mlp.fused_mlp_plain(x, ws))
+        print(
+            f"[mlp] {label} {'->'.join(map(str, dims))} N={N}: {within:.6f} of outputs within 1e-6+1e-5*|plain| "
+            f"(bound 0.995), max_abs_err {float(err.max()):.3e} of max|out| {ref_max:.3e} (bound 1e-2*max) "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms",
+            flush=True,
+        )
+        result[label] = (float(err.max()), ms, plain_ms)
+    return max(r[0] for r in result.values()), result["density"][1], result["density"][2]
+
+
+def reset_launches():
+    from nerfshop_tpu_torch.ops import fused_mlp, segsum, table_ops
+
+    segsum.sorted_segment_rowsum_cuda.launches = 0
+    table_ops.grid_encode_cuda.launches = 0
+    fused_mlp.fused_mlp_cuda.launches = 0
+
+
+def read_launches():
+    from nerfshop_tpu_torch.ops import fused_mlp, segsum, table_ops
+
+    return {
+        "segsum": segsum.sorted_segment_rowsum_cuda.launches,
+        "grid_encode": table_ops.grid_encode_cuda.launches,
+        "fused_mlp": fused_mlp.fused_mlp_cuda.launches,
+    }
+
+
+def psnr(img, gt):
+    return -10 * math.log10(float(np.mean((img - gt) ** 2)) + 1e-12)
+
+
 def phase_main_path(dev):
     from nerfshop_tpu.common import TestbedMode
     from nerfshop_tpu.config import default_nerf_config
-    from nerfshop_tpu_torch.ops import segsum, table_ops
     from nerfshop_tpu_torch.ops import grid as grid_lib
     from nerfshop_tpu_torch.testbed import Testbed
     from nerfshop_tpu_torch.train import nerf as nerf_train
@@ -302,13 +352,12 @@ def phase_main_path(dev):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    segsum.sorted_segment_rowsum_cuda.launches = 0
-    table_ops.grid_encode_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     tb.train(n_steps=STEPS, batch_size=BATCH)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"segsum": segsum.sorted_segment_rowsum_cuda.launches, "grid_encode": table_ops.grid_encode_cuda.launches}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
     losses = [lv for _, lv in tb.loss_history]
@@ -316,7 +365,7 @@ def phase_main_path(dev):
     tail = float(np.mean(losses[-10:]))
     check(tail < 0.35 * losses[0], f"loss did not fall enough: first {losses[0]:.4e} last-10 mean {tail:.4e}")
     check(tb.stats.measured_samples_total > 0, "no samples measured")
-    check(launches["segsum"] > 0 and launches["grid_encode"] > 0, f"a kernel was not launched: {launches}")
+    check(all(v > 0 for v in launches.values()), f"a kernel was not launched in training: {launches}")
 
     # one full grid refresh, timed on a copy of the grid
     g = tb.grid
@@ -327,13 +376,6 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     refresh_s = time.perf_counter() - t0
 
-    xf = look_at(CENTER + np.array([0.9, 0.9, 0.5], np.float32))
-    b = view_rays(xf, focal, principal, dev)
-    gt = sphere_rgba(b.origins.cpu().numpy(), b.directions.cpu().numpy()).reshape(RES, RES, 4)
-    img = render_view(tb, xf, focal, principal)
-    check(img.shape == (RES, RES, 3) and np.isfinite(img).all(), "render is not finite / of the expected shape")
-    psnr = -10 * math.log10(float(np.mean((img - gt[..., :3] * gt[..., 3:]) ** 2)) + 1e-12)
-    check(psnr >= 14.0, f"held-out PSNR {psnr:.2f} dB < 14")
     print(
         f"[train] {STEPS} steps batch {BATCH} in {train_s:.3f} s: {STEPS / train_s:.3f} steps/s, "
         f"{tb.stats.measured_samples_total / train_s:.6g} real samples/s "
@@ -343,8 +385,107 @@ def phase_main_path(dev):
         flush=True,
     )
     print(f"[train] grid full refresh {refresh_s:.4f} s, peak memory {peak / 2**30:.3f} GiB, launches {launches}", flush=True)
-    print(f"[render] held-out {RES}x{RES} PSNR {psnr:.2f} dB (bound 14)", flush=True)
+    return tb, focal, principal, launches
+
+
+def phase_render(tb, W=1920, H=1080):
+    """The render path: ``Testbed.render(W, H, exact=True)`` of the trained
+    model; the launch counts are those of the warm-up frame."""
+    from nerfshop_tpu.common import RenderMode
+
+    tb.set_look_at(eye=CENTER + np.array([0.9, -0.9, 0.5], np.float32))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    img = tb.render(W, H, spp=1, exact=True)
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(img.shape == (H, W, 4) and np.isfinite(img).all(), "1080p frame is not finite / of the expected shape")
+    check(launches["grid_encode"] > 0 and launches["fused_mlp"] > 0, f"a kernel was not launched in the frame: {launches}")
+    check(float(img[..., 3].max()) > 0.5, "1080p frame shows no content")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tb.render(W, H, spp=1, exact=True)
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    frame_s = statistics.median(times)
+    samples = tb.stats.render_samples
+    print(
+        f"[render] {W}x{H} exact spp=1: first frame {first_s * 1e3:.1f} ms, median of 3 {frame_s * 1e3:.1f} ms "
+        f"({[round(t * 1e3, 1) for t in times]}), {W * H / frame_s:.6g} rays/s, {samples} sample slots evaluated "
+        f"({samples / frame_s:.6g} /s), peak memory {peak / 2**30:.3f} GiB, launches in one frame {launches}",
+        flush=True,
+    )
+    for mode in (RenderMode.Depth, RenderMode.Cost):
+        tb.render_mode = mode
+        small = tb.render(256, 256, exact=True)
+        check(small.shape == (256, 256, 4) and np.isfinite(small).all(), f"{mode.value} frame bad")
+        print(f"[render] 256x256 {mode.value}: min {float(small[..., 0].min()):.4f} max {float(small[..., 0].max()):.4f}", flush=True)
+    tb.render_mode = RenderMode.Shade
     return launches
+
+
+def phase_frame(tb, W=1920, H=1080):
+    """The viewer path: ``Testbed.frame()`` without training, three frames.
+    The first renders at full size; the dynamic resolution then lowers the
+    factor towards the 20 fps target, and the frame is upsampled on the card."""
+    tb.set_train(False)
+    tb.frame_resolution = (W, H)
+    tb.dynamic_res = True
+    torch.cuda.synchronize()
+    reset_launches()
+    frames = []
+    for _ in range(3):
+        check(tb.frame(), "frame() returned False")
+        buf = tb.frame_buffer
+        check(buf.shape == (H, W, 4) and np.isfinite(buf).all(), "frame buffer is not finite / of the expected shape")
+        frames.append((round(tb.stats.frame_ms, 1), round(tb._dyn_res_factor, 4)))
+    launches = read_launches()
+    check(launches["grid_encode"] > 0 and launches["fused_mlp"] > 0, f"a kernel was not launched in frame(): {launches}")
+    print(f"[frame] {W}x{H} frame() x3 (ms, next dynamic-res factor): {frames}, launches {launches}", flush=True)
+    return launches
+
+
+def phase_held_out(tb, focal, principal):
+    """Held-out PSNR through ``Testbed.render`` with the view's own camera."""
+    xf = look_at(CENTER + np.array([0.9, 0.9, 0.5], np.float32))
+    b = view_rays(xf, focal, principal, tb.device)
+    gt = sphere_rgba(b.origins.cpu().numpy(), b.directions.cpu().numpy()).reshape(RES, RES, 4)
+    img = tb.render(RES, RES, spp=1, camera_matrix=xf, focal=focal, principal=principal, exact=True)
+    check(img.shape == (RES, RES, 4) and np.isfinite(img).all(), "held-out render is not finite / of the expected shape")
+    value = psnr(img[..., :3], gt[..., :3] * gt[..., 3:])
+    check(value >= 14.0, f"held-out PSNR {value:.2f} dB < 14")
+    print(f"[held-out] {RES}x{RES} PSNR {value:.2f} dB through Testbed.render (bound 14)", flush=True)
+    return xf
+
+
+def phase_snapshot(tb, xf, focal, principal):
+    """save_snapshot → fresh Testbed → load_snapshot → the same view: max |Δ| ≤ 1e-6."""
+    from nerfshop_tpu_torch.testbed import Testbed
+
+    kw = dict(camera_matrix=xf, focal=focal, principal=principal, exact=True)
+    before = tb.render(RES, RES, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/model.snap"
+        t0 = time.perf_counter()
+        tb.save_snapshot(path)
+        save_s = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        fresh = Testbed(device=tb.device, seed=1)
+        t0 = time.perf_counter()
+        fresh.load_snapshot(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    after = fresh.render(RES, RES, **kw)
+    delta = float(np.abs(after - before).max())
+    check(delta <= 1e-6, f"snapshot round trip changed the frame: max |delta| {delta:.3e}")
+    print(
+        f"[snapshot] {size / 2**20:.1f} MiB, save {save_s:.2f} s, load {load_s:.2f} s, "
+        f"{RES}x{RES} frame max |delta| {delta:.3e} (bound 1e-6)",
+        flush=True,
+    )
 
 
 def main() -> None:
@@ -356,7 +497,13 @@ def main() -> None:
     seg = phase_segsum(dev, g)
     enc = phase_encode(dev, g)
     phase_backward(dev, g)
-    launches = phase_main_path(dev)
+    mlp = phase_mlp(dev, g)
+    tb, focal, principal, train_launches = phase_main_path(dev)
+    render_launches = phase_render(tb)
+    frame_launches = phase_frame(tb)
+    xf = phase_held_out(tb, focal, principal)
+    phase_snapshot(tb, xf, focal, principal)
+    launches = {k: train_launches[k] + render_launches[k] + frame_launches[k] for k in train_launches}
     kernels = [
         {
             "name": "sorted_segment_rowsum", "route": "cuda", "source": "nerfshop_tpu_torch/csrc/segsum.cu",
@@ -367,6 +514,11 @@ def main() -> None:
             "name": "grid_encode", "route": "cuda", "source": "nerfshop_tpu_torch/csrc/grid_encode.cu",
             "replaces": "nerfshop_tpu/ops/table_ops.py:239", "launches": launches["grid_encode"],
             "max_abs_err": enc[0], "ms": enc[1], "plain_ms": enc[2],
+        },
+        {
+            "name": "fused_mlp", "route": "cuda", "source": "nerfshop_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": "scratch/probe_arch.py:56", "launches": launches["fused_mlp"],
+            "max_abs_err": mlp[0], "ms": mlp[1], "plain_ms": mlp[2],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled on first use with ``nvcc`` into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds),
-placed in ``build/nerfshop_tpu_torch/`` at the root of the checkout and
-keyed by a hash of the sources and flags, then loaded with ``ctypes``. The
-same pattern as ``nerfshop_tpu/native``'s host library.
+The sources are compiled on first use with ``nvcc`` (one process per
+source, in parallel) and linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), placed in
+``build/nerfshop_tpu_torch/`` at the root of the checkout and keyed by a
+hash of the sources and flags, then loaded with ``ctypes``. The same
+pattern as ``nerfshop_tpu/native``'s host library.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0. Nothing is
@@ -25,11 +26,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("segsum.cu", "grid_encode.cu")
+SOURCES = ("segsum.cu", "grid_encode.cu", "fused_mlp.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "nerfshop_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -54,19 +55,31 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless a library of the same hash exists."""
+    """Compile the sources unless a library of the same hash exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for s, o in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for s, p, log in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n{log}")
+        lib = os.path.join(tmp, so.name)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, so)
     return so
 
 
@@ -80,6 +93,8 @@ def load() -> ctypes.CDLL:
         lib.nst_segsum.restype = i
         lib.nst_grid_encode.argtypes = [p, p, p, p, p, p, p, i, i, p]
         lib.nst_grid_encode.restype = i
+        lib.nst_fused_mlp.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.nst_fused_mlp.restype = i
         _lib = lib
     return _lib
 

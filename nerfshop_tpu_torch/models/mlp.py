@@ -8,6 +8,14 @@ also round the result). A product of two bf16 values is exact in fp32, so
 only the summation order differs from the JAX numerics. TF32 must stay off
 for that: the package sets ``torch.backends.cuda.matmul.allow_tf32 = False``
 when it is imported.
+
+:meth:`MLP.forward` picks its path by device and grad mode, never by
+failure: a CPU tensor runs the plain version
+(:func:`~nerfshop_tpu_torch.ops.fused_mlp.fused_mlp_plain`); a CUDA tensor
+runs kernel C (``csrc/fused_mlp.cu``) when no gradient is needed (render,
+grid refresh) and raises if the MLP is out of the kernel's range; a CUDA
+forward that needs a gradient (training) runs the plain version under
+autograd, because kernel C has no backward yet.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from typing import Callable, List, Optional
 
 import torch
 from torch import nn
+
+from nerfshop_tpu_torch.ops import fused_mlp
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -31,10 +41,6 @@ def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
         "tanh": torch.tanh,
         "none": lambda x: x,
     }[name]
-
-
-def _bf16_round(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
 
 
 class MLP(nn.Module):
@@ -69,15 +75,15 @@ class MLP(nn.Module):
         return list(zip(dims[:-1], dims[1:]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        act = activation(self.activation)
-        out_act = activation(self.output_activation)
-        h = _bf16_round(x)
-        n = len(self.weights)
-        for i, w in enumerate(self.weights):
-            h = torch.matmul(h, _bf16_round(w))
-            if i < n - 1:
-                h = _bf16_round(act(h))
-        return out_act(h)
+        ws = list(self.weights)
+        if x.device.type == "cpu" or fused_mlp.needs_grad(x, ws):
+            return fused_mlp.fused_mlp_plain(x, ws, activation(self.activation), activation(self.output_activation))
+        if x.device.type != "cuda":
+            raise ValueError(f"MLP: unsupported device {x.device}")
+        fused_mlp.check_supported(
+            self.n_input_dims, ws[0].shape[1], len(ws) - 1, self.n_output_dims, self.activation, self.output_activation
+        )
+        return fused_mlp.fused_mlp_cuda(x.contiguous(), ws)
 
 
 def build_network(cfg: dict, n_input_dims: int, n_output_dims: int, device=None, generator=None) -> MLP:

@@ -1,8 +1,9 @@
-"""Scene box, position/direction warps and the cone step size.
+"""Scene box, position/direction warps, the cone step size and morton order.
 
-Counterpart of the parts of ``nerfshop_tpu/ops/coords.py`` that training
-uses: ``BoundingBox`` (``from_aabb_scale``, ``ray_intersect``),
-``warp_position``, ``warp_direction`` and ``calc_dt``.
+Counterpart of the parts of ``nerfshop_tpu/ops/coords.py`` that training,
+rendering and snapshots use: ``BoundingBox`` (``from_aabb_scale``,
+``ray_intersect``), ``warp_position``, ``warp_direction``, ``calc_dt`` and
+the morton helpers.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from nerfshop_tpu.common import MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE
+from nerfshop_tpu.common import GRID_RESOLUTION, MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE
 
 
 class BoundingBox(NamedTuple):
@@ -53,3 +54,51 @@ def warp_direction(direction: torch.Tensor) -> torch.Tensor:
 
 def calc_dt(t: torch.Tensor, cone_angle) -> torch.Tensor:
     return torch.clamp(t * cone_angle, MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE)
+
+
+# --- morton order (the density grid's layout in snapshots) -------------------
+# The JAX code works in uint32; torch has no full uint32 arithmetic, so these
+# run in int64 and mask to 32 bits where a shift could carry past them.
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch.int64) & 0x000003FF
+    x = (x ^ (x << 16)) & 0xFF0000FF
+    x = (x ^ (x << 8)) & 0x0300F00F
+    x = (x ^ (x << 4)) & 0x030C30C3
+    x = (x ^ (x << 2)) & 0x09249249
+    return x
+
+
+def _compact1by2(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch.int64) & 0x09249249
+    x = (x ^ (x >> 2)) & 0x030C30C3
+    x = (x ^ (x >> 4)) & 0x0300F00F
+    x = (x ^ (x >> 8)) & 0xFF0000FF
+    x = (x ^ (x >> 16)) & 0x000003FF
+    return x
+
+
+def morton3d(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Interleave the low 10 bits of x, y, z (x in bit 0) → int64 codes."""
+    return (_part1by2(z) << 2) | (_part1by2(y) << 1) | _part1by2(x)
+
+
+def morton3d_invert(code: torch.Tensor):
+    code = code.to(torch.int64) & 0xFFFFFFFF
+    return _compact1by2(code), _compact1by2(code >> 1), _compact1by2(code >> 2)
+
+
+def morton_to_dense_grid(flat_mip: torch.Tensor) -> torch.Tensor:
+    """[R³] morton-ordered values → dense [R, R, R] (index order x, y, z)."""
+    r = GRID_RESOLUTION
+    x, y, z = morton3d_invert(torch.arange(r**3, device=flat_mip.device))
+    dense = torch.zeros((r, r, r), dtype=flat_mip.dtype, device=flat_mip.device)
+    dense[x, y, z] = flat_mip
+    return dense
+
+
+def dense_grid_to_morton(dense: torch.Tensor) -> torch.Tensor:
+    """Dense [R, R, R] → [R³] in morton order."""
+    x, y, z = morton3d_invert(torch.arange(GRID_RESOLUTION**3, device=dense.device))
+    return dense[x, y, z]

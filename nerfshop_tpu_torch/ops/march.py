@@ -4,8 +4,13 @@ Counterpart of ``nerfshop_tpu/ops/march.py``: the closed-form step ladder,
 the two-stage (coarse 16³ → fine 128³ per cascade) march, rank-based
 compaction with ``selection="first"`` (render) and ``"spread"`` (training:
 K stratified picks over all occupied candidates, dt scaled by the stride),
-and the mapping of samples to network inputs. Sorts run on unique keys, so
-``torch.sort`` yields the same order as ``lax.sort``.
+the density-grid early stop on precomputed march fields, and the mapping
+of samples to network inputs. Sorts run on unique keys, so ``torch.sort``
+yields the same order as ``lax.sort``. The options that only the windowed
+and tiled renderers read (``t_start``, ``n_segments``, ``with_aux`` →
+``MarchAux``, ``tau_field``, ``global_t0``, ``intersect_margin``) are not
+ported, nor is ``density_grid``: the exact renderer hands the march its
+density as ``fine_field``.
 """
 
 from __future__ import annotations
@@ -142,11 +147,22 @@ def march_rays(
     t_start_min: float = 0.0,
     k_samples: int = 32,
     n_candidates: int = 1024,
+    use_grid_early_stop: bool = False,
+    grid_stop_tau: float = 8.0,
     selection: str = "first",
     spread_rng: Optional[torch.Tensor] = None,  # [R, K] in [0, 1)
     spread_stride_cap: float = 4.0,
+    coarse_field: Optional[torch.Tensor] = None,  # flat build_coarse_occupancy
+    fine_field: Optional[torch.Tensor] = None,  # flat masked_density_field
 ) -> SampleBatch:
-    """Two-stage occupancy march → SampleBatch of [R, K] slabs."""
+    """Two-stage occupancy march → SampleBatch of [R, K] slabs.
+
+    ``coarse_field``/``fine_field`` replace the fields built from
+    ``occupancy`` (a renderer builds them once per frame instead of once
+    per chunk, the fine one holding the occupancy-masked density);
+    ``occupancy`` still gives the cascade count. With
+    ``use_grid_early_stop`` and a ``fine_field``, samples past an optical
+    depth of ``grid_stop_tau`` of the grid's density proxy are dropped."""
     if selection not in ("first", "spread"):
         raise ValueError(selection)
     dev = origins.device
@@ -160,8 +176,8 @@ def march_rays(
     S = min(S, M1)
     J = S * Q
 
-    coarse = build_coarse_occupancy(occupancy).reshape(-1)
-    dens_field = masked_density_field(occupancy, None).reshape(-1)
+    coarse = coarse_field if coarse_field is not None else build_coarse_occupancy(occupancy).reshape(-1)
+    dens_field = fine_field if fine_field is not None else masked_density_field(occupancy, None).reshape(-1)
 
     aabb = BoundingBox(aabb_lo, aabb_hi)
     tmin, tmax = aabb.ray_intersect(origins, directions)
@@ -206,6 +222,11 @@ def march_rays(
     fflat = _candidate_cells(origins, directions, T_f, dt_f, n_cascades)
     dens = torch.where(inside_f, dens_field[fflat], torch.zeros_like(T_f))
     occ_f = dens > 0
+
+    if use_grid_early_stop and fine_field is not None:
+        tau_step = torch.where(occ_f, dens * dt_f, torch.zeros_like(dens))
+        keep = (torch.cumsum(tau_step, dim=1) - dens * dt_f) < grid_stop_tau  # exclusive cumsum
+        occ_f = occ_f & keep
 
     nocc = occ_f.sum(dim=1)
     fine_ids = torch.arange(J, dtype=torch.int64, device=dev)[None, :].expand(R, J)

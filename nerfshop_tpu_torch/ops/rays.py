@@ -1,14 +1,19 @@
-"""Camera rays for training: pinhole + Brown–Conrady distortion.
+"""Camera rays: pinhole + Brown–Conrady distortion + depth of field, the
+latlong and f-theta lenses, and training-pixel draws.
 
 Counterpart of ``nerfshop_tpu/ops/rays.py``: ``pixel_to_ray`` with
-``_apply_distortion``/``iterative_undistort``, ``rays_for_image``, the
-uniform branch of ``sample_training_pixels`` and ``rays_from_pixels``
-without camera parameters or rolling shutter. Random draws are inputs
-(:func:`pixels_from_uniform`) or come from an explicit generator.
+``_apply_distortion``/``iterative_undistort``, subpixel jitter and depth of
+field, ``latlong_to_dir``/``dir_to_latlong``, ``latlong_ray``,
+``ftheta_ray``, ``rays_for_image``, the uniform branch of
+``sample_training_pixels`` and ``rays_from_pixels`` without camera
+parameters or rolling shutter. Random draws are inputs
+(:func:`pixels_from_uniform`, ``subpixel_jitter``, ``dof_uv``) or come from
+an explicit generator.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -39,6 +44,11 @@ def iterative_undistort(uv: torch.Tensor, dist: torch.Tensor, iters: int = 8) ->
     return cur
 
 
+def _rotate(rot: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """rot [3, 3] or [..., 3, 3] applied to d [..., 3]."""
+    return (rot * d[..., None, :]).sum(dim=-1)
+
+
 def pixel_to_ray(
     pixel_xy: torch.Tensor,  # [..., 2] (x = col, y = row)
     xform: torch.Tensor,  # [3, 4] or [..., 3, 4] camera-to-world
@@ -46,17 +56,80 @@ def pixel_to_ray(
     principal: torch.Tensor,  # [2] or [..., 2], normalized
     resolution: torch.Tensor,  # [2] (W, H)
     distortion: Optional[torch.Tensor] = None,  # [4] or [..., 4]
+    subpixel_jitter: Optional[torch.Tensor] = None,  # [..., 2] in [0, 1)
+    aperture: float = 0.0,
+    focus_z: float = 1.0,
+    dof_uv: Optional[torch.Tensor] = None,  # [..., 2] unit-disc samples
+    snap_to_center: bool = True,
 ) -> RayBundle:
-    """Ray through a pixel centre; the camera looks down +z with image y down."""
-    uv = (pixel_xy + 0.5 - principal * resolution) / focal
+    """Ray through a pixel; the camera looks down +z with image y down. With
+    ``aperture > 0`` and ``dof_uv`` the origin moves on the lens disc and the
+    ray re-aims at the focal plane ``focus_z``."""
+    offset = subpixel_jitter if subpixel_jitter is not None else (0.5 if snap_to_center else 0.0)
+    uv = (pixel_xy + offset - principal * resolution) / focal
     if distortion is not None:
         uv = iterative_undistort(uv, distortion)
     d_cam = torch.cat([uv, torch.ones_like(uv[..., :1])], dim=-1)
     rot = xform[..., :, :3]
-    direction = (rot * d_cam[..., None, :]).sum(dim=-1)
+    direction = _rotate(rot, d_cam)
     origin = torch.broadcast_to(xform[..., :, 3], direction.shape)
+    if aperture > 0.0 and dof_uv is not None:
+        focus_point = origin + direction * focus_z
+        lens = dof_uv * aperture
+        origin = origin + rot[..., :, 0] * lens[..., :1] + rot[..., :, 1] * lens[..., 1:2]
+        direction = focus_point - origin
     direction = direction / torch.linalg.norm(direction, dim=-1, keepdim=True)
     return RayBundle(origin, direction)
+
+
+def latlong_to_dir(uv: torch.Tensor) -> torch.Tensor:
+    """Equirectangular UV in [0,1]² → camera-local direction (v latitude,
+    u longitude, u = 0.5 looking down +z)."""
+    theta = (uv[..., 1] - 0.5) * math.pi
+    phi = (uv[..., 0] - 0.5) * (2.0 * math.pi)
+    ct = torch.cos(theta)
+    return torch.stack([torch.sin(phi) * ct, torch.sin(theta), torch.cos(phi) * ct], dim=-1)
+
+
+def dir_to_latlong(d: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`latlong_to_dir` → UV in [0,1]²."""
+    theta = torch.arcsin(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi = torch.atan2(d[..., 0], d[..., 2])
+    return torch.stack([phi / (2.0 * math.pi) + 0.5, theta / math.pi + 0.5], dim=-1)
+
+
+def latlong_ray(
+    pixel_xy: torch.Tensor,  # [..., 2]
+    xform: torch.Tensor,  # [3, 4]
+    resolution: torch.Tensor,  # [2] (W, H)
+    subpixel_jitter: Optional[torch.Tensor] = None,
+) -> RayBundle:
+    """360° panorama rays."""
+    offset = subpixel_jitter if subpixel_jitter is not None else 0.5
+    direction = _rotate(xform[:, :3], latlong_to_dir((pixel_xy + offset) / resolution))
+    return RayBundle(torch.broadcast_to(xform[:, 3], direction.shape), direction)
+
+
+def ftheta_ray(
+    pixel_xy: torch.Tensor,  # [..., 2]
+    xform: torch.Tensor,  # [3, 4]
+    principal: torch.Tensor,  # [2] normalized
+    resolution: torch.Tensor,  # [2] (W, H)
+    ftheta_coeffs: torch.Tensor,  # [5] polynomial p0..p4: θ(r) in radians
+    subpixel_jitter: Optional[torch.Tensor] = None,
+) -> RayBundle:
+    """Fisheye f-theta lens: the image radius r (pixels from the principal
+    point) maps to the polar angle θ = Σ pᵢ rⁱ; the azimuth is kept."""
+    offset = subpixel_jitter if subpixel_jitter is not None else 0.5
+    xy = pixel_xy + offset - principal * resolution
+    r = torch.sqrt((xy * xy).sum(dim=-1) + 1e-12)
+    c = ftheta_coeffs
+    theta = c[0] + r * (c[1] + r * (c[2] + r * (c[3] + r * c[4])))
+    st, ct = torch.sin(theta), torch.cos(theta)
+    d_cam = torch.stack([xy[..., 0] / r * st, xy[..., 1] / r * st, ct], dim=-1)
+    direction = _rotate(xform[:, :3], d_cam)
+    direction = direction / torch.linalg.norm(direction, dim=-1, keepdim=True)
+    return RayBundle(torch.broadcast_to(xform[:, 3], direction.shape), direction)
 
 
 def rays_for_image(
@@ -65,8 +138,16 @@ def rays_for_image(
     focal: torch.Tensor,
     principal: torch.Tensor,
     distortion: Optional[torch.Tensor] = None,
+    subpixel_jitter: Optional[torch.Tensor] = None,  # [H·W, 2]
+    lens: str = "pinhole",
+    ftheta_coeffs: Optional[torch.Tensor] = None,
+    aperture: float = 0.0,
+    focus_z: float = 1.0,
+    dof_uv: Optional[torch.Tensor] = None,  # [H·W, 2]
 ) -> RayBundle:
-    """All pixels of an image, row-major → origins/directions [H·W, 3]."""
+    """All pixels of an image, row-major → origins/directions [H·W, 3].
+    ``lens`` is 'pinhole' (with optional distortion and depth of field),
+    'ftheta' (needs ``ftheta_coeffs``) or 'latlong'."""
     W, H = resolution
     dev = xform.device
     ys, xs = torch.meshgrid(
@@ -75,8 +156,17 @@ def rays_for_image(
         indexing="ij",
     )
     pix = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)
-    res = torch.stack([torch.full((), float(W), device=dev), torch.full((), float(H), device=dev)])
-    return pixel_to_ray(pix, xform, focal, principal, res, distortion)
+    res = torch.tensor([float(W), float(H)], device=dev)
+    if lens == "latlong":
+        return latlong_ray(pix, xform, res, subpixel_jitter)
+    if lens == "ftheta":
+        if ftheta_coeffs is None:
+            raise ValueError("lens='ftheta' requires ftheta_coeffs [5]")
+        return ftheta_ray(pix, xform, principal, res, ftheta_coeffs, subpixel_jitter)
+    return pixel_to_ray(
+        pix, xform, focal, principal, res, distortion, subpixel_jitter,
+        aperture=aperture, focus_z=focus_z, dof_uv=dof_uv,
+    )
 
 
 def pixels_from_uniform(img_idx: torch.Tensor, u: torch.Tensor, images: torch.Tensor):

@@ -1,0 +1,198 @@
+"""Exact frame rendering: rays → march → field → composite, chunk by chunk.
+
+Counterpart of the exact path of ``nerfshop_tpu/render/renderer.py``:
+``RenderOptions``, ``FrameOutput``, ``_eval_window`` (without edit
+operators), ``_render_chunk`` and ``render_frame``. Each pixel chunk runs
+one occupancy march with the whole sample budget (``k_samples ×
+n_windows``, selection "first", the density-grid early stop), one field
+evaluation of every slot (the hash-grid encode is kernel B and both MLPs
+are kernel C on a CUDA device, since nothing here needs a gradient), and
+one composite with the transmittance cutoff.
+
+The march fields (the dilated coarse occupancy and the occupancy-masked
+density) are built once per frame and handed to every chunk's march.
+
+Not ported, each raising ``NotImplementedError``: ``RenderMode.Normals``
+(it needs the encode's gradient with respect to positions), edit
+operators, the envmap background, extra network dims and
+``compact_frac > 0``. The tiled render paths stay with the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from nerfshop_tpu.common import MIN_CONE_STEPSIZE, MIN_TRANSMITTANCE_RENDER, RenderMode
+from nerfshop_tpu_torch.ops import composite as comp
+from nerfshop_tpu_torch.ops import coords, march
+from nerfshop_tpu_torch.ops import rays as rays_lib
+
+NEAR_DISTANCE_RENDER = 0.05
+
+
+@dataclass(frozen=True)
+class RenderOptions:
+    """The fields and defaults of the JAX ``RenderOptions``. ``eval_slab``,
+    ``membrane_mode`` and ``n_edit_operators`` serve the tiled path and the
+    edit operators, which are not ported; they are kept so that options
+    move between the two packages unchanged."""
+
+    k_samples: int = 32
+    n_candidates: int = 1024
+    n_windows: int = 2
+    cone_angle: float = 0.0
+    aabb_scale: int = 1
+    min_transmittance: float = MIN_TRANSMITTANCE_RENDER
+    chunk: int = 1 << 13
+    mode: RenderMode = RenderMode.Shade
+    use_grid_early_stop: bool = True
+    background: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
+    compact_frac: float = 0.0
+    eval_slab: int = 16
+    slice_z: float = 0.5
+    membrane_mode: str = "target"
+    n_edit_operators: int = 0
+    render_aabb: Optional[Tuple[Tuple[float, float, float], Tuple[float, float, float]]] = None
+    aperture: float = 0.0
+    focus_z: float = 1.0
+
+
+class FrameOutput(NamedTuple):
+    rgba: torch.Tensor  # [H, W, 4]
+    depth: torch.Tensor  # [H, W]
+
+
+def _field(model, params: Optional[Dict[str, torch.Tensor]]):
+    """(warped pos [N, 3], warped dir [N, 3]) → activated (rgb [N, 3], σ [N])
+    with ``params`` (a state dict, e.g. the EMA copy) or the model's own."""
+    if params is None:
+        return model
+    return lambda p, d: torch.func.functional_call(model, params, (p, d))
+
+
+def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: RenderOptions, aabb):
+    """Field evaluation of every slot of one march → (σ [R, K], rgb [R, K, 3])."""
+    R, K = samples.t.shape
+    pos_w, dir_w = march.samples_to_network_inputs(samples, origins, directions, aabb)
+    flat_pos = pos_w.reshape(R * K, 3)
+    rgb, sigma = field(flat_pos, dir_w.reshape(R * K, 3))
+    if opts.mode == RenderMode.Positions:
+        rgb = flat_pos
+    return sigma.reshape(R, K), rgb.reshape(R, K, 3)
+
+
+def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions, bg):
+    """One pixel chunk → (rgba [R, 4], depth [R])."""
+    dev = origins.device
+    aabb = coords.BoundingBox.from_aabb_scale(opts.aabb_scale, device=dev)
+    R = origins.shape[0]
+    if opts.mode == RenderMode.Slice:
+        # density on the view-aligned plane at t = slice_z, one sample per pixel
+        t_s = torch.full((R,), float(opts.slice_z), device=dev)
+        pw = torch.clamp(coords.warp_position(origins + t_s[:, None] * directions, aabb), 0.0, 1.0)
+        rgb_sl, sig_sl = field(pw, coords.warp_direction(directions))
+        a = 1.0 - torch.exp(-sig_sl * 0.01)
+        return torch.cat([rgb_sl * a[:, None], a[:, None]], dim=-1), t_s
+    # marching is clipped to the crop box; the field still warps by the full box
+    if opts.render_aabb is not None:
+        lo, hi = opts.render_aabb
+        march_box = coords.BoundingBox(
+            torch.tensor(lo, dtype=torch.float32, device=dev), torch.tensor(hi, dtype=torch.float32, device=dev)
+        )
+    else:
+        march_box = aabb
+    K = opts.k_samples * max(1, opts.n_windows)
+    coarse, fine = fields
+    samples = march.march_rays(
+        origins, directions, grid.occupancy, march_box.min, march_box.max, opts.cone_angle,
+        t_start_min=NEAR_DISTANCE_RENDER, k_samples=K, n_candidates=opts.n_candidates,
+        use_grid_early_stop=opts.use_grid_early_stop, selection="first",
+        coarse_field=coarse, fine_field=fine,
+    )
+    sigma, rgb_s = _eval_window(field, samples, origins, directions, opts, aabb)
+    res = comp.composite(sigma, rgb_s, samples.dt, samples.t, samples.valid, opts.min_transmittance)
+    ones3 = torch.ones((1, 3), device=dev)
+    if opts.mode in (RenderMode.Depth, RenderMode.Distance):
+        # t is already the euclidean distance along the unit ray
+        rgba = torch.cat([res.depth[:, None] * ones3, res.opacity[:, None]], dim=-1)
+    elif opts.mode == RenderMode.Stepsize:
+        dt0 = torch.where(samples.valid[:, 0], samples.dt[:, 0], torch.zeros_like(samples.dt[:, 0])) / MIN_CONE_STEPSIZE
+        rgba = torch.cat([dt0[:, None] * ones3, torch.ones((R, 1), device=dev)], dim=-1)
+    elif opts.mode == RenderMode.Cost:
+        v = res.n_used.to(torch.float32) / K
+        rgba = torch.cat([v[:, None] * ones3, torch.ones((R, 1), device=dev)], dim=-1)
+    elif opts.mode == RenderMode.AO:
+        rgba = torch.cat([res.opacity[:, None] * ones3, res.opacity[:, None]], dim=-1)
+    else:
+        rgb_out = res.rgb + res.transmittance[:, None] * bg[:3]
+        alpha = res.opacity + res.transmittance * bg[3]
+        rgba = torch.cat([rgb_out, alpha[:, None]], dim=-1)
+    return rgba, res.depth
+
+
+def march_fields(grid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The frame's march fields: (dilated coarse occupancy, occupancy-masked
+    density), both flat, built once and shared by every chunk."""
+    coarse = march.build_coarse_occupancy(grid.occupancy).reshape(-1)
+    fine = march.masked_density_field(grid.occupancy, grid.density).reshape(-1)
+    return coarse, fine
+
+
+@torch.no_grad()
+def render_frame(
+    model,
+    params: Optional[Dict[str, torch.Tensor]],
+    grid,
+    resolution: Tuple[int, int],  # (W, H)
+    xform: torch.Tensor,  # [3, 4]
+    focal: torch.Tensor,  # [2] pixels
+    principal: Optional[torch.Tensor] = None,  # [2] normalized
+    distortion: Optional[torch.Tensor] = None,
+    opts: RenderOptions = RenderOptions(),
+    subpixel_jitter: Optional[torch.Tensor] = None,  # [H·W, 2]
+    operators: tuple = (),
+    envmap: Optional[torch.Tensor] = None,
+    lens: str = "pinhole",
+    ftheta_coeffs: Optional[torch.Tensor] = None,
+    dof_uv: Optional[torch.Tensor] = None,  # [H·W, 2] unit-disc lens samples
+    extra_dims: Optional[torch.Tensor] = None,
+) -> FrameOutput:
+    """Render one frame in pixel chunks of ``opts.chunk`` rays. ``params`` is
+    a state dict of ``model`` (e.g. the EMA copy) or None for the model's
+    own parameters. ``lens`` is 'pinhole', 'ftheta' or 'latlong'."""
+    if opts.mode == RenderMode.Normals:
+        raise NotImplementedError("RenderMode.Normals needs the encode's position gradient, which is not ported")
+    if operators:
+        raise NotImplementedError("edit operators are not ported")
+    if envmap is not None:
+        raise NotImplementedError("the envmap background is not ported")
+    if extra_dims is not None:
+        raise NotImplementedError("extra network dims are not ported")
+    if opts.compact_frac > 0:
+        raise NotImplementedError("compacted field evaluation (compact_frac > 0) is not ported")
+    W, H = resolution
+    dev = grid.occupancy.device
+    principal = torch.tensor([0.5, 0.5], device=dev) if principal is None else principal
+    bg = torch.tensor(opts.background, dtype=torch.float32, device=dev)
+    n = W * H
+    chunk = min(opts.chunk, n)
+    n_pad = (-n) % chunk
+
+    bundle = rays_lib.rays_for_image(
+        (W, H), xform, focal, principal, distortion, subpixel_jitter, lens=lens, ftheta_coeffs=ftheta_coeffs,
+        aperture=opts.aperture, focus_z=opts.focus_z, dof_uv=dof_uv,
+    )
+    origins = torch.cat([bundle.origins, torch.zeros((n_pad, 3), device=dev)])
+    dirs = torch.cat([bundle.directions, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(n_pad, 3)])
+
+    field = _field(model, params)
+    fields = march_fields(grid)
+    rgba, depth = [], []
+    for i in range(0, n + n_pad, chunk):
+        rgba_c, depth_c = _render_chunk(field, grid, fields, origins[i : i + chunk], dirs[i : i + chunk], opts, bg)
+        rgba.append(rgba_c)
+        depth.append(depth_c)
+    return FrameOutput(torch.cat(rgba)[:n].reshape(H, W, 4), torch.cat(depth)[:n].reshape(H, W))

@@ -1,26 +1,48 @@
-"""Testbed — the user-facing facade, NeRF training part.
+"""Testbed — the user-facing facade, NeRF part.
 
 Counterpart of the NeRF half of ``nerfshop_tpu/testbed.py``: construct with
 a config, load a scene (``load_training_data``, or ``set_training_data``
-with an in-memory ``NerfDataset``), and ``train``: a grid refresh every 16
-steps (full refresh during the first 256), the degenerate-training guards,
-and the adaptive (rays, K) bucket. Rendering, snapshots, editing and the
-other testbed modes are not ported yet.
+with an in-memory ``NerfDataset``), ``train`` (a grid refresh every 16
+steps, full during the first 256, the degenerate-training guards and the
+adaptive (rays, K) bucket), the camera API, ``render`` / ``render_dynamic``
+/ ``frame`` through the exact renderer, and ``save_snapshot`` /
+``load_snapshot`` in the native format. ``render`` always takes the exact
+path: the tiled path is not ported, and ``exact=False`` raises. Editing and
+the other testbed modes are not ported yet.
+
+Without a ``device`` the testbed takes ``cuda:0`` and raises when CUDA is
+absent; the CPU runs only when asked for by name (``device="cpu"``).
 """
 
 from __future__ import annotations
 
+import json
 import math
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from nerfshop_tpu.common import DEFAULT_BATCH_SIZE, DEFAULT_STEPS_PER_FRAME, TestbedMode
+from nerfshop_tpu.common import DEFAULT_BATCH_SIZE, DEFAULT_STEPS_PER_FRAME, RenderMode, TestbedMode, TonemapCurve
 from nerfshop_tpu.config import ConfigDict, default_nerf_config, load_network_config
+
+
+def default_device() -> torch.device:
+    """``cuda:0``; raises when CUDA is absent instead of running on the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("Testbed: no CUDA device found; pass device='cpu' to run the plain versions on the CPU")
+    return torch.device("cuda", 0)
+
+
+def upsample_bilinear(img: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """[h, w, C] → [height, width, C] on ``img``'s device, bilinear with
+    half-pixel centres and clamped edges (what ``jax.image.resize(...,
+    "linear")`` does when it enlarges)."""
+    x = torch.nn.functional.interpolate(img.permute(2, 0, 1)[None], size=(height, width), mode="bilinear", align_corners=False)
+    return x[0].permute(1, 2, 0).contiguous()
 
 
 class _Namespace:
@@ -37,6 +59,9 @@ class TrainingStats:
     measured_samples_total: int = 0
     training_prep_ms: float = 0.0
     training_ms: float = 0.0
+    frame_ms: float = 0.0
+    #: sample slots the field evaluated in the last render (all passes)
+    render_samples: int = 0
 
 
 class Testbed:
@@ -51,10 +76,28 @@ class Testbed:
         self.mode = TestbedMode(mode) if isinstance(mode, str) else mode
         if self.mode != TestbedMode.Nerf:
             raise NotImplementedError(f"testbed mode {self.mode} is not ported")
-        self.device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device(device) if device is not None else default_device()
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(time.time()) % (1 << 31) if seed is None else seed)
         self.shall_train = False
+        self.render_mode = RenderMode.Shade
+        self.tonemap_curve = TonemapCurve.Identity
+        self.exposure = 0.0
+        self.background_color = np.array([0.0, 0.0, 0.0, 0.0], np.float32)
+        self.dynamic_res = True
+        self.dynamic_res_target_fps = 20.0
+        #: last frame() render, [H, W, 4]
+        self.frame_buffer: Optional[np.ndarray] = None
+        #: depth of field: lens aperture (0 = pinhole) and focus distance;
+        #: autofocus takes the focus from the previous frame's depth
+        self.dof = 0.0
+        self.focus_z = 1.0
+        self.autofocus = False
+        self.autofocus_target = np.array([0.5, 0.5], np.float32)  # screen uv
+        #: principal point
+        self.screen_center = np.array([0.5, 0.5], np.float32)
+        #: optional world-space render crop box (lo, hi)
+        self.render_aabb = None
         self.nerf = _Namespace(
             training=_Namespace(
                 n_images_for_training=0,
@@ -66,6 +109,7 @@ class Testbed:
                 train_envmap=False,
                 use_error_map=False,
             ),
+            render_min_transmittance=1e-2,
             cone_angle_constant=0.0,
         )
         self.stats = TrainingStats()
@@ -79,6 +123,12 @@ class Testbed:
         self._train_cfg = None
         self._trained_mask = None
         self._step_ready = False
+        self._last_depth: Optional[np.ndarray] = None
+        #: dynamic-resolution factor in [1/8, 1]
+        self._dyn_res_factor = 1.0
+        self._view_distance = 1.5
+        self.set_look_at(center=(0.5, 0.5, 0.5), eye=(0.5, -1.5, 0.5))
+        self.fov_deg = 50.0
         if config is not None:
             if isinstance(config, (str, Path)):
                 self._network_config = load_network_config(config)
@@ -256,3 +306,315 @@ class Testbed:
                 self._train_cfg.n_cascades, t(xf[:, :, 3]), t(xf[:, :, 2]), t(ds.focal_matrix()), t(res_hw)
             )
         self._step_ready = True
+
+    # --------------------------------------------------------------- rendering
+
+    #: frame() renders into ``self.frame_buffer`` at this (W, H) when a model
+    #: is loaded; None trains only
+    frame_resolution: Optional[Tuple[int, int]] = (320, 180)
+
+    def frame(self) -> bool:
+        """One headless frame: 16 training steps when ``shall_train``, then a
+        dynamic-resolution render into ``self.frame_buffer``."""
+        t0 = time.perf_counter()
+        if self.shall_train:
+            self.train(DEFAULT_STEPS_PER_FRAME, DEFAULT_BATCH_SIZE)
+        if self.frame_resolution is not None and self._model is not None:
+            w, h = self.frame_resolution
+            self.frame_buffer = self.render_dynamic(w, h, spp=1)
+        self.stats.frame_ms = (time.perf_counter() - t0) * 1e3
+        return True
+
+    def set_train(self, value: bool) -> None:
+        self.shall_train = value
+
+    def set_look_at(self, center=(0.5, 0.5, 0.5), eye=(0.5, -1.5, 0.5), up=(0.0, 0.0, 1.0)) -> None:
+        center = np.asarray(center, np.float32)
+        eye = np.asarray(eye, np.float32)
+        fwd = center - eye
+        fwd = fwd / (np.linalg.norm(fwd) + 1e-12)
+        right = np.cross(fwd, np.asarray(up, np.float32))
+        right /= np.linalg.norm(right) + 1e-12
+        down = np.cross(fwd, right)
+        self.camera_matrix = np.concatenate([np.stack([right, down, fwd], 1), eye[:, None]], axis=1).astype(np.float32)
+
+    def set_nerf_camera_matrix(self, nerf_matrix: np.ndarray) -> None:
+        """Set the view from a nerf-convention (transforms.json) matrix."""
+        from nerfshop_tpu.data.nerf_loader import nerf_matrix_to_ngp
+
+        ds = self._dataset
+        scale = ds.scale if ds else 0.33
+        offset = ds.offset if ds else np.array([0.5, 0.5, 0.5], np.float32)
+        self.camera_matrix = nerf_matrix_to_ngp(np.asarray(nerf_matrix, np.float32), scale, offset)
+
+    def _focal_for(self, width: int, height: int) -> np.ndarray:
+        f = 0.5 * height / math.tan(0.5 * math.radians(self.fov_deg))
+        return np.array([f, f], np.float32)
+
+    @property
+    def fov(self) -> float:
+        """Vertical field of view in degrees."""
+        return self.fov_deg
+
+    @fov.setter
+    def fov(self, deg: float) -> None:
+        self.fov_deg = float(deg)
+
+    @property
+    def view_dir(self) -> np.ndarray:
+        return self.camera_matrix[:, 2].copy()
+
+    @view_dir.setter
+    def view_dir(self, d) -> None:
+        # rotate the camera about its look-at point to face the new direction
+        at = self.look_at
+        d = np.asarray(d, np.float32)
+        d = d / (np.linalg.norm(d) + 1e-12)
+        self.set_look_at(center=at, eye=at - d * self.view_distance, up=-self.camera_matrix[:, 1])
+
+    @property
+    def up_dir(self) -> np.ndarray:
+        return -self.camera_matrix[:, 1].copy()
+
+    @property
+    def view_distance(self) -> float:
+        """Distance from the camera to its orbit point."""
+        return self._view_distance
+
+    @view_distance.setter
+    def view_distance(self, s: float) -> None:
+        self._view_distance = float(s)
+
+    @property
+    def look_at(self) -> np.ndarray:
+        """Orbit point: ``view_distance`` along the view axis."""
+        return self.camera_matrix[:, 3] + self.camera_matrix[:, 2] * self.view_distance
+
+    @look_at.setter
+    def look_at(self, p) -> None:
+        self.camera_matrix = self.camera_matrix.copy()
+        self.camera_matrix[:, 3] = np.asarray(p, np.float32) - self.camera_matrix[:, 2] * self.view_distance
+
+    def translate_camera(self, delta) -> None:
+        """Move the camera in its local frame (right/down/forward axes)."""
+        self.camera_matrix = self.camera_matrix.copy()
+        self.camera_matrix[:, 3] += self.camera_matrix[:, :3] @ np.asarray(delta, np.float32)
+
+    def set_camera_to_training_view(self, i: int) -> None:
+        """Adopt training view ``i``'s extrinsics and field of view."""
+        if self._dataset is None:
+            raise RuntimeError("no training data")
+        self.camera_matrix = np.asarray(self._dataset.xforms[i], np.float32).copy()
+        intr = self._dataset.intrinsics[i]
+        self.fov_deg = float(np.degrees(2.0 * np.arctan(0.5 * float(intr.resolution[1]) / float(intr.focal[1]))))
+
+    def first_training_view(self) -> None:
+        self.set_camera_to_training_view(0)
+
+    def render(self, width: int, height: int, *args, **kw) -> np.ndarray:
+        """→ [H, W, 4] float32 numpy frame: :meth:`_render_image` (which
+        lists the options), copied to the host."""
+        return self._render_image(width, height, *args, **kw).cpu().numpy()
+
+    def _render_image(
+        self,
+        width: int,
+        height: int,
+        spp: int = 1,
+        linear: bool = False,
+        camera_matrix: Optional[np.ndarray] = None,
+        focal: Optional[np.ndarray] = None,
+        principal: Optional[np.ndarray] = None,
+        min_transmittance: Optional[float] = None,
+        distortion: Optional[np.ndarray] = None,
+        lens: str = "pinhole",
+        ftheta_coeffs: Optional[np.ndarray] = None,
+        exact: Optional[bool] = None,
+    ) -> torch.Tensor:
+        """→ [H, W, 4] float32 on the testbed's device, sRGB-encoded unless
+        ``linear``, through the exact renderer. ``lens`` is 'pinhole',
+        'ftheta' (5 polynomial coefficients) or 'latlong'. ``exact`` None or
+        True; False asks for the tiled path, which is not ported, and
+        raises."""
+        from nerfshop_tpu_torch.ops import sampling
+        from nerfshop_tpu_torch.ops import tonemap as tm
+        from nerfshop_tpu_torch.render import renderer
+        from nerfshop_tpu_torch.render.buffer import RenderBuffer
+
+        if exact is False:
+            raise NotImplementedError("the tiled render path is not ported; render(exact=True)")
+        if self._model is None:
+            raise RuntimeError("no network: pass a config or load training data or a snapshot first")
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        cam = camera_matrix if camera_matrix is not None else self.camera_matrix
+        focal = focal if focal is not None else self._focal_for(width, height)
+        principal = principal if principal is not None else self.screen_center
+        # the sample budget follows the grid: a dense grid needs a deep
+        # first-K budget to reach content, a sparse one a short one
+        occ_frac = float(self._grid.occupancy.float().mean())
+        k_render = 64 if occ_frac < 0.15 else 256
+        crop = None
+        if self.render_aabb is not None:
+            lo, hi = self.render_aabb
+            crop = (tuple(float(v) for v in lo), tuple(float(v) for v in hi))
+        focus = self.focus_z
+        if self.autofocus and self._last_depth is not None:
+            # focus at the previous frame's depth under the autofocus target
+            d = self._last_depth
+            ty = int(np.clip(self.autofocus_target[1] * d.shape[0], 0, d.shape[0] - 1))
+            tx = int(np.clip(self.autofocus_target[0] * d.shape[1], 0, d.shape[1] - 1))
+            v = float(d[ty, tx])
+            if np.isfinite(v) and v > 1e-3:
+                focus = self.focus_z = v
+        # chunk × K_total ≤ 2^22 sample rows
+        chunk = max(512, min(1 << 13, (1 << 22) // (2 * k_render)))
+        opts = renderer.RenderOptions(
+            k_samples=k_render,
+            n_windows=2,
+            chunk=chunk,
+            use_grid_early_stop=occ_frac < 0.15,
+            cone_angle=self._train_cfg.cone_angle,
+            aabb_scale=self._train_cfg.aabb_scale,
+            min_transmittance=min_transmittance or self.nerf.render_min_transmittance,
+            mode=self.render_mode,
+            background=tuple(float(v) for v in np.asarray(self.background_color, np.float32)),
+            render_aabb=crop,
+            aperture=float(self.dof),
+            focus_z=float(focus),
+        )
+        dist = t(distortion) if distortion is not None and np.any(np.asarray(distortion)) else None
+        ftheta = t(ftheta_coeffs) if ftheta_coeffs is not None else None
+        buf = RenderBuffer((width, height), device=dev)
+        buf.clear()
+        n_rays = -(-(width * height) // min(chunk, width * height)) * min(chunk, width * height)
+        per_ray = 1 if opts.mode == RenderMode.Slice else opts.k_samples * opts.n_windows
+        self.stats.render_samples = spp * n_rays * per_ray
+        for s in range(spp):
+            jitter = None
+            if spp > 1:
+                jitter = t(sampling.spp_jitter(s, width * height, seed=self.stats.step))
+            dof_uv = None
+            if self.dof > 0.0:
+                u = torch.rand((width * height, 2), generator=self.generator, device=dev)
+                r = torch.sqrt(u[:, 0:1])
+                th = 2.0 * math.pi * u[:, 1:2]
+                dof_uv = torch.cat([r * torch.cos(th), r * torch.sin(th)], dim=-1)
+            out = renderer.render_frame(
+                self._model, self.inference_params, self._grid, (width, height), t(cam), t(focal), t(principal),
+                distortion=dist, opts=opts, subpixel_jitter=jitter, lens=lens, ftheta_coeffs=ftheta, dof_uv=dof_uv,
+            )
+            buf.accumulate(out.rgba, out.depth)
+        self._last_depth = out.depth.cpu().numpy()
+
+        srgb_space_model = self._dataset is not None and self._dataset.color_space == "srgb"
+        img = buf.tonemapped(
+            exposure=self.exposure,
+            curve=self.tonemap_curve,
+            output_srgb=not linear,
+            input_is_srgb_space=srgb_space_model and not linear,
+        )
+        if linear and srgb_space_model:
+            # the model predicts sRGB-space radiance; convert for linear output
+            img = torch.cat([tm.srgb_to_linear(img[..., :3]), img[..., 3:]], dim=-1)
+        return img
+
+    def render_dynamic(self, width: int, height: int, **kw) -> np.ndarray:
+        """Render at a dynamically scaled resolution and upsample bilinearly:
+        the factor follows sqrt(target frame time / measured), clamped to
+        [1/8, 1], with ±20% hysteresis. Honours ``dynamic_res`` and
+        ``dynamic_res_target_fps``. The upsample runs on the testbed's
+        device; the frame is copied to the host once, at the end."""
+        f = self._dyn_res_factor if self.dynamic_res else 1.0
+        w = max(32, int(width * f) // 8 * 8)
+        h = max(32, int(height * f) // 8 * 8)
+        t0 = time.perf_counter()
+        img = self._render_image(w, h, **kw)
+        if img.is_cuda:
+            torch.cuda.synchronize(img.device)
+        dt = time.perf_counter() - t0
+        if self.dynamic_res:
+            target = 1.0 / max(self.dynamic_res_target_fps, 1e-3)
+            suggested = f * math.sqrt(target / max(dt, 1e-6))
+            if suggested < f * 0.8 or suggested > f * 1.2:
+                self._dyn_res_factor = float(np.clip(suggested, 1.0 / 8.0, 1.0))
+        if (w, h) != (width, height):
+            img = upsample_bilinear(img, width, height)
+        return img.cpu().numpy()
+
+    # --------------------------------------------------------------- snapshots
+
+    def save_snapshot(self, path: str) -> None:
+        """Native snapshot (see :mod:`nerfshop_tpu_torch.io.snapshot`): params,
+        EMA copy, density grid, dataset metadata and step."""
+        from nerfshop_tpu_torch.io import snapshot as snap_lib
+
+        if self._state is None:
+            raise RuntimeError("no network to save")
+        metadata = None
+        ds = self._dataset
+        if ds is not None:
+            metadata = {
+                "aabb_scale": int(ds.aabb_scale),
+                "scale": float(ds.scale),
+                "offset": np.asarray(ds.offset).tolist(),
+                "n_images": int(ds.n_images),
+                "color_space": ds.color_space,
+                "xforms": np.asarray(ds.xforms).tolist(),
+            }
+        snap_lib.save_snapshot(
+            path,
+            params=dict(self._model.named_parameters()),
+            network_config=json.loads(json.dumps(dict(self._network_config))),
+            mode=self.mode.value,
+            ema_params=self._state.ema,
+            density_grid=self._grid.density,
+            metadata=metadata,
+            step=self.stats.step,
+        )
+
+    def load_snapshot(self, path: str) -> None:
+        """Load a native snapshot: network config, params, the EMA copy (the
+        params where the snapshot has none), the density grid with its
+        bitfield recomputed, and the step. A snapshot without a dataset gets
+        a metadata-only dataset so that it renders."""
+        from nerfshop_tpu_torch.io import snapshot as snap_lib
+        from nerfshop_tpu_torch.ops import grid as grid_lib
+
+        snap = snap_lib.load_snapshot(path)
+        mode = TestbedMode(snap.get("mode", "nerf"))
+        if mode != TestbedMode.Nerf:
+            raise NotImplementedError(f"snapshot of mode {mode} is not ported")
+        self._network_config = ConfigDict(snap["network_config"])
+        meta = snap.get("nerf")
+        if meta and self._dataset is None:
+            from nerfshop_tpu.data.nerf_loader import NerfDataset
+
+            self._dataset = NerfDataset(
+                images=np.zeros((meta["n_images"], 2, 2, 4), np.float32),
+                xforms=np.asarray(meta["xforms"], np.float32),
+                intrinsics=[],
+                paths=[],
+                scale=meta.get("scale", 0.33),
+                offset=np.asarray(meta.get("offset", [0.5, 0.5, 0.5]), np.float32),
+                aabb_scale=meta.get("aabb_scale", 1),
+                color_space=meta.get("color_space", "srgb"),
+            )
+        self._reset_network()
+        params = snap_lib.restore_params(dict(self._model.named_parameters()), snap, "params")
+        with torch.no_grad():
+            for name, p in self._model.named_parameters():
+                p.copy_(params[name])
+            if self._state.ema is not None:
+                ema = snap_lib.restore_params(self._state.ema, snap, "ema_params") if "ema_params" in snap else params
+                for name, e in self._state.ema.items():
+                    e.copy_(ema[name])
+        dg = snap.get("density_grid")
+        if dg is not None and dg.shape[0] == self._grid.n_cascades:
+            self._grid.density = torch.tensor(dg, device=self.device)
+            grid_lib.update_bitfield(self._grid)
+        self._state.step = int(snap.get("step", 0))
+        self.stats.step = int(snap.get("step", 0))

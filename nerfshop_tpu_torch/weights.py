@@ -6,6 +6,11 @@ The JAX ``NerfNetwork.init`` pytree, converted to numpy, has the leaves
 ``NerfNetwork`` names the same tensors ``pos_encoding.table``,
 ``density_mlp.weights.i`` and ``rgb_mlp.weights.i``, so
 ``model.load_state_dict(params_from_jax(tree))`` loads them slot for slot.
+
+A snapshot stores the same leaves flat under ``/``-joined paths
+(``/pos_encoding/table``, ``/density_mlp/weights/0``, …);
+:func:`flat_from_state` and :func:`state_from_flat` move the parameters or
+their EMA copy between that form and a state dict.
 """
 
 from __future__ import annotations
@@ -43,3 +48,28 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
         n = sum(1 for k in state if k.startswith(f"{mlp}.weights."))
         tree[mlp] = {"weights": [np_of(state[f"{mlp}.weights.{i}"]) for i in range(n)]}
     return tree
+
+
+def snapshot_path(name: str) -> str:
+    """State-dict name → flat snapshot path (``a.b.0`` → ``/a/b/0``)."""
+    return "/" + name.replace(".", "/")
+
+
+def flat_from_state(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """State dict (parameters or their EMA copy) → {snapshot path: float32 array}."""
+    return {snapshot_path(k): v.detach().cpu().numpy().astype(np.float32) for k, v in state.items()}
+
+
+def state_from_flat(
+    flat: Dict[str, np.ndarray], template: Dict[str, torch.Tensor]
+) -> Dict[str, torch.Tensor]:
+    """{snapshot path: array} → a state dict with the names, shapes, dtypes
+    and devices of ``template``; raises ``KeyError`` on a missing leaf and
+    ``ValueError`` on a shape that differs."""
+    out = {}
+    for k, t in template.items():
+        a = np.asarray(flat[snapshot_path(k)])
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{k}: snapshot shape {tuple(a.shape)}, model shape {tuple(t.shape)}")
+        out[k] = torch.tensor(a, dtype=t.dtype, device=t.device)
+    return out

@@ -151,3 +151,63 @@ def test_samples_to_network_inputs_match():
     tp, td = tmarch.samples_to_network_inputs(tb, torch.from_numpy(o), torch.from_numpy(d), tcoords.BoundingBox.from_aabb_scale(2))
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=1e-6)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
+
+
+def _density(occ, seed):
+    rng = np.random.default_rng(seed)
+    return np.where(occ, rng.uniform(0, 1, occ.shape) ** 4 * 800, 0).astype(np.float32)
+
+
+RENDER_CASES = [
+    # (early stop tau or None, aabb_scale, n_cascades, cone)
+    (2.0, 1, 1, 0.0),
+    (2.0, 4, 3, 1 / 256),
+    (8.0, 1, 1, 0.0),
+    (8.0, 4, 3, 1 / 256),
+    (None, 1, 1, 0.0),
+    (None, 4, 3, 1 / 256),
+]
+
+
+@pytest.mark.parametrize("tau,aabb_scale,n_cascades,cone", RENDER_CASES)
+def test_march_render_options_match(tau, aabb_scale, n_cascades, cone):
+    # the renderer's march: precomputed coarse/fine fields, with and without
+    # the grid early stop; n and valid exact, t within 1e-6·scale, dt within 1e-6
+    o, d = _rays(11, aabb_scale)
+    occ = _grid("random", n_cascades, seed=12)
+    dens = _density(occ, 13)
+    lo = np.full(3, 0.5 - 0.5 * aabb_scale, np.float32)
+    hi = np.full(3, 0.5 + 0.5 * aabb_scale, np.float32)
+    kw = dict(t_start_min=0.05, k_samples=K, n_candidates=256, selection="first")
+    if tau is not None:
+        kw.update(use_grid_early_stop=True, grid_stop_tau=tau)
+    jf = (np.asarray(jmarch.build_coarse_occupancy(jnp.asarray(occ))).reshape(-1),
+          np.asarray(jmarch.masked_density_field(jnp.asarray(occ), jnp.asarray(dens))).reshape(-1))
+    ref = jmarch.march_rays(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(occ), jnp.asarray(lo), jnp.asarray(hi),
+        jnp.asarray(cone, jnp.float32), coarse_field=jnp.asarray(jf[0]), fine_field=jnp.asarray(jf[1]), **kw,
+    )
+    ours = tmarch.march_rays(
+        torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(occ), torch.from_numpy(lo),
+        torch.from_numpy(hi), cone, coarse_field=torch.from_numpy(jf[0].copy()),
+        fine_field=torch.from_numpy(jf[1].copy()), **kw,
+    )
+    assert int(np.asarray(ref.n).sum()) > 0
+    np.testing.assert_array_equal(ours.n.numpy(), np.asarray(ref.n))
+    np.testing.assert_array_equal(ours.valid.numpy(), np.asarray(ref.valid))
+    scale = max(1.0, float(np.abs(np.asarray(ref.t)).max()))
+    np.testing.assert_allclose(ours.t.numpy(), np.asarray(ref.t), rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(ours.dt.numpy(), np.asarray(ref.dt), rtol=0, atol=1e-6)
+
+
+def test_march_early_stop_saturates():
+    o, d = _rays(11, 1)
+    occ = _grid("full", 1)
+    dens = np.full(occ.shape, 400.0, np.float32)
+    t_occ = torch.from_numpy(occ)
+    args = (torch.from_numpy(o), torch.from_numpy(d), t_occ, torch.zeros(3), torch.ones(3), 0.0)
+    fine = tmarch.masked_density_field(t_occ, torch.from_numpy(dens)).reshape(-1)
+    kw = dict(k_samples=64, n_candidates=256, fine_field=fine)
+    stop = tmarch.march_rays(*args, use_grid_early_stop=True, **kw)
+    free = tmarch.march_rays(*args, **kw)
+    assert (stop.n <= free.n).all() and stop.n.sum() < free.n.sum()

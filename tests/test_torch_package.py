@@ -54,6 +54,29 @@ def test_no_jax_import_in_source(path):
                 assert n in ("nerfshop_tpu.common", "nerfshop_tpu.config", "nerfshop_tpu.data", "nerfshop_tpu.data.nerf_loader"), (path, n)
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_render.py"])
+def test_card_scripts_leave_jax_out(script):
+    # the on-card scripts may use only what the port itself may use
+    tree = ast.parse((ROOT / script).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            for n in [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""]:
+                assert n.split(".")[0] not in ("jax", "jaxlib", "optax", "flax", "msgpack", "PIL"), (script, n)
+                if n.split(".")[0] == "nerfshop_tpu":
+                    assert n in ("nerfshop_tpu.common", "nerfshop_tpu.config", "nerfshop_tpu.data", "nerfshop_tpu.data.nerf_loader"), (script, n)
+
+
+def test_profile_busy_time_is_interval_union():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import profile_render
+    finally:
+        sys.path.remove(str(ROOT))
+    # µs intervals: [0, 20) ∪ [30, 40) → 30 µs, nested and touching intervals merged
+    assert profile_render.busy_ms([(30, 40), (0, 10), (5, 20), (35, 36), (20, 20)]) == pytest.approx(0.03)
+    assert profile_render.busy_ms([]) == 0.0
+
+
 @pytest.mark.parametrize("log2_t", [12, 14])
 def test_params_round_trip(log2_t):
     cfg = default_nerf_config()
