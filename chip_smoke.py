@@ -23,13 +23,27 @@ Phases, each printing one line of its own numbers:
      resolution and its on-device bilinear upsample;
  10. held-out: one 128×128 view through ``Testbed.render``, scored in PSNR;
  11. snapshot: ``save_snapshot`` → a fresh ``Testbed`` → ``load_snapshot``
-     renders the same view as before saving.
-Then a JSON line with every kernel's launches on the main paths (training
-render and frame), error and times, the ``nvidia-smi`` name/power-limit line, and
-as the last line ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the script exits non-zero; without a CUDA device it exits
-non-zero before printing a result. Kernel times are medians over repeated
-runs, measured with CUDA events after a warm-up.
+     renders the same view as before saving;
+ 12. kernel D (dynamic gathers) against its plain version and the library
+     call, bit for bit, at the shapes of the TPU gather kernels and of the
+     render march (run before the training phase);
+ 13. the edit path on the trained model: scribble rays → ``GrowingSelection``
+     (project, grow, proxy, cage) → an identity cage, a cage moved +0.18 in
+     x and an affine duplicate on top, each added through
+     ``Testbed.add_edit_operator`` (a full grid refresh through the stack)
+     and rendered at 1920×1080; then ``save_edits`` → ``load_edits``;
+ 14. kernel E (tet lookup) against its plain version on 2^20 points in and
+     around the moved cage's LUT, and kernel D's row take of the warp.
+Then a JSON line with every kernel's launches on the main paths (training,
+render, frame and edit), error, times, bound and library-call time, the
+``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
+"device": {...}}``. Any failed check raises, so the script exits non-zero;
+without a CUDA device it exits non-zero before printing a result. Kernel
+times are medians over repeated runs, measured with CUDA events after a
+warm-up. A bound is the larger of the bytes a call must move (each input
+read once, each output written once; for a gather, the source elements
+this run's indices touch) over 3.35 TB/s and its operations over the
+dense peak of their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32).
 """
 
 from __future__ import annotations
@@ -53,6 +67,10 @@ N_VIEWS = 16
 CENTER = np.array([0.5, 0.5, 0.5], np.float32)
 RADIUS = 0.22
 TIMING_RUNS = 25
+#: H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -74,6 +92,16 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(n_bytes: float, n_ops: float = 0.0, peak: float = FP32_FLOPS):
+    """(least time in ms, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 # ----------------------------------------------------------------- the scene
@@ -112,7 +140,7 @@ def view_rays(xf, focal, principal, device):
 
 
 def sphere_dataset(device, seed=0):
-    from nerfshop_tpu.data.nerf_loader import CameraIntrinsics, NerfDataset
+    from nerfshop_tpu_torch.data.nerf_loader import CameraIntrinsics, NerfDataset
 
     rng = np.random.default_rng(seed)
     focal = np.array([RES * 1.1, RES * 1.1], np.float32)
@@ -181,17 +209,26 @@ def phase_segsum(dev, g):
         check(bool((ker[untouched] == 0).all()), "kernel A left an unhit row non-zero")
         ms = median_ms(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
         plain_ms = median_ms(lambda: segsum.sorted_segment_rowsum_plain(key, w1, dout, m))
+        # library call: index_add_ of the formed [N, 16] contributions
+        ct = (segsum.corner_products(w1)[:, :, None] * dout[:, None, :]).reshape(N, 16)
+        key64 = key.long()
+        lib_ms = median_ms(lambda: torch.zeros((m, 16), device=dev).index_add_(0, key64, ct))
+        # bytes: key, w1, dout in, [m, 16] out; ops: 8 corner weights (16
+        # multiplies), the 8 × 2 outer product and its sums, per sample
+        b_ms, b_by = bound(nbytes(key, w1, dout) + m * 16 * 4, N * 48.0)
         print(
             f"[segsum] {label} m={m} N={N}: max_abs_err {float(err.max()):.3e} "
-            f"(bound 1e-5*row sum|terms|) kernel {ms:.4f} ms plain {plain_ms:.4f} ms",
+            f"(bound 1e-5*row sum|terms|) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"index_add_ {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})",
             flush=True,
         )
-        result[label] = (float(err.max()), ms, plain_ms)
-    return max(r[0] for r in result.values()), result["hash"][1], result["hash"][2]
+        result[label] = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+    return {**result["hash"], "max_abs_err": max(r["max_abs_err"] for r in result.values())}
 
 
 def _encoding(dev, g):
-    from nerfshop_tpu.config import default_nerf_config
+    from nerfshop_tpu_torch.config import default_nerf_config
     from nerfshop_tpu_torch.models.nerf_network import build_nerf_network
 
     enc = build_nerf_network(default_nerf_config(), device=dev, generator=g).pos_encoding
@@ -218,12 +255,23 @@ def phase_encode(dev, g):
     check(w1_err <= 1e-6 and out_err <= 1e-6, f"kernel B disagrees: w1 {w1_err:.3e} out {out_err:.3e}")
     ms = median_ms(lambda: table_ops.grid_encode_cuda(table, x, enc))
     plain_ms = median_ms(lambda: table_ops.grid_encode_plain(table, x, enc))
+    # bytes: x, the distinct table rows the 8 corners touch, and the outputs
+    # (features, slots, fractions); ops: ~65 fp32 per (sample, level)
+    shifts = enc.shift_table(dev)
+    rows = torch.cat([
+        ((idx_k[l].long()[:, None] + shifts[l][None, :]) % enc.level_sizes[l] + enc.level_offsets[l]).reshape(-1)
+        for l in range(enc.n_levels)
+    ])
+    touched = int(torch.unique(rows).numel())
+    N, L = x.shape[0], enc.n_levels
+    b_ms, b_by = bound(nbytes(x, out_k, idx_k, w1_k) + touched * 2 * 4, N * L * 65.0)
     print(
-        f"[encode] N={x.shape[0]} L={enc.n_levels}: slots equal, w1 err {w1_err:.3e} out err {out_err:.3e} "
-        f"(bound 1e-6) kernel {ms:.4f} ms plain {plain_ms:.4f} ms",
+        f"[encode] N={N} L={L}: slots equal, w1 err {w1_err:.3e} out err {out_err:.3e} "
+        f"(bound 1e-6) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+        f"{touched} of {enc.table_size} table rows touched)",
         flush=True,
     )
-    return out_err, ms, plain_ms
+    return dict(max_abs_err=out_err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_backward(dev, g):
@@ -305,32 +353,141 @@ def phase_mlp(dev, g):
               f"kernel C disagrees ({label}): {within:.5f} within 1e-5 rel, max err {float(err.max()):.3e} of {ref_max:.3e}")
         ms = median_ms(lambda: fused_mlp.fused_mlp_cuda(x, ws))
         plain_ms = median_ms(lambda: fused_mlp.fused_mlp_plain(x, ws))
+        # library call: the bf16 torch.matmul + relu chain, rounded to bf16
+        # at the same points (its last product is rounded too)
+        wb = [w.to(torch.bfloat16) for w in ws]
+
+        def chain():
+            h = x.to(torch.bfloat16)
+            for i, w in enumerate(wb):
+                h = torch.matmul(h, w)
+                if i < len(wb) - 1:
+                    h = torch.relu(h)
+            return h
+
+        lib_ms = median_ms(chain)
+        flops = 2.0 * N * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+        b_ms, b_by = bound(nbytes(x, ker, *ws), flops, BF16_FLOPS)
         print(
             f"[mlp] {label} {'->'.join(map(str, dims))} N={N}: {within:.6f} of outputs within 1e-6+1e-5*|plain| "
             f"(bound 0.995), max_abs_err {float(err.max()):.3e} of max|out| {ref_max:.3e} (bound 1e-2*max) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms",
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bf16 matmul chain {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})",
             flush=True,
         )
-        result[label] = (float(err.max()), ms, plain_ms)
-    return max(r[0] for r in result.values()), result["density"][1], result["density"][2]
+        result[label] = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+    return {**result["density"], "max_abs_err": max(r["max_abs_err"] for r in result.values())}
+
+
+def kernel_wrappers():
+    """Kernel name → the wrapper that counts its launches."""
+    from nerfshop_tpu_torch.editing import operators
+    from nerfshop_tpu_torch.ops import fused_mlp, gather, segsum, table_ops
+
+    return {
+        "segsum": segsum.sorted_segment_rowsum_cuda,
+        "grid_encode": table_ops.grid_encode_cuda,
+        "fused_mlp": fused_mlp.fused_mlp_cuda,
+        "gather": gather.gather_cuda,
+        "tet_lookup": operators.tet_lookup_cuda,
+    }
+
+
+# ------------------------------------------------------------------ kernel D
+
+#: (label, form, x shape, idx shape, index range, dtype): the TPU gather
+#: kernels' shapes (rows 3-13 of the PERF.md kernel table)
+GATHER_PROBES = (
+    ("3 probe_arch ax1 blocked", "axis1", (1 << 16, 128), (1 << 16, 128), 128, torch.float32),
+    ("4 probe_pallas take 1-D", "rows", (4096,), (1024,), 4096, torch.float32),
+    ("5 probe_pallas row take", "rows", (4096, 128), (1024,), 4096, torch.float32),
+    ("6 probe_pallas ax1 lane", "axis1", (256, 512), (256, 128), 512, torch.float32),
+    ("7 probe_gather2 ax0 S=1024", "axis0", (1024, 128), (1024, 128), 1024, torch.float32),
+    ("7 probe_gather2 ax0 S=8192", "axis0", (8192, 128), (8192, 128), 8192, torch.float32),
+    ("8 probe_gather2 ax1 M=128", "axis1", (256, 128), (256, 128), 128, torch.float32),
+    ("8 probe_gather2 ax1 M=512", "axis1", (256, 512), (256, 512), 512, torch.float32),
+    ("9 probe_gather2 ax0 1M lookups", "axis0", (8192, 128), (8192, 128), 8192, torch.float32),
+    ("10 probe_chain ax1 i&127", "axis1", (1 << 16, 128), (1 << 16, 128), 128, torch.float32),
+    ("11 probe_honest2 ax1", "axis1", (1 << 16, 128), (1 << 16, 128), 128, torch.float32),
+    ("12 dyngather ax0 S=512 i32", "axis0", (512, 128), (512, 128), 512, torch.int32),
+    ("12 dyngather ax0 S=128 Q=256", "axis0", (128, 128), (256, 128), 128, torch.float32),
+    ("12 dyngather ax1 Q=4096 i32", "axis1", (4096, 128), (4096, 128), 128, torch.int32),
+    ("13 ax0 sweep S=16384", "axis0", (1 << 14, 128), (1 << 14, 128), 1 << 14, torch.float32),
+)
+
+
+def gather_case(label, form, x, idx):
+    """Kernel D against its plain version and the library call, bit for bit
+    → a dict of its numbers."""
+    from nerfshop_tpu_torch.ops import gather
+
+    ker = gather.gather_cuda(x, idx, form)
+    plain = gather.gather_plain(x, idx, form)
+    idx64 = idx.long()
+    if form == "rows":
+        lib_fn = lambda: torch.index_select(x, 0, idx64)  # noqa: E731
+    else:
+        lib_fn = lambda: torch.gather(x, 1 if form == "axis1" else 0, idx64)  # noqa: E731
+    lib = lib_fn()
+    torch.cuda.synchronize()
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    mism = int((bits(ker) != bits(plain)).sum())
+    check(ker.shape == plain.shape and mism == 0, f"kernel D differs from its plain version ({label}): {mism}")
+    check(torch.equal(bits(ker), bits(lib.reshape(ker.shape))), f"kernel D differs from the library call ({label})")
+    ms = median_ms(lambda: gather.gather_cuda(x, idx, form))
+    plain_ms = median_ms(lambda: gather.gather_plain(x, idx, form))
+    lib_ms = median_ms(lib_fn)
+    # bytes: the indices, the distinct source elements they touch, the output
+    S = x.shape[0]
+    C = x.numel() // S
+    if form == "rows":
+        src = int(torch.unique(idx).numel()) * C
+    elif form == "axis1":
+        src = int(torch.unique(torch.arange(idx.shape[0], device=idx.device)[:, None] * C + idx).numel())
+    else:
+        src = int(torch.unique(idx.long() * C + torch.arange(C, device=idx.device)[None, :]).numel())
+    b_ms, b_by = bound(nbytes(idx, ker) + src * 4)
+    print(
+        f"[gather] {label}: {form} x{tuple(x.shape)} {str(x.dtype)[6:]} idx{tuple(idx.shape)} {str(idx.dtype)[6:]}: "
+        f"bit-equal to plain and library; kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib_ms:.4f} ms "
+        f"bound {b_ms:.4f} ms ({b_by})",
+        flush=True,
+    )
+    return dict(max_abs_err=float(mism), ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_gather(dev, g):
+    """Kernel D at the TPU gather kernels' shapes, then at the render march's
+    (the fine-sort payload [8192, 512] f32 by its int64 permutation), which
+    is the entry of the kernels line."""
+    for label, form, xs, ids, hi, dtype in GATHER_PROBES:
+        if dtype == torch.float32:
+            x = torch.randn(xs, generator=g, device=dev)
+        else:
+            x = torch.randint(-(2**31), 2**31 - 1, xs, generator=g, device=dev, dtype=torch.int32)
+        idx = torch.randint(0, hi, ids, generator=g, device=dev, dtype=torch.int32)
+        gather_case(label, form, x, idx)
+    keys = torch.rand((8192, 512), generator=g, device=dev)
+    keys[:, 300:] += 2.0  # occupied candidates first, as the march's keys order them
+    perm = torch.sort(keys, dim=1).indices
+    t_f = torch.rand((8192, 512), generator=g, device=dev)
+    return gather_case("march fine-sort payload", "axis1", t_f, perm)
 
 
 def reset_launches():
-    from nerfshop_tpu_torch.ops import fused_mlp, segsum, table_ops
-
-    segsum.sorted_segment_rowsum_cuda.launches = 0
-    table_ops.grid_encode_cuda.launches = 0
-    fused_mlp.fused_mlp_cuda.launches = 0
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from nerfshop_tpu_torch.ops import fused_mlp, segsum, table_ops
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
-    return {
-        "segsum": segsum.sorted_segment_rowsum_cuda.launches,
-        "grid_encode": table_ops.grid_encode_cuda.launches,
-        "fused_mlp": fused_mlp.fused_mlp_cuda.launches,
-    }
+
+def check_launched(launches: dict, names, where: str) -> None:
+    check(all(launches[k] > 0 for k in names), f"a kernel of the {where} was not launched: {launches}")
 
 
 def psnr(img, gt):
@@ -338,8 +495,8 @@ def psnr(img, gt):
 
 
 def phase_main_path(dev):
-    from nerfshop_tpu.common import TestbedMode
-    from nerfshop_tpu.config import default_nerf_config
+    from nerfshop_tpu_torch.common import TestbedMode
+    from nerfshop_tpu_torch.config import default_nerf_config
     from nerfshop_tpu_torch.ops import grid as grid_lib
     from nerfshop_tpu_torch.testbed import Testbed
     from nerfshop_tpu_torch.train import nerf as nerf_train
@@ -365,7 +522,7 @@ def phase_main_path(dev):
     tail = float(np.mean(losses[-10:]))
     check(tail < 0.35 * losses[0], f"loss did not fall enough: first {losses[0]:.4e} last-10 mean {tail:.4e}")
     check(tb.stats.measured_samples_total > 0, "no samples measured")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched in training: {launches}")
+    check_launched(launches, ("segsum", "grid_encode", "fused_mlp", "gather"), "training path")
 
     # one full grid refresh, timed on a copy of the grid
     g = tb.grid
@@ -391,7 +548,7 @@ def phase_main_path(dev):
 def phase_render(tb, W=1920, H=1080):
     """The render path: ``Testbed.render(W, H, exact=True)`` of the trained
     model; the launch counts are those of the warm-up frame."""
-    from nerfshop_tpu.common import RenderMode
+    from nerfshop_tpu_torch.common import RenderMode
 
     tb.set_look_at(eye=CENTER + np.array([0.9, -0.9, 0.5], np.float32))
     torch.cuda.synchronize()
@@ -401,7 +558,7 @@ def phase_render(tb, W=1920, H=1080):
     first_s = time.perf_counter() - t0
     launches = read_launches()
     check(img.shape == (H, W, 4) and np.isfinite(img).all(), "1080p frame is not finite / of the expected shape")
-    check(launches["grid_encode"] > 0 and launches["fused_mlp"] > 0, f"a kernel was not launched in the frame: {launches}")
+    check_launched(launches, ("grid_encode", "fused_mlp", "gather"), "1080p frame")
     check(float(img[..., 3].max()) > 0.5, "1080p frame shows no content")
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -443,7 +600,7 @@ def phase_frame(tb, W=1920, H=1080):
         check(buf.shape == (H, W, 4) and np.isfinite(buf).all(), "frame buffer is not finite / of the expected shape")
         frames.append((round(tb.stats.frame_ms, 1), round(tb._dyn_res_factor, 4)))
     launches = read_launches()
-    check(launches["grid_encode"] > 0 and launches["fused_mlp"] > 0, f"a kernel was not launched in frame(): {launches}")
+    check_launched(launches, ("grid_encode", "fused_mlp", "gather"), "viewer path")
     print(f"[frame] {W}x{H} frame() x3 (ms, next dynamic-res factor): {frames}, launches {launches}", flush=True)
     return launches
 
@@ -488,6 +645,259 @@ def phase_snapshot(tb, xf, focal, principal):
     )
 
 
+# ------------------------------------------------------------------ the edit
+
+
+def ops_equal(a, b) -> bool:
+    """Two operator lists equal bit for bit."""
+    if [type(o) for o in a] != [type(o) for o in b]:
+        return False
+    for x, y in zip(a, b):
+        for f in type(x)._fields:
+            u, v = getattr(x, f), getattr(y, f)
+            if f.startswith("lut_"):
+                if u.res != v.res or not all(torch.equal(getattr(u, k), getattr(v, k)) for k in ("bbox_lo", "inv_cell", "cells")):
+                    return False
+            elif isinstance(u, torch.Tensor):
+                if not torch.equal(u, v):
+                    return False
+            elif u != v:
+                return False
+    return True
+
+
+def opacity_centroid_x(img) -> float:
+    a = img[..., 3]
+    return float((np.arange(img.shape[1])[None, :] * a).sum() / max(float(a.sum()), 1e-6))
+
+
+def timed_frames(tb, W, H, n=3):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        img = tb.render(W, H, spp=1, exact=True)
+        times.append(time.perf_counter() - t0)
+    return img, times
+
+
+#: the edit's cage move and the affine duplicate stacked on it
+CAGE_SHIFT = np.array([0.18, 0.0, 0.0], np.float32)
+SIDE_EYE = CENTER + np.array([0.0, -1.3, 0.0], np.float32)
+
+
+def duplicate_op(dev):
+    """Box around the moved sphere, copied −0.42 in x."""
+    from nerfshop_tpu_torch.editing.operators import AffineDuplicationOp
+
+    return AffineDuplicationOp.create(
+        center=CENTER + CAGE_SHIFT, half_extents=[0.25, 0.25, 0.25], transform_t=[-0.42, 0.0, 0.0], device=dev
+    )
+
+
+def scribble_cage(tb, focal, principal):
+    """Scribble → ``GrowingSelection`` → proxy cage → tets + MVC → operator:
+    the 16×16 centre pixels of the held-out view, grown over the cells the
+    renderer counts as occupied. → (gs, identity operator, host seconds per
+    stage, a summary line)."""
+    from nerfshop_tpu_torch.common import MIN_CONE_STEPSIZE, NERF_MIN_OPTICAL_THICKNESS
+
+    dev = tb.device
+    host = {}
+    b = view_rays(look_at(CENTER + np.array([0.9, 0.9, 0.5], np.float32)), focal, principal, dev)
+    centre = np.arange(RES // 2 - 8, RES // 2 + 8)
+    pix = torch.as_tensor((centre[:, None] * RES + centre[None, :]).reshape(-1), device=dev)
+    gs = tb.begin_cage_edit()
+    gs.density_threshold = float(torch.clamp_max(tb.grid.mean_density, NERF_MIN_OPTICAL_THICKNESS / MIN_CONE_STEPSIZE))
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        host[name] = time.perf_counter() - t0
+        return out
+
+    hits = stage("project", lambda: gs.project(tb.inference_params, tb.grid, b.origins[pix], b.directions[pix]))
+    check(hits >= 128, f"only {hits} of 256 scribble rays hit the sphere")
+    grown = stage("grow", lambda: gs.grow_region(tb.grid, n_steps=1 << 30))
+    sel_frac = float(gs.region.selection.mean())
+    check(not gs.region.queue and grown > 0 and sel_frac < 0.25, f"region growing: {grown} cells, {sel_frac:.4f} of the grid")
+    cage = stage("proxy", gs.compute_proxy)
+    tet_mesh = stage("tet+mvc", gs.extract_cage)
+    op = stage("luts", gs.make_operator)
+    lut = op.lut_def
+    summary = (
+        f"{hits} of 256 scribble rays hit, {len(gs.projected_cells)} seed cells, {grown} cells grown "
+        f"(threshold {gs.density_threshold:.4g}, {sel_frac:.5f} of the grid), cage {cage.n_vertices} vertices / "
+        f"{cage.n_faces} faces, {tet_mesh.n_tets} tets, LUT {lut.res}^3 x {lut.cells.shape[1]}"
+    )
+    return gs, op, host, summary
+
+
+def phase_edit(tb, focal, principal, W=1920, H=1080):
+    """The cage-edit path of the trained model through the facade: scribble
+    → GrowingSelection → operators added with a full grid refresh through
+    the stack → 1080p frames; then the edits file round trip."""
+    dev = tb.device
+    gs, op_identity, host, summary = scribble_cage(tb, focal, principal)
+    print(f"[edit] host stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in host.items()) + f"; {summary}", flush=True)
+
+    # identity cage: a refresh through the empty stack, then through the cage
+    tb.set_look_at(eye=CENTER + np.array([0.9, -0.9, 0.5], np.float32))
+    tb.refresh_grid_for_edits()
+    base = tb.render(W, H, spp=1, exact=True)
+    tb.add_edit_operator(op_identity)
+    ident = tb.render(W, H, spp=1, exact=True)
+    diff = np.abs(ident[..., :3] - base[..., :3])
+    d_mean, d_p99 = float(diff.mean()), float(np.quantile(diff, 0.99))
+    check(d_mean < 0.01 and d_p99 < 0.12, f"identity cage changed the frame: mean {d_mean:.4g} p99 {d_p99:.4g}")
+    check(float(base[..., 3].max()) > 0.5, "the unedited frame shows no content")
+    print(f"[edit] identity cage {W}x{H}: mean |drgb| {d_mean:.5f} (bound 0.01), p99 {d_p99:.5f} (bound 0.12)", flush=True)
+
+    # the cage moved +0.18 in x, seen from the side
+    tb.remove_edit_operator(0)
+    tb.set_look_at(eye=SIDE_EYE)
+    unedited, unedited_times = timed_frames(tb, W, H)
+    gs.translate_cage(CAGE_SHIFT)
+    t0 = time.perf_counter()
+    op_moved = gs.make_operator()
+    rebuild_s = time.perf_counter() - t0
+    tb.add_edit_operator(op_moved)
+    moved = tb.render(W, H, spp=1, exact=True)
+    shift_px = float(CAGE_SHIFT[0]) * float(tb._focal_for(W, H)[0]) / 1.3
+    dx = opacity_centroid_x(moved) - opacity_centroid_x(unedited)
+    check(dx >= 0.5 * shift_px, f"opacity centroid moved {dx:.1f} px, less than half the projected {shift_px:.1f} px")
+    r = 0.22 * float(tb._focal_for(W, H)[0]) / 1.3  # the sphere's projected radius
+    win = (slice(H // 2 - 30, H // 2 + 30), slice(int(W // 2 - 0.8 * r), int(W // 2 - 0.3 * r)))
+    a_old, a_new = float(unedited[win][..., 3].mean()), float(moved[win][..., 3].mean())
+    check(a_new < a_old, f"opacity at the old centre did not drop: {a_old:.4f} -> {a_new:.4f}")
+    print(
+        f"[edit] cage +0.18 x: opacity centroid +{dx:.1f} px (bound {0.5 * shift_px:.1f}), opacity left of the old "
+        f"centre {a_old:.4f} -> {a_new:.4f}; operator rebuild after the drag {rebuild_s:.3f} s",
+        flush=True,
+    )
+
+    # an affine duplicate of the moved content on top
+    tb.add_edit_operator(duplicate_op(dev))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    edited = tb.render(W, H, spp=1, exact=True)
+    frame_launches = {k: v - counts[k] for k, v in read_launches().items()}
+    check(float(edited[..., 3].sum()) > float(moved[..., 3].sum()), "the affine duplicate did not add opacity")
+    check(edited.shape == (H, W, 4) and np.isfinite(edited).all(), "edited frame is not finite / of the expected shape")
+    check_launched(frame_launches, ("grid_encode", "fused_mlp", "gather", "tet_lookup"), "edited frame")
+    torch.cuda.reset_peak_memory_stats()
+    _, edited_times = timed_frames(tb, W, H)
+    peak = torch.cuda.max_memory_allocated()
+    med_e, med_u = statistics.median(edited_times), statistics.median(unedited_times)
+    print(
+        f"[edit] affine duplicate on top: total opacity {float(moved[..., 3].sum()):.1f} -> {float(edited[..., 3].sum()):.1f}; "
+        f"{W}x{H} edited frame (2 operators) median of 3 {med_e * 1e3:.1f} ms "
+        f"({[round(t * 1e3, 1) for t in edited_times]}) vs unedited {med_u * 1e3:.1f} ms "
+        f"({[round(t * 1e3, 1) for t in unedited_times]}), peak memory {peak / 2**30:.3f} GiB, "
+        f"launches in one edited frame {frame_launches}",
+        flush=True,
+    )
+
+    # save → load: the same operators, and the same frame over the same grid
+    small = (W // 4, H // 4)
+    before = tb.render(*small, spp=1, exact=True)
+    ops_before = tb.edit_operators
+    g = tb.grid
+    saved = (g.density.clone(), g.occupancy.clone(), g.mean_density.clone())
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/edits.json"
+        tb.save_edits(path)
+        size = Path(path).stat().st_size
+        tb.load_edits(path)
+    check(ops_equal(ops_before, tb.edit_operators), "load_edits gave other operators than save_edits wrote")
+    g.density.copy_(saved[0])
+    g.occupancy, g.mean_density = saved[1], saved[2]
+    after = tb.render(*small, spp=1, exact=True)
+    check(np.array_equal(after, before), "the frame after the edits round trip differs")
+    print(f"[edit] save_edits -> load_edits: {size / 2**20:.2f} MiB, operators bit-equal, {small[0]}x{small[1]} frame bit-equal", flush=True)
+    return op_moved, frame_launches
+
+
+def phase_tetlookup(op, g, N=1 << 20):
+    """Kernel E against its plain version on 2^20 points, 90% inside the
+    moved cage's LUT box and 10% outside, strict and inclusive; then kernel
+    D's row take of the warp ([Nt, 12] rows by 2^20 tets). found and tet
+    must agree except at near ties: the two best candidate scores, or the
+    best score and the threshold, within 1e-6; bary within 1e-5 where the
+    tets agree."""
+    from nerfshop_tpu_torch.editing import operators as ops_lib
+
+    lut = op.lut_def
+    dev = lut.cells.device
+    lo = lut.bbox_lo
+    size = lut.res / lut.inv_cell
+    n_in = (N * 9) // 10
+    p = torch.cat([
+        lo + torch.rand((n_in, 3), generator=g, device=dev) * size,
+        lo + size * (1.05 + torch.rand((N - n_in, 3), generator=g, device=dev)),
+    ])
+    table = torch.cat([op.v0_def, op.inv_def.reshape(-1, 9)], dim=1).contiguous()
+    fan = (lut.cells >= 0).sum(dim=1)
+    res = lut.res
+    cell = torch.floor((p - lo) * lut.inv_cell).long()
+    inb = ((cell >= 0) & (cell < res)).all(dim=1)
+    ci = ((cell[:, 0] * res + cell[:, 1]) * res + cell[:, 2]).clamp(0, res**3 - 1)
+
+    # the two best scores of every point, for the near-tie rule
+    cand = lut.cells[ci]
+    top = torch.full((N, 2), float("-inf"), device=dev)
+    for c in range(cand.shape[1]):
+        tid = cand[:, c]
+        w = ops_lib._bary_rows(table[tid.clamp_min(0).long()], p)
+        sc = torch.minimum(torch.minimum(w[0], w[1]), torch.minimum(w[2], w[3]))
+        sc = torch.where((tid >= 0) & inb, sc, torch.full_like(sc, float("-inf")))
+        top = torch.sort(torch.cat([top, sc[:, None]], dim=1), dim=1, descending=True).values[:, :2]
+    result = {}
+    for eps in (-1e-5, 5e-3):
+        thr = ops_lib._threshold(eps, 0.08)
+        fk, tk, bk = ops_lib.tet_lookup_cuda(lut, table, p, thr)
+        fp, tp, bp = ops_lib.tet_lookup_plain(lut, table, p, thr)
+        torch.cuda.synchronize()
+        tie = ((top[:, 0] - top[:, 1]) < 1e-6) | ((top[:, 0] - thr).abs() < 1e-6)
+        bad = ((fk != fp) | (tk != tp)) & ~tie
+        same = tk == tp
+        b_err = float((bk - bp).abs()[same].max())
+        n_diff = int(((fk != fp) | (tk != tp)).sum())
+        check(int(bad.sum()) == 0 and b_err <= 1e-5,
+              f"kernel E disagrees (eps {eps}): {int(bad.sum())} points off the near ties, bary err {b_err:.3e}")
+        ms = median_ms(lambda: ops_lib.tet_lookup_cuda(lut, table, p, thr))
+        plain_ms = median_ms(lambda: ops_lib.tet_lookup_plain(lut, table, p, thr))
+        # bytes: positions in, found/tet/bary out, the distinct LUT rows read
+        # (up to the first −1) and the distinct table rows of the candidates;
+        # ops: ~24 fp32 per candidate visited, 21 for the winner's bary
+        vis = fan[ci] * inb
+        cells_read = torch.unique(ci[inb])
+        rows_read = int(torch.minimum(fan[cells_read] + 1, torch.full_like(fan[cells_read], lut.cells.shape[1])).sum())
+        tets_read = int(torch.unique(cand[inb][cand[inb] >= 0]).numel())
+        b_ms, b_by = bound(nbytes(p, fk, tk, bk) + rows_read * 4 + tets_read * 48, float(vis.sum()) * 24 + N * 21.0)
+        print(
+            f"[tetlookup] eps {eps:g} N={N} (90% in the LUT box): {n_diff} points differ, all at near ties "
+            f"({int(tie.sum())} near ties), bary max err {b_err:.3e} (bound 1e-5); kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); found {float(fk.float().mean()):.4f}",
+            flush=True,
+        )
+        result[eps] = dict(max_abs_err=float(int(bad.sum())), ms=ms, plain_ms=plain_ms, library_ms=None,
+                           bound_ms=b_ms, bound_by=b_by)
+    nz = fan[fan > 0].float()
+    print(
+        f"[tetlookup] LUT {res}^3 x {lut.cells.shape[1]}: fanout max {int(fan.max())} mean {float(nz.mean()):.2f} over "
+        f"{nz.numel()} non-empty cells, {float(fan[ci[inb]].float().mean()):.2f} per looked-up point; LUT "
+        f"{nbytes(lut.cells) / 2**20:.2f} MiB, {op.v0_def.shape[0]} tets",
+        flush=True,
+    )
+    # kernel D's row take of the warp: per-tet [Nt, 12] deltas by 2^20 tets
+    tet = ops_lib.tet_lookup_cuda(lut, table, p, -0.08)[1]
+    deltas = (op.verts_orig - op.verts_def).reshape(-1, 12).contiguous()
+    gather_case("warp row take [Nt, 12]", "rows", deltas, tet)
+    return result[-1e-5]
+
+
 def main() -> None:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -498,28 +908,32 @@ def main() -> None:
     enc = phase_encode(dev, g)
     phase_backward(dev, g)
     mlp = phase_mlp(dev, g)
+    gat = phase_gather(dev, g)
     tb, focal, principal, train_launches = phase_main_path(dev)
     render_launches = phase_render(tb)
     frame_launches = phase_frame(tb)
     xf = phase_held_out(tb, focal, principal)
     phase_snapshot(tb, xf, focal, principal)
-    launches = {k: train_launches[k] + render_launches[k] + frame_launches[k] for k in train_launches}
+    torch.cuda.synchronize()
+    reset_launches()
+    op, edited_frame_launches = phase_edit(tb, focal, principal)
+    edit_launches = read_launches()
+    check_launched(edit_launches, ("grid_encode", "fused_mlp", "gather", "tet_lookup"), "edit path")
+    tet = phase_tetlookup(op, g)
+    paths = {"train": train_launches, "render": render_launches, "frame": frame_launches, "edit": edit_launches}
+    print(f"[launches] per path: {paths}; in one edited 1080p frame: {edited_frame_launches}", flush=True)
+    launches = {k: sum(p[k] for p in paths.values()) for k in train_launches}
+    rows = (
+        ("sorted_segment_rowsum", "segsum", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", seg),
+        ("grid_encode", "grid_encode", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", enc),
+        ("fused_mlp", "fused_mlp", "fused_mlp.cu", "scratch/probe_arch.py:56", mlp),
+        ("gather", "gather", "gather.cu", "scratch/probe_arch.py:32", gat),
+        ("tet_lookup", "tet_lookup", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:74", tet),
+    )
     kernels = [
-        {
-            "name": "sorted_segment_rowsum", "route": "cuda", "source": "nerfshop_tpu_torch/csrc/segsum.cu",
-            "replaces": "nerfshop_tpu/ops/pallas_segsum.py:126", "launches": launches["segsum"],
-            "max_abs_err": seg[0], "ms": seg[1], "plain_ms": seg[2],
-        },
-        {
-            "name": "grid_encode", "route": "cuda", "source": "nerfshop_tpu_torch/csrc/grid_encode.cu",
-            "replaces": "nerfshop_tpu/ops/table_ops.py:239", "launches": launches["grid_encode"],
-            "max_abs_err": enc[0], "ms": enc[1], "plain_ms": enc[2],
-        },
-        {
-            "name": "fused_mlp", "route": "cuda", "source": "nerfshop_tpu_torch/csrc/fused_mlp.cu",
-            "replaces": "scratch/probe_arch.py:56", "launches": launches["fused_mlp"],
-            "max_abs_err": mlp[0], "ms": mlp[1], "plain_ms": mlp[2],
-        },
+        {"name": name, "route": "cuda", "source": f"nerfshop_tpu_torch/csrc/{src}", "replaces": repl,
+         "launches": launches[key], **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for name, key, src, repl, r in rows
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

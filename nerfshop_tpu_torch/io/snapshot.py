@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from nerfshop_tpu.common import GRID_VOLUME
+from nerfshop_tpu_torch.common import GRID_VOLUME
 from nerfshop_tpu_torch import weights
 from nerfshop_tpu_torch.io import msgpack_codec
 from nerfshop_tpu_torch.ops import coords

@@ -5,7 +5,7 @@ source, in parallel) and linked into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), placed in
 ``build/nerfshop_tpu_torch/`` at the root of the checkout and keyed by a
 hash of the sources and flags, then loaded with ``ctypes``. The same
-pattern as ``nerfshop_tpu/native``'s host library.
+pattern as the JAX package's ``native`` host library.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0. Nothing is
@@ -26,7 +26,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("segsum.cu", "grid_encode.cu", "fused_mlp.cu")
+SOURCES = ("segsum.cu", "grid_encode.cu", "fused_mlp.cu", "gather.cu", "tet_lookup.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "nerfshop_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -88,13 +88,17 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.nst_segsum.argtypes = [p, p, p, p, i, i, p]
         lib.nst_segsum.restype = i
         lib.nst_grid_encode.argtypes = [p, p, p, p, p, p, p, i, i, p]
         lib.nst_grid_encode.restype = i
         lib.nst_fused_mlp.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.nst_fused_mlp.restype = i
+        lib.nst_gather.argtypes = [p, p, p, ll, ll, i, i, i, i, p]
+        lib.nst_gather.restype = i
+        lib.nst_tet_lookup.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
+        lib.nst_tet_lookup.restype = i
         _lib = lib
     return _lib
 

@@ -100,6 +100,24 @@ class NerfNetwork(nn.Module):
         )
 
 
+class _Density(nn.Module):
+    def __init__(self, model: NerfNetwork):
+        super().__init__()
+        self.model = model
+
+    def forward(self, pos: torch.Tensor) -> torch.Tensor:
+        return self.model.density(pos)
+
+
+def density_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor) -> torch.Tensor:
+    """Activated density at warped ``pos`` with ``params`` (a state dict of
+    ``model``, e.g. the EMA copy) in place of the model's own; the model's
+    own when ``params`` is None."""
+    if params is None:
+        return model.density(pos)
+    return torch.func.functional_call(_Density(model), {f"model.{k}": v for k, v in params.items()}, (pos,))
+
+
 def build_nerf_network(
     config: dict,
     aabb_scale: int = 1,

@@ -6,7 +6,8 @@ Counterpart of ``nerfshop_tpu/ops/composite.py``::
 
 Samples with T_i below ``min_transmittance`` get zero weight through a mask
 (the reference's early-out), so autograd stops there exactly as ``jax.grad``
-does.
+does. The depth gather goes through :mod:`~nerfshop_tpu_torch.ops.gather`
+(kernel D on a CUDA device).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from nerfshop_tpu_torch.ops.gather import take_along
 
 
 class CompositeResult(NamedTuple):
@@ -42,7 +45,7 @@ def composite(
     w = torch.where(valid & alive, T_before * alpha, zero)
     rgb = torch.einsum("rk,rkc->rc", w, rgbs)
     opacity = w.sum(dim=-1)
-    depth = torch.gather(ts, 1, torch.argmax(w, dim=-1, keepdim=True))[:, 0]
+    depth = take_along(ts, torch.argmax(w, dim=-1, keepdim=True), axis=1)[:, 0]
     n_used = (valid & alive).sum(dim=-1).to(torch.int32)
     return CompositeResult(rgb, opacity, 1.0 - opacity, depth, w, n_used)
 

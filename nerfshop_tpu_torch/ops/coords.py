@@ -2,8 +2,8 @@
 
 Counterpart of the parts of ``nerfshop_tpu/ops/coords.py`` that training,
 rendering and snapshots use: ``BoundingBox`` (``from_aabb_scale``,
-``ray_intersect``), ``warp_position``, ``warp_direction``, ``calc_dt`` and
-the morton helpers.
+``ray_intersect``), ``warp_position``, ``warp_direction``, ``calc_dt``,
+``mip_from_pos``, ``cascaded_grid_coords`` and the morton helpers.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from nerfshop_tpu.common import GRID_RESOLUTION, MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE
+from nerfshop_tpu_torch.common import GRID_RESOLUTION, MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE
 
 
 class BoundingBox(NamedTuple):
@@ -54,6 +54,21 @@ def warp_direction(direction: torch.Tensor) -> torch.Tensor:
 
 def calc_dt(t: torch.Tensor, cone_angle) -> torch.Tensor:
     return torch.clamp(t * cone_angle, MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE)
+
+
+def mip_from_pos(pos: torch.Tensor, n_cascades: int) -> torch.Tensor:
+    """Cascade that covers ``pos`` (cascade k spans a cube of side 2^k
+    centred at 0.5) → int64."""
+    maxval = (pos - 0.5).abs().amax(dim=-1)
+    exponent = torch.floor(torch.log2(torch.clamp_min(maxval, 1e-12))).to(torch.int64) + 2
+    return torch.clamp(exponent, 0, n_cascades - 1)
+
+
+def cascaded_grid_coords(pos: torch.Tensor, mip: torch.Tensor) -> torch.Tensor:
+    """Positions → integer cell coords (ix, iy, iz) of cascade ``mip``,
+    clamped to [0, R − 1]."""
+    p = (pos - 0.5) * torch.exp2(-mip.to(pos.dtype))[..., None] + 0.5
+    return torch.clamp(torch.floor(p * GRID_RESOLUTION).to(torch.int64), 0, GRID_RESOLUTION - 1)
 
 
 # --- morton order (the density grid's layout in snapshots) -------------------

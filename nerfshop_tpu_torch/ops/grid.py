@@ -17,7 +17,7 @@ from typing import Callable
 
 import torch
 
-from nerfshop_tpu.common import (
+from nerfshop_tpu_torch.common import (
     DENSITY_GRID_DECAY,
     GRID_RESOLUTION,
     MIN_CONE_STEPSIZE,

@@ -5,8 +5,10 @@ the two-stage (coarse 16³ → fine 128³ per cascade) march, rank-based
 compaction with ``selection="first"`` (render) and ``"spread"`` (training:
 K stratified picks over all occupied candidates, dt scaled by the stride),
 the density-grid early stop on precomputed march fields, and the mapping
-of samples to network inputs. Sorts run on unique keys, so ``torch.sort``
-yields the same order as ``lax.sort``. The options that only the windowed
+of samples to network inputs. Sorts run on unique int32 keys (as in JAX),
+so ``torch.sort`` yields the same order as ``lax.sort``. The
+``take_along_axis`` gathers go through :mod:`~nerfshop_tpu_torch.ops.gather`
+(kernel D on a CUDA device). The options that only the windowed
 and tiled renderers read (``t_start``, ``n_segments``, ``with_aux`` →
 ``MarchAux``, ``tau_field``, ``global_t0``, ``intersect_margin``) are not
 ported, nor is ``density_grid``: the exact renderer hands the march its
@@ -19,9 +21,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from nerfshop_tpu.common import GRID_RESOLUTION, MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE
+from nerfshop_tpu_torch.common import GRID_RESOLUTION, MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE
 from nerfshop_tpu_torch.ops import coords
 from nerfshop_tpu_torch.ops.coords import BoundingBox
+from nerfshop_tpu_torch.ops.gather import take_along
 
 #: coarse-segment length in fine ladder steps
 COARSE_STRIDE = 8
@@ -132,7 +135,7 @@ def _sorted_first(keys: torch.Tensor, payloads, take: int):
     ks, perm = torch.sort(keys, dim=1)
     out = [ks[:, :take]]
     for p in payloads:
-        out.append(torch.gather(p, 1, perm)[:, :take])
+        out.append(take_along(p, perm, axis=1)[:, :take])
     return tuple(out)
 
 
@@ -195,7 +198,7 @@ def march_rays(
     seg_inside = T_end[:, :-1] < tmax[:, None]
     seg_occ = (probe[:, :-1] | probe[:, 1:]) & seg_inside
 
-    seg_ids = torch.arange(M1, dtype=torch.int64, device=dev)[None, :].expand(R, M1)
+    seg_ids = torch.arange(M1, dtype=torch.int32, device=dev)[None, :].expand(R, M1)
     seg_keys = torch.where(seg_occ, seg_ids, seg_ids + M1)
     (seg_sorted,) = _sorted_first(seg_keys, (), M1)
     n_seg = seg_occ.sum(dim=1)
@@ -206,7 +209,7 @@ def march_rays(
         ar_s = torch.arange(S, dtype=torch.float32, device=dev)[None, :]
         js_raw = ((ar_s + u_s) * stride_s[:, None]).to(torch.int64)
         js = torch.minimum(js_raw, torch.clamp_min(n_seg, 1)[:, None] - 1)
-        sel_keys = torch.gather(seg_sorted, 1, js)
+        sel_keys = take_along(seg_sorted, js, axis=1)
         pick_ok = js_raw < n_seg[:, None]
         seg_valid = (sel_keys < M1) & pick_ok
     else:
@@ -229,7 +232,7 @@ def march_rays(
         occ_f = occ_f & keep
 
     nocc = occ_f.sum(dim=1)
-    fine_ids = torch.arange(J, dtype=torch.int64, device=dev)[None, :].expand(R, J)
+    fine_ids = torch.arange(J, dtype=torch.int32, device=dev)[None, :].expand(R, J)
     fine_keys = torch.where(occ_f, fine_ids, fine_ids + J)
     _, t_sorted = _sorted_first(fine_keys, (T_f,), J)
     dt_sorted = coords.calc_dt(t_sorted, cone_angle)
@@ -240,8 +243,8 @@ def march_rays(
         u = spread_rng if spread_rng is not None else torch.full((R, K), 0.5, device=dev)
         jk = ((ks + u) * stride_f[:, None]).to(torch.int64)
         jk = torch.minimum(jk, torch.clamp_min(nocc, 1)[:, None] - 1)
-        out_t = torch.gather(t_sorted, 1, jk)
-        out_dt = torch.gather(dt_sorted, 1, jk) * torch.clamp(stride_s * stride_f, 1.0, spread_stride_cap)[:, None]
+        out_t = take_along(t_sorted, jk, axis=1)
+        out_dt = take_along(dt_sorted, jk, axis=1) * torch.clamp(stride_s * stride_f, 1.0, spread_stride_cap)[:, None]
     else:
         out_t = t_sorted[:, :K]
         out_dt = dt_sorted[:, :K]

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from nerfshop_tpu.common import TonemapCurve
+from nerfshop_tpu_torch.common import TonemapCurve
 
 
 def srgb_to_linear(x: torch.Tensor) -> torch.Tensor:

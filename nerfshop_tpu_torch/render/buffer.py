@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from nerfshop_tpu.common import TonemapCurve
+from nerfshop_tpu_torch.common import TonemapCurve
 from nerfshop_tpu_torch.ops import tonemap as tm
 
 

@@ -1,20 +1,22 @@
 """Exact frame rendering: rays → march → field → composite, chunk by chunk.
 
 Counterpart of the exact path of ``nerfshop_tpu/render/renderer.py``:
-``RenderOptions``, ``FrameOutput``, ``_eval_window`` (without edit
-operators), ``_render_chunk`` and ``render_frame``. Each pixel chunk runs
-one occupancy march with the whole sample budget (``k_samples ×
-n_windows``, selection "first", the density-grid early stop), one field
-evaluation of every slot (the hash-grid encode is kernel B and both MLPs
-are kernel C on a CUDA device, since nothing here needs a gradient), and
-one composite with the transmittance cutoff.
+``RenderOptions``, ``FrameOutput``, ``_eval_window``, ``_render_chunk`` and
+``render_frame``. Each pixel chunk runs one occupancy march with the whole
+sample budget (``k_samples × n_windows``, selection "first", the
+density-grid early stop), one field evaluation of every slot (the hash-grid
+encode is kernel B and both MLPs are kernel C on a CUDA device, since
+nothing here needs a gradient), and one composite with the transmittance
+cutoff. With edit operators, every slot's world position and direction go
+through the stack newest-first (``editing/operators.py``) before the field,
+and vacated samples get σ = 0.
 
 The march fields (the dilated coarse occupancy and the occupancy-masked
 density) are built once per frame and handed to every chunk's march.
 
 Not ported, each raising ``NotImplementedError``: ``RenderMode.Normals``
-(it needs the encode's gradient with respect to positions), edit
-operators, the envmap background, extra network dims and
+(it needs the encode's gradient with respect to positions), operators that
+carry a Poisson membrane, the envmap background, extra network dims and
 ``compact_frac > 0``. The tiled render paths stay with the JAX package.
 """
 
@@ -25,7 +27,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from nerfshop_tpu.common import MIN_CONE_STEPSIZE, MIN_TRANSMITTANCE_RENDER, RenderMode
+from nerfshop_tpu_torch.common import MIN_CONE_STEPSIZE, MIN_TRANSMITTANCE_RENDER, RenderMode
 from nerfshop_tpu_torch.ops import composite as comp
 from nerfshop_tpu_torch.ops import coords, march
 from nerfshop_tpu_torch.ops import rays as rays_lib
@@ -36,9 +38,10 @@ NEAR_DISTANCE_RENDER = 0.05
 @dataclass(frozen=True)
 class RenderOptions:
     """The fields and defaults of the JAX ``RenderOptions``. ``eval_slab``,
-    ``membrane_mode`` and ``n_edit_operators`` serve the tiled path and the
-    edit operators, which are not ported; they are kept so that options
-    move between the two packages unchanged."""
+    ``membrane_mode`` and ``n_edit_operators`` serve the tiled path, the
+    membrane and the compiled-chunk cache of the JAX package, which are not
+    ported; they are kept so that options move between the two packages
+    unchanged."""
 
     k_samples: int = 32
     n_candidates: int = 1024
@@ -73,18 +76,34 @@ def _field(model, params: Optional[Dict[str, torch.Tensor]]):
     return lambda p, d: torch.func.functional_call(model, params, (p, d))
 
 
-def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: RenderOptions, aabb):
-    """Field evaluation of every slot of one march → (σ [R, K], rgb [R, K, 3])."""
+def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: RenderOptions, aabb, operators=()):
+    """Field evaluation of every slot of one march, through the edit stack
+    when there is one → (σ [R, K], rgb [R, K, 3])."""
     R, K = samples.t.shape
-    pos_w, dir_w = march.samples_to_network_inputs(samples, origins, directions, aabb)
+    empty = None
+    if operators:
+        from nerfshop_tpu_torch.editing import operators as op_lib
+
+        pos_world = origins[:, None, :] + samples.t[..., None] * directions[:, None, :]
+        dirs_world = directions[:, None, :].expand_as(pos_world)
+        p, dvec, empty = op_lib.map_samples_through_stack(
+            list(operators), pos_world.reshape(-1, 3), dirs_world.reshape(-1, 3)
+        )
+        pos_w = torch.clamp(coords.warp_position(p, aabb), 0.0, 1.0)
+        dir_w = coords.warp_direction(dvec)
+    else:
+        pos_w, dir_w = march.samples_to_network_inputs(samples, origins, directions, aabb)
     flat_pos = pos_w.reshape(R * K, 3)
     rgb, sigma = field(flat_pos, dir_w.reshape(R * K, 3))
     if opts.mode == RenderMode.Positions:
         rgb = flat_pos
+    if empty is not None:
+        # vacated source samples: α = 0 at composite time
+        sigma = torch.where(empty, torch.zeros_like(sigma), sigma)
     return sigma.reshape(R, K), rgb.reshape(R, K, 3)
 
 
-def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions, bg):
+def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions, bg, operators=()):
     """One pixel chunk → (rgba [R, 4], depth [R])."""
     dev = origins.device
     aabb = coords.BoundingBox.from_aabb_scale(opts.aabb_scale, device=dev)
@@ -112,7 +131,7 @@ def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions,
         use_grid_early_stop=opts.use_grid_early_stop, selection="first",
         coarse_field=coarse, fine_field=fine,
     )
-    sigma, rgb_s = _eval_window(field, samples, origins, directions, opts, aabb)
+    sigma, rgb_s = _eval_window(field, samples, origins, directions, opts, aabb, operators)
     res = comp.composite(sigma, rgb_s, samples.dt, samples.t, samples.valid, opts.min_transmittance)
     ones3 = torch.ones((1, 3), device=dev)
     if opts.mode in (RenderMode.Depth, RenderMode.Distance):
@@ -165,8 +184,8 @@ def render_frame(
     own parameters. ``lens`` is 'pinhole', 'ftheta' or 'latlong'."""
     if opts.mode == RenderMode.Normals:
         raise NotImplementedError("RenderMode.Normals needs the encode's position gradient, which is not ported")
-    if operators:
-        raise NotImplementedError("edit operators are not ported")
+    if any(getattr(op, "membrane", None) is not None for op in operators):
+        raise NotImplementedError("edit operators with a Poisson membrane are not ported (editing/poisson.py)")
     if envmap is not None:
         raise NotImplementedError("the envmap background is not ported")
     if extra_dims is not None:
@@ -192,7 +211,9 @@ def render_frame(
     fields = march_fields(grid)
     rgba, depth = [], []
     for i in range(0, n + n_pad, chunk):
-        rgba_c, depth_c = _render_chunk(field, grid, fields, origins[i : i + chunk], dirs[i : i + chunk], opts, bg)
+        rgba_c, depth_c = _render_chunk(
+            field, grid, fields, origins[i : i + chunk], dirs[i : i + chunk], opts, bg, tuple(operators)
+        )
         rgba.append(rgba_c)
         depth.append(depth_c)
     return FrameOutput(torch.cat(rgba)[:n].reshape(H, W, 4), torch.cat(depth)[:n].reshape(H, W))

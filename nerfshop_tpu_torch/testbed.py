@@ -5,10 +5,13 @@ a config, load a scene (``load_training_data``, or ``set_training_data``
 with an in-memory ``NerfDataset``), ``train`` (a grid refresh every 16
 steps, full during the first 256, the degenerate-training guards and the
 adaptive (rays, K) bucket), the camera API, ``render`` / ``render_dynamic``
-/ ``frame`` through the exact renderer, and ``save_snapshot`` /
-``load_snapshot`` in the native format. ``render`` always takes the exact
-path: the tiled path is not ported, and ``exact=False`` raises. Editing and
-the other testbed modes are not ported yet.
+/ ``frame`` through the exact renderer, ``save_snapshot`` /
+``load_snapshot`` in the native format, and the edit API (``begin_cage_edit``
+→ a ``GrowingSelection``; ``add_edit_operator`` and its siblings, which
+refresh the density grid through the operator stack; ``save_edits`` /
+``load_edits``). ``render`` always takes the exact path, through the edit
+stack: the tiled path is not ported, and ``exact=False`` raises. The other
+testbed modes are not ported yet.
 
 Without a ``device`` the testbed takes ``cuda:0`` and raises when CUDA is
 absent; the CPU runs only when asked for by name (``device="cpu"``).
@@ -26,8 +29,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from nerfshop_tpu.common import DEFAULT_BATCH_SIZE, DEFAULT_STEPS_PER_FRAME, RenderMode, TestbedMode, TonemapCurve
-from nerfshop_tpu.config import ConfigDict, default_nerf_config, load_network_config
+from nerfshop_tpu_torch.common import DEFAULT_BATCH_SIZE, DEFAULT_STEPS_PER_FRAME, RenderMode, TestbedMode, TonemapCurve
+from nerfshop_tpu_torch.config import ConfigDict, default_nerf_config, load_network_config
 
 
 def default_device() -> torch.device:
@@ -124,6 +127,7 @@ class Testbed:
         self._trained_mask = None
         self._step_ready = False
         self._last_depth: Optional[np.ndarray] = None
+        self._edit_operators: list = []
         #: dynamic-resolution factor in [1/8, 1]
         self._dyn_res_factor = 1.0
         self._view_distance = 1.5
@@ -141,14 +145,14 @@ class Testbed:
     # ------------------------------------------------------------------- data
 
     def load_training_data(self, path: str, downscale: int = 1) -> None:
-        from nerfshop_tpu.data import nerf_loader
+        from nerfshop_tpu_torch.data import nerf_loader
 
         path = Path(path)
         json_path = path if path.suffix == ".json" else path / "transforms.json"
         self.set_training_data(nerf_loader.load_nerf(json_path, downscale=downscale))
 
     def set_training_data(self, ds) -> None:
-        """Use an in-memory ``nerfshop_tpu.data.nerf_loader.NerfDataset``."""
+        """Use an in-memory ``data.nerf_loader.NerfDataset``."""
         if getattr(ds, "envmap_path", None):
             raise NotImplementedError("envmap training is not ported")
         self._dataset = ds
@@ -340,7 +344,7 @@ class Testbed:
 
     def set_nerf_camera_matrix(self, nerf_matrix: np.ndarray) -> None:
         """Set the view from a nerf-convention (transforms.json) matrix."""
-        from nerfshop_tpu.data.nerf_loader import nerf_matrix_to_ngp
+        from nerfshop_tpu_torch.data.nerf_loader import nerf_matrix_to_ngp
 
         ds = self._dataset
         scale = ds.scale if ds else 0.33
@@ -506,6 +510,7 @@ class Testbed:
             out = renderer.render_frame(
                 self._model, self.inference_params, self._grid, (width, height), t(cam), t(focal), t(principal),
                 distortion=dist, opts=opts, subpixel_jitter=jitter, lens=lens, ftheta_coeffs=ftheta, dof_uv=dof_uv,
+                operators=tuple(self._edit_operators),
             )
             buf.accumulate(out.rgba, out.depth)
         self._last_depth = out.depth.cpu().numpy()
@@ -544,6 +549,81 @@ class Testbed:
         if (w, h) != (width, height):
             img = upsample_bilinear(img, width, height)
         return img.cpu().numpy()
+
+    # ---------------------------------------------------------------- editing
+
+    def add_edit_operator(self, op, refresh_grid: bool = True) -> None:
+        """Add an operator and refresh the density grid through the stack, so
+        that the march reaches the deformed target region."""
+        self._edit_operators.append(op)
+        if refresh_grid and self._grid is not None and self._state is not None:
+            self.refresh_grid_for_edits()
+
+    def replace_edit_operator(self, idx: int, op, refresh_grid: bool = True) -> None:
+        """Swap an applied operator in place (a drag of an applied cage) and
+        refresh the grid."""
+        self._edit_operators[idx] = op
+        if refresh_grid and self._grid is not None and self._state is not None:
+            self.refresh_grid_for_edits()
+
+    def remove_edit_operator(self, idx: int) -> None:
+        self._edit_operators.pop(idx)
+        if self._grid is not None and self._state is not None:
+            self.refresh_grid_for_edits()
+
+    def refresh_grid_for_edits(self) -> None:
+        """Full density-grid re-estimate through the operator stack, from the
+        EMA parameters; vacated cells clear on the −1 sentinel."""
+        from nerfshop_tpu_torch.train import nerf as nerf_train
+
+        nerf_train.update_grid(
+            self._model, self._grid, self._train_cfg, self.generator, full_refresh=True,
+            operators=tuple(self._edit_operators), params=self.inference_params,
+        )
+
+    @property
+    def edit_operators(self) -> list:
+        return list(self._edit_operators)
+
+    def begin_cage_edit(self):
+        """Start a cage-deformation edit → a ``GrowingSelection`` bound to
+        this testbed's model, scene box and device."""
+        from nerfshop_tpu_torch.editing.growing_selection import GrowingSelection
+        from nerfshop_tpu_torch.ops import coords
+
+        if self._model is None:
+            raise RuntimeError("no network: pass a config or load training data or a snapshot first")
+        return GrowingSelection(
+            model=self._model,
+            aabb=coords.BoundingBox.from_aabb_scale(self._train_cfg.aabb_scale, device=self.device),
+            device=self.device,
+            cone_angle=self._train_cfg.cone_angle,
+        )
+
+    def clean_empty_space(self, n_iters: int = 1) -> None:
+        """Partial density-grid re-estimates through the operator stack."""
+        from nerfshop_tpu_torch.train import nerf as nerf_train
+
+        for _ in range(n_iters):
+            nerf_train.update_grid(
+                self._model, self._grid, self._train_cfg, self.generator, full_refresh=False,
+                operators=tuple(self._edit_operators), params=self.inference_params,
+            )
+
+    def save_edits(self, path: str) -> None:
+        """Write the operator list (edits JSON v1, readable by both packages)."""
+        from nerfshop_tpu_torch.editing import serialization
+
+        serialization.save_edits(path, self._edit_operators, {"mode": self.mode.value})
+
+    def load_edits(self, path: str) -> None:
+        """Replace the operator list by an edits file's and refresh the grid
+        through it."""
+        from nerfshop_tpu_torch.editing import serialization
+
+        self._edit_operators = serialization.load_edits(path, self.device)
+        if self._edit_operators and self._model is not None and self._grid is not None and self._state is not None:
+            self.refresh_grid_for_edits()
 
     # --------------------------------------------------------------- snapshots
 
@@ -591,7 +671,7 @@ class Testbed:
         self._network_config = ConfigDict(snap["network_config"])
         meta = snap.get("nerf")
         if meta and self._dataset is None:
-            from nerfshop_tpu.data.nerf_loader import NerfDataset
+            from nerfshop_tpu_torch.data.nerf_loader import NerfDataset
 
             self._dataset = NerfDataset(
                 images=np.zeros((meta["n_images"], 2, 2, 4), np.float32),

@@ -18,7 +18,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from nerfshop_tpu.common import MIN_CONE_STEPSIZE, MIN_TRANSMITTANCE_EVAL, NERF_MIN_OPTICAL_THICKNESS
+from nerfshop_tpu_torch.common import MIN_CONE_STEPSIZE, MIN_TRANSMITTANCE_EVAL, NERF_MIN_OPTICAL_THICKNESS
 from nerfshop_tpu_torch.models import nerf_network as nn_lib
 from nerfshop_tpu_torch.models.nerf_network import NerfNetwork
 from nerfshop_tpu_torch.ops import composite as comp
@@ -38,7 +38,7 @@ class DeviceDataset(NamedTuple):
 
     @staticmethod
     def from_dataset(ds, device) -> "DeviceDataset":
-        """From a ``nerfshop_tpu.data.nerf_loader.NerfDataset``."""
+        """From a ``data.nerf_loader.NerfDataset``."""
         rs = np.asarray(getattr(ds, "rolling_shutter", np.zeros(4)), np.float32)
         if getattr(ds, "xforms_end", None) is not None and (rs != 0).any():
             raise NotImplementedError("rolling-shutter / motion-blur training is not ported")
@@ -195,12 +195,26 @@ def train_step(
     return aux
 
 
-def make_density_fn(model: NerfNetwork, aabb: coords.BoundingBox):
-    """World positions [N, 3] → activated density [N] (for the grid update)."""
+def make_density_fn(
+    model: NerfNetwork, aabb: coords.BoundingBox, operators: tuple = (), params: Optional[Dict[str, torch.Tensor]] = None
+):
+    """World positions [N, 3] → activated density [N] (for the grid update),
+    with ``params`` (a state dict such as the EMA copy) or the model's own.
+    With edit operators, positions are warped through the stack
+    newest-first and vacated source positions read −1, the sentinel on
+    which the grid update clears a cell outright."""
 
     def fn(pos_world: torch.Tensor) -> torch.Tensor:
+        kill = None
+        if operators:
+            from nerfshop_tpu_torch.editing import operators as op_lib
+
+            pos_world, kill = op_lib.map_positions_through_stack(list(operators), pos_world)
         pos_w = torch.clamp(coords.warp_position(pos_world, aabb), 0.0, 1.0)
-        return model.density(pos_w)
+        sigma = nn_lib.density_with(model, params, pos_w)
+        if kill is not None:
+            sigma = torch.where(kill, torch.full_like(sigma, -1.0), sigma)
+        return sigma
 
     return fn
 
@@ -213,14 +227,20 @@ def update_grid(
     generator: torch.Generator,
     full_refresh: bool,
     trained_mask: Optional[torch.Tensor] = None,
+    operators: tuple = (),
+    params: Optional[Dict[str, torch.Tensor]] = None,
 ) -> grid_lib.OccupancyGrid:
-    """Density refresh + EMA + bitfield rebuild (every 16 training steps).
-    Cells outside every training camera's view (``trained_mask`` False) are
-    set to density −1 and so never become occupied."""
+    """Density refresh + EMA + bitfield rebuild (every 16 training steps, and
+    after every change to the edit stack). Cells outside every training
+    camera's view (``trained_mask`` False) are set to density −1 and so
+    never become occupied. ``operators`` and ``params`` go to
+    :func:`make_density_fn`."""
     dev = grid.density.device
     aabb = coords.BoundingBox.from_aabb_scale(cfg.aabb_scale, device=dev)
     z_lo, jitter = grid_lib.draw_refresh(cfg.n_cascades, full_refresh, generator, dev)
-    grid_lib.update_density_grid(grid, make_density_fn(model, aabb), cfg.n_cascades, full_refresh, z_lo, jitter)
+    grid_lib.update_density_grid(
+        grid, make_density_fn(model, aabb, operators, params), cfg.n_cascades, full_refresh, z_lo, jitter
+    )
     if trained_mask is not None:
         grid.density.masked_fill_(~trained_mask, -1.0)
     return grid_lib.update_bitfield(grid)

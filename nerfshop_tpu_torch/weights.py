@@ -11,6 +11,9 @@ A snapshot stores the same leaves flat under ``/``-joined paths
 (``/pos_encoding/table``, ``/density_mlp/weights/0``, …);
 :func:`flat_from_state` and :func:`state_from_flat` move the parameters or
 their EMA copy between that form and a state dict.
+
+:func:`operators_from_jax` and :func:`operators_to_jax` move edit
+operators between the two packages.
 """
 
 from __future__ import annotations
@@ -48,6 +51,75 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
         n = sum(1 for k in state if k.startswith(f"{mlp}.weights."))
         tree[mlp] = {"weights": [np_of(state[f"{mlp}.weights.{i}"]) for i in range(n)]}
     return tree
+
+
+_LUT_ARRAYS = ("bbox_lo", "inv_cell", "cells")
+
+
+def operators_from_jax(ops, device: torch.device) -> list:
+    """JAX edit operators (``CageDeformationOp`` / ``AffineDuplicationOp``
+    named tuples, read by their field names; any array type numpy takes) →
+    the port's operators on ``device``. A JAX operator with a Poisson
+    membrane raises ``NotImplementedError``."""
+    from nerfshop_tpu_torch.editing.operators import AFFINE_ARRAYS, CAGE_ARRAYS, AffineDuplicationOp, CageDeformationOp
+    from nerfshop_tpu_torch.editing.tet_mesh import TetLut
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device)
+
+    out = []
+    for op in ops:
+        if hasattr(op, "lut_def"):
+            if getattr(op, "membrane", None) is not None:
+                raise NotImplementedError("the Poisson membrane (editing/poisson.py) is not ported")
+
+            def lut(lt):
+                return TetLut(*(t(getattr(lt, k)) for k in _LUT_ARRAYS), int(lt.res))
+
+            out.append(
+                CageDeformationOp(
+                    lut_def=lut(op.lut_def), lut_orig=lut(op.lut_orig), copy_mode=bool(np.asarray(op.copy_mode)),
+                    **{k: t(getattr(op, k)) for k in CAGE_ARRAYS},
+                )
+            )
+        elif hasattr(op, "box_center"):
+            out.append(
+                AffineDuplicationOp(
+                    **{k: t(getattr(op, k)) for k in AFFINE_ARRAYS},
+                    hide_original=bool(np.asarray(op.hide_original)),
+                )
+            )
+        else:
+            raise TypeError(f"not an edit operator: {type(op)}")
+    return out
+
+
+def operators_to_jax(ops) -> list:
+    """The port's operators → one dict per operator with the JAX named
+    tuple's type name under ``"type"`` and its fields as numpy arrays (the
+    LUTs as dicts of ``bbox_lo``, ``inv_cell``, ``cells``, ``res``), ready
+    for ``CageDeformationOp(**fields)`` / ``AffineDuplicationOp(**fields)``
+    once the arrays are moved to JAX."""
+    from nerfshop_tpu_torch.editing.operators import AFFINE_ARRAYS, CAGE_ARRAYS, AffineDuplicationOp, CageDeformationOp
+
+    def np_of(a):
+        return a.detach().cpu().numpy()
+
+    out = []
+    for op in ops:
+        if isinstance(op, CageDeformationOp):
+            d = {"type": "CageDeformationOp", "copy_mode": np.asarray(op.copy_mode)}
+            for k in ("lut_def", "lut_orig"):
+                lt = getattr(op, k)
+                d[k] = {**{a: np_of(getattr(lt, a)) for a in _LUT_ARRAYS}, "res": lt.res}
+            d.update({k: np_of(getattr(op, k)) for k in CAGE_ARRAYS})
+        elif isinstance(op, AffineDuplicationOp):
+            d = {"type": "AffineDuplicationOp", "hide_original": np.asarray(op.hide_original)}
+            d.update({k: np_of(getattr(op, k)) for k in AFFINE_ARRAYS})
+        else:
+            raise TypeError(f"not an edit operator: {type(op)}")
+        out.append(d)
+    return out
 
 
 def snapshot_path(name: str) -> str:

@@ -13,6 +13,7 @@ from nerfshop_tpu.models import nerf_network as jnn
 from nerfshop_tpu.ops import grid as jgrid
 from nerfshop_tpu.ops import sampling as jsampling
 from nerfshop_tpu.render import renderer as jrender
+from nerfshop_tpu_torch import common as tcommon
 from nerfshop_tpu_torch import weights
 from nerfshop_tpu_torch.models import nerf_network as tnn
 from nerfshop_tpu_torch.ops import grid as tgrid
@@ -75,7 +76,7 @@ def _render_both(scene, opts_kw, xform=None, focal=(20.0, 20.0), principal=(0.5,
     base = dict(k_samples=16, n_windows=2, n_candidates=512, chunk=128)
     base.update(opts_kw)
     jopts = jrender.RenderOptions(**base)
-    topts = trender.RenderOptions(**base)
+    topts = trender.RenderOptions(**{**base, "mode": tcommon.RenderMode(jopts.mode.value)})
     jkw = {k: jnp.asarray(v) for k, v in kw.items() if v is not None and k != "lens"}
     tkw = {k: torch.from_numpy(np.asarray(v)) for k, v in kw.items() if v is not None and k != "lens"}
     if "lens" in kw:
@@ -203,9 +204,12 @@ def test_unported_options_raise(scene, what):
     _, _, _, tm, tg = scene
     opts, kw = trender.RenderOptions(chunk=128), {}
     if what == "normals":
-        opts = trender.RenderOptions(chunk=128, mode=RenderMode.Normals)
+        opts = trender.RenderOptions(chunk=128, mode=tcommon.RenderMode.Normals)
     elif what == "operators":
-        kw["operators"] = (object(),)
+        # edit operators are ported; one that carries a Poisson membrane is not
+        from nerfshop_tpu_torch.editing.operators import CageDeformationOp
+
+        kw["operators"] = (CageDeformationOp(*([None] * 9), copy_mode=False, membrane=object()),)
     elif what == "envmap":
         kw["envmap"] = torch.zeros(4, 8, 4)
     elif what == "extra_dims":
@@ -220,6 +224,10 @@ def test_unported_options_raise(scene, what):
 def test_render_options_match_jax_fields():
     import dataclasses
 
-    jf = {f.name: f.default for f in dataclasses.fields(jrender.RenderOptions)}
-    tf = {f.name: f.default for f in dataclasses.fields(trender.RenderOptions)}
+    # enums by value: each package has its own RenderMode
+    def plain(v):
+        return v.value if isinstance(v, (RenderMode, tcommon.RenderMode)) else v
+
+    jf = {f.name: plain(f.default) for f in dataclasses.fields(jrender.RenderOptions)}
+    tf = {f.name: plain(f.default) for f in dataclasses.fields(trender.RenderOptions)}
     assert jf == tf

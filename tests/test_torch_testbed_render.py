@@ -14,6 +14,7 @@ from nerfshop_tpu.ops import grid as jgrid
 from nerfshop_tpu.ops import tonemap as jtm
 from nerfshop_tpu.render import buffer as jbuffer
 from nerfshop_tpu.testbed import Testbed as JTestbed
+from nerfshop_tpu_torch import common as tcommon
 from nerfshop_tpu_torch import testbed as ttestbed
 from nerfshop_tpu_torch import weights
 from nerfshop_tpu_torch.ops import grid as tgrid
@@ -40,7 +41,8 @@ def test_tonemap_matches(curve):
     # within 1e-6 (pow/exp differ by ulps between XLA and torch)
     x = np.random.default_rng(0).uniform(-0.2, 4.0, (64, 3)).astype(np.float32)
     ref = np.asarray(jtm.apply_tonemap(jnp.asarray(x), curve))
-    np.testing.assert_allclose(ttm.apply_tonemap(torch.from_numpy(x), curve).numpy(), ref, rtol=0, atol=1e-6)
+    tcurve = tcommon.TonemapCurve(curve.value)
+    np.testing.assert_allclose(ttm.apply_tonemap(torch.from_numpy(x), tcurve).numpy(), ref, rtol=0, atol=1e-6)
     for jf, tf in ((jtm.linear_to_srgb, ttm.linear_to_srgb), (jtm.srgb_to_linear, ttm.srgb_to_linear)):
         np.testing.assert_allclose(tf(torch.from_numpy(x)).numpy(), np.asarray(jf(jnp.asarray(x))), rtol=0, atol=1e-6)
 
@@ -59,8 +61,10 @@ def test_render_buffer_matches(curve):
     assert tb.spp == jb.spp == 5
     np.testing.assert_allclose(tb.accumulate_rgba.numpy(), np.asarray(jb.accumulate_rgba), rtol=0, atol=1e-6)
     np.testing.assert_allclose(tb.depth.numpy(), np.asarray(jb.depth), rtol=0, atol=1e-6)
+    tcurve = tcommon.TonemapCurve(curve.value)
     for kw in (dict(exposure=0.5, curve=curve), dict(output_srgb=False, curve=curve), dict(input_is_srgb_space=True)):
-        np.testing.assert_allclose(tb.tonemapped(**kw).numpy(), np.asarray(jb.tonemapped(**kw)), rtol=0, atol=1e-6)
+        tkw = {**kw, "curve": tcurve} if "curve" in kw else kw
+        np.testing.assert_allclose(tb.tonemapped(**tkw).numpy(), np.asarray(jb.tonemapped(**kw)), rtol=0, atol=1e-6)
     tb.resize((3, 2))
     assert tb.spp == 0 and tuple(tb.accumulate_rgba.shape) == (2, 3, 4)
 
