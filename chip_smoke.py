@@ -40,7 +40,8 @@ render, frame and edit), error, times, bound and library-call time, the
 "device": {...}}``. Any failed check raises, so the script exits non-zero;
 without a CUDA device it exits non-zero before printing a result. Kernel
 times are medians over repeated runs, measured with CUDA events after a
-warm-up. A bound is the larger of the bytes a call must move (each input
+warm-up: around one call (``ms``), and with the call queued behind a spin
+kernel (``device_ms``, the device work alone). A bound is the larger of the bytes a call must move (each input
 read once, each output written once; for a gather, the source elements
 this run's indices touch) over 3.35 TB/s and its operations over the
 dense peak of their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32).
@@ -67,6 +68,8 @@ N_VIEWS = 16
 CENTER = np.array([0.5, 0.5, 0.5], np.float32)
 RADIUS = 0.22
 TIMING_RUNS = 25
+#: the spin before a timed call (~2 ms at the H100's 1.98 GHz boost clock)
+SLEEP_CYCLES = 4_000_000
 #: H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
@@ -78,20 +81,34 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def median_ms(fn, runs: int = TIMING_RUNS) -> float:
-    """Median device time of ``fn()`` in ms (CUDA events, after 3 warm-up calls)."""
+def median_ms(fn, runs: int = TIMING_RUNS, queued: bool = False) -> float:
+    """Median time of ``fn()`` in ms: CUDA events around one call, after 3
+    warm-up calls. Unqueued (the ``ms`` of the kernels line, the method of
+    every earlier measurement of the port), the events also count the time
+    the card waits for the host's checks and launches between them: what a
+    caller that launches one call at a time sees. ``queued`` (the
+    ``device_ms``): a spin kernel runs first, so the call is enqueued behind
+    it and the events time the device work alone: what a call costs on a
+    path where the host runs ahead of the card."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
         fn()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def both_ms(fn) -> tuple[float, float]:
+    """(events ms, device ms) of ``fn``: :func:`median_ms` unqueued and queued."""
+    return median_ms(fn), median_ms(fn, queued=True)
 
 
 def bound(n_bytes: float, n_ops: float = 0.0, peak: float = FP32_FLOPS):
@@ -184,46 +201,116 @@ def phase_build():
     print(f"[build] {kernels.library_path().name} built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Median host time of one call of ``fn`` in µs: the wrapper's checks,
+    allocations and launch, with the device queue drained before each call
+    so that no call waits for the card."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def keys_from_runs(lengths, m, g, dev):
+    """Sorted int32 keys with runs of the given lengths on distinct random
+    slots of [0, m)."""
+    slots = torch.sort(torch.randperm(m, generator=g, device=dev)[: len(lengths)]).values
+    return torch.repeat_interleave(slots.int(), torch.as_tensor(lengths, device=dev)).contiguous()
+
+
+def segsum_keys(label, m, N, g, dev):
+    """The keys of a [segsum] case (sorted, int32)."""
+    if label == "tile edges":  # runs that end exactly on tile edges, one over two tiles
+        from nerfshop_tpu_torch.ops.segsum import TILE
+
+        return keys_from_runs([TILE, 2 * TILE, TILE - 1, 1, TILE, 3 * TILE + 5, TILE - 5], m, g, dev)
+    if label == "one run spans all N":
+        return torch.full((N,), m // 3, dtype=torch.int32, device=dev)
+    if label == "spread keys under a masked pile":  # sparse real samples, the rest masked onto the last slot
+        spread = torch.randint(0, m - 1, (3000,), generator=g, device=dev, dtype=torch.int32)
+        pile = torch.full((N - 3000,), m - 1, dtype=torch.int32, device=dev)
+        return torch.sort(torch.cat([spread, pile])).values.contiguous()
+    key = torch.randint(0, m, (N,), generator=g, device=dev, dtype=torch.int32)
+    if label == "skewed":
+        key[: (N * 4) // 5] = 12345
+    if label == "keys 0 and m-1, m < N" and N:
+        key[0], key[-1] = 0, m - 1
+    return torch.sort(key).values.contiguous()
+
+
+#: (label, m, N): the main path's level (hash), a dense coarse level, a skew
+#: beyond a training batch's (80% of the keys on one slot), 3000 keys spread
+#: below such a pile (tiles that own long stretches of rows), then the edges
+SEGSUM_CASES = (
+    ("hash", 1 << 19, 1 << 18),
+    ("dense", 4096, 1 << 18),
+    ("skewed", 1 << 19, 1 << 18),
+    ("spread keys under a masked pile", 1 << 19, 1 << 18),
+    ("tile edges", 1 << 16, None),
+    ("one run spans all N", 1000, 100 * 512 + 3),
+    ("N=1", 1 << 16, 1),
+    ("N=0", 1000, 0),
+    ("N not a multiple of the tile", 5000, 3 * 512 + 37),
+    ("keys 0 and m-1, m < N", 1000, 50_000),
+    ("4-byte-aligned views", 1 << 19, (1 << 18) - 1),
+)
+
+
 def phase_segsum(dev, g):
-    """Kernel A at a main-path level (N = 2^18 keys over m = 2^19), a small
-    dense level, and a skew beyond a training batch's (whose masked samples
-    pile onto a few slots): 80% of the keys in one slot. Tolerance: |kernel − plain| ≤ 1e-5 · Σ|terms| of the row
-    (fp32, other summation order)."""
+    """Kernel A against its plain version in every case of SEGSUM_CASES.
+    Tolerance: |kernel − plain| ≤ 1e-5 · Σ|terms| of the row (fp32, other
+    summation order); rows no sample hits are 0.0; two calls are bit-equal."""
     from nerfshop_tpu_torch.ops import segsum
 
     result = {}
-    for label, m, N in (("hash", 1 << 19, 1 << 18), ("dense", 4096, 1 << 18), ("skewed", 1 << 19, 1 << 18)):
-        key = torch.randint(0, m, (N,), generator=g, device=dev, dtype=torch.int32)
-        if label == "skewed":
-            key[: (N * 4) // 5] = 12345
-        key = torch.sort(key).values.contiguous()
+    for label, m, N in SEGSUM_CASES:
+        key = segsum_keys(label, m, N if N is not None else 0, g, dev)
+        N = key.shape[0]
         w1 = torch.rand((N, 3), generator=g, device=dev)
         dout = torch.randn((N, 2), generator=g, device=dev)
+        if label == "4-byte-aligned views":  # contiguous views at a 4-byte storage offset: the scalar loads
+            key = torch.cat([key[:1], key])[1:]
+            w1 = torch.cat([w1.reshape(-1)[:1], w1.reshape(-1)])[1:].view(N, 3)
+            dout = torch.cat([dout.reshape(-1)[:1], dout.reshape(-1)])[1:].view(N, 2)
+            check(key.data_ptr() % 16 == 4 and w1.data_ptr() % 16 == 4, "the views are not 4-byte aligned")
         ker = segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
+        again = segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
         plain = segsum.sorted_segment_rowsum_plain(key, w1, dout, m)
         absum = segsum.sorted_segment_rowsum_plain(key, w1, dout.abs(), m)
         torch.cuda.synchronize()
         err = (ker - plain).abs()
-        check(bool((err <= 1e-5 * absum + 1e-30).all()), f"kernel A disagrees ({label}): max err {float(err.max())}")
+        max_err = float(err.max()) if err.numel() else 0.0
+        check(bool((err <= 1e-5 * absum + 1e-30).all()), f"kernel A disagrees ({label}): max err {max_err}")
         untouched = absum.sum(1) == 0
-        check(bool((ker[untouched] == 0).all()), "kernel A left an unhit row non-zero")
-        ms = median_ms(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
+        check(bool((ker[untouched] == 0).all()), f"kernel A left an unhit row non-zero ({label})")
+        check(torch.equal(ker.view(torch.int32), again.view(torch.int32)), f"kernel A is not bit-reproducible ({label})")
+        ms, dev_ms = both_ms(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
         plain_ms = median_ms(lambda: segsum.sorted_segment_rowsum_plain(key, w1, dout, m))
         # library call: index_add_ of the formed [N, 16] contributions
         ct = (segsum.corner_products(w1)[:, :, None] * dout[:, None, :]).reshape(N, 16)
         key64 = key.long()
-        lib_ms = median_ms(lambda: torch.zeros((m, 16), device=dev).index_add_(0, key64, ct))
+        lib = lambda: torch.zeros((m, 16), device=dev).index_add_(0, key64, ct)  # noqa: E731
+        lib_ms, lib_dev_ms = both_ms(lib)
+        us = host_us(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
+        lib_us = host_us(lib)
         # bytes: key, w1, dout in, [m, 16] out; ops: 8 corner weights (16
         # multiplies), the 8 × 2 outer product and its sums, per sample
         b_ms, b_by = bound(nbytes(key, w1, dout) + m * 16 * 4, N * 48.0)
         print(
-            f"[segsum] {label} m={m} N={N}: max_abs_err {float(err.max()):.3e} "
-            f"(bound 1e-5*row sum|terms|) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"index_add_ {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})",
+            f"[segsum] {label} m={m} N={N}: max_abs_err {max_err:.3e} (bound 1e-5*row sum|terms|), two calls "
+            f"bit-equal; events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms index_add_ {lib_ms:.4f} ms, "
+            f"kernel/index_add_ {ms / lib_ms:.3f}; device (queued): kernel {dev_ms:.4f} ms index_add_ "
+            f"{lib_dev_ms:.4f} ms, kernel/index_add_ {dev_ms / lib_dev_ms:.3f}; bound {b_ms:.4f} ms ({b_by}), "
+            f"device/bound {dev_ms / b_ms:.2f}; host per call: wrapper {us:.1f} us, index_add_ (with its zeros) "
+            f"{lib_us:.1f} us",
             flush=True,
         )
-        result[label] = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by)
+        result[label] = dict(max_abs_err=max_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     return {**result["hash"], "max_abs_err": max(r["max_abs_err"] for r in result.values())}
 
 
@@ -253,7 +340,7 @@ def phase_encode(dev, g):
     w1_err = float((w1_k - w1_p).abs().max())
     out_err = float((out_k - out_p).abs().max())
     check(w1_err <= 1e-6 and out_err <= 1e-6, f"kernel B disagrees: w1 {w1_err:.3e} out {out_err:.3e}")
-    ms = median_ms(lambda: table_ops.grid_encode_cuda(table, x, enc))
+    ms, dev_ms = both_ms(lambda: table_ops.grid_encode_cuda(table, x, enc))
     plain_ms = median_ms(lambda: table_ops.grid_encode_plain(table, x, enc))
     # bytes: x, the distinct table rows the 8 corners touch, and the outputs
     # (features, slots, fractions); ops: ~65 fp32 per (sample, level)
@@ -267,11 +354,12 @@ def phase_encode(dev, g):
     b_ms, b_by = bound(nbytes(x, out_k, idx_k, w1_k) + touched * 2 * 4, N * L * 65.0)
     print(
         f"[encode] N={N} L={L}: slots equal, w1 err {w1_err:.3e} out err {out_err:.3e} "
-        f"(bound 1e-6) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
+        f"(bound 1e-6) kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
         f"{touched} of {enc.table_size} table rows touched)",
         flush=True,
     )
-    return dict(max_abs_err=out_err, ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=out_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_backward(dev, g):
@@ -301,12 +389,14 @@ def phase_backward(dev, g):
     err = float((grads[0] - grads[1]).abs().max())
     check(err <= 1e-5 * ref_max, f"encode backward disagrees: {err:.3e} vs max {ref_max:.3e}")
 
-    def backward_ms(make):
+    def backward_ms(make, queued=False):
         times = []
         for i in range(TIMING_RUNS + 3):
             t, out = make()
             torch.cuda.synchronize()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if queued:  # the backward enqueues ~300 launches: a spin 10x the kernels' one
+                torch.cuda._sleep(10 * SLEEP_CYCLES)
             a.record()
             out.backward(ct)
             b.record()
@@ -316,9 +406,10 @@ def phase_backward(dev, g):
         return statistics.median(times)
 
     ms, plain_ms = backward_ms(ours), backward_ms(plain)
+    dev_ms, plain_dev_ms = backward_ms(ours, queued=True), backward_ms(plain, queued=True)
     print(
-        f"[backward] d_table max err {err:.3e} (bound 1e-5*{ref_max:.3e}) "
-        f"sorted+kernel A {ms:.4f} ms plain index_add autograd {plain_ms:.4f} ms",
+        f"[backward] d_table max err {err:.3e} (bound 1e-5*{ref_max:.3e}) events: sorted+kernel A {ms:.4f} ms "
+        f"plain index_add autograd {plain_ms:.4f} ms; device (queued): {dev_ms:.4f} ms and {plain_dev_ms:.4f} ms",
         flush=True,
     )
     return err, ms, plain_ms
@@ -351,7 +442,7 @@ def phase_mlp(dev, g):
         check(ker.shape == plain.shape and bool(torch.isfinite(ker).all()), f"kernel C output bad ({label})")
         check(within >= 0.995 and float(err.max()) <= 1e-2 * ref_max,
               f"kernel C disagrees ({label}): {within:.5f} within 1e-5 rel, max err {float(err.max()):.3e} of {ref_max:.3e}")
-        ms = median_ms(lambda: fused_mlp.fused_mlp_cuda(x, ws))
+        ms, dev_ms = both_ms(lambda: fused_mlp.fused_mlp_cuda(x, ws))
         plain_ms = median_ms(lambda: fused_mlp.fused_mlp_plain(x, ws))
         # library call: the bf16 torch.matmul + relu chain, rounded to bf16
         # at the same points (its last product is rounded too)
@@ -365,17 +456,18 @@ def phase_mlp(dev, g):
                     h = torch.relu(h)
             return h
 
-        lib_ms = median_ms(chain)
+        lib_ms, lib_dev_ms = both_ms(chain)
         flops = 2.0 * N * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
         b_ms, b_by = bound(nbytes(x, ker, *ws), flops, BF16_FLOPS)
         print(
             f"[mlp] {label} {'->'.join(map(str, dims))} N={N}: {within:.6f} of outputs within 1e-6+1e-5*|plain| "
             f"(bound 0.995), max_abs_err {float(err.max()):.3e} of max|out| {ref_max:.3e} (bound 1e-2*max) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bf16 matmul chain {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})",
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bf16 matmul chain {lib_ms:.4f} ms; device (queued): kernel "
+            f"{dev_ms:.4f} ms chain {lib_dev_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})",
             flush=True,
         )
-        result[label] = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by)
+        result[label] = dict(max_abs_err=float(err.max()), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     return {**result["density"], "max_abs_err": max(r["max_abs_err"] for r in result.values())}
 
 
@@ -437,32 +529,55 @@ def gather_case(label, form, x, idx):
     mism = int((bits(ker) != bits(plain)).sum())
     check(ker.shape == plain.shape and mism == 0, f"kernel D differs from its plain version ({label}): {mism}")
     check(torch.equal(bits(ker), bits(lib.reshape(ker.shape))), f"kernel D differs from the library call ({label})")
-    ms = median_ms(lambda: gather.gather_cuda(x, idx, form))
+    ms, dev_ms = both_ms(lambda: gather.gather_cuda(x, idx, form))
     plain_ms = median_ms(lambda: gather.gather_plain(x, idx, form))
-    lib_ms = median_ms(lib_fn)
+    lib_ms, lib_dev_ms = both_ms(lib_fn)
+    # the library call is timed with its int64 indices made beforehand, as
+    # the march hands them; the wrapper's host time against the same call
+    us = host_us(lambda: gather.gather_cuda(x, idx, form))
+    lib_us = host_us(lib_fn)
     # bytes: the indices, the distinct source elements they touch, the output
     S = x.shape[0]
     C = x.numel() // S
     if form == "rows":
         src = int(torch.unique(idx).numel()) * C
+        Q, Cq = idx.shape[0], C
     elif form == "axis1":
         src = int(torch.unique(torch.arange(idx.shape[0], device=idx.device)[:, None] * C + idx).numel())
+        Q, Cq = idx.shape
     else:
         src = int(torch.unique(idx.long() * C + torch.arange(C, device=idx.device)[None, :]).numel())
+        Q, Cq = idx.shape
     b_ms, b_by = bound(nbytes(idx, ker) + src * 4)
+    p = gather.plan(form, S, C, Q, Cq, x.data_ptr() % 16 == 0, idx.data_ptr() % 16 == 0, idx.dtype == torch.int64)
+    variant = ("staged" if p.staged else "direct") if form == "axis1" else form
     print(
-        f"[gather] {label}: {form} x{tuple(x.shape)} {str(x.dtype)[6:]} idx{tuple(idx.shape)} {str(idx.dtype)[6:]}: "
-        f"bit-equal to plain and library; kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib_ms:.4f} ms "
-        f"bound {b_ms:.4f} ms ({b_by})",
+        f"[gather] {label}: {form} x{tuple(x.shape)} {str(x.dtype)[6:]} idx{tuple(idx.shape)} {str(idx.dtype)[6:]} "
+        f"({variant}, x by {4 * p.xvec} B, idx by {p.ivec}, block {p.tx}x{p.ty}, {p.blocks} blocks, smem {p.smem} B): "
+        f"bit-equal to plain and library; events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms library {lib_ms:.4f} "
+        f"ms, kernel/library {ms / lib_ms:.3f}; device (queued): kernel {dev_ms:.4f} ms library {lib_dev_ms:.4f} ms, "
+        f"kernel/library {dev_ms / lib_dev_ms:.3f}; bound {b_ms:.4f} ms ({b_by}), device/bound {dev_ms / b_ms:.2f}; "
+        f"host per call: wrapper {us:.1f} us, library {lib_us:.1f} us",
         flush=True,
     )
-    return dict(max_abs_err=float(mism), ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=float(mism), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def offset_view(t):
+    """A contiguous copy of ``t`` at a 4-byte storage offset (not 16-byte aligned)."""
+    flat = t.reshape(-1)
+    v = torch.cat([flat[:1], flat])[1:].view(t.shape)
+    check(v.is_contiguous() and v.data_ptr() % 16 == 4, "offset view is 16-byte aligned")
+    return v
 
 
 def phase_gather(dev, g):
-    """Kernel D at the TPU gather kernels' shapes, then at the render march's
-    (the fine-sort payload [8192, 512] f32 by its int64 permutation), which
-    is the entry of the kernels line."""
+    """Kernel D at the TPU gather kernels' shapes, at the edges of its plan
+    (4-byte-aligned views, narrow rows by int32 and int64 indices, a row
+    wider than the shared-memory budget, a sparse pick), then at the render
+    march's (the fine-sort payload [8192, 512] f32 by its int64
+    permutation), which is the entry of the kernels line."""
     for label, form, xs, ids, hi, dtype in GATHER_PROBES:
         if dtype == torch.float32:
             x = torch.randn(xs, generator=g, device=dev)
@@ -470,6 +585,23 @@ def phase_gather(dev, g):
             x = torch.randint(-(2**31), 2**31 - 1, xs, generator=g, device=dev, dtype=torch.int32)
         idx = torch.randint(0, hi, ids, generator=g, device=dev, dtype=torch.int32)
         gather_case(label, form, x, idx)
+    x = torch.randn((1 << 16, 128), generator=g, device=dev)
+    idx = torch.randint(0, 128, (1 << 16, 128), generator=g, device=dev, dtype=torch.int32)
+    gather_case("ax1 [2^16,128], both at a 4-byte offset", "axis1", offset_view(x), offset_view(idx))
+    x = torch.randn((4096, 128), generator=g, device=dev)
+    idx = torch.randint(0, 4096, (1024,), generator=g, device=dev, dtype=torch.int32)
+    gather_case("row take [4096,128], x at a 4-byte offset", "rows", offset_view(x), idx)
+    for C in (12, 9, 1):
+        x = torch.randn((5239, C), generator=g, device=dev)
+        for idt in (torch.int32, torch.int64):
+            idx = torch.randint(0, 5239, (1 << 20,), generator=g, device=dev, dtype=idt)
+            gather_case(f"rows C={C}", "rows", x, idx)
+    x = torch.randn((256, 16384), generator=g, device=dev)
+    idx = torch.randint(0, 16384, (256, 16384), generator=g, device=dev, dtype=torch.int32)
+    gather_case("ax1 row of 64 KB (wider than the stage)", "axis1", x, idx)
+    x = torch.randn((8192, 128), generator=g, device=dev)
+    idx = torch.randint(0, 128, (8192, 1), generator=g, device=dev, dtype=torch.int64)
+    gather_case("ax1 one pick per row (composite depth)", "axis1", x, idx)
     keys = torch.rand((8192, 512), generator=g, device=dev)
     keys[:, 300:] += 2.0  # occupied candidates first, as the march's keys order them
     perm = torch.sort(keys, dim=1).indices
@@ -866,7 +998,7 @@ def phase_tetlookup(op, g, N=1 << 20):
         n_diff = int(((fk != fp) | (tk != tp)).sum())
         check(int(bad.sum()) == 0 and b_err <= 1e-5,
               f"kernel E disagrees (eps {eps}): {int(bad.sum())} points off the near ties, bary err {b_err:.3e}")
-        ms = median_ms(lambda: ops_lib.tet_lookup_cuda(lut, table, p, thr))
+        ms, dev_ms = both_ms(lambda: ops_lib.tet_lookup_cuda(lut, table, p, thr))
         plain_ms = median_ms(lambda: ops_lib.tet_lookup_plain(lut, table, p, thr))
         # bytes: positions in, found/tet/bary out, the distinct LUT rows read
         # (up to the first −1) and the distinct table rows of the candidates;
@@ -878,12 +1010,13 @@ def phase_tetlookup(op, g, N=1 << 20):
         b_ms, b_by = bound(nbytes(p, fk, tk, bk) + rows_read * 4 + tets_read * 48, float(vis.sum()) * 24 + N * 21.0)
         print(
             f"[tetlookup] eps {eps:g} N={N} (90% in the LUT box): {n_diff} points differ, all at near ties "
-            f"({int(tie.sum())} near ties), bary max err {b_err:.3e} (bound 1e-5); kernel {ms:.4f} ms plain "
+            f"({int(tie.sum())} near ties), bary max err {b_err:.3e} (bound 1e-5); kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms) plain "
             f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); found {float(fk.float().mean()):.4f}",
             flush=True,
         )
-        result[eps] = dict(max_abs_err=float(int(bad.sum())), ms=ms, plain_ms=plain_ms, library_ms=None,
-                           bound_ms=b_ms, bound_by=b_by)
+        result[eps] = dict(max_abs_err=float(int(bad.sum())), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
     nz = fan[fan > 0].float()
     print(
         f"[tetlookup] LUT {res}^3 x {lut.cells.shape[1]}: fanout max {int(fan.max())} mean {float(nz.mean()):.2f} over "
@@ -896,6 +1029,12 @@ def phase_tetlookup(op, g, N=1 << 20):
     deltas = (op.verts_orig - op.verts_def).reshape(-1, 12).contiguous()
     gather_case("warp row take [Nt, 12]", "rows", deltas, tet)
     return result[-1e-5]
+
+
+#: the numbers of a kernel in the kernels line; ``ms``, ``plain_ms`` and
+#: ``library_ms`` are events around one call, ``device_ms`` and
+#: ``library_device_ms`` the same calls queued behind a spin (:func:`median_ms`)
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms")
 
 
 def main() -> None:
@@ -932,7 +1071,7 @@ def main() -> None:
     )
     kernels = [
         {"name": name, "route": "cuda", "source": f"nerfshop_tpu_torch/csrc/{src}", "replaces": repl,
-         "launches": launches[key], **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+         "launches": launches[key], **{k: r[k] for k in KERNEL_KEYS}}
         for name, key, src, repl, r in rows
     ]
     print(json.dumps({"kernels": kernels}))

@@ -36,6 +36,16 @@ NVCC_FLAGS = (
 _lib = None
 
 
+class GatherPlan(ctypes.Structure):
+    """The launch of one call of kernel D, field for field ``struct
+    GatherPlan`` of ``csrc/gather.cu`` (made by ``ops/gather.py::plan``)."""
+
+    _fields_ = [
+        (name, ctypes.c_longlong)
+        for name in ("form", "idx64", "S", "C", "Q", "Cq", "staged", "xvec", "ivec", "rows", "tx", "ty", "blocks", "smem")
+    ]
+
+
 def _nvcc() -> str:
     for cand in (
         os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
@@ -88,14 +98,14 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.nst_segsum.argtypes = [p, p, p, p, i, i, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.nst_segsum.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.nst_segsum.restype = i
         lib.nst_grid_encode.argtypes = [p, p, p, p, p, p, p, i, i, p]
         lib.nst_grid_encode.restype = i
         lib.nst_fused_mlp.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.nst_fused_mlp.restype = i
-        lib.nst_gather.argtypes = [p, p, p, ll, ll, i, i, i, i, p]
+        lib.nst_gather.argtypes = [p, p, p, ctypes.POINTER(GatherPlan), p]
         lib.nst_gather.restype = i
         lib.nst_tet_lookup.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
         lib.nst_tet_lookup.restype = i
@@ -109,7 +119,15 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    tensor's device, which always carries its index)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Every tensor's data starts on a 16-byte boundary (a contiguous view
+    with a storage offset may not), so the kernels may use 16-byte accesses."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:

@@ -12,6 +12,10 @@ import torch
 
 from nerfshop_tpu_torch import kernels
 
+#: samples per block of kernel A (``kTile`` in ``csrc/segsum.cu``); the
+#: scratch of the runs that cross a tile edge holds two rows per tile
+TILE = 512
+
 
 def corner_products(w1: torch.Tensor) -> torch.Tensor:
     """Folded per-axis lerp fractions w1 [..., D] → corner weights [..., 2^D]
@@ -31,27 +35,40 @@ def sorted_segment_rowsum_plain(key_s: torch.Tensor, w1_s: torch.Tensor, dout_s:
     """Plain PyTorch version: scatter-add of the w8 ⊗ dout rows."""
     N, F = dout_s.shape
     w8 = corner_products(w1_s)
-    ct = (w8[:, :, None] * dout_s[:, None, :]).reshape(N, -1)
+    ct = (w8[:, :, None] * dout_s[:, None, :]).reshape(N, w8.shape[1] * F)
     out = torch.zeros((m, ct.shape[1]), dtype=torch.float32, device=key_s.device)
     return out.index_add_(0, key_s.long(), ct)
 
 
 def sorted_segment_rowsum_cuda(key_s: torch.Tensor, w1_s: torch.Tensor, dout_s: torch.Tensor, m: int) -> torch.Tensor:
-    """Kernel A. Takes D = 3, F = 2 (the hash grid's shape) and raises on anything else."""
+    """Kernel A. Takes D = 3, F = 2 (the hash grid's shape) and raises on
+    anything else. Two launches (N = 0: one memset); deterministic."""
     dev = key_s.device
+    if dev.type != "cuda":
+        raise ValueError(f"segsum kernel: key_s on {dev}, expected a CUDA device")
     N = key_s.shape[0]
-    kernels.require(key_s, "key_s", torch.int32, (N,), dev)
-    kernels.require(w1_s, "w1_s", torch.float32, (N, 3), dev)
-    kernels.require(dout_s, "dout_s", torch.float32, (N, 2), dev)
-    out = torch.empty((m, 16), dtype=torch.float32, device=dev)
-    lib = kernels.load()
-    err = lib.nst_segsum(
-        key_s.data_ptr(), w1_s.data_ptr(), dout_s.data_ptr(), out.data_ptr(),
-        N, m, kernels.stream_ptr(dev),
+    if not (
+        key_s.dtype == torch.int32 and w1_s.dtype == torch.float32 and dout_s.dtype == torch.float32
+        and key_s.ndim == 1 and w1_s.shape == (N, 3) and dout_s.shape == (N, 2)
+        and w1_s.device == dev and dout_s.device == dev
+        and key_s.is_contiguous() and w1_s.is_contiguous() and dout_s.is_contiguous()
+    ):
+        raise ValueError(
+            "segsum kernel takes contiguous key_s [N] int32, w1_s [N, 3] f32, dout_s [N, 2] f32 on one device; got "
+            + ", ".join(f"{name} {tuple(t.shape)} {t.dtype} on {t.device}{'' if t.is_contiguous() else ' (strided)'}"
+                        for name, t in (("key_s", key_s), ("w1_s", w1_s), ("dout_s", dout_s)))
+        )
+    # the scratch of the runs that cross a tile edge (two rows per tile)
+    # follows the m output rows in one allocation
+    buf = torch.empty((m + 2 * (-(-N // TILE)), 16), dtype=torch.float32, device=dev)
+    out_p = buf.data_ptr()
+    err = kernels.load().nst_segsum(
+        key_s.data_ptr(), w1_s.data_ptr(), dout_s.data_ptr(), out_p, out_p + 64 * m, N, m,
+        kernels.aligned16(key_s, w1_s, dout_s), kernels.stream_ptr(dev),
     )
     kernels.check(err, "segsum")
     sorted_segment_rowsum_cuda.launches += 1
-    return out
+    return buf[:m]
 
 
 #: launches of kernel A since the last reset

@@ -12,16 +12,22 @@ from typing import Optional, Tuple
 import torch
 
 from nerfshop_tpu_torch.common import TonemapCurve
+from nerfshop_tpu_torch.device import default_device
 from nerfshop_tpu_torch.ops import tonemap as tm
 
 
 @dataclass
 class RenderBuffer:
     resolution: Tuple[int, int]  # (W, H)
-    device: torch.device = torch.device("cpu")
+    #: None takes ``cuda:0`` and raises without CUDA, as ``Testbed`` does;
+    #: CPU code passes ``device="cpu"``
+    device: Optional[torch.device] = None
     accumulate_rgba: Optional[torch.Tensor] = None  # [H, W, 4] linear accum
     depth: Optional[torch.Tensor] = None  # [H, W]
     spp: int = 0
+
+    def __post_init__(self) -> None:
+        self.device = torch.device(self.device) if self.device is not None else default_device()
 
     def clear(self) -> None:
         W, H = self.resolution

@@ -31,13 +31,7 @@ import torch
 
 from nerfshop_tpu_torch.common import DEFAULT_BATCH_SIZE, DEFAULT_STEPS_PER_FRAME, RenderMode, TestbedMode, TonemapCurve
 from nerfshop_tpu_torch.config import ConfigDict, default_nerf_config, load_network_config
-
-
-def default_device() -> torch.device:
-    """``cuda:0``; raises when CUDA is absent instead of running on the CPU."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("Testbed: no CUDA device found; pass device='cpu' to run the plain versions on the CPU")
-    return torch.device("cuda", 0)
+from nerfshop_tpu_torch.device import default_device
 
 
 def upsample_bilinear(img: torch.Tensor, width: int, height: int) -> torch.Tensor:

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Device profile of one exact 1920×1080 frame of the port on one NVIDIA GPU.
 
-Run from the root of a checkout:  python3 profile_render.py [--out FILE] [--edited]
+Run from the root of a checkout:
+  python3 profile_render.py [--out FILE] [--edited | --train]
+  python3 profile_render.py --kernels [--root DIR]
 
 Trains the model of ``chip_smoke.py`` (default config, 256 steps on the
 analytic sphere), renders one warm-up frame, times 3 unprofiled frames on
@@ -16,12 +18,30 @@ With ``--edited`` it builds the edit of ``chip_smoke.py`` (scribble → cage
 moved +0.18 in x → an affine duplicate on top), profiles the unedited and
 the edited frame of the same side view the same way, and prints the device
 time the edit adds, by kernel name.
+
+With ``--train`` it profiles 8 training steps of that model instead (after
+its 256) and prints, per step, the host wall time, the device busy time, the
+idle share, the device launches, and the device time and launches of each
+kernel name (the share of kernel A, ``segsum``, among them); then kernel A
+alone at ``chip_smoke.py``'s hash, dense, skewed and spread-under-a-pile
+cases, each launch's device time and the span of a call.
+
+With ``--kernels`` it trains nothing: it times kernels A and D of the
+``nerfshop_tpu_torch`` package found under ``--root`` (default: this
+checkout) at ``KERNEL_CASES``, from the same seeded inputs every run, each
+by both of ``chip_smoke.median_ms``'s methods (events around one call, and
+queued behind a spin), with the library call beside it and the wrapper's
+host µs per call. Pointed at an unpacked older commit, it times that
+commit's kernels on the same inputs: run old, new, new, old one after the
+other on one card to compare two versions.
 """
 
 from __future__ import annotations
 
 import argparse
+import re
 import statistics
+import sys
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -49,11 +69,36 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
+def device_events(prof):
+    """The profile's device events → (events, busy ms, {name: [ms, count]})."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in events])
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name][1] += 1
+    return events, busy, dict(by_name)
+
+
+def write_table(by_name, out: Path | None, per: int = 1, top: int = 20) -> None:
+    """Print the ``top`` kernel names by device time and write all of them to
+    ``out``: ms, share, launches, each divided by ``per``."""
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    total = sum(v[0] for _, v in rows)
+    lines = [f"{ms / per:10.3f} ms {100 * ms / total:5.1f}% {n / per:9.2f}  {name}" for name, (ms, n) in rows]
+    for line in lines[:top]:
+        print("   ", line[:150])
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text("\n".join(lines) + "\n")
+
+
 def profile_frame(tb, label: str, out: Path | None = None):
     """Warm-up, 3 unprofiled frames, one profiled frame → device ms by
     kernel name {name: [ms, count]}; prints the frame's line and its 20
     largest kernels, and writes all of them to ``out``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     tb.render(W, H, exact=True)
@@ -68,14 +113,7 @@ def profile_frame(tb, label: str, out: Path | None = None):
         t0 = time.perf_counter()
         tb.render(W, H, exact=True)
         prof_wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in events])
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in events:
-        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
-        by_name[e.name][1] += 1
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    total = sum(v[0] for _, v in rows)
+    events, busy, by_name = device_events(prof)
     print(
         f"[profile] {label} {W}x{H} exact frame: unprofiled median of 3 {statistics.median(times):.1f} ms "
         f"({[round(t, 1) for t in times]}); profiled frame wall {prof_wall:.1f} ms, {len(events)} device events, "
@@ -83,20 +121,164 @@ def profile_frame(tb, label: str, out: Path | None = None):
         f"{1.0 - busy / prof_wall:.3f}; busy / unprofiled median {busy / statistics.median(times):.3f}",
         flush=True,
     )
-    lines = [f"{ms:10.3f} ms {100 * ms / total:5.1f}% {n:7d}  {name}" for name, (ms, n) in rows]
-    for line in lines[:20]:
-        print("   ", line[:150])
-    if out is not None:
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text("\n".join(lines) + "\n")
-    return dict(by_name)
+    write_table(by_name, out)
+    return by_name
+
+
+def profile_train(tb, out: Path | None = None, steps: int = 8) -> None:
+    """Profile ``steps`` training steps: per step, wall, device busy, idle
+    share, launches, and device ms and launches by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tb.train(n_steps=steps, batch_size=chip_smoke.BATCH)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events, busy, by_name = device_events(prof)
+    seg = [e for e in events if "segsum" in e.name]
+    # kernel A's second launch may start before its first ends (programmatic
+    # dependent launch), so its time is the union of its intervals
+    seg_ms = busy_ms([(e.time_range.start, e.time_range.end) for e in seg])
+    print(
+        f"[profile] training, {steps} steps of batch {chip_smoke.BATCH}: per step wall {wall / steps:.3f} ms, device "
+        f"busy {busy / steps:.3f} ms (union of event intervals), idle share {1.0 - busy / wall:.3f}, "
+        f"{len(events) / steps:.1f} device launches; kernel A (segsum) {seg_ms / steps:.4f} ms busy (union of its "
+        f"intervals) and {len(seg) / steps:.1f} launches per step, {100 * seg_ms / busy:.2f}% of the device busy time",
+        flush=True,
+    )
+    print("[profile] per step, by kernel name (device ms, share, launches):")
+    write_table(by_name, out, per=steps)
+
+
+def profile_segsum(dev, calls: int = 20) -> None:
+    """Kernel A alone at ``chip_smoke.py``'s hash, dense and skewed cases:
+    per call, the median device time of each of its launches and the span
+    from the first launch's start to the last one's end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerfshop_tpu_torch.ops import segsum
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+    for label, m, N in chip_smoke.SEGSUM_CASES[:4]:
+        key = chip_smoke.segsum_keys(label, m, N, g, dev)
+        w1 = torch.rand((N, 3), generator=g, device=dev)
+        dout = torch.randn((N, 2), generator=g, device=dev)
+        for _ in range(3):
+            segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                torch.cuda._sleep(chip_smoke.SLEEP_CYCLES)  # the launches queue behind it, as in chip_smoke.py
+                segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
+            torch.cuda.synchronize()
+        seg = sorted((e for e in device_events(prof)[0] if "segsum" in e.name), key=lambda e: e.time_range.start)
+        per = len(seg) // calls
+        by_name = defaultdict(list)
+        for e in seg:
+            by_name[re.search(r"segsum_\w+", e.name).group(0)].append((e.time_range.end - e.time_range.start) / 1e3)
+        spans = [
+            (max(e.time_range.end for e in seg[i:i + per]) - seg[i].time_range.start) / 1e3
+            for i in range(0, per * calls, per)
+        ]
+        parts = ", ".join(f"{n} {statistics.median(v):.4f} ms" for n, v in by_name.items())
+        print(
+            f"[profile] kernel A {label} m={m} N={N}: {per} launches per call; median {parts}; span of a call "
+            f"{statistics.median(spans):.4f} ms (first start to last end)",
+            flush=True,
+        )
+
+
+#: the [segsum] cases (by label) and the [gather] cases of ``--kernels``:
+#: (label, form, x shape, idx shape, index range, idx dtype, 4-byte offset)
+KERNEL_CASES = (
+    ("hash", "dense", "skewed", "spread keys under a masked pile", "N=1", "one run spans all N"),
+    (
+        ("march fine-sort payload", "axis1", (8192, 512), (8192, 512), 512, torch.int64, False),
+        ("ax1 [2^16,128]", "axis1", (1 << 16, 128), (1 << 16, 128), 128, torch.int32, False),
+        ("ax1 [2^16,128] at a 4-byte offset", "axis1", (1 << 16, 128), (1 << 16, 128), 128, torch.int32, True),
+        ("warp row take [5260,12]", "rows", (5260, 12), (1 << 20,), 5260, torch.int32, False),
+        ("rows C=9", "rows", (5239, 9), (1 << 20,), 5239, torch.int32, False),
+        ("ax0 [8192,128]", "axis0", (8192, 128), (8192, 128), 8192, torch.int32, False),
+    ),
+)
+
+
+def time_kernels(dev, root: str) -> None:
+    """``--kernels``: kernels A and D of the package under ``root`` at
+    KERNEL_CASES, each checked against its plain version, then timed."""
+    from nerfshop_tpu_torch.ops import gather, segsum
+
+    print(f"[kernels] package {Path(segsum.__file__).resolve().parent.parent} (root {root})", flush=True)
+    seg_labels, gather_cases = KERNEL_CASES
+    for label, m, N in chip_smoke.SEGSUM_CASES:
+        if label not in seg_labels:
+            continue
+        g = torch.Generator(device=dev)
+        g.manual_seed(99)
+        key = chip_smoke.segsum_keys(label, m, N, g, dev)
+        N = key.shape[0]
+        w1 = torch.rand((N, 3), generator=g, device=dev)
+        dout = torch.randn((N, 2), generator=g, device=dev)
+        ker = segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
+        plain = segsum.sorted_segment_rowsum_plain(key, w1, dout, m)
+        absum = segsum.sorted_segment_rowsum_plain(key, w1, dout.abs(), m)
+        chip_smoke.check(bool(((ker - plain).abs() <= 1e-5 * absum + 1e-30).all()), f"kernel A disagrees ({label})")
+        ct = (segsum.corner_products(w1)[:, :, None] * dout[:, None, :]).reshape(N, 16)
+        key64 = key.long()
+        ms, dev_ms = chip_smoke.both_ms(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
+        lib_ms, lib_dev_ms = chip_smoke.both_ms(lambda: torch.zeros((m, 16), device=dev).index_add_(0, key64, ct))
+        us = chip_smoke.host_us(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
+        print(
+            f"[kernels] A {label} m={m} N={N}: events {ms:.4f} ms device {dev_ms:.4f} ms; index_add_ events "
+            f"{lib_ms:.4f} ms device {lib_dev_ms:.4f} ms; wrapper host {us:.1f} us per call",
+            flush=True,
+        )
+    for label, form, xs, ids, hi, idt, offset in gather_cases:
+        g = torch.Generator(device=dev)
+        g.manual_seed(99)
+        x = torch.randn(xs, generator=g, device=dev)
+        idx = torch.randint(0, hi, ids, generator=g, device=dev, dtype=idt)
+        if offset:
+            x, idx = chip_smoke.offset_view(x), chip_smoke.offset_view(idx)
+        idx64 = idx.long()
+        if form == "rows":
+            lib_fn = lambda: torch.index_select(x, 0, idx64)  # noqa: E731
+        else:
+            lib_fn = lambda: torch.gather(x, 1 if form == "axis1" else 0, idx64)  # noqa: E731
+        chip_smoke.check(torch.equal(gather.gather_cuda(x, idx, form), lib_fn()), f"kernel D disagrees ({label})")
+        ms, dev_ms = chip_smoke.both_ms(lambda: gather.gather_cuda(x, idx, form))
+        lib_ms, lib_dev_ms = chip_smoke.both_ms(lib_fn)
+        us, lib_us = chip_smoke.host_us(lambda: gather.gather_cuda(x, idx, form)), chip_smoke.host_us(lib_fn)
+        print(
+            f"[kernels] D {label} {form} x{xs} idx{ids} {str(idt)[6:]}: events {ms:.4f} ms device {dev_ms:.4f} ms; "
+            f"library events {lib_ms:.4f} ms device {lib_dev_ms:.4f} ms; host per call: wrapper {us:.1f} us "
+            f"library {lib_us:.1f} us",
+            flush=True,
+        )
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None, help="write the full per-kernel table here")
-    ap.add_argument("--edited", action="store_true", help="also profile the frame of chip_smoke.py's edit")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--edited", action="store_true", help="also profile the frame of chip_smoke.py's edit")
+    mode.add_argument("--train", action="store_true", help="profile 8 training steps instead of a frame")
+    mode.add_argument("--kernels", action="store_true", help="time kernels A and D alone (no training)")
+    ap.add_argument("--root", default=None, help="with --kernels: the checkout whose package is timed")
     args = ap.parse_args()
+    if args.root is not None:
+        if not args.kernels:
+            ap.error("--root goes with --kernels")
+        sys.path.insert(0, str(Path(args.root).resolve()))  # before the package is first imported
+    if args.kernels:
+        smi = chip_smoke.phase_device()
+        chip_smoke.phase_build()
+        print(f"[profile] card: {smi}")
+        time_kernels(torch.device("cuda", 0), args.root or ".")
+        return
 
     from nerfshop_tpu_torch.common import RenderMode
 
@@ -105,6 +287,10 @@ def main() -> None:
     chip_smoke.phase_build()
     tb, focal, principal, _ = chip_smoke.phase_main_path(dev)
     print(f"[profile] card: {smi}")
+    if args.train:
+        profile_train(tb, args.out)
+        profile_segsum(dev)
+        return
     if args.edited:
         gs, _, _, summary = chip_smoke.scribble_cage(tb, focal, principal)
         print(f"[profile] edit: {summary}", flush=True)

@@ -108,3 +108,104 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
     before = gather.gather_cuda.launches
     gather.take_rows(torch.zeros(8, 4), torch.zeros(3, dtype=torch.int32))
     assert gather.gather_cuda.launches == before  # the CPU path launches nothing
+
+
+# ----------------------------------------- the edges of kernel D's launch plan
+
+EDGE_CASES = [
+    # (name, form, x shape, idx shape, index range, index dtype)
+    ("rows-c12-i32", "rows", (300, 12), (2048,), 300, torch.int32),
+    ("rows-c12-i64", "rows", (300, 12), (2048,), 300, torch.int64),
+    ("rows-c9-i32", "rows", (300, 9), (2048,), 300, torch.int32),
+    ("rows-c9-i64", "rows", (300, 9), (2048,), 300, torch.int64),
+    ("rows-c1-i32", "rows", (300, 1), (2048,), 300, torch.int32),
+    ("rows-c1-i64", "rows", (300, 1), (2048,), 300, torch.int64),
+    ("ax1-wider-than-the-stage", "axis1", (4, 16384), (4, 16384), 16384, torch.int32),
+    ("ax1-one-pick-per-row", "axis1", (64, 128), (64, 1), 128, torch.int64),
+    ("ax1-odd-columns", "axis1", (32, 130), (32, 130), 130, torch.int64),
+]
+
+
+def _offset_view(t):
+    """A contiguous copy of ``t`` at a 4-byte storage offset."""
+    flat = t.reshape(-1)
+    return torch.cat([flat[:1], flat])[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "4-byte-offset-view"])
+@pytest.mark.parametrize("name,form,x_shape,idx_shape,hi,idx_dtype", EDGE_CASES, ids=[c[0] for c in EDGE_CASES])
+def test_plain_gather_matches_jax_at_the_plan_edges(name, form, x_shape, idx_shape, hi, idx_dtype, offset):
+    # bit-equal, with x and idx as contiguous views at a storage offset too
+    x, idx = _inputs(x_shape, idx_shape, hi, "f32", seed=2)
+    xt, it = torch.from_numpy(x), torch.from_numpy(idx).to(idx_dtype)
+    if offset:
+        xt, it = _offset_view(xt), _offset_view(it)
+        assert xt.is_contiguous() and xt.storage_offset() == 1 and it.storage_offset() == 1
+    ours = gather.take_rows(xt, it) if form == "rows" else gather.take_along(xt, it, axis=1)
+    ref = _jax_ref(x, idx, form)
+    assert tuple(ours.shape) == ref.shape
+    np.testing.assert_array_equal(_bits(ours.numpy()), _bits(ref))
+
+
+def test_plan_takes_4_byte_accesses_for_offset_views():
+    # the plan reads the alignment from the pointers: a 4-byte-offset view of
+    # x stages 4 bytes at a time, of idx reads one index at a time
+    from nerfshop_tpu_torch import kernels
+
+    x = torch.zeros(1 + 64 * 128)
+    aligned, view = x[:-1].view(64, 128), x[1:].view(64, 128)
+    assert kernels.aligned16(aligned) and not kernels.aligned16(view)
+    p = gather.plan("axis1", 64, 128, 64, 128, kernels.aligned16(aligned), True, False)
+    assert p.staged and p.xvec == 4 and p.ivec == 4
+    p = gather.plan("axis1", 64, 128, 64, 128, kernels.aligned16(view), False, False)
+    assert p.staged and p.xvec == 1 and p.ivec == 1
+    assert gather.plan("rows", 4096, 128, 1024, 128, False, True, False).xvec == 1
+    assert gather.plan("rows", 4096, 128, 1024, 128, True, True, False).xvec == 4
+
+
+def test_plan_sends_wide_and_sparse_rows_to_the_direct_variant():
+    # a row wider than 48 KB cannot be staged; a row read at fewer than one
+    # pick per 8 elements is cheaper to read directly
+    wide = gather.plan("axis1", 4, 16384, 4, 16384, True, True, False)
+    assert not wide.staged and wide.smem == 0
+    sparse = gather.plan("axis1", 8192, 128, 8192, 1, True, True, True)
+    assert not sparse.staged and sparse.ivec == 1
+    march = gather.plan("axis1", 8192, 512, 8192, 512, True, True, True)
+    assert march.staged and march.ivec == 2 and march.smem == march.rows * 512 * 4 <= gather.STAGE_BUDGET
+    assert march.tx * march.ty <= gather.THREADS and march.blocks * march.rows >= 8192
+
+
+@pytest.mark.parametrize("C,xvec,tx", [(12, 4, 3), (9, 1, 9), (1, 1, 1), (128, 4, 32)])
+def test_plan_row_take_vector_width(C, xvec, tx):
+    # whole rows by 16 bytes only when C % 4 == 0; one thread per access of
+    # a row, so a warp writes consecutive bytes of out
+    p = gather.plan("rows", 5239, C, 1 << 20, C, True, True, False)
+    assert (p.xvec, p.tx) == (xvec, tx) and p.tx * p.ty <= gather.THREADS
+    assert p.blocks * p.ty * gather.ROWS_IN_FLIGHT >= 1 << 20
+    fields = [getattr(p, name) for name, _ in p._fields_]
+    assert fields == [0, 0, 5239, C, 1 << 20, C, 0, xvec, 1, 0, p.tx, p.ty, p.blocks, 0]
+
+
+def test_plan_struct_matches_the_kernel_source():
+    # the plan crosses into C as one struct: kernels.GatherPlan and struct
+    # GatherPlan of csrc/gather.cu name the same 64-bit fields in one order
+    import ctypes
+    import re
+    from pathlib import Path
+
+    from nerfshop_tpu_torch import kernels
+
+    src = (Path(kernels.__file__).parent / "csrc" / "gather.cu").read_text()
+    body = re.search(r"struct GatherPlan \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    c_fields = [f.strip() for decl in body.split(";") if decl.strip() for f in decl.replace("long long", "").split(",")]
+    assert c_fields == [name for name, _ in kernels.GatherPlan._fields_]
+    assert all(t is ctypes.c_longlong for _, t in kernels.GatherPlan._fields_)
+
+
+def test_plan_index_vectors_need_divisible_rows():
+    # 4 int32 or 2 int64 indices per 16-byte load only where they stay in one row
+    assert gather.plan("axis1", 64, 128, 64, 128, True, True, False).ivec == 4
+    assert gather.plan("axis1", 64, 128, 64, 130, True, True, False).ivec == 1
+    assert gather.plan("axis1", 64, 128, 64, 130, True, True, True).ivec == 2
+    assert gather.plan("axis1", 64, 128, 64, 129, True, True, True).ivec == 1

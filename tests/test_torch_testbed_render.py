@@ -52,7 +52,7 @@ def test_render_buffer_matches(curve):
     rng = np.random.default_rng(1)
     frames = rng.uniform(0, 2, (5, 6, 7, 4)).astype(np.float32)
     depths = rng.uniform(0, 3, (5, 6, 7)).astype(np.float32)
-    jb, tb = jbuffer.RenderBuffer((7, 6)), tbuffer.RenderBuffer((7, 6))
+    jb, tb = jbuffer.RenderBuffer((7, 6)), tbuffer.RenderBuffer((7, 6), device="cpu")
     jb.clear()
     tb.clear()
     for f, d in zip(frames, depths):
@@ -192,3 +192,14 @@ def test_default_device_is_cuda_or_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttestbed.Testbed()
     assert ttestbed.Testbed(device="cpu").device == torch.device("cpu")
+
+
+def test_render_buffer_device_is_cuda_or_raises():
+    # a RenderBuffer without a device never accumulates on the host silently
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is cuda:0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbuffer.RenderBuffer((7, 6))
+    buf = tbuffer.RenderBuffer((7, 6), device="cpu")
+    buf.clear()
+    assert buf.device == torch.device("cpu") and buf.accumulate_rgba.device == torch.device("cpu")
