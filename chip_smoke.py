@@ -7,7 +7,11 @@ Phases, each printing one line of its own numbers:
   1. device: torch/CUDA versions, the card's name and power limit;
   2. build: compile the CUDA kernels of ``nerfshop_tpu_torch/csrc``;
   3. kernel A (sorted segment row-sum) against its plain PyTorch version;
-  4. kernel B (hash-grid encode forward) against its plain version;
+  4. kernel B (hash-grid encode forward) against its plain version, with
+     and without the slots and fractions the backward reads, at the
+     training shape (2^18 uniform samples), at N = 1 and at one tile plus
+     one (and, after the edit path, at the frame shape: the positions of
+     the trained model's middle 1080p march chunk);
   5. the encode backward (sort + kernel A + corner rolls) against autograd
      of the plain forward;
   6. kernel C (fused MLP forward) against its plain version at 2^20 rows,
@@ -33,9 +37,14 @@ Phases, each printing one line of its own numbers:
      ``Testbed.add_edit_operator`` (a full grid refresh through the stack)
      and rendered at 1920×1080; then ``save_edits`` → ``load_edits``;
  14. kernel E (tet lookup) against its plain version on 2^20 points in and
-     around the moved cage's LUT, and kernel D's row take of the warp.
-Then a JSON line with every kernel's launches on the main paths (training,
-render, frame and edit), error, times, bound and library-call time, the
+     around the moved cage's LUT and on the points the edited frame's
+     middle chunk sent through the moved cage, and kernel D's row take of
+     the warp.
+A [launches] line gives each path's launches by kernel, and kernel B's
+split into launches with fracs (training forwards only) and without
+(render, grid refresh, edited frames). Then a JSON line with every
+kernel's launches on the main paths (training, render, frame and edit),
+error, times, bound and library-call time, the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the script exits non-zero;
 without a CUDA device it exits non-zero before printing a result. Kernel
@@ -49,6 +58,7 @@ dense peak of their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -327,39 +337,112 @@ def _encoding(dev, g):
     return enc, x
 
 
-def phase_encode(dev, g):
-    """Kernel B: idx equal, w1 and out within 1e-6 absolute of the plain version."""
-    from nerfshop_tpu_torch.ops import table_ops
-
-    enc, x = _encoding(dev, g)
-    table = enc.table.detach()
-    out_k, idx_k, w1_k = table_ops.grid_encode_cuda(table, x, enc)
-    out_p, idx_p, w1_p = table_ops.grid_encode_plain(table, x, enc)
-    torch.cuda.synchronize()
-    check(torch.equal(idx_k, idx_p), f"kernel B slots differ at {int((idx_k != idx_p).sum())} (sample, level) pairs")
-    w1_err = float((w1_k - w1_p).abs().max())
-    out_err = float((out_k - out_p).abs().max())
-    check(w1_err <= 1e-6 and out_err <= 1e-6, f"kernel B disagrees: w1 {w1_err:.3e} out {out_err:.3e}")
-    ms, dev_ms = both_ms(lambda: table_ops.grid_encode_cuda(table, x, enc))
-    plain_ms = median_ms(lambda: table_ops.grid_encode_plain(table, x, enc))
-    # bytes: x, the distinct table rows the 8 corners touch, and the outputs
-    # (features, slots, fractions); ops: ~65 fp32 per (sample, level)
-    shifts = enc.shift_table(dev)
+def touched_rows(enc, idx) -> int:
+    """Distinct table rows the 8 corners of the slots idx [L, N] read."""
+    shifts = enc.shift_table(idx.device)
     rows = torch.cat([
-        ((idx_k[l].long()[:, None] + shifts[l][None, :]) % enc.level_sizes[l] + enc.level_offsets[l]).reshape(-1)
+        ((idx[l].long()[:, None] + shifts[l][None, :]) % enc.level_sizes[l] + enc.level_offsets[l]).reshape(-1)
         for l in range(enc.n_levels)
     ])
-    touched = int(torch.unique(rows).numel())
+    return int(torch.unique(rows).numel())
+
+
+def encode_case(label, enc, table, x, with_fracs: bool, note: str = ""):
+    """Kernel B in one mode against its plain version on x → its numbers.
+    With fracs: slots equal, w1 and out within 1e-6 absolute. Without: no
+    slots or fracs, out within 1e-6 of the plain version and bit-equal to the
+    kernel's out with fracs."""
+    from nerfshop_tpu_torch.ops import table_ops
+
+    out_k, idx_k, w1_k = table_ops.grid_encode_cuda(table, x, enc, with_fracs)
+    out_p, idx_p, w1_p = table_ops.grid_encode_plain(table, x, enc, True)
+    torch.cuda.synchronize()
     N, L = x.shape[0], enc.n_levels
-    b_ms, b_by = bound(nbytes(x, out_k, idx_k, w1_k) + touched * 2 * 4, N * L * 65.0)
+    check(out_k.shape == (N, 2 * L) and bool(torch.isfinite(out_k).all()), f"kernel B out bad ({label})")
+    out_err = float((out_k - out_p).abs().max())
+    if with_fracs:
+        n_diff = int((idx_k != idx_p).sum())
+        check(n_diff == 0, f"kernel B slots differ at {n_diff} (sample, level) pairs ({label})")
+        w1_err = float((w1_k - w1_p).abs().max())
+        check(w1_err <= 1e-6, f"kernel B fracs disagree ({label}): w1 {w1_err:.3e}")
+        what = f"slots equal, w1 err {w1_err:.3e}"
+    else:
+        check(idx_k is None and w1_k is None, f"kernel B returned fracs it was not asked for ({label})")
+        full = table_ops.grid_encode_cuda(table, x, enc, True)[0]
+        check(torch.equal(out_k, full), f"kernel B out without fracs differs from out with fracs ({label})")
+        what = "no slots or fracs written, out bit-equal to the out with fracs"
+    check(out_err <= 1e-6, f"kernel B disagrees ({label}): out {out_err:.3e}")
+    fn = lambda: table_ops.grid_encode_cuda(table, x, enc, with_fracs)  # noqa: E731
+    ms, dev_ms = both_ms(fn)
+    plain_ms = median_ms(lambda: table_ops.grid_encode_plain(table, x, enc, with_fracs))
+    us = host_us(fn)
+    # bytes: x, the distinct table rows the 8 corners touch, out (and with
+    # fracs the slots and fractions); ops: ~65 fp32 per (sample, level)
+    touched = touched_rows(enc, idx_p)
+    n_bytes = nbytes(x, out_k) + touched * 2 * 4 + (nbytes(idx_k, w1_k) if with_fracs else 0)
+    b_ms, b_by = bound(n_bytes, N * L * 65.0)
     print(
-        f"[encode] N={N} L={L}: slots equal, w1 err {w1_err:.3e} out err {out_err:.3e} "
-        f"(bound 1e-6) kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
-        f"{touched} of {enc.table_size} table rows touched)",
+        f"[encode] {label} N={N} L={L} {'with' if with_fracs else 'without'} fracs: {what}, out err {out_err:.3e} "
+        f"(bound 1e-6); kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
+        f"({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table rows touched), device/bound "
+        f"{dev_ms / b_ms:.2f}; host per call {us:.1f} us{note}",
         flush=True,
     )
     return dict(max_abs_err=out_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
                 library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_encode(dev, g):
+    """Kernel B at the training shape (2^18 uniform samples, the default
+    16 levels) in both modes, then at N = 1 and one tile plus one (the tile
+    as the kernel's launcher sizes it); then, in both modes and at one tile
+    plus one, at 5 levels (odd: a dense level and four hash levels, blocks
+    of 5 levels) and at 20 (a second level group of 4). The kernels line
+    takes the training shape with fracs."""
+    from nerfshop_tpu_torch import kernels
+    from nerfshop_tpu_torch.models.encodings import GridEncoding
+
+    enc, x = _encoding(dev, g)
+    table = enc.table.detach()
+    result = {m: encode_case("training shape", enc, table, x, m) for m in (True, False)}
+    tile = kernels.load().nst_grid_encode_tile(enc.n_levels)
+    for label, n in (("training inputs", 1), (f"training inputs, one tile ({tile}) plus one", tile + 1)):
+        for m in (True, False):
+            encode_case(label, enc, table, x[-n:].contiguous(), m)
+    for L, log2_size, level_scale in ((5, 14, 2.0), (20, 17, 1.5)):
+        enc_l = GridEncoding(n_levels=L, log2_hashmap_size=log2_size, per_level_scale=level_scale, device=dev, generator=g)
+        with torch.no_grad():
+            enc_l.table.uniform_(-1.0, 1.0, generator=g)
+        tile = kernels.load().nst_grid_encode_tile(L)
+        n_dense = sum(enc_l.level_dense)
+        for label, n in ((f"{n_dense} dense + {L - n_dense} hash levels", 1 << 16), (f"one tile ({tile}) plus one", tile + 1)):
+            for m in (True, False):
+                encode_case(label, enc_l, enc_l.table.detach(), x[:n].contiguous(), m)
+    return result[True]
+
+
+def repeat_shares(enc, x) -> tuple[float, float]:
+    """(share of distinct positions in x, share of (sample, level) pairs whose
+    cell equals the previous sample's): how much of a chunk's work repeats."""
+    distinct = torch.unique(x, dim=0).shape[0] / x.shape[0]
+    same = 0
+    for l in range(enc.n_levels):
+        scale = torch.full((), enc.level_scales[l], dtype=x.dtype, device=x.device)
+        cell = torch.floor(x * scale + 0.5).to(torch.int64).clamp(0, enc.level_res[l] - 1)
+        same += int((cell[1:] == cell[:-1]).all(dim=1).sum())
+    return distinct, same / (enc.n_levels * x.shape[0])
+
+
+def phase_encode_frame(tb, x):
+    """Kernel B at the frame shape: the positions of one chunk of the
+    trained model's 1080p march, in both modes, with the shares of that
+    chunk's positions and cells that repeat."""
+    enc = tb.model.pos_encoding
+    distinct, same = repeat_shares(enc, x)
+    note = (f"; distinct positions {distinct:.4f} of N, (sample, level) pairs in the previous "
+            f"sample's cell {same:.4f}")
+    for m in (False, True):
+        encode_case("1080p march chunk", enc, enc.table.detach(), x, m, note)
 
 
 def phase_backward(dev, g):
@@ -612,10 +695,63 @@ def phase_gather(dev, g):
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["grid_encode"].fracs_launches = 0
 
 
 def read_launches():
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    """Launches by kernel, and kernel B's launches with fracs as
+    ``grid_encode_fracs``."""
+    wrappers = kernel_wrappers()
+    return {**{k: fn.launches for k, fn in wrappers.items()}, "grid_encode_fracs": wrappers["grid_encode"].fracs_launches}
+
+
+def middle_chunk(W=1920, H=1080) -> int:
+    """Index of the middle pixel chunk of a W×H exact frame (its rays cross
+    the scene's centre)."""
+    from nerfshop_tpu_torch.render.renderer import RenderOptions
+
+    return -(-W * H // RenderOptions().chunk) // 2
+
+
+@contextlib.contextmanager
+def encode_input_of_call(enc, index: int):
+    """While open, keep a copy of the positions of ``enc``'s ``index``-th
+    forward (counting from 0) in the yielded list."""
+    kept, calls = [], [0]
+
+    def hook(module, args):
+        if calls[0] == index:
+            kept.append(args[0].detach().clone())
+        calls[0] += 1
+
+    handle = enc.register_forward_pre_hook(hook)
+    try:
+        yield kept
+    finally:
+        handle.remove()
+
+
+@contextlib.contextmanager
+def tet_lookup_input_of_call(lut, index: int):
+    """While open, keep (points, threshold) of the ``index``-th tet lookup on
+    ``lut`` (counting from 0) in the yielded list; the lookup still runs and
+    kernel E still counts its launch."""
+    from nerfshop_tpu_torch.editing import operators as ops_lib
+
+    lookup, kept, calls = ops_lib.tet_lookup, [], [0]
+
+    def spy(lut_, v0, inv_e, p, eps=-1e-5, near_miss=0.08):
+        if lut_ is lut:
+            if calls[0] == index:
+                kept.append((p.contiguous().clone(), ops_lib._threshold(eps, near_miss)))
+            calls[0] += 1
+        return lookup(lut_, v0, inv_e, p, eps, near_miss)
+
+    ops_lib.tet_lookup = spy
+    try:
+        yield kept
+    finally:
+        ops_lib.tet_lookup = lookup
 
 
 def check_launched(launches: dict, names, where: str) -> None:
@@ -660,10 +796,15 @@ def phase_main_path(dev):
     g = tb.grid
     copy = grid_lib.OccupancyGrid(g.density.clone(), g.occupancy.clone(), g.mean_density.clone())
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     nerf_train.update_grid(tb.model, copy, tb.train_config, tb.generator, full_refresh=True, trained_mask=tb.trained_mask)
     torch.cuda.synchronize()
     refresh_s = time.perf_counter() - t0
+    refresh = read_launches()
+    check(refresh["grid_encode"] > 0 and refresh["grid_encode_fracs"] == 0,
+          f"the grid refresh did not encode without fracs only: {refresh}")
+    check(launches["grid_encode_fracs"] > 0, f"the training path never encoded with fracs: {launches}")
 
     print(
         f"[train] {STEPS} steps batch {BATCH} in {train_s:.3f} s: {STEPS / train_s:.3f} steps/s, "
@@ -673,21 +814,27 @@ def phase_main_path(dev):
         f"occupancy {float(g.occupancy.float().mean()):.4f}",
         flush=True,
     )
-    print(f"[train] grid full refresh {refresh_s:.4f} s, peak memory {peak / 2**30:.3f} GiB, launches {launches}", flush=True)
+    print(
+        f"[train] grid full refresh {refresh_s:.4f} s (kernel B {refresh['grid_encode']} launches, "
+        f"{refresh['grid_encode_fracs']} with fracs), peak memory {peak / 2**30:.3f} GiB, launches {launches}",
+        flush=True,
+    )
     return tb, focal, principal, launches
 
 
 def phase_render(tb, W=1920, H=1080):
     """The render path: ``Testbed.render(W, H, exact=True)`` of the trained
-    model; the launch counts are those of the warm-up frame."""
+    model → (the launch counts of the warm-up frame, the positions its middle
+    chunk encoded)."""
     from nerfshop_tpu_torch.common import RenderMode
 
     tb.set_look_at(eye=CENTER + np.array([0.9, -0.9, 0.5], np.float32))
     torch.cuda.synchronize()
     reset_launches()
-    t0 = time.perf_counter()
-    img = tb.render(W, H, spp=1, exact=True)
-    first_s = time.perf_counter() - t0
+    with encode_input_of_call(tb.model.pos_encoding, middle_chunk(W, H)) as kept:
+        t0 = time.perf_counter()
+        img = tb.render(W, H, spp=1, exact=True)
+        first_s = time.perf_counter() - t0
     launches = read_launches()
     check(img.shape == (H, W, 4) and np.isfinite(img).all(), "1080p frame is not finite / of the expected shape")
     check_launched(launches, ("grid_encode", "fused_mlp", "gather"), "1080p frame")
@@ -713,7 +860,8 @@ def phase_render(tb, W=1920, H=1080):
         check(small.shape == (256, 256, 4) and np.isfinite(small).all(), f"{mode.value} frame bad")
         print(f"[render] 256x256 {mode.value}: min {float(small[..., 0].min()):.4f} max {float(small[..., 0].max()):.4f}", flush=True)
     tb.render_mode = RenderMode.Shade
-    return launches
+    check(len(kept) == 1, "the middle chunk's positions were not captured")
+    return launches, kept[0]
 
 
 def phase_frame(tb, W=1920, H=1080):
@@ -913,7 +1061,9 @@ def phase_edit(tb, focal, principal, W=1920, H=1080):
     tb.add_edit_operator(duplicate_op(dev))
     torch.cuda.synchronize()
     counts = read_launches()
-    edited = tb.render(W, H, spp=1, exact=True)
+    with tet_lookup_input_of_call(op_moved.lut_def, middle_chunk(W, H)) as kept:
+        edited = tb.render(W, H, spp=1, exact=True)
+    check(len(kept) == 1, "the middle chunk's lookup through the moved cage was not captured")
     frame_launches = {k: v - counts[k] for k, v in read_launches().items()}
     check(float(edited[..., 3].sum()) > float(moved[..., 3].sum()), "the affine duplicate did not add opacity")
     check(edited.shape == (H, W, 4) and np.isfinite(edited).all(), "edited frame is not finite / of the expected shape")
@@ -948,16 +1098,70 @@ def phase_edit(tb, focal, principal, W=1920, H=1080):
     after = tb.render(*small, spp=1, exact=True)
     check(np.array_equal(after, before), "the frame after the edits round trip differs")
     print(f"[edit] save_edits -> load_edits: {size / 2**20:.2f} MiB, operators bit-equal, {small[0]}x{small[1]} frame bit-equal", flush=True)
-    return op_moved, frame_launches
+    return op_moved, frame_launches, kept[0]
 
 
-def phase_tetlookup(op, g, N=1 << 20):
-    """Kernel E against its plain version on 2^20 points, 90% inside the
-    moved cage's LUT box and 10% outside, strict and inclusive; then kernel
-    D's row take of the warp ([Nt, 12] rows by 2^20 tets). found and tet
-    must agree except at near ties: the two best candidate scores, or the
-    best score and the threshold, within 1e-6; bary within 1e-5 where the
-    tets agree."""
+def tet_case(label, op, table, p, thr):
+    """Kernel E against its plain version on the points p [N, 3] of the moved
+    cage's LUT at threshold thr → its numbers. found and tet must agree
+    except at near ties (the two best candidate scores, or the best score and
+    the threshold, within 1e-6); bary within 1e-5 where the tets agree."""
+    from nerfshop_tpu_torch.editing import operators as ops_lib
+
+    lut = op.lut_def
+    dev = p.device
+    N, res, lo = p.shape[0], lut.res, lut.bbox_lo
+    fan = (lut.cells >= 0).sum(dim=1)
+    cell = torch.floor((p - lo) * lut.inv_cell).long()
+    inb = ((cell >= 0) & (cell < res)).all(dim=1)
+    ci = ((cell[:, 0] * res + cell[:, 1]) * res + cell[:, 2]).clamp(0, res**3 - 1)
+    # the two best scores of every point, for the near-tie rule
+    cand = lut.cells[ci]
+    top = torch.full((N, 2), float("-inf"), device=dev)
+    for c in range(cand.shape[1]):
+        tid = cand[:, c]
+        w = ops_lib._bary_rows(table[tid.clamp_min(0).long()], p)
+        sc = torch.minimum(torch.minimum(w[0], w[1]), torch.minimum(w[2], w[3]))
+        sc = torch.where((tid >= 0) & inb, sc, torch.full_like(sc, float("-inf")))
+        top = torch.sort(torch.cat([top, sc[:, None]], dim=1), dim=1, descending=True).values[:, :2]
+    fk, tk, bk = ops_lib.tet_lookup_cuda(lut, table, p, thr)
+    fp, tp, bp = ops_lib.tet_lookup_plain(lut, table, p, thr)
+    torch.cuda.synchronize()
+    tie = ((top[:, 0] - top[:, 1]) < 1e-6) | ((top[:, 0] - thr).abs() < 1e-6)
+    bad = ((fk != fp) | (tk != tp)) & ~tie
+    same = tk == tp
+    b_err = float((bk - bp).abs()[same].max())
+    n_diff = int(((fk != fp) | (tk != tp)).sum())
+    check(int(bad.sum()) == 0 and b_err <= 1e-5,
+          f"kernel E disagrees ({label}): {int(bad.sum())} points off the near ties, bary err {b_err:.3e}")
+    ms, dev_ms = both_ms(lambda: ops_lib.tet_lookup_cuda(lut, table, p, thr))
+    plain_ms = median_ms(lambda: ops_lib.tet_lookup_plain(lut, table, p, thr))
+    # bytes: positions in, found/tet/bary out, the distinct LUT rows read
+    # (up to the first −1) and the distinct table rows of the candidates;
+    # ops: ~24 fp32 per candidate visited, 21 for the winner's bary
+    vis = fan[ci] * inb
+    cells_read = torch.unique(ci[inb])
+    rows_read = int(torch.minimum(fan[cells_read] + 1, torch.full_like(fan[cells_read], lut.cells.shape[1])).sum())
+    tets_read = int(torch.unique(cand[inb][cand[inb] >= 0]).numel())
+    b_ms, b_by = bound(nbytes(p, fk, tk, bk) + rows_read * 4 + tets_read * 48, float(vis.sum()) * 24 + N * 21.0)
+    print(
+        f"[tetlookup] {label} N={N} threshold {thr:g}: {n_diff} points differ, all at near ties "
+        f"({int(tie.sum())} near ties), bary max err {b_err:.3e} (bound 1e-5); kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}), device/bound {dev_ms / b_ms:.2f}; "
+        f"found {float(fk.float().mean()):.4f}, in the LUT box {float(inb.float().mean()):.4f}, "
+        f"{float(vis.sum()) / max(N, 1):.2f} candidates per point",
+        flush=True,
+    )
+    return dict(max_abs_err=float(int(bad.sum())), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_tetlookup(op, g, chunk, N=1 << 20):
+    """Kernel E against its plain version on 2^20 random points, 90% inside
+    the moved cage's LUT box and 10% outside, strict and inclusive, and on
+    the points one chunk of the edited 1080p frame sent through the moved
+    cage (``chunk``: points and threshold); then kernel D's row take of the
+    warp ([Nt, 12] rows by 2^20 tets)."""
     from nerfshop_tpu_torch.editing import operators as ops_lib
 
     lut = op.lut_def
@@ -970,58 +1174,16 @@ def phase_tetlookup(op, g, N=1 << 20):
         lo + size * (1.05 + torch.rand((N - n_in, 3), generator=g, device=dev)),
     ])
     table = torch.cat([op.v0_def, op.inv_def.reshape(-1, 9)], dim=1).contiguous()
+    result = {
+        eps: tet_case(f"eps {eps:g} random points (90% in the LUT box)", op, table, p, ops_lib._threshold(eps, 0.08))
+        for eps in (-1e-5, 5e-3)
+    }
+    tet_case("edited 1080p frame's middle chunk", op, table, *chunk)
     fan = (lut.cells >= 0).sum(dim=1)
-    res = lut.res
-    cell = torch.floor((p - lo) * lut.inv_cell).long()
-    inb = ((cell >= 0) & (cell < res)).all(dim=1)
-    ci = ((cell[:, 0] * res + cell[:, 1]) * res + cell[:, 2]).clamp(0, res**3 - 1)
-
-    # the two best scores of every point, for the near-tie rule
-    cand = lut.cells[ci]
-    top = torch.full((N, 2), float("-inf"), device=dev)
-    for c in range(cand.shape[1]):
-        tid = cand[:, c]
-        w = ops_lib._bary_rows(table[tid.clamp_min(0).long()], p)
-        sc = torch.minimum(torch.minimum(w[0], w[1]), torch.minimum(w[2], w[3]))
-        sc = torch.where((tid >= 0) & inb, sc, torch.full_like(sc, float("-inf")))
-        top = torch.sort(torch.cat([top, sc[:, None]], dim=1), dim=1, descending=True).values[:, :2]
-    result = {}
-    for eps in (-1e-5, 5e-3):
-        thr = ops_lib._threshold(eps, 0.08)
-        fk, tk, bk = ops_lib.tet_lookup_cuda(lut, table, p, thr)
-        fp, tp, bp = ops_lib.tet_lookup_plain(lut, table, p, thr)
-        torch.cuda.synchronize()
-        tie = ((top[:, 0] - top[:, 1]) < 1e-6) | ((top[:, 0] - thr).abs() < 1e-6)
-        bad = ((fk != fp) | (tk != tp)) & ~tie
-        same = tk == tp
-        b_err = float((bk - bp).abs()[same].max())
-        n_diff = int(((fk != fp) | (tk != tp)).sum())
-        check(int(bad.sum()) == 0 and b_err <= 1e-5,
-              f"kernel E disagrees (eps {eps}): {int(bad.sum())} points off the near ties, bary err {b_err:.3e}")
-        ms, dev_ms = both_ms(lambda: ops_lib.tet_lookup_cuda(lut, table, p, thr))
-        plain_ms = median_ms(lambda: ops_lib.tet_lookup_plain(lut, table, p, thr))
-        # bytes: positions in, found/tet/bary out, the distinct LUT rows read
-        # (up to the first −1) and the distinct table rows of the candidates;
-        # ops: ~24 fp32 per candidate visited, 21 for the winner's bary
-        vis = fan[ci] * inb
-        cells_read = torch.unique(ci[inb])
-        rows_read = int(torch.minimum(fan[cells_read] + 1, torch.full_like(fan[cells_read], lut.cells.shape[1])).sum())
-        tets_read = int(torch.unique(cand[inb][cand[inb] >= 0]).numel())
-        b_ms, b_by = bound(nbytes(p, fk, tk, bk) + rows_read * 4 + tets_read * 48, float(vis.sum()) * 24 + N * 21.0)
-        print(
-            f"[tetlookup] eps {eps:g} N={N} (90% in the LUT box): {n_diff} points differ, all at near ties "
-            f"({int(tie.sum())} near ties), bary max err {b_err:.3e} (bound 1e-5); kernel {ms:.4f} ms (device "
-            f"{dev_ms:.4f} ms) plain "
-            f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); found {float(fk.float().mean()):.4f}",
-            flush=True,
-        )
-        result[eps] = dict(max_abs_err=float(int(bad.sum())), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                           library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
     nz = fan[fan > 0].float()
     print(
-        f"[tetlookup] LUT {res}^3 x {lut.cells.shape[1]}: fanout max {int(fan.max())} mean {float(nz.mean()):.2f} over "
-        f"{nz.numel()} non-empty cells, {float(fan[ci[inb]].float().mean()):.2f} per looked-up point; LUT "
-        f"{nbytes(lut.cells) / 2**20:.2f} MiB, {op.v0_def.shape[0]} tets",
+        f"[tetlookup] LUT {lut.res}^3 x {lut.cells.shape[1]}: fanout max {int(fan.max())} mean {float(nz.mean()):.2f} over "
+        f"{nz.numel()} non-empty cells; LUT {nbytes(lut.cells) / 2**20:.2f} MiB, {op.v0_def.shape[0]} tets",
         flush=True,
     )
     # kernel D's row take of the warp: per-tet [Nt, 12] deltas by 2^20 tets
@@ -1049,18 +1211,24 @@ def main() -> None:
     mlp = phase_mlp(dev, g)
     gat = phase_gather(dev, g)
     tb, focal, principal, train_launches = phase_main_path(dev)
-    render_launches = phase_render(tb)
+    render_launches, chunk_x = phase_render(tb)
     frame_launches = phase_frame(tb)
     xf = phase_held_out(tb, focal, principal)
     phase_snapshot(tb, xf, focal, principal)
     torch.cuda.synchronize()
     reset_launches()
-    op, edited_frame_launches = phase_edit(tb, focal, principal)
+    op, edited_frame_launches, chunk_pts = phase_edit(tb, focal, principal)
     edit_launches = read_launches()
     check_launched(edit_launches, ("grid_encode", "fused_mlp", "gather", "tet_lookup"), "edit path")
-    tet = phase_tetlookup(op, g)
     paths = {"train": train_launches, "render": render_launches, "frame": frame_launches, "edit": edit_launches}
+    for name in ("render", "frame", "edit"):
+        check(paths[name]["grid_encode_fracs"] == 0, f"kernel B wrote fracs on the {name} path: {paths[name]}")
+    check(edited_frame_launches["grid_encode_fracs"] == 0, "kernel B wrote fracs in the edited frame")
+    split = {k: (v["grid_encode_fracs"], v["grid_encode"] - v["grid_encode_fracs"]) for k, v in paths.items()}
     print(f"[launches] per path: {paths}; in one edited 1080p frame: {edited_frame_launches}", flush=True)
+    print(f"[launches] kernel B (with fracs, without) per path: {split}", flush=True)
+    phase_encode_frame(tb, chunk_x)
+    tet = phase_tetlookup(op, g, chunk_pts)
     launches = {k: sum(p[k] for p in paths.values()) for k in train_launches}
     rows = (
         ("sorted_segment_rowsum", "segsum", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", seg),

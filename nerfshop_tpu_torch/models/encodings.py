@@ -16,7 +16,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch import nn
 
-from nerfshop_tpu_torch.ops import table_ops
+from nerfshop_tpu_torch.ops import fused_mlp, table_ops
 
 _HASH_PRIMES = (1, 2654435761, 805459861)
 
@@ -146,8 +146,13 @@ class GridEncoding(nn.Module):
         return torch.stack(idxs), torch.stack(fracs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N, D] in [0,1] → [N, L·F]."""
-        return table_ops.GridEncodeFunction.apply(self.table, x.contiguous(), self)
+        """x [N, D] in [0,1] → [N, L·F]. A forward that autograd records
+        goes through ``GridEncodeFunction``, which keeps the slots and
+        fractions for the backward; any other encodes without them."""
+        x = x.contiguous()
+        if fused_mlp.needs_grad(x, (self.table,)):
+            return table_ops.GridEncodeFunction.apply(self.table, x, self)
+        return table_ops.grid_encode(self.table, x, self, with_fracs=False)[0]
 
 
 class SphericalHarmonicsEncoding(nn.Module):

@@ -3,8 +3,10 @@
 Counterpart of ``nerfshop_tpu/ops/table_ops.py::make_brick_encode``. The
 forward gathers each sample's 2^D cell corners straight from the canonical
 ``[Σm, F]`` table at ``(base + shift_c) mod m`` (no brick tables); on a CUDA
-tensor it is kernel B (``csrc/grid_encode.cu``). The backward sorts each
-level's ``(idx, w1, dout)`` by slot, sums each sorted run with kernel A
+tensor it is kernel B (``csrc/grid_encode.cu``). Only a forward that
+autograd records needs the base slots and fractions (``with_fracs``); the
+render and grid-refresh forwards ask for the features alone. The backward
+sorts each level's ``(idx, w1, dout)`` by slot, sums each sorted run with kernel A
 (:mod:`nerfshop_tpu_torch.ops.segsum`), and reduces the brick-row gradient
 back onto canonical slots with one ``torch.roll`` per corner (same sign as
 ``jnp.roll``, ``table_ops.py:402-412``).
@@ -36,14 +38,18 @@ def encode_from_fracs(table: torch.Tensor, idx: torch.Tensor, w1: torch.Tensor, 
     return torch.stack(outs, dim=1).reshape(N, L * F)
 
 
-def grid_encode_plain(table: torch.Tensor, x: torch.Tensor, enc):
-    """Plain version of kernel B → (out [N, L·F], idx [L, N] int32, w1 [L, N, D])."""
+def grid_encode_plain(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: bool = True):
+    """Plain version of kernel B → (out [N, L·F], idx [L, N] int32, w1 [L, N, D]),
+    or (out, None, None) without fracs."""
     idx, w1 = enc.brick_fracs(x)
-    return encode_from_fracs(table, idx, w1, enc), idx, w1
+    out = encode_from_fracs(table, idx, w1, enc)
+    return (out, idx, w1) if with_fracs else (out, None, None)
 
 
-def grid_encode_cuda(table: torch.Tensor, x: torch.Tensor, enc):
-    """Kernel B. Takes D = 3, F = 2 and raises on anything else."""
+def grid_encode_cuda(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: bool = True):
+    """Kernel B → (out [N, L·2], idx [L, N] int32, w1 [L, N, 3]); without
+    fracs it writes out only and returns (out, None, None). Takes D = 3,
+    F = 2 and raises on anything else."""
     dev = x.device
     N = x.shape[0]
     L = enc.n_levels
@@ -53,30 +59,34 @@ def grid_encode_cuda(table: torch.Tensor, x: torch.Tensor, enc):
     kernels.require(table, "table", torch.float32, (enc.table_size, 2), dev)
     meta_i, meta_f = enc.kernel_meta(dev)
     out = torch.empty((N, L * 2), dtype=torch.float32, device=dev)
-    idx = torch.empty((L, N), dtype=torch.int32, device=dev)
-    w1 = torch.empty((L, N, 3), dtype=torch.float32, device=dev)
-    lib = kernels.load()
-    err = lib.nst_grid_encode(
-        x.data_ptr(), meta_i.data_ptr(), meta_f.data_ptr(), table.data_ptr(),
-        out.data_ptr(), idx.data_ptr(), w1.data_ptr(), N, L, kernels.stream_ptr(dev),
+    idx = w1 = None
+    if with_fracs:
+        idx = torch.empty((L, N), dtype=torch.int32, device=dev)
+        w1 = torch.empty((L, N, 3), dtype=torch.float32, device=dev)
+    err = kernels.load().nst_grid_encode(
+        x.data_ptr(), meta_i.data_ptr(), meta_f.data_ptr(), table.data_ptr(), out.data_ptr(),
+        idx.data_ptr() if with_fracs else None, w1.data_ptr() if with_fracs else None, N, L,
+        kernels.stream_ptr(dev),
     )
     kernels.check(err, "grid_encode")
     grid_encode_cuda.launches += 1
+    grid_encode_cuda.fracs_launches += with_fracs
     return out, idx, w1
 
 
-#: launches of kernel B since the last reset
+#: launches of kernel B since the last reset, and how many of them wrote fracs
 grid_encode_cuda.launches = 0
+grid_encode_cuda.fracs_launches = 0
 
 
-def grid_encode(table: torch.Tensor, x: torch.Tensor, enc):
-    """Encode forward → (out, idx, w1). CPU tensors take the plain version;
-    CUDA tensors launch kernel B or raise."""
+def grid_encode(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: bool = True):
+    """Encode forward → (out, idx, w1), or (out, None, None) without fracs.
+    CPU tensors take the plain version; CUDA tensors launch kernel B or raise."""
     if x.device.type == "cpu":
-        return grid_encode_plain(table, x, enc)
+        return grid_encode_plain(table, x, enc, with_fracs)
     if x.device.type != "cuda":
         raise ValueError(f"grid_encode: unsupported device {x.device}")
-    return grid_encode_cuda(table, x, enc)
+    return grid_encode_cuda(table, x, enc, with_fracs)
 
 
 def table_grad(idx: torch.Tensor, w1: torch.Tensor, dout: torch.Tensor, enc) -> torch.Tensor:

@@ -3,7 +3,8 @@
 
 Run from the root of a checkout:
   python3 profile_render.py [--out FILE] [--edited | --train]
-  python3 profile_render.py --kernels [--root DIR]
+  python3 profile_render.py --save-chunk FILE
+  python3 profile_render.py --kernels --chunk FILE [--root DIR]
 
 Trains the model of ``chip_smoke.py`` (default config, 256 steps on the
 analytic sphere), renders one warm-up frame, times 3 unprofiled frames on
@@ -11,8 +12,9 @@ the host clock, then renders one frame under ``torch.profiler`` and
 reports, for that same profiled frame, its host wall time, the device busy
 time (the union of the intervals of every device event: kernels and
 copies) and the idle share 1 − busy / wall. Then the device time by
-kernel name (the 20 largest here, all of them in ``--out``) and, from one
-Cost-mode frame, how many of the evaluated sample slots were composited.
+kernel name (the 20 largest here, all of them in ``--out``), kernel B's
+share of it, and, from one Cost-mode frame, how many of the evaluated
+sample slots were composited.
 
 With ``--edited`` it builds the edit of ``chip_smoke.py`` (scribble → cage
 moved +0.18 in x → an affine duplicate on top), profiles the unedited and
@@ -26,14 +28,23 @@ kernel name (the share of kernel A, ``segsum``, among them); then kernel A
 alone at ``chip_smoke.py``'s hash, dense, skewed and spread-under-a-pile
 cases, each launch's device time and the span of a call.
 
-With ``--kernels`` it trains nothing: it times kernels A and D of the
-``nerfshop_tpu_torch`` package found under ``--root`` (default: this
-checkout) at ``KERNEL_CASES``, from the same seeded inputs every run, each
-by both of ``chip_smoke.median_ms``'s methods (events around one call, and
-queued behind a spin), with the library call beside it and the wrapper's
-host µs per call. Pointed at an unpacked older commit, it times that
-commit's kernels on the same inputs: run old, new, new, old one after the
-other on one card to compare two versions.
+With ``--save-chunk FILE`` it trains that model, renders one 1080p frame
+and saves the positions the frame's middle chunk encoded (8192 rays × K
+slots) and the trained table: kernel B's frame shape.
+
+With ``--kernels --chunk FILE`` it trains nothing: it times kernels A and D
+of the ``nerfshop_tpu_torch`` package found under ``--root`` (default: this
+checkout) at ``KERNEL_CASES``, and kernel B at ``chip_smoke.py``'s
+training shape and at the saved frame shape, in each mode its wrapper has,
+from the same inputs every run, each by both of ``chip_smoke.median_ms``'s
+methods (events around one call, and queued behind a spin), with the
+library call beside it and the wrapper's host µs per call. Pointed at an
+unpacked older commit, it times that commit's kernels on the same inputs:
+run old, new, new, old one after the other on one card to compare two
+versions.
+
+  python3 profile_render.py --save-chunk build/chunk.pt
+  python3 profile_render.py --kernels --chunk build/chunk.pt [--root DIR]
 """
 
 from __future__ import annotations
@@ -122,6 +133,14 @@ def profile_frame(tb, label: str, out: Path | None = None):
         flush=True,
     )
     write_table(by_name, out)
+    b_ms = sum(ms for name, (ms, _) in by_name.items() if "grid_encode" in name)
+    b_n = sum(n for name, (_, n) in by_name.items() if "grid_encode" in name)
+    total = sum(ms for ms, _ in by_name.values())
+    print(
+        f"[profile] {label}: kernel B {b_ms:.3f} ms in {b_n} launches, {100 * b_ms / total:.2f}% of the frame's "
+        f"{total:.1f} ms of kernel and copy time",
+        flush=True,
+    )
     return by_name
 
 
@@ -206,12 +225,64 @@ KERNEL_CASES = (
 )
 
 
-def time_kernels(dev, root: str) -> None:
+def encode_inputs(dev, chunk: Path):
+    """Kernel B's two shapes: (label, encoding, table, x) at the training
+    shape (``chip_smoke.py``'s [encode] inputs) and at the frame shape (the
+    positions and the trained table saved by ``--save-chunk``)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+    enc, x = chip_smoke._encoding(dev, g)
+    saved = torch.load(chunk, map_location=dev)
+    return (("training shape", enc, enc.table.detach(), x), ("1080p march chunk", enc, saved["table"], saved["x"]))
+
+
+def time_encode(dev, chunk: Path) -> None:
+    """Kernel B of the package at both shapes, in each mode its wrapper has
+    (an older wrapper without ``with_fracs`` always writes the fracs)."""
+    import inspect
+
+    from nerfshop_tpu_torch.ops import table_ops
+
+    modes = (True, False) if "with_fracs" in inspect.signature(table_ops.grid_encode_cuda).parameters else (None,)
+    for label, enc, table, x in encode_inputs(dev, chunk):
+        plain = table_ops.grid_encode_plain(table, x, enc)[0]
+        for mode in modes:
+            args = (table, x, enc) if mode is None else (table, x, enc, mode)
+            out = table_ops.grid_encode_cuda(*args)[0]
+            chip_smoke.check(float((out - plain).abs().max()) <= 1e-6, f"kernel B disagrees ({label})")
+            ms, dev_ms = chip_smoke.both_ms(lambda: table_ops.grid_encode_cuda(*args))
+            us = chip_smoke.host_us(lambda: table_ops.grid_encode_cuda(*args))
+            fracs = "with fracs" if mode in (None, True) else "without fracs"
+            print(
+                f"[kernels] B {label} N={x.shape[0]} {fracs}: events {ms:.4f} ms device {dev_ms:.4f} ms; "
+                f"wrapper host {us:.1f} us per call",
+                flush=True,
+            )
+
+
+def save_chunk(dev, path: Path) -> None:
+    """``--save-chunk``: train the smoke's model, render one 1080p frame of the
+    render view and save the positions its middle chunk encoded, with the
+    trained table."""
+    tb, _, _, _ = chip_smoke.phase_main_path(dev)
+    tb.set_look_at(eye=chip_smoke.CENTER + np.array([0.9, -0.9, 0.5], np.float32))
+    enc = tb.model.pos_encoding
+    with chip_smoke.encode_input_of_call(enc, chip_smoke.middle_chunk(W, H)) as kept:
+        tb.render(W, H, exact=True)
+    chip_smoke.check(len(kept) == 1, "the middle chunk's positions were not captured")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"x": kept[0], "table": enc.table.detach().clone()}, path)
+    print(f"[profile] saved the {tuple(kept[0].shape)} positions of the middle 1080p chunk to {path}", flush=True)
+
+
+def time_kernels(dev, root: str, chunk: Path) -> None:
     """``--kernels``: kernels A and D of the package under ``root`` at
-    KERNEL_CASES, each checked against its plain version, then timed."""
+    KERNEL_CASES and kernel B at its two shapes, each checked against its
+    plain version, then timed."""
     from nerfshop_tpu_torch.ops import gather, segsum
 
     print(f"[kernels] package {Path(segsum.__file__).resolve().parent.parent} (root {root})", flush=True)
+    time_encode(dev, chunk)
     seg_labels, gather_cases = KERNEL_CASES
     for label, m, N in chip_smoke.SEGSUM_CASES:
         if label not in seg_labels:
@@ -266,18 +337,26 @@ def main() -> None:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--edited", action="store_true", help="also profile the frame of chip_smoke.py's edit")
     mode.add_argument("--train", action="store_true", help="profile 8 training steps instead of a frame")
-    mode.add_argument("--kernels", action="store_true", help="time kernels A and D alone (no training)")
+    mode.add_argument("--kernels", action="store_true", help="time kernels A, B and D alone (no training)")
+    mode.add_argument("--save-chunk", type=Path, default=None, help="train, then save one 1080p chunk's positions here")
     ap.add_argument("--root", default=None, help="with --kernels: the checkout whose package is timed")
+    ap.add_argument("--chunk", type=Path, default=None, help="with --kernels: the file --save-chunk wrote")
     args = ap.parse_args()
+    if (args.root is not None or args.chunk is not None) and not args.kernels:
+        ap.error("--root and --chunk go with --kernels")
+    if args.kernels and args.chunk is None:
+        ap.error("--kernels needs --chunk (written by --save-chunk)")
     if args.root is not None:
-        if not args.kernels:
-            ap.error("--root goes with --kernels")
         sys.path.insert(0, str(Path(args.root).resolve()))  # before the package is first imported
-    if args.kernels:
+    if args.kernels or args.save_chunk is not None:
         smi = chip_smoke.phase_device()
         chip_smoke.phase_build()
         print(f"[profile] card: {smi}")
-        time_kernels(torch.device("cuda", 0), args.root or ".")
+        dev = torch.device("cuda", 0)
+        if args.save_chunk is not None:
+            save_chunk(dev, args.save_chunk)
+            return
+        time_kernels(dev, args.root or ".", args.chunk)
         return
 
     from nerfshop_tpu_torch.common import RenderMode

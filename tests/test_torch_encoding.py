@@ -64,16 +64,99 @@ def test_brick_fracs_match(name):
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_forward_matches_apply(name):
-    # fp32, other summation order over the corners: atol 1e-6
+#: (config, with_fracs): the ids of the with-fracs cases are the configs'
+FORWARD_CASES = [pytest.param(n, True, id=n) for n in sorted(CONFIGS)] + [
+    pytest.param(n, False, id=f"{n}-without_fracs") for n in sorted(CONFIGS)
+]
+
+
+@pytest.mark.parametrize("name,with_fracs", FORWARD_CASES)
+def test_forward_matches_apply(name, with_fracs):
+    # fp32, other summation order over the corners: atol 1e-6; the two modes
+    # and the module's own (fracs-free, no gradient) forward bit-equal
     je, te, table = _pair(name)
     x = _points(2)
     ref = np.asarray(je.apply({"table": jnp.asarray(table)}, jnp.asarray(x)))
+    xt = torch.from_numpy(x)
     with torch.no_grad():
-        ours = te(torch.from_numpy(x)).numpy()
+        ours, idx, w1 = table_ops.grid_encode(te.table, xt, te, with_fracs=with_fracs)
+        other = table_ops.grid_encode(te.table, xt, te, with_fracs=not with_fracs)[0]
+        module = te(xt)
+    assert (idx is not None, w1 is not None) == (with_fracs, with_fracs)
+    if with_fracs:
+        assert idx.shape == (te.n_levels, x.shape[0]) and w1.shape == (te.n_levels, x.shape[0], 3)
+    assert torch.equal(ours, other) and torch.equal(ours, module)
     assert ours.shape == ref.shape == (x.shape[0], te.n_output_dims)
-    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-6)
+
+
+def _spy_fracs(monkeypatch):
+    """Record the ``with_fracs`` of every call of the plain encode."""
+    seen = []
+    plain = table_ops.grid_encode_plain
+
+    def spy(table, x, enc, with_fracs=True):
+        seen.append(with_fracs)
+        return plain(table, x, enc, with_fracs)
+
+    monkeypatch.setattr(table_ops, "grid_encode_plain", spy)
+    return seen
+
+
+def _tiny_network():
+    from nerfshop_tpu_torch.models import nerf_network as tnn
+
+    cfg = {
+        "encoding": {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
+                     "log2_hashmap_size": 12, "base_resolution": 8, "per_level_scale": 1.5},
+        "network": {"n_neurons": 16, "n_hidden_layers": 1},
+        "dir_encoding": {"otype": "SphericalHarmonics", "degree": 4},
+        "rgb_network": {"n_neurons": 16, "n_hidden_layers": 1},
+    }
+    return tnn, tnn.build_nerf_network(cfg, aabb_scale=1, generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("case", ["no_grad", "frozen table", "ema density_with", "ema density_with no_grad"])
+def test_forward_without_gradient_skips_fracs(monkeypatch, case):
+    # where autograd records nothing the encode writes no slots or fracs
+    x = torch.from_numpy(_points(6))
+    if case.startswith("ema"):
+        tnn, model = _tiny_network()
+        ema = {k: v.clone() for k, v in model.state_dict().items()}  # as the trainer keeps it
+        assert not any(v.requires_grad for v in ema.values())
+        ref = tnn.density_with(model, None, x).detach()
+        seen = _spy_fracs(monkeypatch)
+        if case.endswith("no_grad"):
+            with torch.no_grad():
+                sigma = tnn.density_with(model, ema, x)
+        else:
+            sigma = tnn.density_with(model, ema, x)
+        assert not sigma.requires_grad
+        torch.testing.assert_close(sigma, ref, rtol=0, atol=0)
+    else:
+        _, te, _ = _pair("hash")
+        seen = _spy_fracs(monkeypatch)
+        if case == "no_grad":
+            with torch.no_grad():
+                out = te(x)
+        else:
+            te.table.requires_grad_(False)
+            out = te(x)
+        assert out.grad_fn is None
+    assert seen == [False]
+
+
+def test_forward_with_gradient_keeps_fracs(monkeypatch):
+    # a recorded forward goes through GridEncodeFunction and saves idx / w1
+    _, te, _ = _pair("hash")
+    x = torch.from_numpy(_points(7))
+    seen = _spy_fracs(monkeypatch)
+    out = te(x)
+    assert seen == [True]
+    assert type(out.grad_fn).__name__ == "GridEncodeFunctionBackward"
+    idx, w1 = out.grad_fn.saved_tensors
+    ti, tw = te.brick_fracs(x)
+    assert torch.equal(idx, ti) and torch.equal(w1, tw)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
