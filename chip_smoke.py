@@ -36,13 +36,20 @@ Phases, each printing one line of its own numbers:
      x and an affine duplicate on top, each added through
      ``Testbed.add_edit_operator`` (a full grid refresh through the stack)
      and rendered at 1920×1080; then ``save_edits`` → ``load_edits``;
- 14. kernel E (tet lookup) against its plain version on 2^20 points in and
-     around the moved cage's LUT and on the points the edited frame's
-     middle chunk sent through the moved cage, and kernel D's row take of
-     the warp.
+ 14. kernel E, the cage warp, in its three instances against their plain
+     versions: the ``LOOKUP`` (strict and inclusive) and the two warps
+     (``WARP_SAMPLES``, ``WARP_POSITIONS``) on 2^20 points in and around the
+     moved cage's LUT and on the points and directions the edited frame's
+     middle chunk sent through the moved cage, beside the parent commit's
+     launch pattern of the sample warp (two lookups, kernel D's row takes
+     and the elementwise warp); then all three bit-equal on LUTs that test
+     the tie rule (an exact copy of every tet listed before it) and the NaN
+     rule (a degenerate tet at the head of every cell).
 A [launches] line gives each path's launches by kernel, and kernel B's
 split into launches with fracs (training forwards only) and without
-(render, grid refresh, edited frames). Then a JSON line with every
+(render, grid refresh, edited frames); the edited frame runs the cage warp
+as one launch of kernel E per chunk and launches kernel D only for the
+march. Then a JSON line with every
 kernel's launches on the main paths (training, render, frame and edit),
 error, times, bound and library-call time, the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
@@ -565,6 +572,8 @@ def kernel_wrappers():
         "fused_mlp": fused_mlp.fused_mlp_cuda,
         "gather": gather.gather_cuda,
         "tet_lookup": operators.tet_lookup_cuda,
+        "cage_warp_samples": operators.cage_warp_samples_cuda,
+        "cage_warp_positions": operators.cage_warp_positions_cuda,
     }
 
 
@@ -732,26 +741,26 @@ def encode_input_of_call(enc, index: int):
 
 
 @contextlib.contextmanager
-def tet_lookup_input_of_call(lut, index: int):
-    """While open, keep (points, threshold) of the ``index``-th tet lookup on
-    ``lut`` (counting from 0) in the yielded list; the lookup still runs and
-    kernel E still counts its launch."""
+def cage_input_of_call(op, index: int):
+    """While open, keep (positions, directions) of the ``index``-th sample
+    warp through the cage operator ``op`` (counting from 0) in the yielded
+    list; the warp still runs and kernel E still counts its launch."""
     from nerfshop_tpu_torch.editing import operators as ops_lib
 
-    lookup, kept, calls = ops_lib.tet_lookup, [], [0]
+    warp, kept, calls = ops_lib.cage_map_samples, [], [0]
 
-    def spy(lut_, v0, inv_e, p, eps=-1e-5, near_miss=0.08):
-        if lut_ is lut:
+    def spy(op_, pos, direction):
+        if op_ is op:
             if calls[0] == index:
-                kept.append((p.contiguous().clone(), ops_lib._threshold(eps, near_miss)))
+                kept.append((pos.contiguous().clone(), direction.contiguous().clone()))
             calls[0] += 1
-        return lookup(lut_, v0, inv_e, p, eps, near_miss)
+        return warp(op_, pos, direction)
 
-    ops_lib.tet_lookup = spy
+    ops_lib.cage_map_samples = spy
     try:
         yield kept
     finally:
-        ops_lib.tet_lookup = lookup
+        ops_lib.cage_map_samples = warp
 
 
 def check_launched(launches: dict, names, where: str) -> None:
@@ -929,21 +938,16 @@ def phase_snapshot(tb, xf, focal, principal):
 
 
 def ops_equal(a, b) -> bool:
-    """Two operator lists equal bit for bit."""
-    if [type(o) for o in a] != [type(o) for o in b]:
-        return False
-    for x, y in zip(a, b):
-        for f in type(x)._fields:
-            u, v = getattr(x, f), getattr(y, f)
-            if f.startswith("lut_"):
-                if u.res != v.res or not all(torch.equal(getattr(u, k), getattr(v, k)) for k in ("bbox_lo", "inv_cell", "cells")):
-                    return False
-            elif isinstance(u, torch.Tensor):
-                if not torch.equal(u, v):
-                    return False
-            elif u != v:
-                return False
-    return True
+    """Two operator lists equal bit for bit, their LUTs and packed forms too."""
+
+    def same(u, v):
+        if isinstance(u, torch.Tensor):
+            return isinstance(v, torch.Tensor) and torch.equal(u, v)
+        if hasattr(u, "_fields"):
+            return type(u) is type(v) and all(same(x, y) for x, y in zip(u, v))
+        return u == v
+
+    return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
 
 
 def opacity_centroid_x(img) -> float:
@@ -1061,13 +1065,23 @@ def phase_edit(tb, focal, principal, W=1920, H=1080):
     tb.add_edit_operator(duplicate_op(dev))
     torch.cuda.synchronize()
     counts = read_launches()
-    with tet_lookup_input_of_call(op_moved.lut_def, middle_chunk(W, H)) as kept:
+    with cage_input_of_call(op_moved, middle_chunk(W, H)) as kept:
         edited = tb.render(W, H, spp=1, exact=True)
-    check(len(kept) == 1, "the middle chunk's lookup through the moved cage was not captured")
+    check(len(kept) == 1, "the middle chunk's warp through the moved cage was not captured")
     frame_launches = {k: v - counts[k] for k, v in read_launches().items()}
     check(float(edited[..., 3].sum()) > float(moved[..., 3].sum()), "the affine duplicate did not add opacity")
     check(edited.shape == (H, W, 4) and np.isfinite(edited).all(), "edited frame is not finite / of the expected shape")
-    check_launched(frame_launches, ("grid_encode", "fused_mlp", "gather", "tet_lookup"), "edited frame")
+    check_launched(frame_launches, ("grid_encode", "fused_mlp", "gather", "cage_warp_samples"), "edited frame")
+    # the cage warp is one launch of kernel E per call: no lookup of its own
+    # and no kernel D row take, so the edited frame launches kernel D as often
+    # as the same frame without the operators over the same grid (the march's)
+    stack, tb._edit_operators = tb._edit_operators, []
+    counts = read_launches()
+    tb.render(W, H, spp=1, exact=True)
+    tb._edit_operators = stack
+    bare_gathers = read_launches()["gather"] - counts["gather"]
+    check(frame_launches["tet_lookup"] == 0 and frame_launches["gather"] == bare_gathers,
+          f"the cage warp launched more than kernel E's warp: {frame_launches}, {bare_gathers} gathers without it")
     torch.cuda.reset_peak_memory_stats()
     _, edited_times = timed_frames(tb, W, H)
     peak = torch.cuda.max_memory_allocated()
@@ -1077,7 +1091,8 @@ def phase_edit(tb, focal, principal, W=1920, H=1080):
         f"{W}x{H} edited frame (2 operators) median of 3 {med_e * 1e3:.1f} ms "
         f"({[round(t * 1e3, 1) for t in edited_times]}) vs unedited {med_u * 1e3:.1f} ms "
         f"({[round(t * 1e3, 1) for t in unedited_times]}), peak memory {peak / 2**30:.3f} GiB, "
-        f"launches in one edited frame {frame_launches}",
+        f"launches in one edited frame {frame_launches} (kernel D without the operators over the same grid: "
+        f"{bare_gathers})",
         flush=True,
     )
 
@@ -1101,96 +1116,275 @@ def phase_edit(tb, focal, principal, W=1920, H=1080):
     return op_moved, frame_launches, kept[0]
 
 
-def tet_case(label, op, table, p, thr):
-    """Kernel E against its plain version on the points p [N, 3] of the moved
-    cage's LUT at threshold thr → its numbers. found and tet must agree
-    except at near ties (the two best candidate scores, or the best score and
-    the threshold, within 1e-6); bary within 1e-5 where the tets agree."""
+def tie_nan_op(op):
+    """``op`` with LUTs that test the lookup's tie and NaN rules: every tet t
+    gets an exact copy t + Nt listed just before it in every cell (the two
+    score alike to the bit, and the earlier, the copy, must win), and a
+    degenerate tet 2·Nt with NaN inverse edges (its score is NaN, which must
+    never win) heads every non-empty cell and is all that the empty ones
+    list. Points of an empty cell then find nothing (tet 0)."""
+    from nerfshop_tpu_torch.editing.operators import CAGE_ARRAYS, CageDeformationOp
+    from nerfshop_tpu_torch.editing.tet_mesh import TetLut
+
+    nt = op.v0_def.shape[0]
+
+    def lut(lt):
+        c = lt.cells
+        out = torch.full((c.shape[0], 2 * c.shape[1] + 1), -1, dtype=torch.int32, device=c.device)
+        out[:, 0] = 2 * nt
+        out[:, 1:] = torch.stack([torch.where(c >= 0, c + nt, c), c], dim=2).reshape(c.shape[0], -1)
+        return TetLut(lt.bbox_lo, lt.inv_cell, out, lt.res)
+
+    def arr(name):
+        a = getattr(op, name)
+        bad = torch.full_like(a[:1], float("nan")) if name.startswith("inv_") else torch.zeros_like(a[:1])
+        return torch.cat([a, a, bad])
+
+    return CageDeformationOp.create(lut(op.lut_def), lut(op.lut_orig), op.copy_mode, **{k: arr(k) for k in CAGE_ARRAYS})
+
+
+def near_ties(lut, table, p, thr):
+    """[N] bool: the points whose lookup may flip under another fp32 order,
+    where the two best candidate scores, or the best score and ``thr``, lie
+    within 1e-6."""
     from nerfshop_tpu_torch.editing import operators as ops_lib
 
-    lut = op.lut_def
-    dev = p.device
-    N, res, lo = p.shape[0], lut.res, lut.bbox_lo
-    fan = (lut.cells >= 0).sum(dim=1)
-    cell = torch.floor((p - lo) * lut.inv_cell).long()
-    inb = ((cell >= 0) & (cell < res)).all(dim=1)
-    ci = ((cell[:, 0] * res + cell[:, 1]) * res + cell[:, 2]).clamp(0, res**3 - 1)
-    # the two best scores of every point, for the near-tie rule
+    ci, inb = ops_lib._cells(lut, p)
     cand = lut.cells[ci]
-    top = torch.full((N, 2), float("-inf"), device=dev)
+    top = torch.full((p.shape[0], 2), float("-inf"), device=p.device)
     for c in range(cand.shape[1]):
         tid = cand[:, c]
         w = ops_lib._bary_rows(table[tid.clamp_min(0).long()], p)
         sc = torch.minimum(torch.minimum(w[0], w[1]), torch.minimum(w[2], w[3]))
-        sc = torch.where((tid >= 0) & inb, sc, torch.full_like(sc, float("-inf")))
-        top = torch.sort(torch.cat([top, sc[:, None]], dim=1), dim=1, descending=True).values[:, :2]
-    fk, tk, bk = ops_lib.tet_lookup_cuda(lut, table, p, thr)
-    fp, tp, bp = ops_lib.tet_lookup_plain(lut, table, p, thr)
+        sc = torch.where((tid >= 0) & inb & ~sc.isnan(), sc, torch.full_like(sc, float("-inf")))
+        top = torch.stack([torch.maximum(top[:, 0], sc), torch.maximum(top[:, 1], torch.minimum(top[:, 0], sc))], 1)
+    return ((top[:, 0] - top[:, 1]) < 1e-6) | ((top[:, 0] - thr).abs() < 1e-6)
+
+
+def lut_reads(lut, records_row_bytes, p):
+    """(bytes, candidates per point [N]) that a lookup of ``p`` in the packed
+    ``lut`` must read from the LUT and the records: the offsets of each
+    distinct cell, its ids, and a lookup row of each distinct candidate."""
+    from nerfshop_tpu_torch.editing import operators as ops_lib
+
+    ci, inb = ops_lib._cells(lut, p)
+    start = lut.offsets[ci].long()
+    fan = torch.where(inb, lut.offsets[ci + 1].long() - start, torch.zeros_like(start))
+    cells = torch.unique(ci[inb])
+    c0 = lut.offsets[cells].long()
+    counts = lut.offsets[cells + 1].long() - c0
+    n_ids = int(counts.sum())
+    # the positions of every id these cells list: c0 + 0, c0 + 1, ... per cell
+    first = torch.repeat_interleave(c0 - (torch.cumsum(counts, 0) - counts), counts)
+    read = lut.ids[first + torch.arange(n_ids, device=p.device)]
+    return cells.numel() * 8 + n_ids * 4 + torch.unique(read).numel() * records_row_bytes, fan
+
+
+def lookup_case(label, op, p, thr, exact=False):
+    """Kernel E's ``LOOKUP`` instance on the moved cage's deformed LUT at
+    threshold ``thr`` against both plain versions (the padded LUT and the
+    packed one) → its numbers. found and tet agree off near ties, bary within
+    1e-5 where the tets agree; ``exact``: everything bit-equal, no exemption."""
+    from nerfshop_tpu_torch.editing import operators as ops_lib
+
+    pk = op.packed
+    table = pk.records[ops_lib.REC_DEF]
+    kernel = lambda: ops_lib.tet_lookup_cuda(pk.lut_def, table, p, thr)  # noqa: E731
+    fk, tk, bk = kernel()
+    fp, tp, bp = ops_lib.tet_lookup_plain(op.lut_def, table, p, thr)
+    fq, tq, bq = ops_lib.tet_lookup_packed_plain(pk.lut_def, table, p, thr)
     torch.cuda.synchronize()
-    tie = ((top[:, 0] - top[:, 1]) < 1e-6) | ((top[:, 0] - thr).abs() < 1e-6)
-    bad = ((fk != fp) | (tk != tp)) & ~tie
-    same = tk == tp
-    b_err = float((bk - bp).abs()[same].max())
+    check(torch.equal(fp, fq) and torch.equal(tp, tq) and torch.equal(bp.view(torch.int32), bq.view(torch.int32)),
+          f"the plain lookups over the padded and the packed LUT differ ({label})")
     n_diff = int(((fk != fp) | (tk != tp)).sum())
-    check(int(bad.sum()) == 0 and b_err <= 1e-5,
-          f"kernel E disagrees ({label}): {int(bad.sum())} points off the near ties, bary err {b_err:.3e}")
-    ms, dev_ms = both_ms(lambda: ops_lib.tet_lookup_cuda(lut, table, p, thr))
-    plain_ms = median_ms(lambda: ops_lib.tet_lookup_plain(lut, table, p, thr))
-    # bytes: positions in, found/tet/bary out, the distinct LUT rows read
-    # (up to the first −1) and the distinct table rows of the candidates;
-    # ops: ~24 fp32 per candidate visited, 21 for the winner's bary
-    vis = fan[ci] * inb
-    cells_read = torch.unique(ci[inb])
-    rows_read = int(torch.minimum(fan[cells_read] + 1, torch.full_like(fan[cells_read], lut.cells.shape[1])).sum())
-    tets_read = int(torch.unique(cand[inb][cand[inb] >= 0]).numel())
-    b_ms, b_by = bound(nbytes(p, fk, tk, bk) + rows_read * 4 + tets_read * 48, float(vis.sum()) * 24 + N * 21.0)
+    same = tk == tp
+    b_err = float((bk - bp).abs()[same].max()) if bool(same.any()) else 0.0
+    if exact:
+        ties = torch.zeros_like(fk)
+        check(n_diff == 0 and torch.equal(bk.view(torch.int32), bp.view(torch.int32)),
+              f"kernel E LOOKUP is not bit-equal to its plain version ({label}): {n_diff} points differ")
+    else:
+        ties = near_ties(op.lut_def, table, p, thr)
+        bad = int((((fk != fp) | (tk != tp)) & ~ties).sum())
+        check(bad == 0 and b_err <= 1e-5, f"kernel E LOOKUP disagrees ({label}): {bad} points off the near ties, "
+              f"bary err {b_err:.3e}")
+    ms, dev_ms = both_ms(kernel)
+    # the plain versions are timed at the path's LUT only (``exact`` cases check rules)
+    plain_ms = packed_ms = float("nan")
+    if not exact:
+        plain_ms = median_ms(lambda: ops_lib.tet_lookup_plain(op.lut_def, table, p, thr))
+        packed_ms = median_ms(lambda: ops_lib.tet_lookup_packed_plain(pk.lut_def, table, p, thr))
+    # bytes: positions in, found/tet/bary out, the LUT and the 48-byte rows
+    # read; ops: ~24 fp32 per candidate scored, 21 for the winner's bary
+    lut_bytes, fan = lut_reads(pk.lut_def, 48, p)
+    b_ms, b_by = bound(nbytes(p, fk, tk, bk) + lut_bytes, float(fan.sum()) * 24 + p.shape[0] * 21.0)
     print(
-        f"[tetlookup] {label} N={N} threshold {thr:g}: {n_diff} points differ, all at near ties "
-        f"({int(tie.sum())} near ties), bary max err {b_err:.3e} (bound 1e-5); kernel {ms:.4f} ms (device "
-        f"{dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}), device/bound {dev_ms / b_ms:.2f}; "
-        f"found {float(fk.float().mean()):.4f}, in the LUT box {float(inb.float().mean()):.4f}, "
-        f"{float(vis.sum()) / max(N, 1):.2f} candidates per point",
+        f"[tetlookup] LOOKUP {label} N={p.shape[0]} threshold {thr:g}: {n_diff} points differ, all at near ties "
+        f"({int(ties.sum())} near ties), bary max err {b_err:.3e} (bound 1e-5{', bit-equal required' if exact else ''}); "
+        f"events {ms:.4f} ms, device {dev_ms:.4f} ms; "
+        f"{'' if exact else f'plain {plain_ms:.4f} ms (padded LUT), {packed_ms:.4f} ms (packed LUT); '}bound {b_ms:.4f} ms ({b_by}), device/bound {dev_ms / b_ms:.2f}; found {float(fk.float().mean()):.4f}, "
+        f"{float(fan.float().mean()):.2f} candidates per point, {float((fan > 0).float().mean()):.4f} of the points "
+        f"with any",
         flush=True,
     )
-    return dict(max_abs_err=float(int(bad.sum())), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=b_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                library_device_ms=None, bound_ms=b_ms, bound_by=b_by), (fk, tk)
+
+
+def composition_samples(op, pos, direction):
+    """The parent commit's launch pattern of the sample warp, on this
+    commit's kernels: the lookup rows concatenated per call, two ``LOOKUP``
+    launches, kernel D's two row takes and ~25 elementwise launches."""
+    from nerfshop_tpu_torch.editing import operators as ops_lib
+    from nerfshop_tpu_torch.ops.gather import take_rows
+
+    pk = op.packed
+    rows_def = ops_lib._table(op.v0_def, op.inv_def)
+    in_target, tet, bary = ops_lib.tet_lookup_cuda(pk.lut_def, rows_def, pos, ops_lib._threshold(ops_lib.INCLUSIVE_EPS))
+    delta = ops_lib._bary_delta(take_rows((op.verts_orig - op.verts_def).reshape(-1, 12).contiguous(), tet), bary)
+    new_dir = ops_lib._rotate_back(take_rows(op.rot.reshape(-1, 9).contiguous(), tet), direction)
+    pos_out = torch.where(in_target[:, None], pos + delta, pos)
+    dir_out = torch.where(in_target[:, None], new_dir, direction)
+    rows_orig = ops_lib._table(op.v0_orig, op.inv_orig)
+    in_source = ops_lib.tet_lookup_cuda(pk.lut_orig, rows_orig, pos, ops_lib._threshold(ops_lib.STRICT_EPS))[0]
+    return pos_out, dir_out, in_source & ~in_target & (not op.copy_mode), in_target
+
+
+def warp_case(label, op, pos, direction, tets, exact=False):
+    """Kernel E's ``WARP_SAMPLES`` and ``WARP_POSITIONS`` instances against
+    the plain warp on ``pos``, ``direction`` → the numbers of both. ``tets``:
+    (found, tet) of the ``LOOKUP`` instance on the deformed LUT at these
+    points. The flags agree off near ties (of either lookup); where the
+    kernel's tet agrees with the plain one, pos' and dir' are within 1e-5;
+    ``exact``: flags equal everywhere, pos' bit-equal."""
+    from nerfshop_tpu_torch.editing import operators as ops_lib
+
+    pk = op.packed
+    kernel = lambda: ops_lib.cage_warp_samples_cuda(op, pos, direction)  # noqa: E731
+    kpos = lambda: ops_lib.cage_warp_positions_cuda(op, pos)  # noqa: E731
+    ks, kp = kernel(), kpos()
+    ps = ops_lib.cage_map_samples_plain(op, pos, direction)
+    pp = ops_lib.cage_map_positions_plain(op, pos)
+    t_def, t_orig = pk.records[ops_lib.REC_DEF], pk.records[ops_lib.REC_ORIG]
+    tp = ops_lib.tet_lookup_plain(op.lut_def, t_def, pos, ops_lib._threshold(ops_lib.INCLUSIVE_EPS))[1]
+    torch.cuda.synchronize()
+    if exact:
+        ties = torch.zeros_like(ks[2])
+    else:
+        ties = near_ties(op.lut_def, t_def, pos, ops_lib._threshold(ops_lib.INCLUSIVE_EPS))
+        ties |= near_ties(op.lut_orig, t_orig, pos, ops_lib._threshold(ops_lib.STRICT_EPS))
+    agree = (tets[1] == tp) & ~ties
+    flags = [(ks[2], ps[2], "empty"), (ks[3], ps[3], "in_target"), (kp[1], pp[1], "kill")]
+    n_flag = {name: int(((a != b) & ~ties).sum()) for a, b, name in flags}
+    pos_err = max(float((ks[0] - ps[0]).abs()[agree].max()), float((kp[0] - pp[0]).abs()[agree].max()))
+    dir_err = float((ks[1] - ps[1]).abs()[agree].max())
+    check(sum(n_flag.values()) == 0 and pos_err <= 1e-5 and dir_err <= 1e-5,
+          f"kernel E's warps disagree ({label}): flags off the near ties {n_flag}, pos err {pos_err:.3e}, "
+          f"dir err {dir_err:.3e}")
+    check(torch.equal(kp[0], ks[0]) and torch.equal(kp[1], ks[2]), f"WARP_POSITIONS differs from WARP_SAMPLES ({label})")
+    if exact:
+        check(torch.equal(ks[0].view(torch.int32), ps[0].view(torch.int32)), f"pos' is not bit-equal ({label})")
+    ms, dev_ms = both_ms(kernel)
+    pms, pdev_ms = both_ms(kpos)
+    plain_ms = pplain_ms = comp_ms = comp_dev_ms = float("nan")
+    if not exact:
+        plain_ms = median_ms(lambda: ops_lib.cage_map_samples_plain(op, pos, direction))
+        pplain_ms = median_ms(lambda: ops_lib.cage_map_positions_plain(op, pos))
+        comp_ms, comp_dev_ms = both_ms(lambda: composition_samples(op, pos, direction))
+    # bytes: p (and dir) in, pos' (and dir') and the flags out, the LUTs and
+    # the rows read (48 bytes of lookup row a candidate, 84 of deltas and
+    # rotation a winner); the strict lookup only for points outside the
+    # target; ops: ~24 a candidate, ~60 a warped point
+    in_t = ks[3]
+    b1, fan1 = lut_reads(pk.lut_def, 48, pos)
+    b2, fan2 = lut_reads(pk.lut_orig, 48, pos[~in_t]) if not op.copy_mode else (0, fan1[:0])
+    winners = torch.unique(tets[1][in_t]).numel()
+    cands = float(fan1.sum() + fan2.sum())
+    n_in = int(in_t.sum())
+    b_ms, b_by = bound(nbytes(pos, direction, *ks) + b1 + b2 + winners * 84, cands * 24 + n_in * 60.0)
+    pb_ms, pb_by = bound(nbytes(pos, *kp) + b1 + b2 + winners * 48, cands * 24 + n_in * 40.0)
+    print(
+        f"[tetlookup] WARP_SAMPLES {label} N={pos.shape[0]}: flags off the near ties differ {n_flag} "
+        f"({int(ties.sum())} near ties), pos' err {pos_err:.3e}, dir' err {dir_err:.3e} where the tets agree (bound 1e-5); "
+        f"events {ms:.4f} ms, device {dev_ms:.4f} ms; "
+        f"{'' if exact else f'plain warp {plain_ms:.4f} ms; the parent commit launch pattern (2 LOOKUP + 2 D + elementwise) events {comp_ms:.4f} ms, device {comp_dev_ms:.4f} ms; '}"
+        f"bound {b_ms:.4f} ms "
+        f"({b_by}), device/bound {dev_ms / b_ms:.2f}; in_target {n_in / pos.shape[0]:.4f}, empty "
+        f"{float(ks[2].float().mean()):.4f}, candidates per point {cands / pos.shape[0]:.2f} (deformed "
+        f"{float(fan1.float().mean()):.2f}, original for the points outside the target "
+        f"{float(fan2.sum()) / pos.shape[0]:.2f})",
+        flush=True,
+    )
+    print(
+        f"[tetlookup] WARP_POSITIONS {label}: pos' and kill as WARP_SAMPLES's pos' and empty; events {pms:.4f} ms, "
+        f"device {pdev_ms:.4f} ms; {'' if exact else f'plain warp {pplain_ms:.4f} ms; '}bound {pb_ms:.4f} ms ({pb_by}), device/bound "
+        f"{pdev_ms / pb_ms:.2f}",
+        flush=True,
+    )
+    common = dict(library_ms=None, library_device_ms=None)
+    return (
+        dict(max_abs_err=max(pos_err, dir_err), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+             bound_by=b_by, **common),
+        dict(max_abs_err=pos_err, ms=pms, device_ms=pdev_ms, plain_ms=pplain_ms, bound_ms=pb_ms, bound_by=pb_by,
+             **common),
+    )
 
 
 def phase_tetlookup(op, g, chunk, N=1 << 20):
-    """Kernel E against its plain version on 2^20 random points, 90% inside
-    the moved cage's LUT box and 10% outside, strict and inclusive, and on
-    the points one chunk of the edited 1080p frame sent through the moved
-    cage (``chunk``: points and threshold); then kernel D's row take of the
-    warp ([Nt, 12] rows by 2^20 tets)."""
+    """Kernel E's three instances against their plain versions: the
+    ``LOOKUP`` on 2^20 random points, 90% inside the moved cage's deformed
+    LUT box and 10% outside, strict and inclusive, and on the positions the
+    edited frame's middle chunk sent through the moved cage (``chunk``:
+    positions and directions); the two warps on the same points with random
+    directions and on the chunk; then all three on :func:`tie_nan_op`'s LUTs,
+    bit-equal. → {instance: the numbers of the kernels line (the chunk's)}."""
     from nerfshop_tpu_torch.editing import operators as ops_lib
 
-    lut = op.lut_def
+    lut, pk = op.lut_def, op.packed
     dev = lut.cells.device
-    lo = lut.bbox_lo
     size = lut.res / lut.inv_cell
     n_in = (N * 9) // 10
     p = torch.cat([
-        lo + torch.rand((n_in, 3), generator=g, device=dev) * size,
-        lo + size * (1.05 + torch.rand((N - n_in, 3), generator=g, device=dev)),
+        lut.bbox_lo + torch.rand((n_in, 3), generator=g, device=dev) * size,
+        lut.bbox_lo + size * (1.05 + torch.rand((N - n_in, 3), generator=g, device=dev)),
     ])
-    table = torch.cat([op.v0_def, op.inv_def.reshape(-1, 9)], dim=1).contiguous()
-    result = {
-        eps: tet_case(f"eps {eps:g} random points (90% in the LUT box)", op, table, p, ops_lib._threshold(eps, 0.08))
-        for eps in (-1e-5, 5e-3)
-    }
-    tet_case("edited 1080p frame's middle chunk", op, table, *chunk)
+    d = torch.nn.functional.normalize(torch.randn((N, 3), generator=g, device=dev), dim=1)
+    incl = ops_lib._threshold(ops_lib.INCLUSIVE_EPS)
+    for eps in (ops_lib.INCLUSIVE_EPS, ops_lib.STRICT_EPS):
+        _, tets = lookup_case(f"eps {eps:g} random points (90% in the LUT box)", op, p, ops_lib._threshold(eps))
+        if eps < 0:
+            warp_case("random points (90% in the LUT box)", op, p, d, tets)
+    result = {}
+    result["tet_lookup"], tets = lookup_case("edited 1080p frame's middle chunk", op, chunk[0], incl)
+    result["cage_warp_samples"], result["cage_warp_positions"] = warp_case(
+        "edited 1080p frame's middle chunk", op, *chunk, tets)
+
+    syn = tie_nan_op(op)
+    nt = op.v0_def.shape[0]
+    _, (found, tet) = lookup_case("tie and NaN LUT, random points", syn, p, incl, exact=True)
+    check(bool(((tet >= nt) & (tet < 2 * nt))[found].all()) and not bool((tet == 2 * nt).any()) and bool(found.any()),
+          "kernel E broke the tie rule (the earlier copy must win) or let a NaN score win")
+    warp_case("tie and NaN LUT, random points", syn, p, d, (found, tet), exact=True)
+    base = ops_lib.tet_lookup_cuda(pk.lut_def, pk.records[ops_lib.REC_DEF], p, incl)
+    torch.cuda.synchronize()
+    check(torch.equal(found, base[0]) and torch.equal(torch.where(found, tet - nt, tet), torch.where(found, base[1], tet)),
+          "the tie and NaN LUT changed which tets the points find")
+
+    def mib(n):
+        return f"{n / 2**20:.2f} MiB"
+
     fan = (lut.cells >= 0).sum(dim=1)
     nz = fan[fan > 0].float()
+    padded = nbytes(op.lut_def.cells) + nbytes(op.lut_orig.cells)
+    packed = pk.lut_def.nbytes() + pk.lut_orig.nbytes()
     print(
-        f"[tetlookup] LUT {lut.res}^3 x {lut.cells.shape[1]}: fanout max {int(fan.max())} mean {float(nz.mean()):.2f} over "
-        f"{nz.numel()} non-empty cells; LUT {nbytes(lut.cells) / 2**20:.2f} MiB, {op.v0_def.shape[0]} tets",
+        f"[tetlookup] LUTs {lut.res}^3: deformed fanout max {int(fan.max())} mean {float(nz.mean()):.2f} over "
+        f"{nz.numel()} non-empty cells; both LUTs padded [res^3, {lut.cells.shape[1]}] + "
+        f"[res^3, {op.lut_orig.cells.shape[1]}] {mib(padded)}, packed (offsets + ids) {mib(packed)}; records "
+        f"{mib(nbytes(pk.records))} for {nt} tets",
         flush=True,
     )
-    # kernel D's row take of the warp: per-tet [Nt, 12] deltas by 2^20 tets
-    tet = ops_lib.tet_lookup_cuda(lut, table, p, -0.08)[1]
-    deltas = (op.verts_orig - op.verts_def).reshape(-1, 12).contiguous()
-    gather_case("warp row take [Nt, 12]", "rows", deltas, tet)
-    return result[-1e-5]
+    return result
 
 
 #: the numbers of a kernel in the kernels line; ``ms``, ``plain_ms`` and
@@ -1219,7 +1413,8 @@ def main() -> None:
     reset_launches()
     op, edited_frame_launches, chunk_pts = phase_edit(tb, focal, principal)
     edit_launches = read_launches()
-    check_launched(edit_launches, ("grid_encode", "fused_mlp", "gather", "tet_lookup"), "edit path")
+    check_launched(edit_launches, ("grid_encode", "fused_mlp", "gather", "cage_warp_samples", "cage_warp_positions"),
+                   "edit path")
     paths = {"train": train_launches, "render": render_launches, "frame": frame_launches, "edit": edit_launches}
     for name in ("render", "frame", "edit"):
         check(paths[name]["grid_encode_fracs"] == 0, f"kernel B wrote fracs on the {name} path: {paths[name]}")
@@ -1235,7 +1430,11 @@ def main() -> None:
         ("grid_encode", "grid_encode", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", enc),
         ("fused_mlp", "fused_mlp", "fused_mlp.cu", "scratch/probe_arch.py:56", mlp),
         ("gather", "gather", "gather.cu", "scratch/probe_arch.py:32", gat),
-        ("tet_lookup", "tet_lookup", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:74", tet),
+        ("tet_lookup", "tet_lookup", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:74", tet["tet_lookup"]),
+        ("cage_warp_samples", "cage_warp_samples", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:150",
+         tet["cage_warp_samples"]),
+        ("cage_warp_positions", "cage_warp_positions", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:177",
+         tet["cage_warp_positions"]),
     )
     kernels = [
         {"name": name, "route": "cuda", "source": f"nerfshop_tpu_torch/csrc/{src}", "replaces": repl,

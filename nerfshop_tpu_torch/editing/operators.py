@@ -9,26 +9,53 @@ tuples of tensors on one device plus pure functions, applied newest-first:
 * ``map_positions(pos) → (pos', kill)`` is the position-only form of the
   density-grid refresh.
 
-All positions are world space. The point-in-tet lookup is kernel E
-(``csrc/tet_lookup.cu``) on a CUDA device and the per-candidate loop of the
-JAX function (:func:`tet_lookup_plain`) on the CPU; the per-tet row takes
-of the warp go through kernel D (:mod:`~nerfshop_tpu_torch.ops.gather`).
+All positions are world space. On a CUDA device the cage operator runs
+kernel E (``csrc/tet_lookup.cu``): the whole sample warp
+(:func:`cage_map_samples`) and the whole position warp
+(:func:`cage_map_positions`) are one launch each, and the lookups of
+:func:`cage_in_source` and :func:`cage_map_forward` its ``LOOKUP``
+instance. The kernel reads the operator's packed form
+(:class:`PackedCage`), made once where the operator is made. On the CPU
+the same functions run the plain composition of the JAX function
+(:func:`tet_lookup_plain` and the per-tet row takes).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+import ctypes
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from nerfshop_tpu_torch import kernels
-from nerfshop_tpu_torch.editing.tet_mesh import TetLut
+from nerfshop_tpu_torch.editing.tet_mesh import PackedLut, TetLut
 from nerfshop_tpu_torch.ops.gather import take_rows
 
 # ---------------------------------------------------------------------------
 # Cage deformation
 # ---------------------------------------------------------------------------
+
+#: the near-miss margin of the inclusive lookups and the strict margin of
+#: the emptying test (the JAX defaults)
+NEAR_MISS = 0.08
+INCLUSIVE_EPS = -1e-5
+STRICT_EPS = 5e-3
+
+#: the sections of :attr:`PackedCage.records`, each [Nt, 12] f32 (48-byte
+#: rows, whole float4s): the lookup rows [v0 | inv_e row-major] of the
+#: deformed and of the original tets, the vertex deltas vo − vd, the
+#: rotations row-major with 3 floats of padding
+REC_DEF, REC_ORIG, REC_DELTA, REC_ROT = 0, 1, 2, 3
+
+
+class PackedCage(NamedTuple):
+    """Kernel E's form of a cage operator: both LUTs packed, and every
+    tet's rows in the four sections of one tensor."""
+
+    lut_def: PackedLut
+    lut_orig: PackedLut
+    records: torch.Tensor  # [4, Nt, 12] f32, sections REC_*
 
 
 class CageDeformationOp(NamedTuple):
@@ -48,19 +75,43 @@ class CageDeformationOp(NamedTuple):
     #: one (``editing/poisson.py`` is not ported), and the renderer raises
     #: on one that does
     membrane: object = None
+    #: kernel E's packed form (:meth:`create` makes it); the CPU paths do
+    #: not read it
+    packed: Optional[PackedCage] = None
+
+    @staticmethod
+    def create(lut_def: TetLut, lut_orig: TetLut, copy_mode: bool, **arrays) -> "CageDeformationOp":
+        """The operator of these LUTs and per-tet arrays (``CAGE_ARRAYS``),
+        with its packed form."""
+        op = CageDeformationOp(lut_def=lut_def, lut_orig=lut_orig, copy_mode=bool(copy_mode), **arrays)
+        return op._replace(packed=pack_cage(op))
 
     @staticmethod
     def from_tet_mesh(tet_mesh, device: torch.device, copy_mode: bool = False, lut_res: int = 64) -> "CageDeformationOp":
         lut_d, lut_o = tet_mesh.build_luts(device, res=lut_res)
-        arrs = tet_mesh.device_arrays(device)
-        return CageDeformationOp(lut_def=lut_d, lut_orig=lut_o, copy_mode=bool(copy_mode), **arrs)
+        return CageDeformationOp.create(lut_d, lut_o, copy_mode, **tet_mesh.device_arrays(device))
 
 
 #: the per-tet tensors of a CageDeformationOp
 CAGE_ARRAYS = ("v0_def", "inv_def", "v0_orig", "inv_orig", "verts_orig", "verts_def", "rot")
 
 
-def _threshold(eps: float, near_miss: float) -> float:
+def pack_cage(op: CageDeformationOp) -> PackedCage:
+    """Both LUTs in packed form and the per-tet records (see ``REC_*``)."""
+    nt = op.v0_def.shape[0]
+    records = torch.stack([
+        _table(op.v0_def, op.inv_def), _table(op.v0_orig, op.inv_orig), (op.verts_orig - op.verts_def).reshape(nt, 12),
+        torch.cat([op.rot.reshape(nt, 9), op.rot.new_zeros((nt, 3))], dim=1),
+    ])
+    return PackedCage(PackedLut.from_lut(op.lut_def), PackedLut.from_lut(op.lut_orig), records.contiguous())
+
+
+def _table(v0: torch.Tensor, inv_e: torch.Tensor) -> torch.Tensor:
+    """The lookup rows [v0 | inv_e row-major] [Nt, 12]."""
+    return torch.cat([v0, inv_e.reshape(-1, 9)], dim=1)
+
+
+def _threshold(eps: float, near_miss: float = NEAR_MISS) -> float:
     return eps if eps > 0 else -near_miss
 
 
@@ -74,24 +125,23 @@ def _bary_rows(table: torch.Tensor, p: torch.Tensor):
     return ((1.0 - w1) - w2) - w3, w1, w2, w3
 
 
-def tet_lookup_plain(lut: TetLut, table: torch.Tensor, p: torch.Tensor, threshold: float):
-    """Plain version of kernel E: the JAX per-candidate loop with a running
-    best (strict ``>``, so the earliest candidate wins a tie). ``table``
-    [Nt, 12] = [v0 | inv_e]. Column c scores only the points whose cell
-    lists more than c candidates (JAX scores the rest −∞, which never wins),
-    and the loop ends at the first column that no point reaches."""
+def _cells(lut, p: torch.Tensor):
+    """(flat cell index clamped to the grid [N] int64, in the LUT box [N])."""
     res = lut.res
     cell = torch.floor((p - lut.bbox_lo) * lut.inv_cell).to(torch.int64)
     inb = ((cell >= 0) & (cell < res)).all(dim=-1)
     cell = torch.clamp(cell, 0, res - 1)
-    cand = lut.cells[(cell[:, 0] * res + cell[:, 1]) * res + cell[:, 2]]  # [N, MT]
+    return (cell[:, 0] * res + cell[:, 1]) * res + cell[:, 2], inb
+
+
+def _running_best(p: torch.Tensor, table: torch.Tensor, columns, threshold: float):
+    """The JAX candidate loop: ``columns`` yields (points [M] int64, their
+    candidate tets [M]) per candidate position; a running best with a strict
+    ``>`` (the earliest candidate wins a tie, NaN never wins) → (found,
+    tet int32, bary [N, 4])."""
     best = torch.full((p.shape[0],), float("-inf"), device=p.device)
     best_t = torch.zeros((p.shape[0],), dtype=torch.int32, device=p.device)
-    for c in range(cand.shape[1]):
-        act = torch.nonzero((cand[:, c] >= 0) & inb).squeeze(1)
-        if act.numel() == 0:
-            break
-        tid = cand[act, c]
+    for act, tid in columns:
         w0, w1, w2, w3 = _bary_rows(table[tid.long()], p[act])
         score = torch.minimum(torch.minimum(w0, w1), torch.minimum(w2, w3))
         take = score > best[act]
@@ -102,101 +152,234 @@ def tet_lookup_plain(lut: TetLut, table: torch.Tensor, p: torch.Tensor, threshol
     return found, best_t, bary
 
 
-def tet_lookup_cuda(lut: TetLut, table: torch.Tensor, p: torch.Tensor, threshold: float):
-    """Kernel E: one thread per point walks its own cell's candidates up to
-    the first −1 → (found [N] bool, tet [N] int32, bary [N, 4] f32)."""
+def tet_lookup_plain(lut: TetLut, table: torch.Tensor, p: torch.Tensor, threshold: float):
+    """Plain version of kernel E's lookup over the padded LUT: the JAX
+    per-candidate loop. ``table`` [Nt, 12] = [v0 | inv_e]. Column c scores
+    only the points whose cell lists more than c candidates (JAX scores the
+    rest −∞, which never wins), and the loop ends at the first column that
+    no point reaches."""
+    ci, inb = _cells(lut, p)
+    cand = lut.cells[ci]  # [N, MT]
+
+    def columns():
+        for c in range(cand.shape[1]):
+            act = torch.nonzero((cand[:, c] >= 0) & inb).squeeze(1)
+            if act.numel() == 0:
+                return
+            yield act, cand[act, c]
+
+    return _running_best(p, table, columns(), threshold)
+
+
+def tet_lookup_packed_plain(lut: PackedLut, table: torch.Tensor, p: torch.Tensor, threshold: float):
+    """Plain version of kernel E's lookup over the packed LUT: the same loop,
+    candidate c of a point read at ``ids[offsets[cell] + c]``."""
+    ci, inb = _cells(lut, p)
+    start = lut.offsets[ci].long()
+    fan = torch.where(inb, lut.offsets[ci + 1].long() - start, torch.zeros_like(start))
+
+    def columns():
+        c = 0
+        while True:
+            act = torch.nonzero(fan > c).squeeze(1)
+            if act.numel() == 0:
+                return
+            yield act, lut.ids[start[act] + c]
+            c += 1
+
+    return _running_best(p, table, columns(), threshold)
+
+
+#: the kernel's template instances (``enum Mode`` of ``csrc/tet_lookup.cu``)
+LOOKUP, WARP_SAMPLES, WARP_POSITIONS = 0, 1, 2
+
+
+def _lut_args(lut: PackedLut, rows: torch.Tensor, threshold: float, dev: torch.device) -> kernels.LutArgs:
+    kernels.require(lut.offsets, "offsets", torch.int32, (lut.res**3 + 1,), dev)
+    kernels.require(lut.ids, "ids", torch.int32, (lut.ids.shape[0],), dev)
+    kernels.require(rows, "rows", torch.float32, (rows.shape[0], 12), dev)
+    if rows.shape[0] == 0 or not kernels.aligned16(rows):
+        raise ValueError("tet lookup kernel: the rows must hold a tet and start on a 16-byte boundary")
+    return kernels.LutArgs(lut.offsets.data_ptr(), lut.ids.data_ptr(), rows.data_ptr(), (ctypes.c_float * 6)(*lut.box),
+                           lut.res, threshold)
+
+
+def _launch(mode: int, a: kernels.LutArgs, b: Optional[kernels.LutArgs], p: torch.Tensor, name: str,
+            copy_mode: bool = False, **tensors) -> None:
+    """Check ``p``, then launch kernel E's ``mode`` instance on it and
+    ``tensors`` (by their ``struct CageArgs`` names)."""
     dev = p.device
     if dev.type != "cuda":
-        raise ValueError(f"tet lookup kernel: p on {dev}, expected a CUDA device")
+        raise ValueError(f"{name}: p on {dev}, expected a CUDA device")
     N = p.shape[0]
-    n_cells = lut.res**3
-    kernels.require(lut.cells, "cells", torch.int32, (n_cells, lut.cells.shape[1]), dev)
-    kernels.require(lut.bbox_lo, "bbox_lo", torch.float32, (3,), dev)
-    kernels.require(lut.inv_cell, "inv_cell", torch.float32, (3,), dev)
-    kernels.require(table, "table", torch.float32, (table.shape[0], 12), dev)
     kernels.require(p, "p", torch.float32, (N, 3), dev)
+    args = kernels.CageArgs(a=a, b=b or kernels.LutArgs(), p=p.data_ptr(), n=N, copy_mode=int(copy_mode),
+                            **{k: v.data_ptr() for k, v in tensors.items()})
+    kernels.check(kernels.load().nst_cage(ctypes.byref(args), mode, kernels.stream_ptr(dev)), name)
+
+
+def tet_lookup_cuda(lut: PackedLut, rows: torch.Tensor, p: torch.Tensor, threshold: float):
+    """Kernel E, ``LOOKUP`` instance: the point-in-tet lookup of ``p`` [N, 3]
+    in the packed ``lut`` over the lookup ``rows`` [Nt, 12] (a section of
+    :attr:`PackedCage.records`) → (found [N] bool, tet [N] int32, bary [N, 4]
+    f32), as :func:`tet_lookup_plain`."""
+    dev = p.device
+    N = p.shape[0]
     found = torch.empty((N,), dtype=torch.bool, device=dev)
     tet = torch.empty((N,), dtype=torch.int32, device=dev)
     bary = torch.empty((N, 4), dtype=torch.float32, device=dev)
-    err = kernels.load().nst_tet_lookup(
-        lut.cells.data_ptr(), lut.bbox_lo.data_ptr(), lut.inv_cell.data_ptr(), table.data_ptr(), p.data_ptr(),
-        found.data_ptr(), tet.data_ptr(), bary.data_ptr(), N, lut.res, lut.cells.shape[1], float(threshold),
-        kernels.stream_ptr(dev),
-    )
-    kernels.check(err, "tet_lookup")
+    _launch(LOOKUP, _lut_args(lut, rows, threshold, dev), None, p, "tet_lookup", flag0=found, tet=tet, bary=bary)
     tet_lookup_cuda.launches += 1
     return found, tet, bary
 
 
-#: launches of kernel E since the last reset
+def _packed(op: CageDeformationOp) -> PackedCage:
+    if op.packed is None:
+        raise ValueError("kernel E: the operator has no packed form (make it with CageDeformationOp.create)")
+    return op.packed
+
+
+def _warp_args(op: CageDeformationOp, dev: torch.device):
+    """(deformed LUT, original LUT, deltas, rotations) of a warp launch."""
+    pk = _packed(op)
+    rec = pk.records
+    kernels.require(rec, "records", torch.float32, (4, rec.shape[1], 12), dev)
+    return (
+        _lut_args(pk.lut_def, rec[REC_DEF], _threshold(INCLUSIVE_EPS), dev),
+        _lut_args(pk.lut_orig, rec[REC_ORIG], _threshold(STRICT_EPS), dev),
+        rec[REC_DELTA], rec[REC_ROT],
+    )
+
+
+def cage_warp_samples_cuda(op: CageDeformationOp, pos: torch.Tensor, direction: torch.Tensor):
+    """Kernel E, ``WARP_SAMPLES`` instance: the whole of
+    :func:`cage_map_samples` in one launch → (pos' [N, 3], dir' [N, 3],
+    empty [N], in_target [N])."""
+    dev = pos.device
+    N = pos.shape[0]
+    kernels.require(direction, "direction", torch.float32, (N, 3), dev)
+    a, b, deltas, rots = _warp_args(op, dev)
+    pos_out = torch.empty_like(pos)
+    dir_out = torch.empty_like(direction)
+    empty = torch.empty((N,), dtype=torch.bool, device=dev)
+    in_target = torch.empty((N,), dtype=torch.bool, device=dev)
+    _launch(WARP_SAMPLES, a, b, pos, "cage_warp_samples", copy_mode=op.copy_mode, deltas=deltas, rots=rots,
+            dir=direction, pos_out=pos_out, dir_out=dir_out, flag0=empty, flag1=in_target)
+    cage_warp_samples_cuda.launches += 1
+    return pos_out, dir_out, empty, in_target
+
+
+def cage_warp_positions_cuda(op: CageDeformationOp, pos: torch.Tensor):
+    """Kernel E, ``WARP_POSITIONS`` instance: the whole of
+    :func:`cage_map_positions` in one launch → (pos' [N, 3], kill [N])."""
+    dev = pos.device
+    a, b, deltas, _ = _warp_args(op, dev)
+    pos_out = torch.empty_like(pos)
+    kill = torch.empty((pos.shape[0],), dtype=torch.bool, device=dev)
+    _launch(WARP_POSITIONS, a, b, pos, "cage_warp_positions", copy_mode=op.copy_mode, deltas=deltas, pos_out=pos_out,
+            flag0=kill)
+    cage_warp_positions_cuda.launches += 1
+    return pos_out, kill
+
+
+#: launches of each instance of kernel E since the last reset
 tet_lookup_cuda.launches = 0
+cage_warp_samples_cuda.launches = 0
+cage_warp_positions_cuda.launches = 0
 
 
-def tet_lookup(lut: TetLut, v0: torch.Tensor, inv_e: torch.Tensor, p: torch.Tensor, eps: float = -1e-5, near_miss: float = 0.08):
+def tet_lookup(lut: TetLut, v0: torch.Tensor, inv_e: torch.Tensor, p: torch.Tensor, eps: float = INCLUSIVE_EPS,
+               near_miss: float = NEAR_MISS):
     """p [N, 3] → (found [N], tet [N] int32, bary [N, 4]) in the given tets.
 
     ``eps`` is the containment margin: negative is inclusive (the warp),
     positive is strict (the emptying test). Points in no tet but within
     ``near_miss`` barycentric distance of one resolve to their best
     candidate (extrapolated barycentrics), unless ``eps`` > 0. Nothing
-    found gives tet 0 and tet 0's barycentrics, as in JAX."""
-    table = torch.cat([v0, inv_e.reshape(-1, 9)], dim=1)
+    found gives tet 0 and tet 0's barycentrics, as in JAX. On a CUDA device
+    this packs ``lut`` and the rows on every call before kernel E's lookup;
+    the operators' own functions read the packed form they were made with."""
+    table = _table(v0, inv_e)
     threshold = _threshold(eps, near_miss)
     if p.device.type == "cpu":
         return tet_lookup_plain(lut, table, p, threshold)
-    return tet_lookup_cuda(lut, table.contiguous(), p.contiguous(), threshold)
+    return tet_lookup_cuda(PackedLut.from_lut(lut), table.contiguous(), p.contiguous(), threshold)
 
 
-def _bary_delta(vert_delta: torch.Tensor, tet: torch.Tensor, bary: torch.Tensor) -> torch.Tensor:
-    """Σ_k bary_k · vert_delta[tet, k], the per-tet deltas taken as [Nt, 12]
-    rows (kernel D's row take on a CUDA device)."""
-    rows = take_rows(vert_delta.reshape(-1, 12).contiguous(), tet)  # [N, 12]
+def _source_lookup(op: CageDeformationOp, p: torch.Tensor):
+    """The inclusive lookup of ``p`` in the operator's original tets."""
+    threshold = _threshold(INCLUSIVE_EPS)
+    if p.device.type == "cpu":
+        return tet_lookup_plain(op.lut_orig, _table(op.v0_orig, op.inv_orig), p, threshold)
+    pk = _packed(op)
+    return tet_lookup_cuda(pk.lut_orig, pk.records[REC_ORIG], p.contiguous(), threshold)
+
+
+def _bary_delta(rows: torch.Tensor, bary: torch.Tensor) -> torch.Tensor:
+    """Σ_k bary_k · delta_k for per-point delta rows [N, 12] (the four
+    vertex deltas of each point's tet), summed from 0 in k order."""
     return sum(bary[:, k : k + 1] * rows[:, 3 * k : 3 * k + 3] for k in range(4))
 
 
-def _rotate_back(rot: torch.Tensor, tet: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
-    """Rᵀ·dir with each tet's rotation row [Nt, 9] (kernel D's row take),
-    normalized."""
-    r = take_rows(rot.reshape(-1, 9).contiguous(), tet)  # [N, 9] row-major
+def _rotate_back(r: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    """Rᵀ·dir for per-point rotation rows [N, 9] (row-major), normalized."""
     new_dir = torch.stack([(r[:, i::3] * direction).sum(dim=1) for i in range(3)], dim=-1)
     return new_dir / (torch.linalg.norm(new_dir, dim=-1, keepdim=True) + 1e-12)
+
+
+def cage_map_samples_plain(op: CageDeformationOp, pos: torch.Tensor, direction: torch.Tensor):
+    """Plain version of the ``WARP_SAMPLES`` instance: the JAX composition
+    (two lookups over the padded LUTs, the per-tet row takes, the
+    elementwise warp), with no kernel on any device."""
+    in_target, tet, bary = tet_lookup_plain(op.lut_def, _table(op.v0_def, op.inv_def), pos, _threshold(INCLUSIVE_EPS))
+    t = tet.long()
+    canonical = pos + _bary_delta((op.verts_orig - op.verts_def).reshape(-1, 12)[t], bary)
+    new_dir = _rotate_back(op.rot.reshape(-1, 9)[t], direction)
+    pos_out = torch.where(in_target[:, None], canonical, pos)
+    dir_out = torch.where(in_target[:, None], new_dir, direction)
+    # strict margin: only clearly interior source points are emptied
+    in_source = tet_lookup_plain(op.lut_orig, _table(op.v0_orig, op.inv_orig), pos, _threshold(STRICT_EPS))[0]
+    empty = in_source & ~in_target & (not op.copy_mode)
+    return pos_out, dir_out, empty, in_target
+
+
+def cage_map_positions_plain(op: CageDeformationOp, pos: torch.Tensor):
+    """Plain version of the ``WARP_POSITIONS`` instance."""
+    in_target, tet, bary = tet_lookup_plain(op.lut_def, _table(op.v0_def, op.inv_def), pos, _threshold(INCLUSIVE_EPS))
+    delta = _bary_delta((op.verts_orig - op.verts_def).reshape(-1, 12)[tet.long()], bary)
+    pos_out = torch.where(in_target[:, None], pos + delta, pos)
+    in_source = tet_lookup_plain(op.lut_orig, _table(op.v0_orig, op.inv_orig), pos, _threshold(STRICT_EPS))[0]
+    kill = in_source & ~in_target & (not op.copy_mode)
+    return pos_out, kill
 
 
 def cage_map_samples(op: CageDeformationOp, pos: torch.Tensor, direction: torch.Tensor):
     """Backward warp of render samples: deformed-space sample → canonical
     position + rotated direction; vacated source samples are flagged empty
     (unless copy mode). The warp is in delta form, canonical = p +
-    Σᵢ baryᵢ·(voᵢ − vdᵢ), which moves nothing for an identity cage."""
-    in_target, tet, bary = tet_lookup(op.lut_def, op.v0_def, op.inv_def, pos)
-    canonical = pos + _bary_delta(op.verts_orig - op.verts_def, tet, bary)
-    new_dir = _rotate_back(op.rot, tet, direction)
-    pos_out = torch.where(in_target[:, None], canonical, pos)
-    dir_out = torch.where(in_target[:, None], new_dir, direction)
-    # strict margin: only clearly interior source points are emptied
-    in_source, _, _ = tet_lookup(op.lut_orig, op.v0_orig, op.inv_orig, pos, eps=5e-3)
-    empty = in_source & ~in_target & (not op.copy_mode)
-    return pos_out, dir_out, empty, in_target
+    Σᵢ baryᵢ·(voᵢ − vdᵢ), which moves nothing for an identity cage. One
+    launch of kernel E on a CUDA device; the plain composition on the CPU."""
+    if pos.device.type == "cpu":
+        return cage_map_samples_plain(op, pos, direction)
+    return cage_warp_samples_cuda(op, pos.contiguous(), direction.contiguous())
 
 
 def cage_map_positions(op: CageDeformationOp, pos: torch.Tensor):
     """Position-only warp for the grid refresh → (pos', kill)."""
-    in_target, tet, bary = tet_lookup(op.lut_def, op.v0_def, op.inv_def, pos)
-    delta = _bary_delta(op.verts_orig - op.verts_def, tet, bary)
-    pos_out = torch.where(in_target[:, None], pos + delta, pos)
-    in_source, _, _ = tet_lookup(op.lut_orig, op.v0_orig, op.inv_orig, pos, eps=5e-3)
-    kill = in_source & ~in_target & (not op.copy_mode)
-    return pos_out, kill
+    if pos.device.type == "cpu":
+        return cage_map_positions_plain(op, pos)
+    return cage_warp_positions_cuda(op, pos.contiguous())
 
 
 def cage_in_source(op: CageDeformationOp, pos: torch.Tensor) -> torch.Tensor:
-    found, _, _ = tet_lookup(op.lut_orig, op.v0_orig, op.inv_orig, pos)
-    return found
+    return _source_lookup(op, pos)[0]
 
 
 def cage_map_forward(op: CageDeformationOp, pos: torch.Tensor):
-    """Canonical → deformed (the distiller's direction) → (pos', in_source)."""
-    in_source, tet, bary = tet_lookup(op.lut_orig, op.v0_orig, op.inv_orig, pos)
-    delta = _bary_delta(op.verts_def - op.verts_orig, tet, bary)
+    """Canonical → deformed (the distiller's direction) → (pos', in_source);
+    the per-tet deltas by kernel D's row take on a CUDA device."""
+    in_source, tet, bary = _source_lookup(op, pos)
+    delta = _bary_delta(take_rows((op.verts_def - op.verts_orig).reshape(-1, 12).contiguous(), tet), bary)
     return torch.where(in_source[:, None], pos + delta, pos), in_source
 
 

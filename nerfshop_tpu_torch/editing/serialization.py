@@ -73,9 +73,8 @@ def load_edits(path: str | Path, device: torch.device) -> List:
                 return TetLut(t(_dec(ld["bbox_lo"])), t(_dec(ld["inv_cell"])), t(_dec(ld["cells"])), int(ld["res"]))
 
             ops.append(
-                CageDeformationOp(
-                    lut_def=lut(d["lut_def"]), lut_orig=lut(d["lut_orig"]), copy_mode=bool(d["copy_mode"]),
-                    **{k: t(_dec(d[k])) for k in CAGE_ARRAYS},
+                CageDeformationOp.create(
+                    lut(d["lut_def"]), lut(d["lut_orig"]), bool(d["copy_mode"]), **{k: t(_dec(d[k])) for k in CAGE_ARRAYS}
                 )
             )
         elif d["type"] == "affine_duplication":

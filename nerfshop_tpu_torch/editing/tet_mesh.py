@@ -38,6 +38,33 @@ class TetLut(NamedTuple):
     res: int
 
 
+class PackedLut(NamedTuple):
+    """The LUT in packed (CSR) form, kernel E's input: cell c lists
+    ``ids[offsets[c]:offsets[c + 1]]``, the non-negative entries of
+    ``TetLut.cells[c]`` in the same order."""
+
+    bbox_lo: torch.Tensor  # [3] f32
+    inv_cell: torch.Tensor  # [3] f32
+    offsets: torch.Tensor  # [res³ + 1] int32
+    ids: torch.Tensor  # [Σ fanout] int32
+    res: int
+    #: bbox_lo and inv_cell as host floats (the kernel takes them by value)
+    box: tuple
+
+    @staticmethod
+    def from_lut(lut: TetLut) -> "PackedLut":
+        """Pack ``lut`` on its own device (one host read of the box)."""
+        keep = lut.cells >= 0
+        fan = keep.sum(dim=1, dtype=torch.int32)
+        offsets = torch.zeros(fan.shape[0] + 1, dtype=torch.int32, device=fan.device)
+        offsets[1:] = torch.cumsum(fan, 0, dtype=torch.int32)
+        box = tuple(torch.cat([lut.bbox_lo, lut.inv_cell]).tolist())
+        return PackedLut(lut.bbox_lo, lut.inv_cell, offsets, lut.cells[keep].contiguous(), lut.res, box)
+
+    def nbytes(self) -> int:
+        return (self.offsets.numel() + self.ids.numel()) * 4
+
+
 @dataclass
 class TetMesh:
     vertices_original: np.ndarray  # [T, 3]

@@ -46,6 +46,28 @@ class GatherPlan(ctypes.Structure):
     ]
 
 
+class LutArgs(ctypes.Structure):
+    """One LUT of a launch of kernel E, field for field ``struct LutArgs`` of
+    ``csrc/tet_lookup.cu`` (filled by ``editing/operators.py``)."""
+
+    _fields_ = [
+        ("offsets", ctypes.c_void_p), ("ids", ctypes.c_void_p), ("rows", ctypes.c_void_p),
+        ("box", ctypes.c_float * 6), ("res", ctypes.c_int), ("threshold", ctypes.c_float),
+    ]
+
+
+class CageArgs(ctypes.Structure):
+    """The arguments of one launch of kernel E, field for field ``struct
+    CageArgs`` of ``csrc/tet_lookup.cu``."""
+
+    _fields_ = [
+        ("a", LutArgs), ("b", LutArgs),
+        *((name, ctypes.c_void_p) for name in
+          ("deltas", "rots", "p", "dir", "pos_out", "dir_out", "flag0", "flag1", "tet", "bary")),
+        ("n", ctypes.c_longlong), ("copy_mode", ctypes.c_int),
+    ]
+
+
 def _nvcc() -> str:
     for cand in (
         os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
@@ -98,7 +120,7 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i = ctypes.c_void_p, ctypes.c_int
         lib.nst_segsum.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.nst_segsum.restype = i
         lib.nst_grid_encode.argtypes = [p, p, p, p, p, p, p, i, i, p]
@@ -109,8 +131,8 @@ def load() -> ctypes.CDLL:
         lib.nst_fused_mlp.restype = i
         lib.nst_gather.argtypes = [p, p, p, ctypes.POINTER(GatherPlan), p]
         lib.nst_gather.restype = i
-        lib.nst_tet_lookup.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
-        lib.nst_tet_lookup.restype = i
+        lib.nst_cage.argtypes = [ctypes.POINTER(CageArgs), i, p]
+        lib.nst_cage.restype = i
         _lib = lib
     return _lib
 

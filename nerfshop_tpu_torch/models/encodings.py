@@ -234,6 +234,34 @@ class CompositeEncoding(nn.Module):
         return torch.cat(outs, dim=-1)
 
 
+GRID_OTYPES = ("HashGrid", "DenseGrid", "TiledGrid", "Grid")
+
+
+def encoding_shape(cfg: dict, n_input_dims: int):
+    """(output width, [(n_input_dims, n_features_per_level) of each grid
+    level set]) of the encoding :func:`build_encoding` builds from ``cfg``,
+    read from the config alone: nothing is built or allocated."""
+    otype = cfg.get("otype", "HashGrid")
+    if otype in GRID_OTYPES:
+        F = cfg.get("n_features_per_level", 2)
+        return cfg.get("n_levels", 16) * F, [(n_input_dims, F)]
+    if otype == "SphericalHarmonics":
+        return cfg.get("degree", 4) ** 2, []
+    if otype == "Identity":
+        return n_input_dims, []
+    if otype == "Composite":
+        remaining, width, grids = n_input_dims, 0, []
+        for nc in cfg.get("nested", []):
+            nd = nc.get("n_dims_to_encode")
+            nd = min(remaining if nd is None else nd, remaining)
+            if nd <= 0:
+                continue
+            w, g = encoding_shape(nc, nd)
+            width, grids, remaining = width + w, grids + g, remaining - nd
+        return width, grids
+    raise NotImplementedError(f"encoding otype {otype!r} is not ported")
+
+
 def build_encoding(
     cfg: dict,
     n_input_dims: int,
@@ -243,7 +271,7 @@ def build_encoding(
 ) -> nn.Module:
     """Factory from the JSON config block (same keys as the JAX factory)."""
     otype = cfg.get("otype", "HashGrid")
-    if otype in ("HashGrid", "DenseGrid", "TiledGrid", "Grid"):
+    if otype in GRID_OTYPES:
         return GridEncoding(
             n_input_dims=n_input_dims,
             n_levels=cfg.get("n_levels", 16),

@@ -21,6 +21,7 @@ from torch import nn
 
 from nerfshop_tpu_torch.models import encodings as enc
 from nerfshop_tpu_torch.models import mlp as mlp_lib
+from nerfshop_tpu_torch.ops import fused_mlp
 
 DENSITY_FEATURES = 16
 EXP_CLAMP = 15.0
@@ -118,6 +119,38 @@ def density_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor) 
     return torch.func.functional_call(_Density(model), {f"model.{k}": v for k, v in params.items()}, (pos,))
 
 
+def check_kernel_range(config: dict, device) -> None:
+    """Raise ``ValueError`` when ``config`` builds a network that the CUDA
+    kernels do not compute on ``device``: a grid level set other than D = 3,
+    F = 2 (kernels B and A), or an MLP outside kernel C's range
+    (:func:`~nerfshop_tpu_torch.ops.fused_mlp.check_supported`). Reads the
+    config only and allocates nothing; the CPU's plain paths take every
+    config, so a CPU device passes."""
+    if torch.device(device).type != "cuda":
+        return
+    pos_width, grids = enc.encoding_shape(dict(config.get("encoding", {})), 3)
+    for D, F in grids:
+        if (D, F) != (3, 2):
+            raise ValueError(
+                "kernels B (grid_encode) and A (segsum) take n_input_dims 3 and n_features_per_level 2 only; "
+                f"the encoding has n_input_dims {D}, n_features_per_level {F}"
+            )
+    dir_cfg = config.get("dir_encoding")
+    dir_width = enc.encoding_shape(dict(dir_cfg), 3)[0] if dir_cfg else 0
+    for name, key, n_in, n_out in (
+        ("density MLP", "network", pos_width, DENSITY_FEATURES),
+        ("rgb MLP", "rgb_network", DENSITY_FEATURES + dir_width, 3),
+    ):
+        cfg = dict(config.get(key, config.get("network", {})))
+        try:
+            fused_mlp.check_supported(
+                n_in, cfg.get("n_neurons", 64), cfg.get("n_hidden_layers", 1), n_out,
+                cfg.get("activation", "ReLU"), cfg.get("output_activation", "None"),
+            )
+        except ValueError as e:
+            raise ValueError(f"{name} ('{key}'): {e}") from None
+
+
 def build_nerf_network(
     config: dict,
     aabb_scale: int = 1,
@@ -127,7 +160,11 @@ def build_nerf_network(
     generator: Optional[torch.Generator] = None,
 ) -> NerfNetwork:
     """Construct from the JSON config tree, with the hash grid's automatic
-    per_level_scale = exp(ln(desired_res · aabb_scale / base_res) / (L − 1))."""
+    per_level_scale = exp(ln(desired_res · aabb_scale / base_res) / (L − 1)).
+    On a CUDA device a config outside the kernels' range raises
+    (:func:`check_kernel_range`) before anything is allocated."""
+    if device is not None:
+        check_kernel_range(config, device)
     enc_cfg = dict(config.get("encoding", {}))
     n_levels = enc_cfg.get("n_levels", 16)
     base_res = enc_cfg.get("base_resolution", 16)

@@ -76,7 +76,7 @@ def check_supported(
     if not 1 <= n_output_dims <= MAX_OUTPUT:
         problems.append(f"output width {n_output_dims} (1..{MAX_OUTPUT})")
     if problems:
-        raise ValueError("fused_mlp kernel does not take this MLP: " + "; ".join(problems))
+        raise ValueError("kernel C (fused_mlp) does not take this MLP: " + "; ".join(problems))
 
 
 def fused_mlp_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -32,6 +32,7 @@ import torch
 from nerfshop_tpu_torch.common import DEFAULT_BATCH_SIZE, DEFAULT_STEPS_PER_FRAME, RenderMode, TestbedMode, TonemapCurve
 from nerfshop_tpu_torch.config import ConfigDict, default_nerf_config, load_network_config
 from nerfshop_tpu_torch.device import default_device
+from nerfshop_tpu_torch.models.nerf_network import check_kernel_range
 
 
 def upsample_bilinear(img: torch.Tensor, width: int, height: int) -> torch.Tensor:
@@ -74,6 +75,10 @@ class Testbed:
         if self.mode != TestbedMode.Nerf:
             raise NotImplementedError(f"testbed mode {self.mode} is not ported")
         self.device = torch.device(device) if device is not None else default_device()
+        network_config = None
+        if config is not None:
+            network_config = load_network_config(config) if isinstance(config, (str, Path)) else ConfigDict(config)
+            check_kernel_range(network_config, self.device)  # before anything is allocated
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(time.time()) % (1 << 31) if seed is None else seed)
         self.shall_train = False
@@ -127,11 +132,8 @@ class Testbed:
         self._view_distance = 1.5
         self.set_look_at(center=(0.5, 0.5, 0.5), eye=(0.5, -1.5, 0.5))
         self.fov_deg = 50.0
-        if config is not None:
-            if isinstance(config, (str, Path)):
-                self._network_config = load_network_config(config)
-            else:
-                self._network_config = ConfigDict(config)
+        if network_config is not None:
+            self._network_config = network_config
             self._reset_network()
         if scene is not None:
             self.load_training_data(scene)
@@ -662,6 +664,7 @@ class Testbed:
         mode = TestbedMode(snap.get("mode", "nerf"))
         if mode != TestbedMode.Nerf:
             raise NotImplementedError(f"snapshot of mode {mode} is not ported")
+        check_kernel_range(snap["network_config"], self.device)  # before the testbed changes
         self._network_config = ConfigDict(snap["network_config"])
         meta = snap.get("nerf")
         if meta and self._dataset is None:

@@ -77,8 +77,8 @@ def operators_from_jax(ops, device: torch.device) -> list:
                 return TetLut(*(t(getattr(lt, k)) for k in _LUT_ARRAYS), int(lt.res))
 
             out.append(
-                CageDeformationOp(
-                    lut_def=lut(op.lut_def), lut_orig=lut(op.lut_orig), copy_mode=bool(np.asarray(op.copy_mode)),
+                CageDeformationOp.create(
+                    lut(op.lut_def), lut(op.lut_orig), bool(np.asarray(op.copy_mode)),
                     **{k: t(getattr(op, k)) for k in CAGE_ARRAYS},
                 )
             )

@@ -5,6 +5,8 @@ Run from the root of a checkout:
   python3 profile_render.py [--out FILE] [--edited | --train]
   python3 profile_render.py --save-chunk FILE
   python3 profile_render.py --kernels --chunk FILE [--root DIR]
+  python3 profile_render.py --save-edit DIR
+  python3 profile_render.py --warp --edit DIR [--root DIR]
 
 Trains the model of ``chip_smoke.py`` (default config, 256 steps on the
 analytic sphere), renders one warm-up frame, times 3 unprofiled frames on
@@ -43,8 +45,18 @@ unpacked older commit, it times that commit's kernels on the same inputs:
 run old, new, new, old one after the other on one card to compare two
 versions.
 
+With ``--save-edit DIR`` it trains that model, builds its edit, renders the
+edited frame and saves the edits file and the positions and directions the
+frame's middle chunk sent through the moved cage. With ``--warp --edit DIR``
+it trains nothing: it loads that edit with the package under ``--root`` and
+times the cage operator's sample warp, position warp and inclusive lookup
+at the saved chunk and at 2^20 random points, by both methods; run old,
+new, new, old to compare two versions of kernel E and the warp around it.
+
   python3 profile_render.py --save-chunk build/chunk.pt
   python3 profile_render.py --kernels --chunk build/chunk.pt [--root DIR]
+  python3 profile_render.py --save-edit build/edit
+  python3 profile_render.py --warp --edit build/edit [--root DIR]
 """
 
 from __future__ import annotations
@@ -331,6 +343,70 @@ def time_kernels(dev, root: str, chunk: Path) -> None:
         )
 
 
+def save_edit(dev, out: Path) -> None:
+    """``--save-edit``: train the smoke's model, build its edit (the scribble
+    cage moved +0.18 in x, an affine duplicate on top, seen from the side),
+    render the edited frame and save the edits file and the positions and
+    directions its middle chunk sent through the moved cage."""
+    tb, focal, principal, _ = chip_smoke.phase_main_path(dev)
+    gs, _, _, summary = chip_smoke.scribble_cage(tb, focal, principal)
+    print(f"[profile] edit: {summary}", flush=True)
+    tb.set_look_at(eye=chip_smoke.SIDE_EYE)
+    gs.translate_cage(chip_smoke.CAGE_SHIFT)
+    op = gs.make_operator()
+    tb.add_edit_operator(op)
+    tb.add_edit_operator(chip_smoke.duplicate_op(dev))
+    with chip_smoke.cage_input_of_call(op, chip_smoke.middle_chunk(W, H)) as kept:
+        tb.render(W, H, exact=True)
+    chip_smoke.check(len(kept) == 1, "the middle chunk's warp was not captured")
+    out.mkdir(parents=True, exist_ok=True)
+    tb.save_edits(str(out / "edits.json"))
+    torch.save({"pos": kept[0][0], "dir": kept[0][1]}, out / "warp_chunk.pt")
+    print(f"[profile] saved the edits and the {tuple(kept[0][0].shape)} warp inputs of the middle chunk to {out}", flush=True)
+
+
+def time_warp(dev, root: str, edit: Path, N: int = 1 << 20) -> None:
+    """``--warp``: the cage operator of the saved edit, loaded by the package
+    under ``root``, at the saved chunk and at 2^20 random points (90% in the
+    deformed LUT's box, as ``chip_smoke.py``): its sample warp, its position
+    warp and its inclusive lookup in the deformed LUT, by both methods, and
+    the lookup's disagreements with the package's plain lookup."""
+    from nerfshop_tpu_torch.editing import operators, serialization
+
+    print(f"[warp] package {Path(operators.__file__).resolve().parents[1]} (root {root})", flush=True)
+    op = next(o for o in serialization.load_edits(edit / "edits.json", dev) if hasattr(o, "lut_def"))
+    chunk = torch.load(edit / "warp_chunk.pt", map_location=dev)
+    lut = op.lut_def
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    size = lut.res / lut.inv_cell
+    n_in = (N * 9) // 10
+    p = torch.cat([
+        lut.bbox_lo + torch.rand((n_in, 3), generator=g, device=dev) * size,
+        lut.bbox_lo + size * (1.05 + torch.rand((N - n_in, 3), generator=g, device=dev)),
+    ])
+    d = torch.nn.functional.normalize(torch.randn((N, 3), generator=g, device=dev), dim=1)
+    table = torch.cat([op.v0_def, op.inv_def.reshape(-1, 9)], 1).contiguous()
+    thr = -0.08
+    if hasattr(operators, "REC_DEF"):  # the packed form of this commit
+        rows = op.packed.records[operators.REC_DEF]
+        lookup = lambda x: operators.tet_lookup_cuda(op.packed.lut_def, rows, x, thr)  # noqa: E731
+    else:
+        lookup = lambda x: operators.tet_lookup_cuda(lut, table, x, thr)  # noqa: E731
+    for label, pos, direction in (("edited 1080p frame's middle chunk", chunk["pos"], chunk["dir"]), ("random points", p, d)):
+        fk, tk, _ = lookup(pos)
+        fp, tp, _ = operators.tet_lookup_plain(lut, table, pos, thr)
+        diff = int(((fk != fp) | (tk != tp)).sum())
+        for name, fn in (
+            ("cage_map_samples", lambda: operators.cage_map_samples(op, pos, direction)),
+            ("cage_map_positions", lambda: operators.cage_map_positions(op, pos)),
+            ("lookup (deformed LUT, inclusive)", lambda: lookup(pos)),
+        ):
+            ms, dev_ms = chip_smoke.both_ms(fn)
+            print(f"[warp] {label} N={pos.shape[0]} {name}: events {ms:.4f} ms device {dev_ms:.4f} ms", flush=True)
+        print(f"[warp] {label}: the lookup differs from the plain one at {diff} points", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None, help="write the full per-kernel table here")
@@ -339,24 +415,33 @@ def main() -> None:
     mode.add_argument("--train", action="store_true", help="profile 8 training steps instead of a frame")
     mode.add_argument("--kernels", action="store_true", help="time kernels A, B and D alone (no training)")
     mode.add_argument("--save-chunk", type=Path, default=None, help="train, then save one 1080p chunk's positions here")
-    ap.add_argument("--root", default=None, help="with --kernels: the checkout whose package is timed")
+    mode.add_argument("--save-edit", type=Path, default=None, help="train, edit, then save the edits and a warp chunk here")
+    mode.add_argument("--warp", action="store_true", help="time the cage warp of a saved edit (no training)")
+    ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")
     ap.add_argument("--chunk", type=Path, default=None, help="with --kernels: the file --save-chunk wrote")
+    ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
     args = ap.parse_args()
-    if (args.root is not None or args.chunk is not None) and not args.kernels:
-        ap.error("--root and --chunk go with --kernels")
-    if args.kernels and args.chunk is None:
-        ap.error("--kernels needs --chunk (written by --save-chunk)")
+    if args.root is not None and not (args.kernels or args.warp):
+        ap.error("--root goes with --kernels or --warp")
+    if (args.chunk is not None) != args.kernels:
+        ap.error("--kernels needs --chunk (written by --save-chunk), and --chunk goes with --kernels")
+    if (args.edit is not None) != args.warp:
+        ap.error("--warp needs --edit (written by --save-edit), and --edit goes with --warp")
     if args.root is not None:
         sys.path.insert(0, str(Path(args.root).resolve()))  # before the package is first imported
-    if args.kernels or args.save_chunk is not None:
+    if args.kernels or args.warp or args.save_chunk is not None or args.save_edit is not None:
         smi = chip_smoke.phase_device()
         chip_smoke.phase_build()
         print(f"[profile] card: {smi}")
         dev = torch.device("cuda", 0)
         if args.save_chunk is not None:
             save_chunk(dev, args.save_chunk)
-            return
-        time_kernels(dev, args.root or ".", args.chunk)
+        elif args.save_edit is not None:
+            save_edit(dev, args.save_edit)
+        elif args.warp:
+            time_warp(dev, args.root or ".", args.edit)
+        else:
+            time_kernels(dev, args.root or ".", args.chunk)
         return
 
     from nerfshop_tpu_torch.common import RenderMode

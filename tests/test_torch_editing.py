@@ -9,6 +9,9 @@ cannot hide a device mismatch. Lookups and warps are held to JAX except at
 near ties: where the two best candidate scores, or the best score and the
 threshold, lie within 1e-6 (fp32 sums in another order may flip those)."""
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +35,7 @@ from test_bvh import cube_mesh, icosphere
 from test_concave_cage import _l_shape_cage
 
 CPU = torch.device("cpu")
+ROOT = Path(__file__).resolve().parents[1]
 TIE = 1e-6
 
 CAGES = {
@@ -385,6 +389,154 @@ def test_tet_lookup_dispatches_by_device(tet_meshes):
     found, tet, bary = tops.tet_lookup(top.lut_def, top.v0_def, top.inv_def, p)
     assert tops.tet_lookup_cuda.launches == before
     assert found.dtype == torch.bool and tet.dtype == torch.int32 and bary.shape == (p.shape[0], 4)
-    table = torch.cat([top.v0_def, top.inv_def.reshape(-1, 9)], dim=1)
     with pytest.raises(ValueError):
-        tops.tet_lookup_cuda(top.lut_def, table, p, -0.08)
+        tops.tet_lookup_cuda(top.packed.lut_def, top.packed.records[tops.REC_DEF], p, -0.08)
+
+
+# ------------------------------------------------- kernel E's packed form
+
+
+def _probe_with_cells(lut, seed=11):
+    """_probe_points plus the centre of an empty cell and points in a cell
+    of the LUT's widest fanout → (points, [empty-cell point, widest-cell
+    points] index masks)."""
+    cells = np.asarray(lut.cells)
+    fan = (cells >= 0).sum(1)
+    lo, ic, res = np.asarray(lut.bbox_lo), np.asarray(lut.inv_cell), lut.res
+
+    def centre(c, jitter):
+        ijk = np.array([c // (res * res), (c // res) % res, c % res])
+        return lo + (ijk + 0.5 + jitter) / ic
+
+    rng = np.random.default_rng(seed)
+    widest = [centre(int(np.argmax(fan)), rng.uniform(-0.45, 0.45, 3)) for _ in range(8)]
+    empty = [centre(int(np.flatnonzero(fan == 0)[0]), np.zeros(3))]
+    p = np.concatenate([_probe_points(lut, seed=seed), np.array(empty + widest)]).astype(np.float32)
+    n = len(p)
+    return p, np.arange(n) == n - 9, np.arange(n) >= n - 8
+
+
+def _with_empty_cell(jop):
+    """``jop`` with the middle cell of both LUTs emptied (a cage's LUT may
+    have no empty cell inside its box)."""
+
+    def empty(lut):
+        cells = np.array(lut.cells)
+        cells[(lut.res**3) // 2 + lut.res // 2] = -1
+        return lut._replace(cells=jnp.asarray(cells))
+
+    return jop._replace(lut_def=empty(jop.lut_def), lut_orig=empty(jop.lut_orig))
+
+
+@pytest.mark.parametrize("eps", [-1e-5, 5e-3])
+@pytest.mark.parametrize("name", ["cube", "lshape"])
+def test_packed_lookup_matches_padded_and_jax(tet_meshes, name, eps):
+    # the plain lookup over the packed LUT is bit-equal to the one over the
+    # padded LUT everywhere, and to JAX off the near ties
+    jop = _with_empty_cell(_jax_op(tet_meshes, name, translate=(0.05, -0.03, 0.02)))
+    (top,) = weights.operators_from_jax([jop], CPU)
+    thr = tops._threshold(eps)
+    for which, section in (("def", tops.REC_DEF), ("orig", tops.REC_ORIG)):
+        jl = getattr(jop, f"lut_{which}")
+        p, empty, widest = _probe_with_cells(jl)
+        table = top.packed.records[section]
+        padded = tops.tet_lookup_plain(getattr(top, f"lut_{which}"), table, _t(p), thr)
+        packed = tops.tet_lookup_packed_plain(getattr(top.packed, f"lut_{which}"), table, _t(p), thr)
+        for a, b in zip(padded, packed):
+            assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a, b.view(torch.int32) if b.is_floating_point() else b)
+        jf, jt, jb = (np.asarray(a) for a in jops.tet_lookup(jl, getattr(jop, f"v0_{which}"), getattr(jop, f"inv_{which}"), jnp.asarray(p), eps=eps))
+        ok = ~_ambiguous(jl, getattr(jop, f"v0_{which}"), getattr(jop, f"inv_{which}"), p, eps)
+        tf, tt, tb = (a.numpy() for a in packed)
+        np.testing.assert_array_equal(tf[ok], jf[ok])
+        np.testing.assert_array_equal(tt[ok], jt[ok])
+        np.testing.assert_allclose(tb[ok & (tt == jt)], jb[ok & (tt == jt)], rtol=0, atol=1e-5)
+        assert not tf[empty].any() and tt[empty][0] == 0  # an empty cell finds nothing: tet 0
+        outside = ~((p >= np.asarray(jl.bbox_lo)) & (p < np.asarray(jl.bbox_lo) + jl.res / np.asarray(jl.inv_cell))).all(1)
+        assert outside.any() and not tf[outside].any() and (tt[outside] == 0).all()
+        assert ok[widest].any() and tf[widest].any()
+
+
+@pytest.mark.parametrize("name", ["cube", "lshape"])
+def test_packed_form_reproduces_the_operator(tet_meshes, name):
+    # the CSR LUTs list each cell's tets in LUT order; the records carry the
+    # lookup rows, deltas and rotations bit for bit, so the warp's delta and
+    # rotation from a record equal _bary_delta and _rotate_back of the arrays
+    jop = _jax_op(tet_meshes, name, translate=(0.1, 0.02, -0.05))
+    (top,) = weights.operators_from_jax([jop], CPU)
+    pk = top.packed
+    for lut, plut in ((top.lut_def, pk.lut_def), (top.lut_orig, pk.lut_orig)):
+        cells = lut.cells.numpy()
+        off, ids = plut.offsets.numpy(), plut.ids.numpy()
+        assert off[0] == 0 and off[-1] == len(ids) == (cells >= 0).sum() and plut.res == lut.res
+        for c in np.flatnonzero((cells >= 0).any(1))[::7]:
+            np.testing.assert_array_equal(ids[off[c] : off[c + 1]], cells[c][cells[c] >= 0])
+        assert plut.box == tuple(np.concatenate([lut.bbox_lo.numpy(), lut.inv_cell.numpy()]).tolist())
+        assert plut.nbytes() == 4 * (len(off) + len(ids)) < lut.cells.numel() * 4
+    rec = pk.records
+    assert rec.shape == (4, top.v0_def.shape[0], 12) and rec.is_contiguous()
+    for section, v0, inv in ((tops.REC_DEF, top.v0_def, top.inv_def), (tops.REC_ORIG, top.v0_orig, top.inv_orig)):
+        assert torch.equal(rec[section], torch.cat([v0, inv.reshape(-1, 9)], 1))
+    rng = np.random.default_rng(12)
+    n = 500
+    tet = _t(rng.integers(0, top.v0_def.shape[0], n).astype(np.int32)).long()
+    bary = _t(rng.normal(size=(n, 4)).astype(np.float32))
+    d = _t(rng.normal(size=(n, 3)).astype(np.float32))
+    ref = tops._bary_delta((top.verts_orig - top.verts_def).reshape(-1, 12)[tet], bary)
+    assert torch.equal(tops._bary_delta(rec[tops.REC_DELTA][tet], bary), ref)
+    ref = tops._rotate_back(top.rot.reshape(-1, 9)[tet], d)
+    assert torch.equal(tops._rotate_back(rec[tops.REC_ROT][tet, :9], d), ref)
+    assert not rec[tops.REC_ROT][:, 9:].any()
+
+
+def test_lookup_tie_and_nan_rules(tet_meshes):
+    # chip_smoke.tie_nan_op: every tet has an exact copy listed just before
+    # it (the earlier copy must win the tie) and a NaN tet heads every cell
+    # (it never wins); both plain lookups keep those rules, and the warps
+    # move every point as the unmodified operator does
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    jop = _with_empty_cell(_jax_op(tet_meshes, "cube", translate=(0.06, 0.0, 0.0)))
+    (top,) = weights.operators_from_jax([jop], CPU)
+    syn = chip_smoke.tie_nan_op(top)
+    nt = top.v0_def.shape[0]
+    p = _t(_probe_with_cells(jop.lut_def)[0])
+    thr = tops._threshold(tops.INCLUSIVE_EPS)
+    table = syn.packed.records[tops.REC_DEF]
+    f, t, b = tops.tet_lookup_packed_plain(syn.packed.lut_def, table, p, thr)
+    f2, t2, b2 = tops.tet_lookup_plain(syn.lut_def, table, p, thr)
+    assert torch.equal(f, f2) and torch.equal(t, t2) and torch.equal(b, b2)
+    f0, t0, b0 = tops.tet_lookup_plain(top.lut_def, top.packed.records[tops.REC_DEF], p, thr)
+    assert f.any() and torch.equal(f, f0)
+    assert ((t[f] >= nt) & (t[f] < 2 * nt)).all() and not (t == 2 * nt).any()
+    assert torch.equal(t[f] - nt, t0[f]) and torch.equal(b[f], b0[f])
+    d = torch.nn.functional.normalize(_t(np.random.default_rng(13).normal(size=(p.shape[0], 3)).astype(np.float32)), dim=1)
+    for a, c in zip(tops.cage_map_samples_plain(syn, p, d), tops.cage_map_samples_plain(top, p, d)):
+        assert torch.equal(a, c)
+
+
+def test_cage_warps_dispatch_by_device(tet_meshes):
+    # CPU tensors run the plain composition and launch nothing; the warp
+    # instances' wrappers take CUDA tensors only, and an operator without
+    # its packed form is refused there
+    jop = _jax_op(tet_meshes, "lshape", translate=(0.0, 0.05, 0.0))
+    (top,) = weights.operators_from_jax([jop], CPU)
+    p = _t(_probe_points(jop.lut_def, n=90))
+    d = torch.nn.functional.normalize(p - 0.5, dim=1)
+    before = (tops.cage_warp_samples_cuda.launches, tops.cage_warp_positions_cuda.launches, tops.tet_lookup_cuda.launches)
+    for a, b in zip(tops.cage_map_samples(top, p, d), tops.cage_map_samples_plain(top, p, d)):
+        assert torch.equal(a, b)
+    for a, b in zip(tops.cage_map_positions(top, p), tops.cage_map_positions_plain(top, p)):
+        assert torch.equal(a, b)
+    tops.cage_in_source(top, p)
+    tops.cage_map_forward(top, p)
+    after = (tops.cage_warp_samples_cuda.launches, tops.cage_warp_positions_cuda.launches, tops.tet_lookup_cuda.launches)
+    assert after == before
+    with pytest.raises(ValueError):
+        tops.cage_warp_samples_cuda(top, p, d)
+    with pytest.raises(ValueError):
+        tops.cage_warp_positions_cuda(top, p)
+    with pytest.raises(ValueError, match="packed"):
+        tops.cage_warp_positions_cuda(top._replace(packed=None), p)
