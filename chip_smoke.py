@@ -36,21 +36,36 @@ Phases, each printing one line of its own numbers:
      x and an affine duplicate on top, each added through
      ``Testbed.add_edit_operator`` (a full grid refresh through the stack)
      and rendered at 1920×1080; then ``save_edits`` → ``load_edits``;
- 14. kernel E, the cage warp, in its three instances against their plain
-     versions: the ``LOOKUP`` (strict and inclusive) and the two warps
-     (``WARP_SAMPLES``, ``WARP_POSITIONS``) on 2^20 points in and around the
-     moved cage's LUT and on the points and directions the edited frame's
-     middle chunk sent through the moved cage, beside the parent commit's
-     launch pattern of the sample warp (two lookups, kernel D's row takes
-     and the elementwise warp); then all three bit-equal on LUTs that test
-     the tie rule (an exact copy of every tet listed before it) and the NaN
-     rule (a degenerate tet at the head of every cell).
+ 14. kernel E, the cage warp, in its first three instances
+     against their plain versions: the ``LOOKUP`` (strict and inclusive)
+     and the two warps (``WARP_SAMPLES``, ``WARP_POSITIONS``) on 2^20 points
+     in and around the moved cage's LUT and on the points and directions the
+     edited frame's middle chunk sent through the moved cage, beside the
+     parent commit's launch pattern of the sample warp (two lookups, kernel
+     D's row takes and the elementwise warp); then all three bit-equal on
+     LUTs that test the tie rule (an exact copy of every tet listed before
+     it) and the NaN rule (a degenerate tet at the head of every cell);
+ 15. membrane: the Poisson membrane of the moved cage through
+     ``GrowingSelection.compute_membrane``; kernel E's ``WARP_MEMBRANE``
+     instance against its plain version on the middle chunk, on 2^20 random
+     points and on the tie and NaN LUTs, with the share of in-target points
+     that pass the membrane's gate (the phase fails at 0); the 1080p frame
+     of the stack with the membrane ("target" blend) against it without;
+ 16. distill: the edited scene distilled into a standalone student (300
+     steps of the default ``DistillConfig`` at the trained scale), steps/s,
+     and the student's render without operators against the edited render
+     of a side view in PSNR (bound 25 dB);
+ 17. native: the host library's LUT build, region growing and ``vanish``
+     against the numpy paths.
 A [launches] line gives each path's launches by kernel, and kernel B's
 split into launches with fracs (training forwards only) and without
 (render, grid refresh, edited frames); the edited frame runs the cage warp
 as one launch of kernel E per chunk and launches kernel D only for the
-march. Then a JSON line with every
-kernel's launches on the main paths (training, render, frame and edit),
+march; a membrane frame launches ``WARP_MEMBRANE`` once a chunk and no
+other instance of E; a distillation step launches kernel B with fracs for
+the student's two forwards only. Then a JSON line with every
+kernel's launches on the main paths (training, render, frame, edit,
+membrane frame and distillation),
 error, times, bound and library-call time, the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the script exits non-zero;
@@ -574,6 +589,7 @@ def kernel_wrappers():
         "tet_lookup": operators.tet_lookup_cuda,
         "cage_warp_samples": operators.cage_warp_samples_cuda,
         "cage_warp_positions": operators.cage_warp_positions_cuda,
+        "cage_warp_membrane": operators.cage_warp_membrane_cuda,
     }
 
 
@@ -1113,7 +1129,7 @@ def phase_edit(tb, focal, principal, W=1920, H=1080):
     after = tb.render(*small, spp=1, exact=True)
     check(np.array_equal(after, before), "the frame after the edits round trip differs")
     print(f"[edit] save_edits -> load_edits: {size / 2**20:.2f} MiB, operators bit-equal, {small[0]}x{small[1]} frame bit-equal", flush=True)
-    return op_moved, frame_launches, kept[0]
+    return gs, op_moved, frame_launches, kept[0]
 
 
 def tie_nan_op(op):
@@ -1140,7 +1156,16 @@ def tie_nan_op(op):
         bad = torch.full_like(a[:1], float("nan")) if name.startswith("inv_") else torch.zeros_like(a[:1])
         return torch.cat([a, a, bad])
 
-    return CageDeformationOp.create(lut(op.lut_def), lut(op.lut_orig), op.copy_mode, **{k: arr(k) for k in CAGE_ARRAYS})
+    syn = CageDeformationOp.create(lut(op.lut_def), lut(op.lut_orig), op.copy_mode, **{k: arr(k) for k in CAGE_ARRAYS})
+    m = op.membrane
+    if m is not None:  # the copies carry their tets' membrane rows, the NaN tet zeros
+        from nerfshop_tpu_torch.editing.poisson import MembraneData
+
+        def ext(a):
+            return torch.cat([a, a, torch.zeros_like(a[:1])])
+
+        syn = syn._replace(membrane=MembraneData.create(ext(m.density), ext(m.outside_density), ext(m.sh), m.amplitude))
+    return syn
 
 
 def near_ties(lut, table, p, thr):
@@ -1330,6 +1355,20 @@ def warp_case(label, op, pos, direction, tets, exact=False):
     )
 
 
+def random_points(op, g, N):
+    """N points, 90% uniform in ``op``'s deformed LUT box and 10% beyond
+    it, with random unit directions."""
+    lut = op.lut_def
+    dev = lut.cells.device
+    size = lut.res / lut.inv_cell
+    n_in = (N * 9) // 10
+    p = torch.cat([
+        lut.bbox_lo + torch.rand((n_in, 3), generator=g, device=dev) * size,
+        lut.bbox_lo + size * (1.05 + torch.rand((N - n_in, 3), generator=g, device=dev)),
+    ])
+    return p, torch.nn.functional.normalize(torch.randn((N, 3), generator=g, device=dev), dim=1)
+
+
 def phase_tetlookup(op, g, chunk, N=1 << 20):
     """Kernel E's three instances against their plain versions: the
     ``LOOKUP`` on 2^20 random points, 90% inside the moved cage's deformed
@@ -1341,14 +1380,7 @@ def phase_tetlookup(op, g, chunk, N=1 << 20):
     from nerfshop_tpu_torch.editing import operators as ops_lib
 
     lut, pk = op.lut_def, op.packed
-    dev = lut.cells.device
-    size = lut.res / lut.inv_cell
-    n_in = (N * 9) // 10
-    p = torch.cat([
-        lut.bbox_lo + torch.rand((n_in, 3), generator=g, device=dev) * size,
-        lut.bbox_lo + size * (1.05 + torch.rand((N - n_in, 3), generator=g, device=dev)),
-    ])
-    d = torch.nn.functional.normalize(torch.randn((N, 3), generator=g, device=dev), dim=1)
+    p, d = random_points(op, g, N)
     incl = ops_lib._threshold(ops_lib.INCLUSIVE_EPS)
     for eps in (ops_lib.INCLUSIVE_EPS, ops_lib.STRICT_EPS):
         _, tets = lookup_case(f"eps {eps:g} random points (90% in the LUT box)", op, p, ops_lib._threshold(eps))
@@ -1387,6 +1419,264 @@ def phase_tetlookup(op, g, chunk, N=1 << 20):
     return result
 
 
+# ------------------------------------------------------------ the membrane
+
+
+def membrane_case(label, op, pos, direction, exact=False):
+    """Kernel E's ``WARP_MEMBRANE`` instance against its plain version (the
+    JAX composition) on ``pos``, ``direction`` → (its numbers, the share of
+    in-target points that pass the membrane's gate). Off near ties the flags
+    and the tet (the ``LOOKUP`` instance's against the plain lookup's)
+    agree; where the tets agree, pos' and dir' are within 1e-5 and the
+    three residuals within 1e-5 absolute plus 1e-5 relative. ``exact``:
+    flags, tet and pos' bit-equal everywhere, the residuals within the same
+    bound."""
+    from nerfshop_tpu_torch.editing import operators as ops_lib
+
+    pk, N = op.packed, pos.shape[0]
+    incl = ops_lib._threshold(ops_lib.INCLUSIVE_EPS)
+    dev = pos.device
+
+    def accs():
+        return (torch.zeros((N,), device=dev), torch.zeros((N,), device=dev), torch.zeros((N, 3), device=dev))
+
+    acc = accs()
+    kernel_out = ops_lib.cage_warp_membrane_cuda(op, pos, direction, *acc)
+    plain = ops_lib.cage_map_membrane_plain(op, pos, direction)
+    found_k, tet_k, _ = ops_lib.tet_lookup_cuda(pk.lut_def, pk.records[ops_lib.REC_DEF], pos, incl)
+    tet_p = ops_lib.tet_lookup_plain(op.lut_def, pk.records[ops_lib.REC_DEF], pos, incl)[1]
+    torch.cuda.synchronize()
+    if exact:
+        ties = torch.zeros_like(found_k)
+    else:
+        ties = near_ties(op.lut_def, pk.records[ops_lib.REC_DEF], pos, incl)
+        ties |= near_ties(op.lut_orig, pk.records[ops_lib.REC_ORIG], pos, ops_lib._threshold(ops_lib.STRICT_EPS))
+    agree = (tet_k == tet_p) & ~ties
+    flags = {"empty": (kernel_out[2], plain[2]), "in_target": (kernel_out[3], plain[3]), "tet": (tet_k, tet_p)}
+    n_flag = {k: int(((a != b) & ~ties).sum()) for k, (a, b) in flags.items()}
+    pos_err = float((kernel_out[0] - plain[0]).abs()[agree].max())
+    dir_err = float((kernel_out[1] - plain[1]).abs()[agree].max())
+    res_err = 0.0
+    for k, p in zip(acc, plain[4:]):
+        over = ((k - p).abs() - 1e-5 * p.abs())[agree]
+        res_err = max(res_err, float(over.max()))
+    check(sum(n_flag.values()) == 0 and pos_err <= 1e-5 and dir_err <= 1e-5 and res_err <= 1e-5,
+          f"WARP_MEMBRANE disagrees with its plain version ({label}): flags off the near ties {n_flag}, pos err "
+          f"{pos_err:.3e}, dir err {dir_err:.3e}, residual err beyond 1e-5 relative {res_err:.3e}")
+    if exact:
+        check(torch.equal(kernel_out[0].view(torch.int32), plain[0].view(torch.int32)), f"pos' is not bit-equal ({label})")
+    in_t = kernel_out[3]
+    n_in = int(in_t.sum())
+    gated = float((in_t & (acc[1] > 1e-9)).sum()) / max(n_in, 1)
+    # timing: each call adds into the same accumulators (the values are not read)
+    kernel = lambda: ops_lib.cage_warp_membrane_cuda(op, pos, direction, *acc)  # noqa: E731
+    ms, dev_ms = both_ms(kernel)
+    plain_ms = float("nan") if exact else median_ms(lambda: ops_lib.cage_map_membrane_plain(op, pos, direction))
+    # bytes: p and dir in, pos', dir' and the flags out, the LUTs and rows
+    # read, a winner's deltas, rotation and 480-byte membrane row, and the
+    # accumulators read and written at the in-target points; ops: ~24 a
+    # candidate scored, ~60 a warped point and ~250 its membrane sums
+    b1, fan1 = lut_reads(pk.lut_def, 48, pos)
+    b2, fan2 = lut_reads(pk.lut_orig, 48, pos[~in_t]) if not op.copy_mode else (0, fan1[:0])
+    winners = torch.unique(tet_k[in_t]).numel()
+    cands = float(fan1.sum() + fan2.sum())
+    b_ms, b_by = bound(nbytes(pos, direction, *kernel_out) + b1 + b2 + winners * (84 + 480) + n_in * 40,
+                       cands * 24 + n_in * 310.0)
+    print(
+        f"[membrane] WARP_MEMBRANE {label} N={N}: flags and tet off the near ties differ {n_flag} "
+        f"({int(ties.sum())} near ties), pos' err {pos_err:.3e}, dir' err {dir_err:.3e}, residuals beyond 1e-5 "
+        f"relative {res_err:.3e} where the tets agree (bound 1e-5{', bit-equal flags, tet and pos required' if exact else ''}); "
+        f"events {ms:.4f} ms, device {dev_ms:.4f} ms; {'' if exact else f'plain {plain_ms:.4f} ms; '}bound {b_ms:.4f} ms "
+        f"({b_by}), device/bound {dev_ms / b_ms:.2f}; in_target {n_in / N:.4f}, gated share of in-target points "
+        f"{gated:.4f}, residual sigma max {float(acc[0].max()):.4g}",
+        flush=True,
+    )
+    check(gated > 0 or exact, f"no in-target point passes the membrane's gate ({label}): the membrane tests nothing")
+    return dict(max_abs_err=max(pos_err, dir_err, res_err), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, library_device_ms=None), gated
+
+
+def phase_membrane(tb, gs, op_moved, g, chunk, W=1920, H=1080):
+    """The Poisson membrane of the moved cage through
+    ``GrowingSelection.compute_membrane``; ``WARP_MEMBRANE`` against its plain
+    version on the edited frame's middle chunk (``chunk``), on 2^20 random
+    points and on the tie and NaN LUTs; then the 1080p frame of the stack
+    with the membrane ("target" blend) against the same stack without it
+    → (the operator with the membrane, the kernels-line numbers, one
+    membrane frame's launches)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs.compute_membrane(tb.inference_params, tb.generator, grid=tb.grid)
+    torch.cuda.synchronize()
+    mem_s = time.perf_counter() - t0
+    op_mem = op_moved._replace(membrane=gs.membrane)
+    m = gs.membrane
+    check(m.packed.shape == (op_moved.v0_def.shape[0], 120) and bool(torch.isfinite(m.packed).all()),
+          "the membrane's packed rows are not finite / of the expected shape")
+    print(
+        f"[membrane] compute_membrane {mem_s:.3f} s: {gs.cage.n_vertices} cage vertices x 100 directions x 2, "
+        f"{m.packed.shape[0]} tets; residual density max {float(m.density.max()):.4g}, outside density max "
+        f"{float(m.outside_density.max()):.4g}, mean {float(m.outside_density.mean()):.4g}",
+        flush=True,
+    )
+    numbers, gated = membrane_case("edited 1080p frame's middle chunk", op_mem, *chunk)
+    membrane_case("random points (90% in the LUT box)", op_mem, *random_points(op_mem, g, 1 << 20))
+    p, d = random_points(op_mem, g, 1 << 20)
+    membrane_case("tie and NaN LUT, random points", tie_nan_op(op_mem), p, d, exact=True)
+
+    # the 1080p frame with the membrane against the same stack without it
+    tb.set_look_at(eye=SIDE_EYE)
+    tb.replace_edit_operator(0, op_mem)
+    torch.cuda.synchronize()
+    reset_launches()
+    img = tb.render(W, H, spp=1, exact=True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    chunks = -(-W * H // 8192)
+    check(img.shape == (H, W, 4) and np.isfinite(img).all(), "the membrane frame is not finite / of the expected shape")
+    check(launches["cage_warp_membrane"] == chunks and launches["tet_lookup"] == 0 and launches["cage_warp_samples"] == 0,
+          f"the membrane frame did not run one WARP_MEMBRANE launch a chunk and no other cage launch: {launches}")
+    check(launches["grid_encode_fracs"] == 0, "kernel B wrote fracs in the membrane frame")
+    _, mem_times = timed_frames(tb, W, H)
+    tb.replace_edit_operator(0, op_moved)
+    plain_img, plain_times = timed_frames(tb, W, H)
+    diff = float(np.abs(img[..., :3] - plain_img[..., :3]).mean())
+    tb.replace_edit_operator(0, op_mem)
+    print(
+        f"[membrane] {W}x{H} frame of the stack with the membrane (target blend) median of 3 "
+        f"{statistics.median(mem_times) * 1e3:.1f} ms ({[round(t * 1e3, 1) for t in mem_times]}) vs without "
+        f"{statistics.median(plain_times) * 1e3:.1f} ms ({[round(t * 1e3, 1) for t in plain_times]}); mean |drgb| "
+        f"{diff:.5f}; gated share at the middle chunk {gated:.4f}; launches in one membrane frame {launches}",
+        flush=True,
+    )
+    return op_mem, numbers, launches
+
+
+def phase_distill(tb, W=256, H=256, steps=300):
+    """Distill the edited scene (the stack with the membrane and the affine
+    duplicate) into a standalone student, in the order of
+    ``scripts/edit_demo.py``: refresh the edited grid, distill with the
+    default ``DistillConfig`` at the trained scene's aabb_scale and
+    cone_angle, then render the student without operators over a grid
+    refreshed from it and score it against the edited render of the same
+    side view (bound 25 dB, ``tests/test_distill.py``) → the launches of
+    the distillation."""
+    from nerfshop_tpu_torch.train import distill as distill_lib
+    from nerfshop_tpu_torch.utils import metrics
+
+    tb.set_look_at(eye=SIDE_EYE)
+    tb.refresh_grid_for_edits()
+    edited = tb.render(W, H, spp=1, exact=True)
+    grid = tb.grid
+    saved = (grid.density.clone(), grid.occupancy.clone(), grid.mean_density.clone())
+    cfg = distill_lib.DistillConfig(aabb_scale=tb.train_config.aabb_scale, cone_angle=tb.train_config.cone_angle)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    student = distill_lib.distill(tb.model, tb.inference_params, tuple(tb.edit_operators), tb._device_data, grid,
+                                  tb.generator, n_steps=steps, cfg=cfg)
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    launches = read_launches()
+    n_membrane = sum(op.membrane is not None for op in tb.edit_operators if hasattr(op, "membrane"))
+    check(launches["grid_encode_fracs"] == 2 * steps,
+          f"a distillation step did not launch kernel B with fracs for the student's two forwards only: {launches}")
+    check(launches["grid_encode"] > launches["grid_encode_fracs"] and launches["segsum"] > 0,
+          f"the teacher or the student's backward did not run: {launches}")
+    check(launches["cage_warp_membrane"] == 2 * steps * n_membrane and launches["tet_lookup"] == 0,
+          f"the teacher did not warp through WARP_MEMBRANE once per sample set: {launches}")
+    # one step more, for the loss the student has reached
+    aux = distill_lib.distill_step(student, tb.inference_params, tuple(tb.edit_operators), grid, tb._device_data, cfg,
+                                   tb.generator)
+    # the student alone: no operators, a grid refreshed from its own field
+    teacher = (tb._state, tb._model, tb._edit_operators)
+    tb._state, tb._model, tb._edit_operators = student, student.model, []
+    try:
+        tb.refresh_grid_for_edits()
+        distilled = tb.render(W, H, spp=1, exact=True)
+    finally:
+        tb._state, tb._model, tb._edit_operators = teacher
+        grid.density.copy_(saved[0])
+        grid.occupancy, grid.mean_density = saved[1], saved[2]
+    fin = np.isfinite(edited[..., :3]).all(-1) & np.isfinite(distilled[..., :3]).all(-1)
+    value = metrics.psnr(distilled[..., :3][fin], edited[..., :3][fin])
+    print(
+        f"[distill] {steps} steps (rays {cfg.n_rays_per_batch} x {cfg.k_samples}, {cfg.n_free_samples} free and "
+        f"{cfg.n_edit_samples} edit samples, aabb_scale {cfg.aabb_scale}, cone_angle {cfg.cone_angle}) in "
+        f"{distill_s:.3f} s: {steps / distill_s:.3f} steps/s; loss of one step more {float(aux['loss']):.4e} (field "
+        f"{float(aux['field_loss']):.4e}, pixel {float(aux['pixel_loss']):.4e}, photo {float(aux['gt_loss']):.4e}); "
+        f"distilled vs edited {W}x{H} side view PSNR {value:.2f} dB (bound 25), {int(fin.sum())} finite pixels; "
+        f"launches {launches}",
+        flush=True,
+    )
+    check(np.isfinite(distilled).all() and fin.all(), "the distilled render is not finite")
+    check(value >= 25.0, f"distilled vs edited PSNR {value:.2f} dB < 25")
+    return launches
+
+
+def phase_native(tb, gs):
+    """The native host library against the numpy paths: the smoke cage's LUT
+    build (both LUTs, cells equal but for face-plane rounding ties, both
+    times), the region growing from the scribble's seed cells against the
+    Python BFS, and ``vanish`` on the edited grid."""
+    from nerfshop_tpu_torch.editing import selection as sel_lib
+    from nerfshop_tpu_torch.editing.tet_mesh import LUT_RES_DEFAULT, MAX_TETS_PER_CELL
+
+    tm = gs.tet_mesh
+    t0 = time.perf_counter()
+    luts = [tm._voxelize_full(v, LUT_RES_DEFAULT, MAX_TETS_PER_CELL) for v in (tm.vertices_deformed, tm.vertices_original)]
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plains = [tm._voxelize_plain(v, LUT_RES_DEFAULT, c.shape[1]) for v, (_, _, c) in
+              zip((tm.vertices_deformed, tm.vertices_original), luts)]
+    plain_s = time.perf_counter() - t0
+    rows = []
+    for (lo, ic, cells), (plo, pic, pcells, _) in zip(luts, plains):
+        check(np.array_equal(lo, plo) and np.array_equal(ic, pic) and cells.shape == pcells.shape,
+              "the native LUT's box or fanout differs from the numpy path's")
+        diff = np.nonzero((cells != pcells).any(axis=1))[0]
+        extra = max((len(set(cells[r][cells[r] >= 0]) ^ set(pcells[r][pcells[r] >= 0])) for r in diff), default=0)
+        rows.append((len(diff), extra))
+        check(len(diff) <= max(1, cells.shape[0] // 100000) and extra <= 1,
+              f"the native LUT differs from the numpy path's beyond face-plane rounding ties: {len(diff)} cells, "
+              f"{extra} tets")
+    print(
+        f"[native] LUT build {LUT_RES_DEFAULT}^3, both LUTs of {tm.n_tets} tets: native {native_s:.3f} s, numpy "
+        f"{plain_s:.3f} s ({plain_s / native_s:.1f}x); widths {[c.shape[1] for _, _, c in luts]}; cells that differ "
+        f"(count, tets) deformed {rows[0]}, original {rows[1]}",
+        flush=True,
+    )
+    dens = tb.grid.density.cpu().numpy()
+    grown = []
+    for name in ("grow", "grow_plain"):
+        rg = sel_lib.RegionGrowing(density=dens, density_threshold=gs.density_threshold)
+        rg.reset(gs.projected_cells)
+        t0 = time.perf_counter()
+        n = getattr(rg, name)(1 << 30)
+        grown.append((n, rg, time.perf_counter() - t0))
+    (n_nat, rg_nat, s_nat), (n_bfs, rg_bfs, s_bfs) = grown
+    check(np.array_equal(rg_nat.selection, rg_bfs.selection) and rg_nat.growing_level == rg_bfs.growing_level
+          and n_nat == n_bfs > 0, f"native region growing differs from the BFS: {n_nat} vs {n_bfs} cells")
+    g = tb.grid
+    before = int((g.density == 0).sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vanished = gs.vanish(g)
+    torch.cuda.synchronize()
+    vanish_s = time.perf_counter() - t0
+    cleared = int((vanished.density == 0).sum()) - before
+    check(cleared > 0 and bool(torch.equal(g.density == 0, (g.density == 0) & (vanished.density == 0))),
+          f"vanish cleared no cells ({cleared}) or restored one")
+    occ_before, occ_after = float(g.occupancy.float().mean()), float(vanished.occupancy.float().mean())
+    check(occ_after < occ_before, f"vanish left the occupancy at {occ_after:.5f} (was {occ_before:.5f})")
+    print(
+        f"[native] region growing from {len(gs.projected_cells)} seed cells: native {s_nat * 1e3:.1f} ms, Python BFS "
+        f"{s_bfs * 1e3:.1f} ms, {n_nat} cells, the same selection; vanish on the edited grid {vanish_s * 1e3:.1f} ms: "
+        f"{cleared} more cells at density 0, occupancy {occ_before:.5f} -> {occ_after:.5f}",
+        flush=True,
+    )
+
+
 #: the numbers of a kernel in the kernels line; ``ms``, ``plain_ms`` and
 #: ``library_ms`` are events around one call, ``device_ms`` and
 #: ``library_device_ms`` the same calls queued behind a spin (:func:`median_ms`)
@@ -1411,7 +1701,7 @@ def main() -> None:
     phase_snapshot(tb, xf, focal, principal)
     torch.cuda.synchronize()
     reset_launches()
-    op, edited_frame_launches, chunk_pts = phase_edit(tb, focal, principal)
+    gs, op, edited_frame_launches, chunk_pts = phase_edit(tb, focal, principal)
     edit_launches = read_launches()
     check_launched(edit_launches, ("grid_encode", "fused_mlp", "gather", "cage_warp_samples", "cage_warp_positions"),
                    "edit path")
@@ -1424,6 +1714,12 @@ def main() -> None:
     print(f"[launches] kernel B (with fracs, without) per path: {split}", flush=True)
     phase_encode_frame(tb, chunk_x)
     tet = phase_tetlookup(op, g, chunk_pts)
+    _, tet["cage_warp_membrane"], membrane_launches = phase_membrane(tb, gs, op, g, chunk_pts)
+    paths["membrane"] = membrane_launches
+    paths["distill"] = phase_distill(tb)
+    phase_native(tb, gs)
+    print(f"[launches] one 1080p membrane frame: {membrane_launches}; distillation (300 steps): {paths['distill']}",
+          flush=True)
     launches = {k: sum(p[k] for p in paths.values()) for k in train_launches}
     rows = (
         ("sorted_segment_rowsum", "segsum", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", seg),
@@ -1435,6 +1731,8 @@ def main() -> None:
          tet["cage_warp_samples"]),
         ("cage_warp_positions", "cage_warp_positions", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:177",
          tet["cage_warp_positions"]),
+        ("cage_warp_membrane", "cage_warp_membrane", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:291",
+         tet["cage_warp_membrane"]),
     )
     kernels = [
         {"name": name, "route": "cuda", "source": f"nerfshop_tpu_torch/csrc/{src}", "replaces": repl,

@@ -7,11 +7,24 @@
 //     [N] arrays per candidate;
 //   cage_map_samples (:150) and cage_map_positions (:177): two lookups, the
 //     per-tet row takes, the barycentric delta, the rotation and the flags,
-//     which XLA fuses into one program.
-// Three template instances of one kernel:
+//     which XLA fuses into one program;
+//   the cage step of map_samples_through_stack_full (:291-326) with
+//     membrane_residuals_at (editing/poisson.py:143): the sample warp, then
+//     four per-tet row takes, the barycentric sums and an SH9 evaluation.
+// Four template instances of one kernel:
 //   LOOKUP          (found, tet, bary) of one lookup, as tet_lookup;
 //   WARP_SAMPLES    (pos', dir', empty, in_target) of cage_map_samples;
-//   WARP_POSITIONS  (pos', kill) of cage_map_positions.
+//   WARP_POSITIONS  (pos', kill) of cage_map_positions;
+//   WARP_MEMBRANE   WARP_SAMPLES's results, and the membrane's residual
+//                   sigma, outside sigma and residual rgb of each in-target
+//                   point ADDED into accumulators the caller zeroes once for
+//                   the whole operator stack, so that a stack of cages sums in
+//                   operator order as the JAX stack's += does. It evaluates
+//                   at the tet and barycentrics its own warp found:
+//                   rs = sum_k b_k rho_k, ro = sum_k b_k o_k (both times the
+//                   amplitude), rgb_c = sum_j Y_j(dir') sum_k b_k sh_{k,j,c},
+//                   with dir' the rotated, normalized direction. Points
+//                   outside the target add nothing (JAX adds zeros).
 // Semantics of a lookup:
 //   cell  = floor((p - bbox_lo) * inv_cell), flat (x*res + y)*res + z;
 //           outside the LUT box a point has no candidates;
@@ -34,7 +47,11 @@
 // and the lookup rows [Nt, 12] f32 [v0 | inv_e row-major]; for the warps the
 // vertex deltas vo - vd [Nt, 12] and the rotations [Nt, 12] (row-major, 3
 // floats of padding). Every row is 48 bytes, three float4 loads. They are
-// the sections of the operator's records, packed once when it is made.
+// the sections of the operator's records, packed once when it is made. For
+// WARP_MEMBRANE the membrane's rows [Nt, 120] f32, 30 float4s a tet: rho_0..3
+// (residual density of the 4 corners), o_0..3 (outside density), then for
+// each of the 27 (SH coefficient j, channel c) pairs, j*3 + c, the 4 corners'
+// values, then 4 floats of padding; packed once when the membrane is made.
 //
 // What bounds it on the H100: bytes, and little of them: 12 bytes of
 // position in, 21 out for a lookup; 24 in and 26 out for the sample warp.
@@ -105,11 +122,16 @@ struct CageArgs {
     float* bary;          // [N, 4] (LOOKUP)
     long long n;
     int copy_mode;
+    const float* membrane;  // [Nt, 120], WARP_MEMBRANE
+    float* acc_sigma;       // [N] += residual sigma, WARP_MEMBRANE
+    float* acc_out;         // [N] += outside sigma
+    float* acc_rgb;         // [N, 3] += residual rgb
+    float amplitude;
 };
 
 namespace {
 
-enum Mode { LOOKUP = 0, WARP_SAMPLES = 1, WARP_POSITIONS = 2 };
+enum Mode { LOOKUP = 0, WARP_SAMPLES = 1, WARP_POSITIONS = 2, WARP_MEMBRANE = 3 };
 
 constexpr int THREADS = 256;
 // candidates of one point scored together, their loads in flight together
@@ -290,6 +312,47 @@ __device__ __forceinline__ Winner best_candidate(const LutArgs& L, float px, flo
     return w;
 }
 
+// sum_k b_k q_k, summed from 0 in k order
+__device__ __forceinline__ float bary_dot(const float b[4], float4 q) {
+    float s = __fmul_rn(b[0], q.x);
+    s = __fadd_rn(s, __fmul_rn(b[1], q.y));
+    s = __fadd_rn(s, __fmul_rn(b[2], q.z));
+    return __fadd_rn(s, __fmul_rn(b[3], q.w));
+}
+
+// WARP_MEMBRANE: the membrane's residuals of in-target point i in tet t at
+// barycentrics b and warped direction (x, y, z), added into the accumulators
+__device__ __forceinline__ void add_membrane(const CageArgs& A, long long i, int t, const float b[4], float x,
+                                             float y, float z) {
+    const float4* m = reinterpret_cast<const float4*>(A.membrane + (size_t)t * 120);
+    const float rs = bary_dot(b, __ldg(m + 0));
+    const float ro = bary_dot(b, __ldg(m + 1));
+    // the real SH basis l <= 2 (ops/sh.py sh9_basis)
+    const float C0 = 0.28209479177387814f, C1 = 0.4886025119029199f, C2a = 1.0925484305920792f,
+                C2b = 0.31539156525252005f, C2c = 0.5462742152960396f;
+    const float Y[9] = {
+        C0,
+        -C1 * y,
+        C1 * z,
+        -C1 * x,
+        __fmul_rn(__fmul_rn(C2a, x), y),
+        __fmul_rn(__fmul_rn(-C2a, y), z),
+        __fmul_rn(C2b, __fsub_rn(__fmul_rn(__fmul_rn(3.0f, z), z), 1.0f)),
+        __fmul_rn(__fmul_rn(-C2a, x), z),
+        __fmul_rn(C2c, __fsub_rn(__fmul_rn(x, x), __fmul_rn(y, y))),
+    };
+    float rgb[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) rgb[c] = __fadd_rn(rgb[c], __fmul_rn(Y[j], bary_dot(b, __ldg(m + 2 + 3 * j + c))));
+    }
+    A.acc_sigma[i] = __fadd_rn(A.acc_sigma[i], __fmul_rn(rs, A.amplitude));
+    A.acc_out[i] = __fadd_rn(A.acc_out[i], __fmul_rn(ro, A.amplitude));
+#pragma unroll
+    for (int c = 0; c < 3; ++c) A.acc_rgb[3 * i + c] = __fadd_rn(A.acc_rgb[3 * i + c], rgb[c]);
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(THREADS) cage_kernel(const CageArgs A) {
     __shared__ WarpSlice slices[THREADS / 32];
@@ -314,17 +377,18 @@ __global__ void __launch_bounds__(THREADS) cage_kernel(const CageArgs A) {
         return;
     }
 
+    constexpr bool SAMPLES = MODE == WARP_SAMPLES || MODE == WARP_MEMBRANE;
     const bool in_target = live && w.score >= A.a.threshold;
     float ox = px, oy = py, oz = pz;
     float dx = 0.f, dy = 0.f, dz = 0.f;
-    if (MODE == WARP_SAMPLES && live) {
+    float bw[4];
+    if (SAMPLES && live) {
         dx = __ldg(A.dir + 3 * i + 0);
         dy = __ldg(A.dir + 3 * i + 1);
         dz = __ldg(A.dir + 3 * i + 2);
     }
     float ex = dx, ey = dy, ez = dz;
     if (in_target) {
-        float bw[4];
         bary_of(load_row(A.a.rows, w.tet), px, py, pz, bw);
         const Row dv = load_row(A.deltas, w.tet);
         const float d[12] = {dv.a.x, dv.a.y, dv.a.z, dv.a.w, dv.b.x, dv.b.y, dv.b.z, dv.b.w, dv.c.x, dv.c.y, dv.c.z, dv.c.w};
@@ -338,7 +402,7 @@ __global__ void __launch_bounds__(THREADS) cage_kernel(const CageArgs A) {
         ox = __fadd_rn(px, sx);
         oy = __fadd_rn(py, sy);
         oz = __fadd_rn(pz, sz);
-        if (MODE == WARP_SAMPLES) {
+        if (SAMPLES) {
             const Row rv = load_row(A.rots, w.tet);
             const float R[9] = {rv.a.x, rv.a.y, rv.a.z, rv.a.w, rv.b.x, rv.b.y, rv.b.z, rv.b.w, rv.c.x};
             // (R^T dir)_j = R[0][j] dx + R[1][j] dy + R[2][j] dz
@@ -368,12 +432,13 @@ __global__ void __launch_bounds__(THREADS) cage_kernel(const CageArgs A) {
     A.pos_out[3 * i + 1] = oy;
     A.pos_out[3 * i + 2] = oz;
     A.flag0[i] = empty ? 1 : 0;
-    if (MODE == WARP_SAMPLES) {
+    if (SAMPLES) {
         A.dir_out[3 * i + 0] = ex;
         A.dir_out[3 * i + 1] = ey;
         A.dir_out[3 * i + 2] = ez;
         A.flag1[i] = in_target ? 1 : 0;
     }
+    if (MODE == WARP_MEMBRANE && in_target) add_membrane(A, i, w.tet, bw, ex, ey, ez);
 }
 
 }  // namespace
@@ -387,12 +452,14 @@ extern "C" int nst_cage(const CageArgs* args, int mode, void* stream) {
         cudaFuncSetAttribute(cage_kernel<LOOKUP>, cudaFuncAttributePreferredSharedMemoryCarveout, SMEM_CARVEOUT);
         cudaFuncSetAttribute(cage_kernel<WARP_SAMPLES>, cudaFuncAttributePreferredSharedMemoryCarveout, SMEM_CARVEOUT);
         cudaFuncSetAttribute(cage_kernel<WARP_POSITIONS>, cudaFuncAttributePreferredSharedMemoryCarveout, SMEM_CARVEOUT);
+        cudaFuncSetAttribute(cage_kernel<WARP_MEMBRANE>, cudaFuncAttributePreferredSharedMemoryCarveout, SMEM_CARVEOUT);
         carved = true;
     }
     switch (mode) {
         case LOOKUP: cage_kernel<LOOKUP><<<blocks, THREADS, 0, s>>>(*args); break;
         case WARP_SAMPLES: cage_kernel<WARP_SAMPLES><<<blocks, THREADS, 0, s>>>(*args); break;
         case WARP_POSITIONS: cage_kernel<WARP_POSITIONS><<<blocks, THREADS, 0, s>>>(*args); break;
+        case WARP_MEMBRANE: cage_kernel<WARP_MEMBRANE><<<blocks, THREADS, 0, s>>>(*args); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

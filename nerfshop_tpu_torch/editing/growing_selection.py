@@ -3,9 +3,9 @@
 Counterpart of ``nerfshop_tpu/editing/growing_selection.py``: scribble rays
 → projected cells → grown selection → fine mesh → proxy cage → tet mesh
 (+ MVC) → a :class:`~.operators.CageDeformationOp` for the operator stack.
-The device work (projection, signed distances, MVC, the LUTs) runs on
-``device``. The Poisson membrane and ``vanish`` are not ported: they raise
-``NotImplementedError`` (ROADMAP Queue 1 item 4).
+The device work (projection, signed distances, MVC, the membrane) runs on
+``device``; the LUT voxelizer, the region growing and ``vanish``'s cell
+clearing run in the port's native host library (``native.py``).
 """
 
 from __future__ import annotations
@@ -17,11 +17,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nerfshop_tpu_torch import native
+from nerfshop_tpu_torch.editing import poisson
 from nerfshop_tpu_torch.editing import selection as sel_lib
 from nerfshop_tpu_torch.editing.cage import Cage
 from nerfshop_tpu_torch.editing.operators import CageDeformationOp
 from nerfshop_tpu_torch.editing.tet_mesh import TetMesh
 from nerfshop_tpu_torch.geometry.mesh_io import TriMesh
+from nerfshop_tpu_torch.ops import grid as grid_lib
 
 
 class PipelineStage(Enum):
@@ -50,8 +53,9 @@ class GrowingSelection:
     cage: Optional[Cage] = None
     tet_mesh: Optional[TetMesh] = None
     copy_mode: bool = False
-    #: the JAX package's Poisson membrane; not ported, so always None here
-    membrane: Optional[object] = None
+    #: the Poisson membrane of the deformation it was computed for; kept
+    #: across drags until recomputed or cleared, as in the JAX package
+    membrane: Optional[poisson.MembraneData] = None
 
     # knobs
     density_threshold: float = 0.01
@@ -176,17 +180,43 @@ class GrowingSelection:
 
     def make_operator(self, lut_res: int = 64) -> CageDeformationOp:
         """The device operator of the current cage (rebuild after every
-        manipulation)."""
+        manipulation), with the selection's membrane attached when it has one."""
         if self.tet_mesh is None:
             raise RuntimeError("extract cage first")
+        op = CageDeformationOp.from_tet_mesh(self.tet_mesh, self.device, copy_mode=self.copy_mode, lut_res=lut_res)
         if self.membrane is not None:
-            raise NotImplementedError("the Poisson membrane (editing/poisson.py) is not ported")
-        return CageDeformationOp.from_tet_mesh(self.tet_mesh, self.device, copy_mode=self.copy_mode, lut_res=lut_res)
+            op = op._replace(membrane=self.membrane)
+        return op
 
-    def compute_membrane(self, params, rng=None, amplitude: float = 1.0, grid=None) -> None:
-        raise NotImplementedError("the Poisson membrane (editing/poisson.py) is not ported; see ROADMAP Queue 1 item 4")
-
-    def vanish(self, grid):
-        raise NotImplementedError(
-            "vanish needs the tet-accurate cell clearing of the JAX package's native library; see ROADMAP Queue 1 item 4"
+    def compute_membrane(self, params, generator: torch.Generator, amplitude: float = 1.0, grid=None) -> None:
+        """Compute the Poisson membrane of the CURRENT deformation and keep it
+        on the selection (recompute after each manipulation; amplitude 0 or
+        :meth:`clear_membrane` turns it off). ``params``: a state dict of the
+        model or None; the sphere directions are drawn from ``generator``."""
+        if self.tet_mesh is None:
+            raise RuntimeError("extract cage first")
+        dirs = poisson.membrane_directions(generator, device=self.device)
+        self.membrane = poisson.compute_membrane(
+            self.model, params, self.cage, self.tet_mesh, self.aabb, dirs, amplitude=amplitude, grid=grid,
         )
+
+    def clear_membrane(self) -> None:
+        self.membrane = None
+
+    def vanish(self, grid: grid_lib.OccupancyGrid) -> grid_lib.OccupancyGrid:
+        """Vanish!: a new grid whose density is zero in the cells within a
+        cell of each deformed tet's bounding box, in every cascade (the
+        native library's cell clearing, on a host copy), with its occupancy
+        rebuilt. ``grid`` is not changed."""
+        if self.tet_mesh is None:
+            raise RuntimeError("extract cage first")
+        tm = self.tet_mesh
+        density = np.ascontiguousarray(grid.density.cpu().numpy(), np.float32).copy()
+        Rg = density.shape[1]
+        for mip in range(density.shape[0]):
+            scale = 2.0**mip
+            native.clear_cells_in_tets(tm.vertices_deformed, tm.tets, Rg, 0.5 - scale / 2, scale / Rg, density[mip])
+        new = grid_lib.OccupancyGrid(
+            torch.as_tensor(density, device=grid.density.device), grid.occupancy.clone(), grid.mean_density.clone()
+        )
+        return grid_lib.update_bitfield(new)

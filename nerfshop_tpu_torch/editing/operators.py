@@ -11,12 +11,14 @@ tuples of tensors on one device plus pure functions, applied newest-first:
 
 All positions are world space. On a CUDA device the cage operator runs
 kernel E (``csrc/tet_lookup.cu``): the whole sample warp
-(:func:`cage_map_samples`) and the whole position warp
-(:func:`cage_map_positions`) are one launch each, and the lookups of
-:func:`cage_in_source` and :func:`cage_map_forward` its ``LOOKUP``
+(:func:`cage_map_samples`), the whole position warp
+(:func:`cage_map_positions`) and the sample warp with the membrane's
+residuals (:func:`cage_map_membrane`) are one launch each, and the lookups
+of :func:`cage_in_source` and :func:`cage_map_forward` its ``LOOKUP``
 instance. The kernel reads the operator's packed form
-(:class:`PackedCage`), made once where the operator is made. On the CPU
-the same functions run the plain composition of the JAX function
+(:class:`PackedCage`), made once where the operator is made, and the
+membrane's packed rows (``editing/poisson.py``). On the CPU the same
+functions run the plain composition of the JAX function
 (:func:`tet_lookup_plain` and the per-tet row takes).
 """
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from nerfshop_tpu_torch import kernels
+from nerfshop_tpu_torch.editing import poisson
 from nerfshop_tpu_torch.editing.tet_mesh import PackedLut, TetLut
 from nerfshop_tpu_torch.ops.gather import take_rows
 
@@ -71,10 +74,9 @@ class CageDeformationOp(NamedTuple):
     verts_def: torch.Tensor  # [Nt, 4, 3]
     rot: torch.Tensor  # [Nt, 3, 3] original → deformed rotation
     copy_mode: bool  # a copy keeps the source visible
-    #: the JAX package's Poisson membrane; no operator of the port carries
-    #: one (``editing/poisson.py`` is not ported), and the renderer raises
-    #: on one that does
-    membrane: object = None
+    #: an optional ``poisson.MembraneData``: per-tet-corner residuals added
+    #: to the samples in the deformed region
+    membrane: Optional[poisson.MembraneData] = None
     #: kernel E's packed form (:meth:`create` makes it); the CPU paths do
     #: not read it
     packed: Optional[PackedCage] = None
@@ -191,7 +193,7 @@ def tet_lookup_packed_plain(lut: PackedLut, table: torch.Tensor, p: torch.Tensor
 
 
 #: the kernel's template instances (``enum Mode`` of ``csrc/tet_lookup.cu``)
-LOOKUP, WARP_SAMPLES, WARP_POSITIONS = 0, 1, 2
+LOOKUP, WARP_SAMPLES, WARP_POSITIONS, WARP_MEMBRANE = 0, 1, 2, 3
 
 
 def _lut_args(lut: PackedLut, rows: torch.Tensor, threshold: float, dev: torch.device) -> kernels.LutArgs:
@@ -205,7 +207,7 @@ def _lut_args(lut: PackedLut, rows: torch.Tensor, threshold: float, dev: torch.d
 
 
 def _launch(mode: int, a: kernels.LutArgs, b: Optional[kernels.LutArgs], p: torch.Tensor, name: str,
-            copy_mode: bool = False, **tensors) -> None:
+            copy_mode: bool = False, amplitude: float = 0.0, **tensors) -> None:
     """Check ``p``, then launch kernel E's ``mode`` instance on it and
     ``tensors`` (by their ``struct CageArgs`` names)."""
     dev = p.device
@@ -214,7 +216,7 @@ def _launch(mode: int, a: kernels.LutArgs, b: Optional[kernels.LutArgs], p: torc
     N = p.shape[0]
     kernels.require(p, "p", torch.float32, (N, 3), dev)
     args = kernels.CageArgs(a=a, b=b or kernels.LutArgs(), p=p.data_ptr(), n=N, copy_mode=int(copy_mode),
-                            **{k: v.data_ptr() for k, v in tensors.items()})
+                            amplitude=amplitude, **{k: v.data_ptr() for k, v in tensors.items()})
     kernels.check(kernels.load().nst_cage(ctypes.byref(args), mode, kernels.stream_ptr(dev)), name)
 
 
@@ -269,6 +271,43 @@ def cage_warp_samples_cuda(op: CageDeformationOp, pos: torch.Tensor, direction: 
     return pos_out, dir_out, empty, in_target
 
 
+def _membrane(op: CageDeformationOp) -> poisson.MembraneData:
+    m = op.membrane
+    if not isinstance(m, poisson.MembraneData):
+        raise TypeError(f"the operator's membrane is a {type(m).__name__}, expected poisson.MembraneData")
+    return m
+
+
+def cage_warp_membrane_cuda(op: CageDeformationOp, pos: torch.Tensor, direction: torch.Tensor,
+                            acc_sigma: torch.Tensor, acc_out: torch.Tensor, acc_rgb: torch.Tensor):
+    """Kernel E, ``WARP_MEMBRANE`` instance: :func:`cage_warp_samples_cuda`
+    in one launch, which also ADDS the membrane's residual σ, outside σ and
+    residual rgb of each in-target point into ``acc_sigma`` [N],
+    ``acc_out`` [N] and ``acc_rgb`` [N, 3] → (pos', dir', empty, in_target)."""
+    dev = pos.device
+    N = pos.shape[0]
+    kernels.require(direction, "direction", torch.float32, (N, 3), dev)
+    kernels.require(acc_sigma, "acc_sigma", torch.float32, (N,), dev)
+    kernels.require(acc_out, "acc_out", torch.float32, (N,), dev)
+    kernels.require(acc_rgb, "acc_rgb", torch.float32, (N, 3), dev)
+    a, b, deltas, rots = _warp_args(op, dev)
+    m = _membrane(op)
+    if m.packed is None:
+        raise ValueError("kernel E: the membrane has no packed form (make it with MembraneData.create)")
+    kernels.require(m.packed, "membrane", torch.float32, (deltas.shape[0], poisson.PACKED_WIDTH), dev)
+    if not kernels.aligned16(m.packed):
+        raise ValueError("kernel E: the membrane rows must start on a 16-byte boundary")
+    pos_out = torch.empty_like(pos)
+    dir_out = torch.empty_like(direction)
+    empty = torch.empty((N,), dtype=torch.bool, device=dev)
+    in_target = torch.empty((N,), dtype=torch.bool, device=dev)
+    _launch(WARP_MEMBRANE, a, b, pos, "cage_warp_membrane", copy_mode=op.copy_mode, amplitude=m.amplitude,
+            deltas=deltas, rots=rots, dir=direction, pos_out=pos_out, dir_out=dir_out, flag0=empty, flag1=in_target,
+            membrane=m.packed, acc_sigma=acc_sigma, acc_out=acc_out, acc_rgb=acc_rgb)
+    cage_warp_membrane_cuda.launches += 1
+    return pos_out, dir_out, empty, in_target
+
+
 def cage_warp_positions_cuda(op: CageDeformationOp, pos: torch.Tensor):
     """Kernel E, ``WARP_POSITIONS`` instance: the whole of
     :func:`cage_map_positions` in one launch → (pos' [N, 3], kill [N])."""
@@ -286,6 +325,7 @@ def cage_warp_positions_cuda(op: CageDeformationOp, pos: torch.Tensor):
 tet_lookup_cuda.launches = 0
 cage_warp_samples_cuda.launches = 0
 cage_warp_positions_cuda.launches = 0
+cage_warp_membrane_cuda.launches = 0
 
 
 def tet_lookup(lut: TetLut, v0: torch.Tensor, inv_e: torch.Tensor, p: torch.Tensor, eps: float = INCLUSIVE_EPS,
@@ -343,6 +383,23 @@ def cage_map_samples_plain(op: CageDeformationOp, pos: torch.Tensor, direction: 
     return pos_out, dir_out, empty, in_target
 
 
+def cage_map_membrane_plain(op: CageDeformationOp, pos: torch.Tensor, direction: torch.Tensor):
+    """Plain version of the ``WARP_MEMBRANE`` instance: the JAX composition
+    (the cage step of the full stack: the inclusive lookup over the padded
+    LUT, the per-tet row takes, then ``membrane_residuals_at`` at the
+    rotated direction) → (pos', dir', empty, in_target, residual σ, outside
+    σ, residual rgb), with no kernel on any device."""
+    in_target, tet, bary = tet_lookup_plain(op.lut_def, _table(op.v0_def, op.inv_def), pos, _threshold(INCLUSIVE_EPS))
+    t = tet.long()
+    canonical = pos + _bary_delta((op.verts_orig - op.verts_def).reshape(-1, 12)[t], bary)
+    pos_out = torch.where(in_target[:, None], canonical, pos)
+    dir_out = torch.where(in_target[:, None], _rotate_back(op.rot.reshape(-1, 9)[t], direction), direction)
+    in_source = tet_lookup_plain(op.lut_orig, _table(op.v0_orig, op.inv_orig), pos, _threshold(STRICT_EPS))[0]
+    empty = in_source & ~in_target & (not op.copy_mode)
+    rs, ro, rc = poisson.membrane_residuals_at(_membrane(op), tet, bary, in_target, dir_out)
+    return pos_out, dir_out, empty, in_target, rs, ro, rc
+
+
 def cage_map_positions_plain(op: CageDeformationOp, pos: torch.Tensor):
     """Plain version of the ``WARP_POSITIONS`` instance."""
     in_target, tet, bary = tet_lookup_plain(op.lut_def, _table(op.v0_def, op.inv_def), pos, _threshold(INCLUSIVE_EPS))
@@ -362,6 +419,22 @@ def cage_map_samples(op: CageDeformationOp, pos: torch.Tensor, direction: torch.
     if pos.device.type == "cpu":
         return cage_map_samples_plain(op, pos, direction)
     return cage_warp_samples_cuda(op, pos.contiguous(), direction.contiguous())
+
+
+def cage_map_membrane(op: CageDeformationOp, pos: torch.Tensor, direction: torch.Tensor,
+                      acc_sigma: torch.Tensor, acc_out: torch.Tensor, acc_rgb: torch.Tensor):
+    """:func:`cage_map_samples` of an operator with a membrane, adding the
+    membrane's residual σ, outside σ and residual rgb into the accumulators
+    (in place) → (pos', dir', empty, in_target). One launch of kernel E on a
+    CUDA device; the plain composition and three adds on the CPU."""
+    _membrane(op)
+    if pos.device.type == "cpu":
+        pos_out, dir_out, empty, in_target, rs, ro, rc = cage_map_membrane_plain(op, pos, direction)
+        acc_sigma += rs
+        acc_out += ro
+        acc_rgb += rc
+        return pos_out, dir_out, empty, in_target
+    return cage_warp_membrane_cuda(op, pos.contiguous(), direction.contiguous(), acc_sigma, acc_out, acc_rgb)
 
 
 def cage_map_positions(op: CageDeformationOp, pos: torch.Tensor):
@@ -481,6 +554,31 @@ def map_samples_through_stack(operators: List, pos: torch.Tensor, direction: tor
         pos, direction, e, _ = apply_operator_samples(op, pos, direction)
         empty |= e
     return pos, direction, empty
+
+
+def map_samples_through_stack_full(operators: List, pos: torch.Tensor, direction: torch.Tensor):
+    """:func:`map_samples_through_stack`, also summing the membranes'
+    values newest-first into accumulators zeroed once for the stack → (pos,
+    dir, empty, residual σ [N], outside σ [N], residual rgb [N, 3]). A cage
+    with a membrane runs :func:`cage_map_membrane`; every other operator its
+    own sample warp."""
+    N = pos.shape[0]
+    empty = torch.zeros(N, dtype=torch.bool, device=pos.device)
+    resid_sigma = torch.zeros(N, dtype=torch.float32, device=pos.device)
+    outside_sigma = torch.zeros(N, dtype=torch.float32, device=pos.device)
+    resid_rgb = torch.zeros((N, 3), dtype=torch.float32, device=pos.device)
+    for op in reversed(operators):
+        if isinstance(op, CageDeformationOp) and op.membrane is not None:
+            pos, direction, e, _ = cage_map_membrane(op, pos, direction, resid_sigma, outside_sigma, resid_rgb)
+        else:
+            pos, direction, e, _ = apply_operator_samples(op, pos, direction)
+        empty |= e
+    return pos, direction, empty, resid_sigma, outside_sigma, resid_rgb
+
+
+def has_membrane(operators) -> bool:
+    """Whether any operator of the stack carries a membrane."""
+    return any(getattr(op, "membrane", None) is not None for op in operators)
 
 
 def map_positions_through_stack(operators: List, pos: torch.Tensor):

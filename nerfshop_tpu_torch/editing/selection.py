@@ -3,9 +3,11 @@ extraction and the proxy cage.
 
 Counterpart of ``nerfshop_tpu/editing/selection.py``. The projection
 marches the scribble rays with the port's march and model on the grid's
-device; region growing is the host BFS of the JAX package (its Python
-path, with a deque); the rest is the same host numpy/scipy geometry, with
-the cage containment test (:func:`inflate_to_bound`) on the device.
+device; region growing is the native host library's flood fill
+(``native.py``, ``region_grow``), held to the Python BFS of the JAX package
+(:meth:`RegionGrowing.grow_plain`); the rest is the same host numpy/scipy
+geometry, with the cage containment test (:func:`inflate_to_bound`) on the
+device.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from nerfshop_tpu_torch import native
 from nerfshop_tpu_torch.common import GRID_RESOLUTION
 from nerfshop_tpu_torch.geometry import isosurface
 from nerfshop_tpu_torch.geometry.mesh_io import TriMesh
@@ -115,8 +118,23 @@ class RegionGrowing:
         return tuple(c)
 
     def grow(self, n_steps: int = 10000) -> int:
-        """Breadth-first accept-if-dense for at most ``n_steps`` queue pops;
-        returns the number of accepted cells."""
+        """Breadth-first accept-if-dense by the native library for at most
+        ``n_steps`` queue pops (each cell queued once); returns the number of
+        accepted cells. The queue is spent: what the steps left is dropped."""
+        grown = 0
+        if self.queue:
+            seeds = np.asarray([(x * R + y) * R + z for (x, y, z) in self.queue], np.int32)
+            sel = self.selection.astype(np.uint8)
+            grown = native.region_grow(self.density[self.growing_level], sel, seeds, self.density_threshold, n_steps)
+            self.selection = sel.astype(bool)
+            self.queue = deque()
+        self._maybe_upscale()
+        return grown
+
+    def grow_plain(self, n_steps: int = 10000) -> int:
+        """The Python BFS (a cell may be queued more than once, and each pop
+        is a step), the plain version of :meth:`grow`; the same region when
+        the steps do not run out."""
         dens = self.density[self.growing_level]
         grown = 0
         steps = 0
@@ -131,10 +149,13 @@ class RegionGrowing:
                 nx, ny, nz = x + dx, y + dy, z + dz
                 if 0 <= nx < R and 0 <= ny < R and 0 <= nz < R and not self.selection[nx, ny, nz]:
                     self.queue.append((nx, ny, nz))
+        self._maybe_upscale()
+        return grown
+
+    def _maybe_upscale(self) -> None:
         # a region that touches the cascade's boundary moves one cascade out
         if self._touches_boundary() and self.growing_level + 1 < self.density.shape[0]:
             self.upscale()
-        return grown
 
     def _touches_boundary(self) -> bool:
         s = self.selection

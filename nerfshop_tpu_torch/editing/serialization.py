@@ -3,6 +3,11 @@
 Counterpart of ``nerfshop_tpu/editing/serialization.py``, in the same
 layout (the device state of each operator, arrays as base64 with dtype and
 shape), so that an edits file moves between the two packages both ways.
+
+Version 1 has no field for a cage's Poisson membrane. The JAX package's
+``save_edits`` writes such an operator without it, so the reloaded edit
+renders without its seam correction; the port's ``save_edits`` refuses the
+operator instead (ROADMAP Queue 3, F10).
 """
 
 from __future__ import annotations
@@ -33,11 +38,16 @@ def _dec(d) -> np.ndarray:
 
 
 def save_edits(path: str | Path, operators: List, metadata: dict | None = None) -> None:
+    """Write the operators; raises ``ValueError`` on a cage that carries a
+    membrane, which version 1 cannot hold (clear it or drop the operator)."""
     ops_json = []
-    for op in operators:
+    for i, op in enumerate(operators):
         if isinstance(op, CageDeformationOp):
             if op.membrane is not None:
-                raise NotImplementedError("the Poisson membrane (editing/poisson.py) is not ported")
+                raise ValueError(
+                    f"save_edits: operator {i} carries a Poisson membrane, which the edits file (version 1) cannot "
+                    "hold; saving it without would reload an edit that renders without its seam correction"
+                )
 
             def lut(lt):
                 return {

@@ -7,11 +7,12 @@ lies inside the cage (signed distance on the device, :mod:`..geometry.bvh`);
 tet vertices follow the cage through MVC, per-tet rotations come from an
 SVD, and a local uniform grid lists each cell's candidate tets.
 
-The LUT is built by the numpy voxelizer of the JAX package
-(``_voxelize(use_native=False)``): tet-bbox overlap refined by the four face
-planes with a one-cell near-miss margin. The per-tet plane test is the same
-loop; the per-cell lists are filled by one stable sort instead of Python
-appends, which gives the same cells in the same (ascending tet) order.
+The LUT is built by the port's native host library (``native.py``,
+``voxelize_tets``): tet-bbox overlap refined by the four face planes with a
+one-cell near-miss margin, threaded, each cell's tets ascending.
+:meth:`TetMesh._voxelize_plain` is the numpy voxelizer of the JAX package
+that the tests hold it to: the same per-tet plane test, with the per-cell
+lists filled by one stable sort instead of Python appends.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from nerfshop_tpu_torch import native
 from nerfshop_tpu_torch.editing.cage import Cage
 
 LUT_RES_DEFAULT = 64
@@ -198,13 +200,32 @@ class TetMesh:
 
     # --------------------------------------------------------------- LUT build
 
-    def _voxelize(self, verts: np.ndarray, res: int, max_t: int):
-        """Conservative voxelization into a local grid → (bbox_lo, inv_cell,
-        cells [res³, mt] int32, the largest fanout seen)."""
+    def _box(self, verts: np.ndarray, res: int):
+        """(tet vertices [Nt, 4, 3], LUT box lo, inv_cell) of ``verts``."""
         tv = verts[self.tets]  # [Nt, 4, 3]
         lo = tv.min((0, 1)) - 1e-4
         hi = tv.max((0, 1)) + 1e-4
-        inv_cell = res / np.maximum(hi - lo, 1e-9)
+        return tv, lo, res / np.maximum(hi - lo, 1e-9)
+
+    def _voxelize(self, verts: np.ndarray, res: int, max_t: int):
+        """Conservative voxelization into a local grid by the native
+        library → (bbox_lo, inv_cell, cells [res³, mt] int32, the largest
+        fanout seen), mt the observed fanout capped at ``max_t``. A cell
+        that lists more than ``max_t`` tets keeps its ``max_t`` lowest, as
+        the numpy path does (the library keeps whichever its threads filled
+        first, so it runs again at the fanout it saw)."""
+        _, lo, inv_cell = self._box(verts, res)
+        lo, inv_cell = lo.astype(np.float32), inv_cell.astype(np.float32)
+        cells, max_seen = native.voxelize_tets(verts, self.tets, res, lo, inv_cell, max_t)
+        if max_seen > max_t:
+            cells, _ = native.voxelize_tets(verts, self.tets, res, lo, inv_cell, max_seen)
+        mt = min(max(max_seen, 1), max_t)
+        return lo, inv_cell, np.ascontiguousarray(cells[:, :mt]), max_seen
+
+    def _voxelize_plain(self, verts: np.ndarray, res: int, max_t: int):
+        """The numpy voxelizer: :meth:`_voxelize`'s result without the
+        native library."""
+        tv, lo, inv_cell = self._box(verts, res)
         cell_size = 1.0 / inv_cell
 
         # outward face planes: face f is opposite vertex f

@@ -65,6 +65,8 @@ class CageArgs(ctypes.Structure):
         *((name, ctypes.c_void_p) for name in
           ("deltas", "rots", "p", "dir", "pos_out", "dir_out", "flag0", "flag1", "tet", "bary")),
         ("n", ctypes.c_longlong), ("copy_mode", ctypes.c_int),
+        *((name, ctypes.c_void_p) for name in ("membrane", "acc_sigma", "acc_out", "acc_rgb")),
+        ("amplitude", ctypes.c_float),
     ]
 
 

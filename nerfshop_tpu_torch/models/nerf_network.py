@@ -119,6 +119,14 @@ def density_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor) 
     return torch.func.functional_call(_Density(model), {f"model.{k}": v for k, v in params.items()}, (pos,))
 
 
+def forward_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor, direction: torch.Tensor):
+    """Activated (rgb, σ) at warped ``pos`` and ``direction`` with ``params``
+    in place of the model's own (the model's own when None)."""
+    if params is None:
+        return model(pos, direction)
+    return torch.func.functional_call(model, params, (pos, direction))
+
+
 def check_kernel_range(config: dict, device) -> None:
     """Raise ``ValueError`` when ``config`` builds a network that the CUDA
     kernels do not compute on ``device``: a grid level set other than D = 3,

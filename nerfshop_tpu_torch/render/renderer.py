@@ -9,15 +9,18 @@ encode is kernel B and both MLPs are kernel C on a CUDA device, since
 nothing here needs a gradient), and one composite with the transmittance
 cutoff. With edit operators, every slot's world position and direction go
 through the stack newest-first (``editing/operators.py``) before the field,
-and vacated samples get σ = 0.
+and vacated samples get σ = 0. A stack with a Poisson membrane also sums
+the membranes' residuals and blends them in (``membrane_mode`` "target" or
+"additive"); "target" evaluates the density once more, at the unwarped
+positions, in the chunks whose stack has a membrane.
 
 The march fields (the dilated coarse occupancy and the occupancy-masked
 density) are built once per frame and handed to every chunk's march.
 
 Not ported, each raising ``NotImplementedError``: ``RenderMode.Normals``
-(it needs the encode's gradient with respect to positions), operators that
-carry a Poisson membrane, the envmap background, extra network dims and
-``compact_frac > 0``. The tiled render paths stay with the JAX package.
+(it needs the encode's gradient with respect to positions), the envmap
+background, extra network dims and ``compact_frac > 0``. The tiled render
+paths stay with the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from nerfshop_tpu_torch.common import MIN_CONE_STEPSIZE, MIN_TRANSMITTANCE_RENDER, RenderMode
+from nerfshop_tpu_torch.models.nerf_network import density_with, forward_with
 from nerfshop_tpu_torch.ops import composite as comp
 from nerfshop_tpu_torch.ops import coords, march
 from nerfshop_tpu_torch.ops import rays as rays_lib
@@ -37,11 +41,12 @@ NEAR_DISTANCE_RENDER = 0.05
 
 @dataclass(frozen=True)
 class RenderOptions:
-    """The fields and defaults of the JAX ``RenderOptions``. ``eval_slab``,
-    ``membrane_mode`` and ``n_edit_operators`` serve the tiled path, the
-    membrane and the compiled-chunk cache of the JAX package, which are not
-    ported; they are kept so that options move between the two packages
-    unchanged."""
+    """The fields and defaults of the JAX ``RenderOptions``. ``eval_slab``
+    and ``n_edit_operators`` serve the tiled path and the compiled-chunk
+    cache of the JAX package, which are not ported; they are kept so that
+    options move between the two packages unchanged. ``membrane_mode``:
+    "target" clamps σ to min(max(σ_target, σ_src), σ_src + σ_resid), with
+    σ_target the field at the unwarped position; "additive" adds σ_resid."""
 
     k_samples: int = 32
     n_candidates: int = 1024
@@ -71,24 +76,25 @@ class FrameOutput(NamedTuple):
 def _field(model, params: Optional[Dict[str, torch.Tensor]]):
     """(warped pos [N, 3], warped dir [N, 3]) → activated (rgb [N, 3], σ [N])
     with ``params`` (a state dict, e.g. the EMA copy) or the model's own."""
-    if params is None:
-        return model
-    return lambda p, d: torch.func.functional_call(model, params, (p, d))
+    return lambda p, d: forward_with(model, params, p, d)
 
 
-def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: RenderOptions, aabb, operators=()):
+def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: RenderOptions, aabb, operators=(),
+                 density=None):
     """Field evaluation of every slot of one march, through the edit stack
-    when there is one → (σ [R, K], rgb [R, K, 3])."""
+    when there is one → (σ [R, K], rgb [R, K, 3]). ``density``: warped
+    positions → σ, read by the "target" membrane blend."""
     R, K = samples.t.shape
-    empty = None
+    empty = resid = None
     if operators:
         from nerfshop_tpu_torch.editing import operators as op_lib
 
-        pos_world = origins[:, None, :] + samples.t[..., None] * directions[:, None, :]
-        dirs_world = directions[:, None, :].expand_as(pos_world)
-        p, dvec, empty = op_lib.map_samples_through_stack(
-            list(operators), pos_world.reshape(-1, 3), dirs_world.reshape(-1, 3)
-        )
+        pos_world = (origins[:, None, :] + samples.t[..., None] * directions[:, None, :]).reshape(-1, 3)
+        dirs_world = directions[:, None, :].expand(R, K, 3).reshape(-1, 3)
+        if op_lib.has_membrane(operators):
+            p, dvec, empty, *resid = op_lib.map_samples_through_stack_full(list(operators), pos_world, dirs_world)
+        else:
+            p, dvec, empty = op_lib.map_samples_through_stack(list(operators), pos_world, dirs_world)
         pos_w = torch.clamp(coords.warp_position(p, aabb), 0.0, 1.0)
         dir_w = coords.warp_direction(dvec)
     else:
@@ -100,10 +106,29 @@ def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: R
     if empty is not None:
         # vacated source samples: α = 0 at composite time
         sigma = torch.where(empty, torch.zeros_like(sigma), sigma)
+    if resid is not None:
+        # the outside density gates the blend and weights the colour mix; the
+        # residual density bounds the σ clamp; a vacated sample stays σ = 0
+        resid_sigma, resid_out, resid_rgb = resid
+        on = (resid_out > 1e-9) & ~empty
+        dt = samples.dt.reshape(-1)
+        alpha_n = 1.0 - torch.exp(-sigma * dt)
+        alpha_r = 1.0 - torch.exp(-resid_out * dt)
+        den = alpha_n + alpha_r
+        w_n = torch.where(den > 1e-12, alpha_n / torch.clamp_min(den, 1e-12), torch.ones_like(den))
+        rgb_mix = w_n[:, None] * rgb + (1.0 - w_n)[:, None] * resid_rgb
+        if opts.membrane_mode == "target":
+            # σ_target: the receiving scene's own density at the unwarped position
+            sigma_tgt = density(torch.clamp(coords.warp_position(pos_world, aabb), 0.0, 1.0))
+            sigma_new = torch.minimum(torch.maximum(sigma_tgt, sigma), sigma + resid_sigma)
+        else:
+            sigma_new = sigma + resid_sigma
+        sigma = torch.where(on, sigma_new, sigma)
+        rgb = torch.where(on[:, None], rgb_mix, rgb)
     return sigma.reshape(R, K), rgb.reshape(R, K, 3)
 
 
-def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions, bg, operators=()):
+def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions, bg, operators=(), density=None):
     """One pixel chunk → (rgba [R, 4], depth [R])."""
     dev = origins.device
     aabb = coords.BoundingBox.from_aabb_scale(opts.aabb_scale, device=dev)
@@ -131,7 +156,7 @@ def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions,
         use_grid_early_stop=opts.use_grid_early_stop, selection="first",
         coarse_field=coarse, fine_field=fine,
     )
-    sigma, rgb_s = _eval_window(field, samples, origins, directions, opts, aabb, operators)
+    sigma, rgb_s = _eval_window(field, samples, origins, directions, opts, aabb, operators, density)
     res = comp.composite(sigma, rgb_s, samples.dt, samples.t, samples.valid, opts.min_transmittance)
     ones3 = torch.ones((1, 3), device=dev)
     if opts.mode in (RenderMode.Depth, RenderMode.Distance):
@@ -184,8 +209,6 @@ def render_frame(
     own parameters. ``lens`` is 'pinhole', 'ftheta' or 'latlong'."""
     if opts.mode == RenderMode.Normals:
         raise NotImplementedError("RenderMode.Normals needs the encode's position gradient, which is not ported")
-    if any(getattr(op, "membrane", None) is not None for op in operators):
-        raise NotImplementedError("edit operators with a Poisson membrane are not ported (editing/poisson.py)")
     if envmap is not None:
         raise NotImplementedError("the envmap background is not ported")
     if extra_dims is not None:
@@ -212,7 +235,8 @@ def render_frame(
     rgba, depth = [], []
     for i in range(0, n + n_pad, chunk):
         rgba_c, depth_c = _render_chunk(
-            field, grid, fields, origins[i : i + chunk], dirs[i : i + chunk], opts, bg, tuple(operators)
+            field, grid, fields, origins[i : i + chunk], dirs[i : i + chunk], opts, bg, tuple(operators),
+            lambda p: density_with(model, params, p),
         )
         rgba.append(rgba_c)
         depth.append(depth_c)

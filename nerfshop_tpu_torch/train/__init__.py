@@ -1,1 +1,1 @@
-"""Losses, optimizer and the NeRF training step."""
+"""Losses, optimizer, the NeRF training step and distillation."""

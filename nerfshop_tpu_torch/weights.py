@@ -59,8 +59,9 @@ _LUT_ARRAYS = ("bbox_lo", "inv_cell", "cells")
 def operators_from_jax(ops, device: torch.device) -> list:
     """JAX edit operators (``CageDeformationOp`` / ``AffineDuplicationOp``
     named tuples, read by their field names; any array type numpy takes) →
-    the port's operators on ``device``. A JAX operator with a Poisson
-    membrane raises ``NotImplementedError``."""
+    the port's operators on ``device``. A cage's Poisson membrane (the JAX
+    ``MembraneData``, read by its field names) comes across with its
+    packed form."""
     from nerfshop_tpu_torch.editing.operators import AFFINE_ARRAYS, CAGE_ARRAYS, AffineDuplicationOp, CageDeformationOp
     from nerfshop_tpu_torch.editing.tet_mesh import TetLut
 
@@ -70,18 +71,18 @@ def operators_from_jax(ops, device: torch.device) -> list:
     out = []
     for op in ops:
         if hasattr(op, "lut_def"):
-            if getattr(op, "membrane", None) is not None:
-                raise NotImplementedError("the Poisson membrane (editing/poisson.py) is not ported")
 
             def lut(lt):
                 return TetLut(*(t(getattr(lt, k)) for k in _LUT_ARRAYS), int(lt.res))
 
-            out.append(
-                CageDeformationOp.create(
-                    lut(op.lut_def), lut(op.lut_orig), bool(np.asarray(op.copy_mode)),
-                    **{k: t(getattr(op, k)) for k in CAGE_ARRAYS},
-                )
+            cage = CageDeformationOp.create(
+                lut(op.lut_def), lut(op.lut_orig), bool(np.asarray(op.copy_mode)),
+                **{k: t(getattr(op, k)) for k in CAGE_ARRAYS},
             )
+            m = getattr(op, "membrane", None)
+            if m is not None:
+                cage = cage._replace(membrane=membrane_from_jax(m, device))
+            out.append(cage)
         elif hasattr(op, "box_center"):
             out.append(
                 AffineDuplicationOp(
@@ -94,12 +95,28 @@ def operators_from_jax(ops, device: torch.device) -> list:
     return out
 
 
+_MEMBRANE_ARRAYS = ("density", "outside_density", "sh")
+
+
+def membrane_from_jax(m, device: torch.device):
+    """A JAX ``MembraneData`` (read by its field names) → the port's, with
+    its packed form, on ``device``."""
+    from nerfshop_tpu_torch.editing.poisson import MembraneData
+
+    missing = [k for k in (*_MEMBRANE_ARRAYS, "amplitude") if not hasattr(m, k)]
+    if missing:
+        raise TypeError(f"not a MembraneData: {type(m).__name__} lacks {missing}")
+    arrs = (torch.as_tensor(np.array(getattr(m, k), np.float32), device=device) for k in _MEMBRANE_ARRAYS)
+    return MembraneData.create(*arrs, float(np.asarray(m.amplitude)))
+
+
 def operators_to_jax(ops) -> list:
     """The port's operators → one dict per operator with the JAX named
     tuple's type name under ``"type"`` and its fields as numpy arrays (the
-    LUTs as dicts of ``bbox_lo``, ``inv_cell``, ``cells``, ``res``), ready
-    for ``CageDeformationOp(**fields)`` / ``AffineDuplicationOp(**fields)``
-    once the arrays are moved to JAX."""
+    LUTs as dicts of ``bbox_lo``, ``inv_cell``, ``cells``, ``res``; a
+    cage's membrane, when it has one, as a dict of ``density``,
+    ``outside_density``, ``sh``, ``amplitude``), ready for ``CageDeformationOp(**fields)`` /
+    ``AffineDuplicationOp(**fields)`` once the arrays are moved to JAX."""
     from nerfshop_tpu_torch.editing.operators import AFFINE_ARRAYS, CAGE_ARRAYS, AffineDuplicationOp, CageDeformationOp
 
     def np_of(a):
@@ -113,6 +130,9 @@ def operators_to_jax(ops) -> list:
                 lt = getattr(op, k)
                 d[k] = {**{a: np_of(getattr(lt, a)) for a in _LUT_ARRAYS}, "res": lt.res}
             d.update({k: np_of(getattr(op, k)) for k in CAGE_ARRAYS})
+            m = op.membrane
+            if m is not None:
+                d["membrane"] = {**{k: np_of(getattr(m, k)) for k in _MEMBRANE_ARRAYS}, "amplitude": np.float32(m.amplitude)}
         elif isinstance(op, AffineDuplicationOp):
             d = {"type": "AffineDuplicationOp", "hide_original": np.asarray(op.hide_original)}
             d.update({k: np_of(getattr(op, k)) for k in AFFINE_ARRAYS})

@@ -2,7 +2,7 @@
 """Device profile of one exact 1920×1080 frame of the port on one NVIDIA GPU.
 
 Run from the root of a checkout:
-  python3 profile_render.py [--out FILE] [--edited | --train]
+  python3 profile_render.py [--out FILE] [--edited | --train | --distill]
   python3 profile_render.py --save-chunk FILE
   python3 profile_render.py --kernels --chunk FILE [--root DIR]
   python3 profile_render.py --save-edit DIR
@@ -21,7 +21,15 @@ sample slots were composited.
 With ``--edited`` it builds the edit of ``chip_smoke.py`` (scribble → cage
 moved +0.18 in x → an affine duplicate on top), profiles the unedited and
 the edited frame of the same side view the same way, and prints the device
-time the edit adds, by kernel name.
+time the edit adds, by kernel name; then it computes the moved cage's
+Poisson membrane, profiles the edited frame with it ("target" blend) and
+prints the device time the membrane adds, by kernel name.
+
+With ``--distill`` it builds that edit with the membrane, refreshes the
+grid through the stack, runs 8 distillation steps of the default
+``DistillConfig`` at the trained scale as a warm-up and profiles 8 more:
+per step, wall, device busy, idle share, launches, and device ms and
+launches by kernel name.
 
 With ``--train`` it profiles 8 training steps of that model instead (after
 its 256) and prints, per step, the host wall time, the device busy time, the
@@ -177,6 +185,70 @@ def profile_train(tb, out: Path | None = None, steps: int = 8) -> None:
         f"busy {busy / steps:.3f} ms (union of event intervals), idle share {1.0 - busy / wall:.3f}, "
         f"{len(events) / steps:.1f} device launches; kernel A (segsum) {seg_ms / steps:.4f} ms busy (union of its "
         f"intervals) and {len(seg) / steps:.1f} launches per step, {100 * seg_ms / busy:.2f}% of the device busy time",
+        flush=True,
+    )
+    print("[profile] per step, by kernel name (device ms, share, launches):")
+    write_table(by_name, out, per=steps)
+
+
+def build_edit(tb, focal, principal, dev):
+    """The smoke's edit on ``tb``: scribble cage moved +0.18 in x, an
+    affine duplicate on top, seen from the side → (selection, cage operator)."""
+    gs, _, _, summary = chip_smoke.scribble_cage(tb, focal, principal)
+    print(f"[profile] edit: {summary}", flush=True)
+    tb.set_look_at(eye=chip_smoke.SIDE_EYE)
+    gs.translate_cage(chip_smoke.CAGE_SHIFT)
+    op = gs.make_operator()
+    tb.add_edit_operator(op)
+    tb.add_edit_operator(chip_smoke.duplicate_op(dev))
+    return gs, op
+
+
+def with_membrane(tb, gs, op):
+    """Compute the selection's membrane and put ``op`` with it at the
+    bottom of the stack."""
+    gs.compute_membrane(tb.inference_params, tb.generator, grid=tb.grid)
+    tb.replace_edit_operator(0, op._replace(membrane=gs.membrane))
+
+
+def print_delta(label: str, before, after, top: int = 20) -> None:
+    """The device time ``after`` adds to ``before`` ({name: [ms, count]}), by kernel name."""
+    delta = sorted(
+        ((n, after.get(n, [0.0, 0])[0] - before.get(n, [0.0, 0])[0], after.get(n, [0.0, 0])[1] - before.get(n, [0.0, 0])[1])
+         for n in set(before) | set(after)),
+        key=lambda r: -r[1],
+    )
+    print(f"[profile] device time {label} adds: {sum(d for _, d, _ in delta):.1f} ms; by kernel name (ms, launches):")
+    for name, d, n in delta[:top]:
+        print(f"    {d:10.3f} ms {n:7d}  {name[:130]}")
+
+
+def profile_distill(tb, out: Path | None = None, steps: int = 8) -> None:
+    """Profile ``steps`` distillation steps of the edited scene after as
+    many warm-up steps: per step, wall, device busy, idle share, launches,
+    and device ms and launches by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerfshop_tpu_torch.train import distill as distill_lib
+
+    cfg = distill_lib.DistillConfig(aabb_scale=tb.train_config.aabb_scale, cone_angle=tb.train_config.cone_angle)
+    ops = tuple(tb.edit_operators)
+    tb.refresh_grid_for_edits()
+    state = distill_lib.distill(tb.model, tb.inference_params, ops, tb._device_data, tb.grid, tb.generator,
+                                n_steps=steps, cfg=cfg)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            distill_lib.distill_step(state, tb.inference_params, ops, tb.grid, tb._device_data, cfg, tb.generator)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events, busy, by_name = device_events(prof)
+    print(
+        f"[profile] distillation, {steps} steps (rays {cfg.n_rays_per_batch} x {cfg.k_samples}, "
+        f"{cfg.n_free_samples} free, {cfg.n_edit_samples} edit samples): per step wall {wall / steps:.3f} ms, device "
+        f"busy {busy / steps:.3f} ms (union of event intervals), idle share {1.0 - busy / wall:.3f}, "
+        f"{len(events) / steps:.1f} device launches",
         flush=True,
     )
     print("[profile] per step, by kernel name (device ms, share, launches):")
@@ -413,6 +485,7 @@ def main() -> None:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--edited", action="store_true", help="also profile the frame of chip_smoke.py's edit")
     mode.add_argument("--train", action="store_true", help="profile 8 training steps instead of a frame")
+    mode.add_argument("--distill", action="store_true", help="profile 8 distillation steps of the edit with a membrane")
     mode.add_argument("--kernels", action="store_true", help="time kernels A, B and D alone (no training)")
     mode.add_argument("--save-chunk", type=Path, default=None, help="train, then save one 1080p chunk's positions here")
     mode.add_argument("--save-edit", type=Path, default=None, help="train, edit, then save the edits and a warp chunk here")
@@ -455,24 +528,21 @@ def main() -> None:
         profile_train(tb, args.out)
         profile_segsum(dev)
         return
+    if args.distill:
+        gs, op = build_edit(tb, focal, principal, dev)
+        with_membrane(tb, gs, op)
+        profile_distill(tb, args.out)
+        return
     if args.edited:
-        gs, _, _, summary = chip_smoke.scribble_cage(tb, focal, principal)
-        print(f"[profile] edit: {summary}", flush=True)
         tb.set_look_at(eye=chip_smoke.SIDE_EYE)
         tb.refresh_grid_for_edits()
         plain = profile_frame(tb, "unedited")
-        gs.translate_cage(chip_smoke.CAGE_SHIFT)
-        tb.add_edit_operator(gs.make_operator())
-        tb.add_edit_operator(chip_smoke.duplicate_op(dev))
+        gs, op = build_edit(tb, focal, principal, dev)
         edited = profile_frame(tb, "edited (cage + affine)", args.out)
-        delta = sorted(
-            ((n, edited.get(n, [0.0, 0])[0] - plain.get(n, [0.0, 0])[0], edited.get(n, [0.0, 0])[1] - plain.get(n, [0.0, 0])[1])
-             for n in set(plain) | set(edited)),
-            key=lambda r: -r[1],
-        )
-        print(f"[profile] device time the edit adds: {sum(d for _, d, _ in delta):.1f} ms; by kernel name (ms, launches):")
-        for name, d, n in delta[:20]:
-            print(f"    {d:10.3f} ms {n:7d}  {name[:130]}")
+        print_delta("the edit", plain, edited)
+        with_membrane(tb, gs, op)
+        membrane = profile_frame(tb, "edited with the membrane (target blend)")
+        print_delta("the membrane", edited, membrane)
         return
     tb.set_look_at(eye=chip_smoke.CENTER + np.array([0.9, -0.9, 0.5], np.float32))
     profile_frame(tb, "unedited", args.out)

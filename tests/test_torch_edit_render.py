@@ -122,10 +122,12 @@ def test_identity_cage_frame_equals_unedited(scene, jax_stack):
 
 
 def test_operator_with_membrane_raises(scene, jax_stack):
+    # the membrane renders (test_torch_membrane.py); a membrane that is not
+    # a poisson.MembraneData raises
     _, _, _, tm, tg = scene
     (top,) = weights.operators_from_jax([jax_stack[1]], CPU)
     xf = torch.from_numpy(look_at(CENTER + np.array([1.1, -0.9, 0.4], np.float32)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="MembraneData"):
         trender.render_frame(tm, None, tg, (8, 8), xf, torch.tensor([8.0, 8.0]), operators=(top._replace(membrane=object()),))
 
 
@@ -216,10 +218,21 @@ def test_testbed_edit_api_on_cpu(tmp_path):
     for f in tops.CAGE_ARRAYS:
         assert torch.equal(getattr(loaded, f), getattr(op, f))
     assert torch.equal(loaded.lut_def.cells, op.lut_def.cells) and loaded.copy_mode == op.copy_mode
-    with pytest.raises(NotImplementedError):
-        gs.compute_membrane(tb.inference_params)
-    with pytest.raises(NotImplementedError):
-        gs.vanish(tb.grid)
+    # the membrane: kept on the selection, attached by make_operator,
+    # rendered, and refused by save_edits (the edits file cannot hold it)
+    gs.compute_membrane(tb.inference_params, torch.Generator().manual_seed(0), grid=tb.grid)
+    with_membrane = gs.make_operator()
+    assert with_membrane.membrane is gs.membrane and gs.membrane.packed.shape == (tm.n_tets, 120)
+    tb.replace_edit_operator(0, with_membrane)
+    img = tb.render(24, 16, exact=True)
+    assert img.shape == (16, 24, 4) and np.isfinite(img).all()
+    with pytest.raises(ValueError, match="membrane"):
+        tb.save_edits(tmp_path / "edits2.json")
+    gs.clear_membrane()
+    assert gs.make_operator().membrane is None
+    # vanish: a new grid, empty around the deformed tets
+    vanished = gs.vanish(tb.grid)
+    assert vanished is not tb.grid and int((vanished.density == 0).sum()) > int((tb.grid.density == 0).sum())
 
 
 def test_scribble_projection_matches_jax(scene):

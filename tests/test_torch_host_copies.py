@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's host modules (``common``,
-``config``, ``data``) against the originals: the same enums, constants and
-configs, and the same dataset from the same files."""
+``config``, ``data``, ``utils/metrics``) and of its native host library's
+source against the originals: the same enums, constants and configs, the
+same dataset from the same files, the same metric code and values, and the
+same C++ below the header comment."""
 
 import enum
 import json
@@ -68,3 +70,45 @@ def test_nerf_loader_loads_the_same_scene(tmp_path):
         np.testing.assert_array_equal(getattr(ours, m)(), getattr(ref, m)())
     assert ours.scale == ref.scale and ours.color_space == ref.color_space
     np.testing.assert_array_equal(ours.offset, ref.offset)
+
+
+def _code(path):
+    """A module's AST without its docstring."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    body = tree.body[1:] if isinstance(tree.body[0], ast.Expr) and isinstance(tree.body[0].value, ast.Constant) else tree.body
+    return [ast.dump(node) for node in body]
+
+
+def test_metrics_code_is_the_originals():
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    assert _code(root / "nerfshop_tpu_torch/utils/metrics.py") == _code(root / "nerfshop_tpu/utils/metrics.py")
+
+
+def test_host_ops_source_is_the_originals():
+    # everything from the first #include on; only the header comment differs
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+
+    def body(p):
+        text = (root / p).read_text()
+        return text[text.index("\n#include") + 1:]
+
+    assert body("nerfshop_tpu_torch/csrc/host_ops.cpp") == body("nerfshop_tpu/native/host_ops.cpp")
+
+
+@pytest.mark.parametrize("metric", ["PSNR", "SSIM", "FLIP", "MSE", "L1", "MAPE", "SMAPE", "MRSE"])
+def test_metrics_match(metric):
+    from nerfshop_tpu.utils import metrics as jmetrics
+    from nerfshop_tpu_torch.utils import metrics as tmetrics
+
+    rng = np.random.default_rng(5)
+    a = rng.uniform(0, 1, (40, 48, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    ours = tmetrics.compute_error(metric, a, b)
+    assert ours == jmetrics.compute_error(metric, a, b) and np.isfinite(ours)
+    assert tmetrics.psnr(a, a) == jmetrics.psnr(a, a) == 120.0

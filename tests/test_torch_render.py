@@ -202,14 +202,16 @@ def test_render_aabb_crop_matches(scene):
 @pytest.mark.parametrize("what", ["normals", "operators", "envmap", "extra_dims", "compact"])
 def test_unported_options_raise(scene, what):
     _, _, _, tm, tg = scene
-    opts, kw = trender.RenderOptions(chunk=128), {}
+    opts, kw, error = trender.RenderOptions(chunk=128), {}, NotImplementedError
     if what == "normals":
         opts = trender.RenderOptions(chunk=128, mode=tcommon.RenderMode.Normals)
     elif what == "operators":
-        # edit operators are ported; one that carries a Poisson membrane is not
+        # edit operators and their Poisson membranes are ported; a membrane
+        # that is not a poisson.MembraneData raises
         from nerfshop_tpu_torch.editing.operators import CageDeformationOp
 
         kw["operators"] = (CageDeformationOp(*([None] * 9), copy_mode=False, membrane=object()),)
+        error = TypeError
     elif what == "envmap":
         kw["envmap"] = torch.zeros(4, 8, 4)
     elif what == "extra_dims":
@@ -217,7 +219,7 @@ def test_unported_options_raise(scene, what):
     else:
         opts = trender.RenderOptions(chunk=128, compact_frac=0.5)
     xf = torch.from_numpy(look_at(CENTER + np.array([1.1, -0.9, 0.4], np.float32)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         trender.render_frame(tm, None, tg, (8, 8), xf, torch.tensor([8.0, 8.0]), opts=opts, **kw)
 
 
