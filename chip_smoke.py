@@ -18,10 +18,19 @@ Phases, each printing one line of its own numbers:
      for the density (32→64→16) and the rgb (32→64→64→3) MLP;
   7. the training path: the default tcnn-parity NeRF (16 levels × 2
      features, 2^19 table, 64-wide MLPs) trained through ``Testbed.train``
-     with batch 2^18 on an analytic opaque-sphere scene;
+     with batch 2^18 on an analytic opaque-sphere scene, every chunk of 16
+     steps a replay of one captured CUDA graph (the script checks that no
+     step ran eagerly); then [train-loop]: from copies of the trained
+     state and generator, 32 steps of the eager loop against 32 of the
+     captured one (each step's loss within 1e-4 relative, the state within
+     1e-3), and the steps/s of each;
   8. the render path: ``Testbed.render(1920, 1080, exact=True)`` of the
      trained model (one warm-up frame, then the median of 3), plus one
-     256×256 frame each in Depth and Cost mode;
+     256×256 frame each in Depth and Cost mode; then [render-compact]: the
+     same frame through ``render_frame`` with ``compact_frac`` 0, the
+     middle chunk's valid share rounded up, and twice that: frame ms, the
+     share of valid rows dropped past the slab, and the change against the
+     uncompacted frame (≤ 1e-5 where no row was dropped, else PSNR);
   9. the viewer path: ``Testbed.frame()`` (no training) three times into a
      1920×1080 frame buffer, through ``render_dynamic``'s dynamic
      resolution and its on-device bilinear upsample;
@@ -64,8 +73,8 @@ as one launch of kernel E per chunk and launches kernel D only for the
 march; a membrane frame launches ``WARP_MEMBRANE`` once a chunk and no
 other instance of E; a distillation step launches kernel B with fracs for
 the student's two forwards only. Then a JSON line with every
-kernel's launches on the main paths (training, render, frame, edit,
-membrane frame and distillation),
+kernel's launches on the main paths (training, counted by graph replays,
+render, compacted render, frame, edit, membrane frame and distillation),
 error, times, bound and library-call time, the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the script exits non-zero;
@@ -81,6 +90,7 @@ dense peak of their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -816,6 +826,14 @@ def phase_main_path(dev):
     check(tail < 0.35 * losses[0], f"loss did not fall enough: first {losses[0]:.4e} last-10 mean {tail:.4e}")
     check(tb.stats.measured_samples_total > 0, "no samples measured")
     check_launched(launches, ("segsum", "grid_encode", "fused_mlp", "gather"), "training path")
+    # every step a replayed step of a captured graph: no eager training step ran
+    check(tb.stats.captured_steps == STEPS == tb.stats.step and tb.stats.graph_replays == STEPS // 16,
+          f"training did not run through the captured loop only: {tb.stats.captured_steps} captured steps of "
+          f"{tb.stats.step}, {tb.stats.graph_replays} replays")
+    per_step = {k: v / 16 for k, v in tb.stats.graph_launches.items()}
+    check(all(per_step.get(f"{fn}.launches", 0) > 0
+              for fn in ("sorted_segment_rowsum_cuda", "grid_encode_cuda", "gather_cuda")),
+          f"a kernel of the captured step was not in its graph: {per_step}")
 
     # one full grid refresh, timed on a copy of the grid
     g = tb.grid
@@ -832,7 +850,13 @@ def phase_main_path(dev):
     check(launches["grid_encode_fracs"] > 0, f"the training path never encoded with fracs: {launches}")
 
     print(
-        f"[train] {STEPS} steps batch {BATCH} in {train_s:.3f} s: {STEPS / train_s:.3f} steps/s, "
+        f"[train] captured loop: {tb.stats.graph_replays} replays of 16 steps, {tb.stats.captured_steps} captured "
+        f"steps of {tb.stats.step}, hand-kernel launches per step inside the graph {per_step}",
+        flush=True,
+    )
+    print(
+        f"[train] {STEPS} steps batch {BATCH} in {train_s:.3f} s (the graph's capture included): "
+        f"{STEPS / train_s:.3f} steps/s, "
         f"{tb.stats.measured_samples_total / train_s:.6g} real samples/s "
         f"({tb.stats.measured_samples_total} samples), loss {losses[0]:.4e} -> last-10 {tail:.4e} "
         f"(ratio {tail / losses[0]:.3f}), final (rays, K) = ({tb.train_config.n_rays_per_batch}, {tb.train_config.k_samples}), "
@@ -845,6 +869,133 @@ def phase_main_path(dev):
         flush=True,
     )
     return tb, focal, principal, launches
+
+
+#: the largest relative loss difference on any step, and the largest
+#: relative (L2) difference of any parameter, EMA or Adam tensor, between
+#: the captured loop and the eager one from one state and one generator
+#: state; the two run the same kernels in the same order, so bit-equal is
+#: expected
+LOOP_LOSS_TOL = 1e-4
+LOOP_PARAM_TOL = 1e-3
+
+
+def phase_train_loop(tb, chunk=16, calls=2):
+    """[train-loop]: copies of the trained model's state and generator; the
+    eager loop (``make_train_loop(..., captured=False)``) and the captured
+    one each run ``calls`` × ``chunk`` steps from them on the same grid →
+    the captured loop's launches by kernel in its timed call. The second
+    call of each is timed (the first of the captured loop captures)."""
+    import copy
+
+    from nerfshop_tpu_torch.train import nerf as nerf_train
+
+    runs = {}
+    for captured in (False, True):
+        state = copy.deepcopy(tb._state)
+        g = torch.Generator(device=tb.device)
+        g.set_state(tb.generator.get_state())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loop = nerf_train.make_train_loop(state, tb.grid, tb._device_data, tb.train_config, chunk, captured=captured)
+        losses, times = [], []
+        for _ in range(calls):
+            reset_launches()
+            t0 = time.perf_counter()
+            ys = loop(tb.grid, g)
+            losses.append(ys["loss"].cpu().numpy())  # the host pull syncs
+            times.append(time.perf_counter() - t0)
+        runs[captured] = (np.concatenate(losses), state, times[-1], read_launches(), torch.cuda.max_memory_allocated(),
+                          loop)
+    (le, se, te, _, pe, _), (lc, sc, tc, launches, pc, loop) = runs[False], runs[True]
+    loss_diff = float(np.max(np.abs(lc - le) / np.maximum(np.abs(le), 1e-30)))
+    param_diff = max(float(torch.linalg.vector_norm(a - b) / torch.clamp_min(torch.linalg.vector_norm(b), 1e-30))
+                     for a, b in zip(sc.tensors(), se.tensors()))
+    equal = all(torch.equal(a, b) for a, b in zip(sc.tensors(), se.tensors())) and bool((lc == le).all())
+    check(loop.replays == calls and loop.graph_launches, f"the captured loop was not replayed: {loop.replays} replays")
+    check(np.isfinite(lc).all() and np.isfinite(le).all(), "non-finite loss in the loop comparison")
+    check(loss_diff <= LOOP_LOSS_TOL, f"captured vs eager: a step's loss differs by {loss_diff:.3e} > {LOOP_LOSS_TOL}")
+    check(param_diff <= LOOP_PARAM_TOL, f"captured vs eager: the state differs by {param_diff:.3e} > {LOOP_PARAM_TOL}")
+    print(
+        f"[train-loop] {calls * chunk} steps eager vs captured from one state and generator (batch "
+        f"{tb.train_config.n_rays_per_batch} x {tb.train_config.k_samples}): largest relative loss difference "
+        f"{loss_diff:.3e} (bound {LOOP_LOSS_TOL}), largest relative state difference {param_diff:.3e} (bound "
+        f"{LOOP_PARAM_TOL}), bit-equal {equal}; a {chunk}-step call after the first, draws included, no grid "
+        f"refresh: eager {te * 1e3:.2f} ms ({chunk / te:.2f} steps/s), captured {tc * 1e3:.2f} ms ({chunk / tc:.2f} "
+        f"steps/s); peak memory eager {pe / 2**30:.3f} GiB, captured {pc / 2**30:.3f} GiB; launches in one replayed "
+        f"call {launches}",
+        flush=True,
+    )
+    return launches
+
+
+def phase_render_compact(tb, W=1920, H=1080):
+    """[render-compact]: the trained model's 1080p frame through
+    ``render_frame`` with the testbed's options, at ``compact_frac`` 0 and
+    at two values from the valid share of the frame's middle chunk (that
+    share rounded up to a hundredth, and twice that) → the launches of one
+    frame at the first of them."""
+    from nerfshop_tpu_torch.render import renderer
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=tb.device)
+
+    base = tb._render_options()
+    args = (tb.model, tb.inference_params, tb.grid, (W, H), t(tb.camera_matrix), t(tb._focal_for(W, H)),
+            t(tb.screen_center))
+    slots = min(base.chunk, W * H) * base.k_samples * base.n_windows  # render_frame's chunk
+    # valid slots of every chunk, from the uncompacted frame
+    counts, real = [], renderer._eval_window
+
+    def spy(field, samples, *a, **kw):
+        counts.append(samples.valid.sum())
+        return real(field, samples, *a, **kw)
+
+    renderer._eval_window = spy
+    try:
+        ref = renderer.render_frame(*args, opts=base).rgba
+    finally:
+        renderer._eval_window = real
+    n_valid = torch.stack(counts).cpu().numpy().astype(np.int64)
+    share = n_valid[middle_chunk(W, H)] / slots
+    frac = max(math.ceil(share * 100) / 100, 0.01)
+    results, launches = [], None
+    for f in (0.0, frac, 2 * frac):
+        opts = dataclasses.replace(base, compact_frac=f)
+        torch.cuda.synchronize()
+        reset_launches()
+        out = renderer.render_frame(*args, opts=opts).rgba
+        torch.cuda.synchronize()
+        if f == frac:
+            launches = read_launches()
+            check_launched(launches, ("grid_encode", "fused_mlp", "gather"), "compacted frame")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            renderer.render_frame(*args, opts=opts)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        budget = renderer.compact_budget(slots, f)
+        dropped = int(np.maximum(n_valid - budget, 0).sum()) if 0 < budget < slots else 0
+        check(out.shape == (H, W, 4) and bool(torch.isfinite(out).all()), f"compact_frac {f}: frame not finite")
+        delta = float((out - ref).abs().max())
+        if dropped == 0:
+            check(delta <= 1e-5, f"compact_frac {f}: no row dropped, yet max |delta rgba| {delta:.3e} > 1e-5")
+            quality = f"max |delta rgba| {delta:.3e} (bound 1e-5)"
+        else:
+            quality = f"PSNR {psnr(out.cpu().numpy(), ref.cpu().numpy()):.2f} dB, max |delta rgba| {delta:.3e}"
+        results.append(
+            f"compact_frac {f:.2f} (slab {budget if 0 < budget < slots else slots} of {slots} slots a chunk): "
+            f"median of 3 {statistics.median(times):.1f} ms {[round(x, 1) for x in times]}, "
+            f"valid rows dropped {dropped / max(int(n_valid.sum()), 1):.6f}, {quality}"
+        )
+    print(
+        f"[render-compact] {W}x{H}, {len(n_valid)} chunks, valid share of the middle chunk {share:.4f} "
+        f"(of the frame {n_valid.sum() / (slots * len(n_valid)):.4f}, largest chunk {n_valid.max() / slots:.4f}): "
+        + "; ".join(results) + f"; launches in one frame at {frac:.2f}: {launches}",
+        flush=True,
+    )
+    return launches
 
 
 def phase_render(tb, W=1920, H=1080):
@@ -1695,7 +1846,9 @@ def main() -> None:
     mlp = phase_mlp(dev, g)
     gat = phase_gather(dev, g)
     tb, focal, principal, train_launches = phase_main_path(dev)
+    phase_train_loop(tb)
     render_launches, chunk_x = phase_render(tb)
+    compact_launches = phase_render_compact(tb)
     frame_launches = phase_frame(tb)
     xf = phase_held_out(tb, focal, principal)
     phase_snapshot(tb, xf, focal, principal)
@@ -1705,8 +1858,9 @@ def main() -> None:
     edit_launches = read_launches()
     check_launched(edit_launches, ("grid_encode", "fused_mlp", "gather", "cage_warp_samples", "cage_warp_positions"),
                    "edit path")
-    paths = {"train": train_launches, "render": render_launches, "frame": frame_launches, "edit": edit_launches}
-    for name in ("render", "frame", "edit"):
+    paths = {"train": train_launches, "render": render_launches, "render_compact": compact_launches,
+             "frame": frame_launches, "edit": edit_launches}
+    for name in ("render", "render_compact", "frame", "edit"):
         check(paths[name]["grid_encode_fracs"] == 0, f"kernel B wrote fracs on the {name} path: {paths[name]}")
     check(edited_frame_launches["grid_encode_fracs"] == 0, "kernel B wrote fracs in the edited frame")
     split = {k: (v["grid_encode_fracs"], v["grid_encode"] - v["grid_encode_fracs"]) for k, v in paths.items()}

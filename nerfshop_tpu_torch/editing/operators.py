@@ -220,6 +220,7 @@ def _launch(mode: int, a: kernels.LutArgs, b: Optional[kernels.LutArgs], p: torc
     kernels.check(kernels.load().nst_cage(ctypes.byref(args), mode, kernels.stream_ptr(dev)), name)
 
 
+@kernels.counted("launches")
 def tet_lookup_cuda(lut: PackedLut, rows: torch.Tensor, p: torch.Tensor, threshold: float):
     """Kernel E, ``LOOKUP`` instance: the point-in-tet lookup of ``p`` [N, 3]
     in the packed ``lut`` over the lookup ``rows`` [Nt, 12] (a section of
@@ -253,6 +254,7 @@ def _warp_args(op: CageDeformationOp, dev: torch.device):
     )
 
 
+@kernels.counted("launches")
 def cage_warp_samples_cuda(op: CageDeformationOp, pos: torch.Tensor, direction: torch.Tensor):
     """Kernel E, ``WARP_SAMPLES`` instance: the whole of
     :func:`cage_map_samples` in one launch → (pos' [N, 3], dir' [N, 3],
@@ -278,6 +280,7 @@ def _membrane(op: CageDeformationOp) -> poisson.MembraneData:
     return m
 
 
+@kernels.counted("launches")
 def cage_warp_membrane_cuda(op: CageDeformationOp, pos: torch.Tensor, direction: torch.Tensor,
                             acc_sigma: torch.Tensor, acc_out: torch.Tensor, acc_rgb: torch.Tensor):
     """Kernel E, ``WARP_MEMBRANE`` instance: :func:`cage_warp_samples_cuda`
@@ -308,6 +311,7 @@ def cage_warp_membrane_cuda(op: CageDeformationOp, pos: torch.Tensor, direction:
     return pos_out, dir_out, empty, in_target
 
 
+@kernels.counted("launches")
 def cage_warp_positions_cuda(op: CageDeformationOp, pos: torch.Tensor):
     """Kernel E, ``WARP_POSITIONS`` instance: the whole of
     :func:`cage_map_positions` in one launch → (pos' [N, 3], kill [N])."""
@@ -319,13 +323,6 @@ def cage_warp_positions_cuda(op: CageDeformationOp, pos: torch.Tensor):
             flag0=kill)
     cage_warp_positions_cuda.launches += 1
     return pos_out, kill
-
-
-#: launches of each instance of kernel E since the last reset
-tet_lookup_cuda.launches = 0
-cage_warp_samples_cuda.launches = 0
-cage_warp_positions_cuda.launches = 0
-cage_warp_membrane_cuda.launches = 0
 
 
 def tet_lookup(lut: TetLut, v0: torch.Tensor, inv_e: torch.Tensor, p: torch.Tensor, eps: float = INCLUSIVE_EPS,

@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -34,6 +35,9 @@ NVCC_FLAGS = (
 )
 
 _lib = None
+
+#: the kernel wrappers and the names of their launch counters
+_COUNTED: List[Tuple[Callable, Tuple[str, ...]]] = []
 
 
 class GatherPlan(ctypes.Structure):
@@ -166,3 +170,31 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def counted(*names: str):
+    """Decorator of a kernel wrapper: give it the integer counters ``names``
+    (``launches``, and for kernel B ``fracs_launches``), 0 to begin with,
+    which the wrapper advances where it launches its kernel. They count
+    Python calls; :func:`launch_counts` and :func:`add_launches` let a
+    replayed CUDA graph count the launches it captured."""
+
+    def deco(fn):
+        for name in names:
+            setattr(fn, name, 0)
+        _COUNTED.append((fn, names))
+        return fn
+
+    return deco
+
+
+def launch_counts() -> Dict[Tuple[Callable, str], int]:
+    """Every counter of every wrapper that :func:`counted` decorated."""
+    return {(fn, name): getattr(fn, name) for fn, names in _COUNTED for name in names}
+
+
+def add_launches(delta: Dict[Tuple[Callable, str], int], times: int = 1) -> None:
+    """Advance the counters by ``times`` × ``delta`` (a difference of two
+    :func:`launch_counts`)."""
+    for (fn, name), d in delta.items():
+        setattr(fn, name, getattr(fn, name) + times * d)

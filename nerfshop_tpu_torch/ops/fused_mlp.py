@@ -79,6 +79,7 @@ def check_supported(
         raise ValueError("kernel C (fused_mlp) does not take this MLP: " + "; ".join(problems))
 
 
+@kernels.counted("launches")
 def fused_mlp_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
     """Kernel C: x [..., n_in] f32 contiguous, weights [fan_in, fan_out] f32
     (ReLU hidden layers, no output activation) → [..., n_out] f32. Raises on
@@ -104,7 +105,3 @@ def fused_mlp_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Te
     kernels.check(err, "fused_mlp")
     fused_mlp_cuda.launches += 1
     return out
-
-
-#: launches of kernel C since the last reset
-fused_mlp_cuda.launches = 0

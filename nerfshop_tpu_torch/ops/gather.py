@@ -99,6 +99,7 @@ def gather_plain(x: torch.Tensor, idx: torch.Tensor, form: str) -> torch.Tensor:
     return torch.gather(x, 1 if form == "axis1" else 0, idx.long())
 
 
+@kernels.counted("launches")
 def gather_cuda(x: torch.Tensor, idx: torch.Tensor, form: str) -> torch.Tensor:
     """Kernel D: ``x`` [S, C] (or [S] for rows) f32/i32, ``idx`` int32/int64
     ([Q] for rows, else 2-D), both contiguous on one CUDA device → the
@@ -137,10 +138,6 @@ def gather_cuda(x: torch.Tensor, idx: torch.Tensor, form: str) -> torch.Tensor:
     kernels.check(err, "gather")
     gather_cuda.launches += 1
     return out
-
-
-#: launches of kernel D since the last reset
-gather_cuda.launches = 0
 
 
 def _dispatch(x: torch.Tensor, idx: torch.Tensor, form: str) -> torch.Tensor:

@@ -40,6 +40,7 @@ def sorted_segment_rowsum_plain(key_s: torch.Tensor, w1_s: torch.Tensor, dout_s:
     return out.index_add_(0, key_s.long(), ct)
 
 
+@kernels.counted("launches")
 def sorted_segment_rowsum_cuda(key_s: torch.Tensor, w1_s: torch.Tensor, dout_s: torch.Tensor, m: int) -> torch.Tensor:
     """Kernel A. Takes D = 3, F = 2 (the hash grid's shape) and raises on
     anything else. Two launches (N = 0: one memset); deterministic."""
@@ -69,10 +70,6 @@ def sorted_segment_rowsum_cuda(key_s: torch.Tensor, w1_s: torch.Tensor, dout_s: 
     kernels.check(err, "segsum")
     sorted_segment_rowsum_cuda.launches += 1
     return buf[:m]
-
-
-#: launches of kernel A since the last reset
-sorted_segment_rowsum_cuda.launches = 0
 
 
 def sorted_segment_rowsum(key_s: torch.Tensor, w1_s: torch.Tensor, dout_s: torch.Tensor, m: int) -> torch.Tensor:

@@ -46,6 +46,7 @@ def grid_encode_plain(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: boo
     return (out, idx, w1) if with_fracs else (out, None, None)
 
 
+@kernels.counted("launches", "fracs_launches")
 def grid_encode_cuda(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: bool = True):
     """Kernel B → (out [N, L·2], idx [L, N] int32, w1 [L, N, 3]); without
     fracs it writes out only and returns (out, None, None). Takes D = 3,
@@ -72,11 +73,6 @@ def grid_encode_cuda(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: bool
     grid_encode_cuda.launches += 1
     grid_encode_cuda.fracs_launches += with_fracs
     return out, idx, w1
-
-
-#: launches of kernel B since the last reset, and how many of them wrote fracs
-grid_encode_cuda.launches = 0
-grid_encode_cuda.fracs_launches = 0
 
 
 def grid_encode(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: bool = True):

@@ -1,26 +1,30 @@
 """Exact frame rendering: rays → march → field → composite, chunk by chunk.
 
 Counterpart of the exact path of ``nerfshop_tpu/render/renderer.py``:
-``RenderOptions``, ``FrameOutput``, ``_eval_window``, ``_render_chunk`` and
-``render_frame``. Each pixel chunk runs one occupancy march with the whole
-sample budget (``k_samples × n_windows``, selection "first", the
-density-grid early stop), one field evaluation of every slot (the hash-grid
-encode is kernel B and both MLPs are kernel C on a CUDA device, since
-nothing here needs a gradient), and one composite with the transmittance
-cutoff. With edit operators, every slot's world position and direction go
-through the stack newest-first (``editing/operators.py``) before the field,
-and vacated samples get σ = 0. A stack with a Poisson membrane also sums
-the membranes' residuals and blends them in (``membrane_mode`` "target" or
-"additive"); "target" evaluates the density once more, at the unwarped
-positions, in the chunks whose stack has a membrane.
+``RenderOptions``, ``FrameOutput``, ``_compacted_field_eval``,
+``_eval_window``, ``_render_chunk`` and ``render_frame``. Each pixel chunk
+runs one occupancy march with the whole sample budget (``k_samples ×
+n_windows``, selection "first", the density-grid early stop), one field
+evaluation (the hash-grid encode is kernel B and both MLPs are kernel C on
+a CUDA device, since nothing here needs a gradient), and one composite with
+the transmittance cutoff. The field sees every slot, or with
+``compact_frac > 0`` only the valid ones, gathered into a fixed slab of
+``compact_frac`` of the slots (JAX's budget; valid slots past it read
+σ = 0 and rgb = 0). With edit operators, every slot's world position and
+direction go through the stack newest-first (``editing/operators.py``)
+before the field, and vacated samples get σ = 0. A stack with a Poisson
+membrane also sums the membranes' residuals and blends them in
+(``membrane_mode`` "target" or "additive"); "target" evaluates the density
+once more, at the unwarped positions, in the chunks whose stack has a
+membrane.
 
 The march fields (the dilated coarse occupancy and the occupancy-masked
 density) are built once per frame and handed to every chunk's march.
 
 Not ported, each raising ``NotImplementedError``: ``RenderMode.Normals``
 (it needs the encode's gradient with respect to positions), the envmap
-background, extra network dims and ``compact_frac > 0``. The tiled render
-paths stay with the JAX package.
+background and extra network dims. The tiled render paths stay with the
+JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from nerfshop_tpu_torch.models.nerf_network import density_with, forward_with
 from nerfshop_tpu_torch.ops import composite as comp
 from nerfshop_tpu_torch.ops import coords, march
 from nerfshop_tpu_torch.ops import rays as rays_lib
+from nerfshop_tpu_torch.ops.gather import take_rows
 
 NEAR_DISTANCE_RENDER = 0.05
 
@@ -79,6 +84,36 @@ def _field(model, params: Optional[Dict[str, torch.Tensor]]):
     return lambda p, d: forward_with(model, params, p, d)
 
 
+def compact_budget(n_slots: int, compact_frac: float) -> int:
+    """The compaction slab's rows: ``int(n_slots · compact_frac)`` rounded
+    up to a multiple of 256 (JAX's ``_eval_window``); the field sees every
+    slot unless 0 < budget < n_slots."""
+    budget = int(n_slots * compact_frac)
+    return -(-budget // 256) * 256 if budget > 0 else 0
+
+
+def _compacted_field_eval(field, pos: torch.Tensor, dirs: torch.Tensor, valid: torch.Tensor, budget: int):
+    """``field(pos, dirs) → (rgb, σ)`` on the rows where ``valid`` only,
+    through a fixed slab of ``budget`` rows; valid rows past the budget read
+    σ = 0 and rgb = 0 (JAX's ``_compacted_field_eval``). Fixed shapes and no
+    host read: ranks by a cumsum; slab slot i takes the row of rank i + 1,
+    found by a binary search of the ranks (a gather, where JAX scatters
+    every row into a slab with a dump row: on the card every row that is
+    not kept would write that one row); the field on the slab; a gather
+    back. Slots past the last valid row hold some row whose result no row
+    reads."""
+    ranks = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32)  # inclusive
+    ok = valid & (ranks <= budget)
+    slot = torch.clamp(ranks - 1, 0, budget - 1)
+    wanted = torch.arange(1, budget + 1, dtype=torch.int32, device=pos.device)
+    src = torch.clamp(torch.searchsorted(ranks, wanted), max=pos.shape[0] - 1)
+    rgb_c, sig_c = field(take_rows(pos.contiguous(), src), take_rows(dirs.contiguous(), src))
+    zero = torch.zeros((), dtype=sig_c.dtype, device=sig_c.device)
+    sigma = torch.where(ok, take_rows(sig_c.contiguous(), slot), zero)
+    rgb = torch.where(ok[:, None], take_rows(rgb_c.contiguous(), slot), zero)
+    return rgb, sigma
+
+
 def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: RenderOptions, aabb, operators=(),
                  density=None):
     """Field evaluation of every slot of one march, through the edit stack
@@ -100,9 +135,16 @@ def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: R
     else:
         pos_w, dir_w = march.samples_to_network_inputs(samples, origins, directions, aabb)
     flat_pos = pos_w.reshape(R * K, 3)
-    rgb, sigma = field(flat_pos, dir_w.reshape(R * K, 3))
+    flat_dir = dir_w.reshape(R * K, 3)
+    budget = compact_budget(R * K, opts.compact_frac)
     if opts.mode == RenderMode.Positions:
         rgb = flat_pos
+        sigma = field(flat_pos, flat_dir)[1]
+    elif 0 < budget < R * K:
+        # after the warp, before the empty mask and the membrane blend
+        rgb, sigma = _compacted_field_eval(field, flat_pos, flat_dir, samples.valid.reshape(-1), budget)
+    else:
+        rgb, sigma = field(flat_pos, flat_dir)
     if empty is not None:
         # vacated source samples: α = 0 at composite time
         sigma = torch.where(empty, torch.zeros_like(sigma), sigma)
@@ -213,8 +255,6 @@ def render_frame(
         raise NotImplementedError("the envmap background is not ported")
     if extra_dims is not None:
         raise NotImplementedError("extra network dims are not ported")
-    if opts.compact_frac > 0:
-        raise NotImplementedError("compacted field evaluation (compact_frac > 0) is not ported")
     W, H = resolution
     dev = grid.occupancy.device
     principal = torch.tensor([0.5, 0.5], device=dev) if principal is None else principal

@@ -2,9 +2,11 @@
 
 Counterpart of the NeRF half of ``nerfshop_tpu/testbed.py``: construct with
 a config, load a scene (``load_training_data``, or ``set_training_data``
-with an in-memory ``NerfDataset``), ``train`` (a grid refresh every 16
-steps, full during the first 256, the degenerate-training guards and the
-adaptive (rays, K) bucket), the camera API, ``render`` / ``render_dynamic``
+with an in-memory ``NerfDataset``), ``train`` (chunks of up to 16 steps
+through ``train/nerf.py::make_train_loop``, one captured CUDA graph per
+chunk length on a CUDA device; a grid refresh every 16 steps, full during
+the first 256, the degenerate-training guards and the adaptive (rays, K)
+bucket), the camera API, ``render`` / ``render_dynamic``
 / ``frame`` through the exact renderer, ``save_snapshot`` /
 ``load_snapshot`` in the native format, and the edit API (``begin_cage_edit``
 → a ``GrowingSelection``; ``add_edit_operator`` and its siblings, which
@@ -22,7 +24,7 @@ from __future__ import annotations
 import json
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -60,6 +62,12 @@ class TrainingStats:
     frame_ms: float = 0.0
     #: sample slots the field evaluated in the last render (all passes)
     render_samples: int = 0
+    #: training steps run by replaying a captured CUDA graph, and the replays
+    captured_steps: int = 0
+    graph_replays: int = 0
+    #: kernel launches of one replay of the newest captured training graph,
+    #: by "wrapper.counter" (``nerfshop_tpu_torch.kernels.launch_counts``)
+    graph_launches: dict = field(default_factory=dict)
 
 
 class Testbed:
@@ -125,6 +133,8 @@ class Testbed:
         self._train_cfg = None
         self._trained_mask = None
         self._step_ready = False
+        #: training loops by (rays, K, chunk) of the current network and bucket
+        self._loops: dict = {}
         self._last_depth: Optional[np.ndarray] = None
         self._edit_operators: list = []
         #: dynamic-resolution factor in [1/8, 1]
@@ -188,6 +198,7 @@ class Testbed:
             nerf_train.DeviceDataset.from_dataset(ds, self.device) if ds is not None and ds.intrinsics else None
         )
         self._step_ready = False
+        self._loops = {}
         self.stats = TrainingStats()
 
     @property
@@ -238,14 +249,14 @@ class Testbed:
                 )
                 self.stats.training_prep_ms = (time.perf_counter() - t0) * 1e3
             chunk = min(remaining, 16 - step % 16)
-            auxs = [
-                nerf_train.train_step(self._state, self._grid, self._device_data, self._train_cfg, self.generator)
-                for _ in range(chunk)
-            ]
+            loop = self._get_loop(chunk)
+            out = loop(self._grid, self.generator)
+            if loop.captured:
+                self.stats.captured_steps += chunk
+                self.stats.graph_replays += 1
+                self.stats.graph_launches = {f"{fn.__name__}.{name}": n for (fn, name), n in loop.graph_launches.items()}
             # one host pull per chunk: losses, sample counts, overflow
-            ys = torch.stack(
-                [torch.stack([a["loss"], a["measured_samples"].float(), a["sample_overflow_frac"]]) for a in auxs]
-            ).cpu().numpy()
+            ys = torch.stack([out["loss"], out["measured_samples"], out["sample_overflow_frac"]], 1).cpu().numpy()
             self.stats.step += chunk
             remaining -= chunk
             loss = float(ys[-1, 0])
@@ -278,8 +289,24 @@ class Testbed:
         self.stats.training_ms = (time.perf_counter() - t_start) * 1e3
         return loss
 
+    def _get_loop(self, chunk: int):
+        """The ``chunk``-step training loop of the current bucket
+        (``train/nerf.py::make_train_loop``: captured on a CUDA device,
+        eager on the CPU), made at first use. The cache goes with the
+        network (``_reset_network``, so also ``set_training_data`` and
+        ``load_snapshot``) and with the bucket (``_build_step_fn``)."""
+        from nerfshop_tpu_torch.train import nerf as nerf_train
+
+        key = (self._train_cfg.n_rays_per_batch, self._train_cfg.k_samples, chunk)
+        loop = self._loops.get(key)
+        if loop is None:
+            loop = nerf_train.make_train_loop(self._state, self._grid, self._device_data, self._train_cfg, chunk)
+            self._loops[key] = loop
+        return loop
+
     def _build_step_fn(self, n_rays: int, k_samples: Optional[int] = None) -> None:
-        """Set the (rays, K) bucket and the untrained-cell mask."""
+        """Set the (rays, K) bucket and the untrained-cell mask; drops the
+        training loops of the previous bucket."""
         from nerfshop_tpu_torch.ops import grid as grid_lib
         from nerfshop_tpu_torch.train import nerf as nerf_train
 
@@ -295,6 +322,7 @@ class Testbed:
             and np.abs(np.asarray(ds.distortion_matrix())).max() <= 1e-8
         )
         self._trained_mask = None
+        self._loops = {}
         if usable:
             xf = np.asarray(ds.xforms, np.float32)
             res_hw = np.asarray([[im.shape[1], im.shape[0]] for im in ds.images], np.float32)
@@ -453,14 +481,6 @@ class Testbed:
         cam = camera_matrix if camera_matrix is not None else self.camera_matrix
         focal = focal if focal is not None else self._focal_for(width, height)
         principal = principal if principal is not None else self.screen_center
-        # the sample budget follows the grid: a dense grid needs a deep
-        # first-K budget to reach content, a sparse one a short one
-        occ_frac = float(self._grid.occupancy.float().mean())
-        k_render = 64 if occ_frac < 0.15 else 256
-        crop = None
-        if self.render_aabb is not None:
-            lo, hi = self.render_aabb
-            crop = (tuple(float(v) for v in lo), tuple(float(v) for v in hi))
         focus = self.focus_z
         if self.autofocus and self._last_depth is not None:
             # focus at the previous frame's depth under the autofocus target
@@ -470,27 +490,13 @@ class Testbed:
             v = float(d[ty, tx])
             if np.isfinite(v) and v > 1e-3:
                 focus = self.focus_z = v
-        # chunk × K_total ≤ 2^22 sample rows
-        chunk = max(512, min(1 << 13, (1 << 22) // (2 * k_render)))
-        opts = renderer.RenderOptions(
-            k_samples=k_render,
-            n_windows=2,
-            chunk=chunk,
-            use_grid_early_stop=occ_frac < 0.15,
-            cone_angle=self._train_cfg.cone_angle,
-            aabb_scale=self._train_cfg.aabb_scale,
-            min_transmittance=min_transmittance or self.nerf.render_min_transmittance,
-            mode=self.render_mode,
-            background=tuple(float(v) for v in np.asarray(self.background_color, np.float32)),
-            render_aabb=crop,
-            aperture=float(self.dof),
-            focus_z=float(focus),
-        )
+        opts = self._render_options(min_transmittance, focus)
         dist = t(distortion) if distortion is not None and np.any(np.asarray(distortion)) else None
         ftheta = t(ftheta_coeffs) if ftheta_coeffs is not None else None
         buf = RenderBuffer((width, height), device=dev)
         buf.clear()
-        n_rays = -(-(width * height) // min(chunk, width * height)) * min(chunk, width * height)
+        chunk = min(opts.chunk, width * height)
+        n_rays = -(-(width * height) // chunk) * chunk
         per_ray = 1 if opts.mode == RenderMode.Slice else opts.k_samples * opts.n_windows
         self.stats.render_samples = spp * n_rays * per_ray
         for s in range(spp):
@@ -522,6 +528,35 @@ class Testbed:
             # the model predicts sRGB-space radiance; convert for linear output
             img = torch.cat([tm.srgb_to_linear(img[..., :3]), img[..., 3:]], dim=-1)
         return img
+
+    def _render_options(self, min_transmittance: Optional[float] = None, focus_z: Optional[float] = None):
+        """The exact renderer's options for the testbed's state and grid."""
+        from nerfshop_tpu_torch.render import renderer
+
+        occ_frac = float(self._grid.occupancy.float().mean())
+        # the sample budget follows the grid: a dense grid needs a deep
+        # first-K budget to reach content, a sparse one a short one
+        k_render = 64 if occ_frac < 0.15 else 256
+        crop = None
+        if self.render_aabb is not None:
+            lo, hi = self.render_aabb
+            crop = (tuple(float(v) for v in lo), tuple(float(v) for v in hi))
+        # chunk × K_total ≤ 2^22 sample rows
+        chunk = max(512, min(1 << 13, (1 << 22) // (2 * k_render)))
+        return renderer.RenderOptions(
+            k_samples=k_render,
+            n_windows=2,
+            chunk=chunk,
+            use_grid_early_stop=occ_frac < 0.15,
+            cone_angle=self._train_cfg.cone_angle,
+            aabb_scale=self._train_cfg.aabb_scale,
+            min_transmittance=min_transmittance or self.nerf.render_min_transmittance,
+            mode=self.render_mode,
+            background=tuple(float(v) for v in np.asarray(self.background_color, np.float32)),
+            render_aabb=crop,
+            aperture=float(self.dof),
+            focus_z=float(self.focus_z if focus_z is None else focus_z),
+        )
 
     def render_dynamic(self, width: int, height: int, **kw) -> np.ndarray:
         """Render at a dynamically scaled resolution and upsample bilinearly:

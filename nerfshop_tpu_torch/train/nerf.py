@@ -1,23 +1,28 @@
-"""NeRF training step, loss and density-grid update.
+"""NeRF training step, training loop, loss and density-grid update.
 
 Counterpart of ``nerfshop_tpu/train/nerf.py``. The JAX ``make_grad_fn``
 draws its randomness and computes the gradients in one function; here
 :func:`grads_from_draws` takes every draw as an input (so it can be held to
-the JAX step on the same draws) and :func:`train_step` draws them from a
-``torch.Generator`` and calls it. Error map, envmap, camera/exposure
-optimization, light directions and rolling shutter are not ported and
-raise ``NotImplementedError``.
+the JAX step on the same draws) and :func:`draw_step` draws them from a
+``torch.Generator``. :func:`make_train_loop`, the counterpart of JAX's
+``lax.scan`` of steps, runs a chunk of steps from draws made beforehand:
+captured once into a CUDA graph and replayed on a CUDA device, eagerly on
+the CPU. Error map, envmap, camera/exposure optimization, light
+directions and rolling shutter are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from nerfshop_tpu_torch import kernels
 from nerfshop_tpu_torch.common import MIN_CONE_STEPSIZE, MIN_TRANSMITTANCE_EVAL, NERF_MIN_OPTICAL_THICKNESS
 from nerfshop_tpu_torch.models import nerf_network as nn_lib
 from nerfshop_tpu_torch.models.nerf_network import NerfNetwork
@@ -182,17 +187,140 @@ def draw_step(cfg: NerfTrainConfig, data: DeviceDataset, generator: torch.Genera
     return img_idx, pix, t_jitter, spread, bg
 
 
-def train_step(
+#: the per-step values a training loop returns, in the order of its buffer
+LOOP_OUTPUTS = ("loss", "measured_samples", "sample_overflow_frac", "mean_opacity")
+
+
+class TrainLoop:
+    """``n_steps`` training steps of ``state`` as one callable (the
+    counterpart of JAX's ``make_train_loop``); see :func:`make_train_loop`.
+
+    The steps read fixed buffers: the draws of every step, the grid's
+    occupancy and mean density, and the learning rate of every step, which
+    :meth:`run` fills before the steps run, and they write each step's
+    outputs into a fourth. So a captured graph, which replays fixed
+    addresses, reads the grid and the schedule of the call and never a
+    stale one. A capture warms the step up once on a side stream (lazy
+    initialization, cuBLAS's workspace) and puts the state back, then
+    records the ``n_steps`` steps; the kernels' launch counters
+    (:func:`nerfshop_tpu_torch.kernels.launch_counts`) are advanced by the
+    graph's launches at every replay and not by the capture."""
+
+    def __init__(self, state: TrainState, grid: grid_lib.OccupancyGrid, data: DeviceDataset, cfg: NerfTrainConfig,
+                 n_steps: int, captured: bool):
+        dev = data.images.device
+        R, K = cfg.n_rays_per_batch, cfg.k_samples
+        self.state, self.data, self.cfg, self.n_steps, self.captured = state, data, cfg, n_steps, captured
+
+        def buf(*shape, dtype=torch.float32):
+            return torch.zeros((n_steps, *shape), dtype=dtype, device=dev)
+
+        #: (img_idx, pix, t_jitter, spread, bg) of every step, stacked
+        self.draws = (buf(R, dtype=torch.int64), buf(R, 2), buf(R), buf(R, K), buf(R, 3))
+        # the steps read only the occupancy and the mean density
+        self.grid = grid_lib.OccupancyGrid(None, grid.occupancy.clone(), grid.mean_density.clone())
+        self.lr = buf()
+        self.outputs = buf(len(LOOP_OUTPUTS))
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        #: the counters' advance at one replay (:func:`kernels.launch_counts` keys)
+        self.graph_launches: dict = {}
+        self.replays = 0
+
+    def draw(self, generator: torch.Generator) -> tuple:
+        """Draw every step's inputs from ``generator`` in the order the
+        eager steps draw them (:func:`draw_step`) into the draw buffers →
+        the buffers."""
+        for i in range(self.n_steps):
+            for b, d in zip(self.draws, draw_step(self.cfg, self.data, generator)):
+                b[i].copy_(d)
+        return self.draws
+
+    def __call__(self, grid: grid_lib.OccupancyGrid, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Draw from ``generator``, then run the steps on ``grid``."""
+        return self.run(grid, self.draw(generator))
+
+    def run(self, grid: grid_lib.OccupancyGrid, draws: tuple) -> Dict[str, torch.Tensor]:
+        """Run the steps from stacked ``draws`` (``[n_steps, ...]`` each, in
+        :func:`draw_step`'s order) on ``grid`` → the per-step outputs
+        ``[n_steps]`` by :data:`LOOP_OUTPUTS` name. Advances ``state.step``
+        by ``n_steps``; the schedule's learning rate changes per step."""
+        for b, d in zip(self.draws, draws):
+            if d is not b:
+                b.copy_(d)
+        self.grid.occupancy.copy_(grid.occupancy)
+        self.grid.mean_density.copy_(grid.mean_density)
+        lrs = [self.state.spec.schedule(self.state.step + i) for i in range(self.n_steps)]
+        self.lr.copy_(torch.tensor(lrs, dtype=torch.float32), non_blocking=True)
+        if self.captured:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            kernels.add_launches(self.graph_launches)
+            self.replays += 1
+        else:
+            for i in range(self.n_steps):
+                self._step(i)
+        self.state.step += self.n_steps
+        out = self.outputs.clone()
+        return {name: out[:, j] for j, name in enumerate(LOOP_OUTPUTS)}
+
+    def _step(self, i: int) -> None:
+        grads, aux = grads_from_draws(self.state.model, self.grid, self.data, self.cfg, *(d[i] for d in self.draws))
+        self.state.update(grads, self.lr[i])
+        aux["measured_samples"] = aux["measured_samples"].to(torch.float32)
+        self.outputs[i].copy_(torch.stack([aux[name] for name in LOOP_OUTPUTS]))
+
+    def _capture(self) -> None:
+        state = self.state
+        side = torch.cuda.Stream(device=self.data.images.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), warnings.catch_warnings():
+            # the warm-up is the one uncaptured step of a capturable Adam
+            warnings.filterwarnings("ignore", message=".*capturable=True.*")
+            saved = [t.clone() for t in state.tensors()]
+            self._step(0)
+            for t, s in zip(state.tensors(), saved):
+                t.copy_(s)
+            del saved
+        torch.cuda.current_stream().wait_stream(side)
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for i in range(self.n_steps):
+                self._step(i)
+        after = kernels.launch_counts()
+        self.graph_launches = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+        kernels.add_launches(self.graph_launches, times=-1)  # recording launches nothing
+        self.graph = graph
+
+
+def make_train_loop(
     state: TrainState,
     grid: grid_lib.OccupancyGrid,
     data: DeviceDataset,
     cfg: NerfTrainConfig,
-    generator: torch.Generator,
-) -> dict:
-    """One optimization step from fresh draws; returns the step's aux."""
-    grads, aux = grads_from_draws(state.model, grid, data, cfg, *draw_step(cfg, data, generator))
-    state.apply_gradients(grads)
-    return aux
+    n_steps: int,
+    captured: Optional[bool] = None,
+) -> TrainLoop:
+    """``n_steps`` optimization steps as one callable, ``loop(grid,
+    generator)`` → per-step ``loss``, ``measured_samples``,
+    ``sample_overflow_frac`` and ``mean_opacity`` ``[n_steps]`` (JAX's
+    ``_ys``); ``loop.run(grid, draws)`` takes the stacked draws instead.
+    Each step is the draws, :func:`grads_from_draws` and Adam + EMA
+    (``state.update``) at the schedule's rate for its step.
+
+    On a CUDA device the steps are captured into one CUDA graph at the first
+    call and replayed; a failed capture raises. On the CPU they run
+    eagerly. ``captured=False`` asks for the eager steps on a CUDA device
+    (to hold the graph to them); ``captured=True`` on the CPU raises.
+    ``grid``'s shapes fix the loop's grid buffers; every call copies the
+    grid it is given into them."""
+    dev = data.images.device
+    if captured is None:
+        captured = dev.type == "cuda"
+    if captured and dev.type != "cuda":
+        raise ValueError(f"a captured training loop needs a CUDA device; the data are on {dev}")
+    return TrainLoop(state, grid, data, cfg, n_steps, captured)
 
 
 def make_density_fn(

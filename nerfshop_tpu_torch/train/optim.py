@@ -3,16 +3,20 @@
 Counterpart of ``nerfshop_tpu/train/optim.py``. ``torch.optim.Adam``'s
 ``weight_decay`` adds ``l2_reg · param`` to the gradient before the moment
 updates, which is the coupled L2 that ``optax.add_decayed_weights`` before
-``scale_by_adam`` gives. The ExponentialDecay schedule sets the learning
-rate before each step, and the EMA copy of the parameters
-(``inference_params``) follows each step.
+``scale_by_adam`` gives. The Adam is the fused, capturable one, with its
+learning rate, its step count and its moments on the parameters' device
+from the start, so that a step reads no host value and can be captured in
+a CUDA graph (``train/nerf.py::make_train_loop``). The ExponentialDecay
+schedule's value is written into the learning-rate tensor before each step,
+and the EMA copy of the parameters (``inference_params``) follows each step
+in one ``foreach`` lerp.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -67,19 +71,36 @@ def build_optimizer(cfg: dict) -> OptimizerSpec:
 
 
 class TrainState:
-    """Module parameters + Adam state + EMA copy + step count."""
+    """Module parameters + Adam state + EMA copy + step count.
+
+    ``step`` is the host's count of applied steps (the schedule's argument);
+    Adam's own count, which its bias correction reads, lives on the device."""
 
     def __init__(self, model: nn.Module, spec: OptimizerSpec):
         self.model = model
         self.spec = spec
         a = spec.adam
+        self.params = [p for _, p in model.named_parameters()]
+        dev = self.params[0].device
+        #: the learning rate of the next step, written by :meth:`update`
+        self.lr = torch.full((), spec.schedule(0), dtype=torch.float32, device=dev)
         self.optimizer = torch.optim.Adam(
-            model.parameters(),
-            lr=spec.schedule(0),
+            self.params,
+            lr=self.lr,
             betas=(a.get("beta1", 0.9), a.get("beta2", 0.999)),
             eps=a.get("epsilon", 1e-8),
             weight_decay=a.get("l2_reg", 0.0),
+            fused=True,
+            capturable=True,
         )
+        # the state Adam would make at its first step, made now: a step
+        # captured in a graph must find it, not allocate and zero it
+        for p in self.params:
+            self.optimizer.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32, device=p.device),
+                "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p),
+            }
         self.ema: Optional[Dict[str, torch.Tensor]] = None
         if spec.ema_decay:
             self.ema = {k: v.detach().clone() for k, v in model.named_parameters()}
@@ -92,16 +113,31 @@ class TrainState:
             return self.ema
         return {k: v.detach() for k, v in self.model.named_parameters()}
 
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step writes: parameters, Adam's state, the EMA
+        copy and the learning rate."""
+        out = [p.data for p in self.params] + [self.lr]
+        for p in self.params:
+            out += list(self.optimizer.state[p].values())
+        return out + (list(self.ema.values()) if self.ema is not None else [])
+
     @torch.no_grad()
-    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
+    def update(self, grads: Dict[str, torch.Tensor], lr: Optional[torch.Tensor] = None) -> None:
+        """One Adam + EMA step on the device alone, at learning rate ``lr``
+        (a 0-d tensor on the parameters' device) or, without it, at the one
+        already in ``self.lr``. ``step`` is not counted."""
         for name, p in self.model.named_parameters():
             p.grad = grads[name]
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.spec.schedule(self.step)
+        if lr is not None:
+            self.lr.copy_(lr)
         self.optimizer.step()
+        for p in self.params:
+            p.grad = None
         if self.ema is not None:
-            d = self.spec.ema_decay
-            for name, p in self.model.named_parameters():
-                e = self.ema[name]
-                e.mul_(d).add_(p, alpha=1.0 - d)
+            torch._foreach_lerp_(list(self.ema.values()), self.params, 1.0 - self.spec.ema_decay)
+
+    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
+        """One step at the schedule's learning rate for ``step``, counted."""
+        self.lr.fill_(self.spec.schedule(self.step))
+        self.update(grads)
         self.step += 1

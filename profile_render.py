@@ -2,7 +2,7 @@
 """Device profile of one exact 1920×1080 frame of the port on one NVIDIA GPU.
 
 Run from the root of a checkout:
-  python3 profile_render.py [--out FILE] [--edited | --train | --distill]
+  python3 profile_render.py [--out FILE] [--compact FRAC | --edited | --train | --distill]
   python3 profile_render.py --save-chunk FILE
   python3 profile_render.py --kernels --chunk FILE [--root DIR]
   python3 profile_render.py --save-edit DIR
@@ -18,6 +18,11 @@ kernel name (the 20 largest here, all of them in ``--out``), kernel B's
 share of it, and, from one Cost-mode frame, how many of the evaluated
 sample slots were composited.
 
+With ``--compact FRAC`` it then profiles the same frame through
+``render_frame`` (no host copy) with ``compact_frac`` 0 and FRAC (the field
+on the valid slots only) and prints the device time that changes, by
+kernel name.
+
 With ``--edited`` it builds the edit of ``chip_smoke.py`` (scribble → cage
 moved +0.18 in x → an affine duplicate on top), profiles the unedited and
 the edited frame of the same side view the same way, and prints the device
@@ -31,12 +36,15 @@ grid through the stack, runs 8 distillation steps of the default
 per step, wall, device busy, idle share, launches, and device ms and
 launches by kernel name.
 
-With ``--train`` it profiles 8 training steps of that model instead (after
-its 256) and prints, per step, the host wall time, the device busy time, the
-idle share, the device launches, and the device time and launches of each
-kernel name (the share of kernel A, ``segsum``, among them); then kernel A
-alone at ``chip_smoke.py``'s hash, dense, skewed and spread-under-a-pile
-cases, each launch's device time and the span of a call.
+With ``--train`` it profiles training of that model instead (after its
+256 steps): one 16-step call of the eager loop and one of the captured loop
+(one CUDA graph replay), each after a warm-up call, and prints for each,
+per step, the host wall time, the device busy time, the idle share, the
+device launches, and the device time and launches of each kernel name (the
+share of kernel A, ``segsum``, among them; the full tables go to ``--out``
+and, for the eager loop, to its ``_eager`` sibling); then kernel A alone at
+``chip_smoke.py``'s hash, dense, skewed and spread-under-a-pile cases, each
+launch's device time and the span of a call.
 
 With ``--save-chunk FILE`` it trains that model, renders one 1080p frame
 and saves the positions the frame's middle chunk encoded (8192 rays × K
@@ -126,23 +134,47 @@ def write_table(by_name, out: Path | None, per: int = 1, top: int = 20) -> None:
         out.write_text("\n".join(lines) + "\n")
 
 
-def profile_frame(tb, label: str, out: Path | None = None):
+def compact_render(tb, frac: float):
+    """→ a callable that renders ``tb``'s 1080p view through ``render_frame``
+    with the testbed's options and ``compact_frac`` = ``frac``, synchronized
+    (the frame of ``chip_smoke.py``'s [render-compact])."""
+    import dataclasses
+
+    from nerfshop_tpu_torch.render import renderer
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=tb.device)
+
+    opts = dataclasses.replace(tb._render_options(), compact_frac=frac)
+
+    def render():
+        renderer.render_frame(tb.model, tb.inference_params, tb.grid, (W, H), t(tb.camera_matrix),
+                              t(tb._focal_for(W, H)), t(tb.screen_center), opts=opts)
+        torch.cuda.synchronize()
+
+    return render
+
+
+def profile_frame(tb, label: str, out: Path | None = None, render=None):
     """Warm-up, 3 unprofiled frames, one profiled frame → device ms by
     kernel name {name: [ms, count]}; prints the frame's line and its 20
-    largest kernels, and writes all of them to ``out``."""
+    largest kernels, and writes all of them to ``out``. ``render``: a
+    callable that renders the frame (default ``tb.render(W, H,
+    exact=True)``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    tb.render(W, H, exact=True)
+    render = render or (lambda: tb.render(W, H, exact=True))
+    render()
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        tb.render(W, H, exact=True)
+        render()
         times.append((time.perf_counter() - t0) * 1e3)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tb.render(W, H, exact=True)
+        render()
         prof_wall = (time.perf_counter() - t0) * 1e3
     events, busy, by_name = device_events(prof)
     print(
@@ -164,31 +196,43 @@ def profile_frame(tb, label: str, out: Path | None = None):
     return by_name
 
 
-def profile_train(tb, out: Path | None = None, steps: int = 8) -> None:
-    """Profile ``steps`` training steps: per step, wall, device busy, idle
-    share, launches, and device ms and launches by kernel name."""
+def profile_train(tb, out: Path | None = None, steps: int = 16) -> None:
+    """Profile one ``steps``-step call of the eager training loop and one of
+    the captured loop (``make_train_loop(..., captured=False)`` and its
+    default on the card), each after a warm-up call (the captured loop's
+    capture): per step, wall, device busy, idle share, launches, and device
+    ms and launches by kernel name. A call draws its steps' inputs first;
+    the grid refresh is not in it."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from nerfshop_tpu_torch.train import nerf as nerf_train
+
+    for captured in (False, True):
+        label = "captured" if captured else "eager"
+        loop = nerf_train.make_train_loop(tb._state, tb.grid, tb._device_data, tb.train_config, steps, captured=captured)
+        loop(tb.grid, tb.generator)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tb.train(n_steps=steps, batch_size=chip_smoke.BATCH)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events, busy, by_name = device_events(prof)
-    seg = [e for e in events if "segsum" in e.name]
-    # kernel A's second launch may start before its first ends (programmatic
-    # dependent launch), so its time is the union of its intervals
-    seg_ms = busy_ms([(e.time_range.start, e.time_range.end) for e in seg])
-    print(
-        f"[profile] training, {steps} steps of batch {chip_smoke.BATCH}: per step wall {wall / steps:.3f} ms, device "
-        f"busy {busy / steps:.3f} ms (union of event intervals), idle share {1.0 - busy / wall:.3f}, "
-        f"{len(events) / steps:.1f} device launches; kernel A (segsum) {seg_ms / steps:.4f} ms busy (union of its "
-        f"intervals) and {len(seg) / steps:.1f} launches per step, {100 * seg_ms / busy:.2f}% of the device busy time",
-        flush=True,
-    )
-    print("[profile] per step, by kernel name (device ms, share, launches):")
-    write_table(by_name, out, per=steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loop(tb.grid, tb.generator)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events, busy, by_name = device_events(prof)
+        seg = [e for e in events if "segsum" in e.name]
+        # kernel A's second launch may start before its first ends (programmatic
+        # dependent launch), so its time is the union of its intervals
+        seg_ms = busy_ms([(e.time_range.start, e.time_range.end) for e in seg])
+        print(
+            f"[profile] training, {label} loop, {steps} steps of batch {tb.train_config.n_rays_per_batch} x "
+            f"{tb.train_config.k_samples}: per step wall {wall / steps:.3f} ms, device busy {busy / steps:.3f} ms "
+            f"(union of event intervals), idle share {1.0 - busy / wall:.3f}, {len(events) / steps:.1f} device "
+            f"launches; kernel A (segsum) {seg_ms / steps:.4f} ms busy (union of its intervals) and "
+            f"{len(seg) / steps:.1f} launches per step, {100 * seg_ms / max(busy, 1e-9):.2f}% of the device busy time",
+            flush=True,
+        )
+        print(f"[profile] {label} loop, per step, by kernel name (device ms, share, launches):")
+        write_table(by_name, out if captured or out is None else out.with_name(f"{out.stem}_eager{out.suffix}"),
+                    per=steps)
 
 
 def build_edit(tb, focal, principal, dev):
@@ -212,11 +256,12 @@ def with_membrane(tb, gs, op):
 
 
 def print_delta(label: str, before, after, top: int = 20) -> None:
-    """The device time ``after`` adds to ``before`` ({name: [ms, count]}), by kernel name."""
+    """The device time ``after`` adds to ``before`` ({name: [ms, count]}), by
+    kernel name, the largest changes (up or down) first."""
     delta = sorted(
         ((n, after.get(n, [0.0, 0])[0] - before.get(n, [0.0, 0])[0], after.get(n, [0.0, 0])[1] - before.get(n, [0.0, 0])[1])
          for n in set(before) | set(after)),
-        key=lambda r: -r[1],
+        key=lambda r: -abs(r[1]),
     )
     print(f"[profile] device time {label} adds: {sum(d for _, d, _ in delta):.1f} ms; by kernel name (ms, launches):")
     for name, d, n in delta[:top]:
@@ -484,16 +529,21 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None, help="write the full per-kernel table here")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--edited", action="store_true", help="also profile the frame of chip_smoke.py's edit")
-    mode.add_argument("--train", action="store_true", help="profile 8 training steps instead of a frame")
+    mode.add_argument("--train", action="store_true", help="profile the eager and the captured training loop instead of a frame")
     mode.add_argument("--distill", action="store_true", help="profile 8 distillation steps of the edit with a membrane")
     mode.add_argument("--kernels", action="store_true", help="time kernels A, B and D alone (no training)")
     mode.add_argument("--save-chunk", type=Path, default=None, help="train, then save one 1080p chunk's positions here")
     mode.add_argument("--save-edit", type=Path, default=None, help="train, edit, then save the edits and a warp chunk here")
     mode.add_argument("--warp", action="store_true", help="time the cage warp of a saved edit (no training)")
+    ap.add_argument("--compact", type=float, default=None,
+                    help="in the frame mode: also profile the frame with this compact_frac")
     ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")
     ap.add_argument("--chunk", type=Path, default=None, help="with --kernels: the file --save-chunk wrote")
     ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
     args = ap.parse_args()
+    if args.compact is not None and (args.edited or args.train or args.distill or args.kernels or args.warp
+                                     or args.save_chunk is not None or args.save_edit is not None):
+        ap.error("--compact goes with the frame mode only")
     if args.root is not None and not (args.kernels or args.warp):
         ap.error("--root goes with --kernels or --warp")
     if (args.chunk is not None) != args.kernels:
@@ -546,12 +596,17 @@ def main() -> None:
         return
     tb.set_look_at(eye=chip_smoke.CENTER + np.array([0.9, -0.9, 0.5], np.float32))
     profile_frame(tb, "unedited", args.out)
+    if args.compact is not None:
+        plain = profile_frame(tb, "render_frame, compact_frac 0", render=compact_render(tb, 0.0))
+        compact = profile_frame(tb, f"render_frame, compact_frac {args.compact}", render=compact_render(tb, args.compact))
+        print_delta(f"compact_frac {args.compact}", plain, compact)
 
     # Cost mode shades n_used / K_total; the model predicts sRGB-space
     # radiance, so the default (non-linear) output leaves the value as is
     tb.render_mode = RenderMode.Cost
     cost = tb.render(W, H, exact=True)[..., 0]
-    k_total = 2 * (64 if float(tb.grid.occupancy.float().mean()) < 0.15 else 256)  # Testbed.render's K rule
+    opts = tb._render_options()
+    k_total = opts.k_samples * opts.n_windows
     used = np.rint(cost * k_total)
     print(
         f"[profile] composited samples {int(used.sum())} of {tb.stats.render_samples} slots evaluated, "

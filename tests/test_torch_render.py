@@ -70,7 +70,10 @@ def scene():
     return jm, jparams, jg, tm, tg
 
 
-def _render_both(scene, opts_kw, xform=None, focal=(20.0, 20.0), principal=(0.5, 0.5), distortion=None, **kw):
+def _render_both(scene, opts_kw, xform=None, focal=(20.0, 20.0), principal=(0.5, 0.5), distortion=None,
+                 operators=(), **kw):
+    """JAX's and the port's frame → (jax rgba, jax depth, port rgba, port
+    depth); ``operators`` are JAX operators, carried over to the port."""
     jm, jparams, jg, tm, tg = scene
     xform = look_at(CENTER + np.array([1.1, -0.9, 0.4], np.float32)) if xform is None else xform
     base = dict(k_samples=16, n_windows=2, n_candidates=512, chunk=128)
@@ -83,6 +86,9 @@ def _render_both(scene, opts_kw, xform=None, focal=(20.0, 20.0), principal=(0.5,
         jkw["lens"] = tkw["lens"] = kw["lens"]
     f, p = np.asarray(focal, np.float32), np.asarray(principal, np.float32)
     d = None if distortion is None else np.asarray(distortion, np.float32)
+    if operators:
+        jkw["operators"] = tuple(operators)
+        tkw["operators"] = tuple(weights.operators_from_jax(list(operators), torch.device("cpu")))
     ref = jrender.render_frame(
         jm, jparams, jg, (W, H), jnp.asarray(xform), jnp.asarray(f), jnp.asarray(p),
         distortion=None if d is None else jnp.asarray(d), opts=jopts, **jkw,
@@ -199,7 +205,7 @@ def test_render_aabb_crop_matches(scene):
     assert np.abs(tr - full).max() > 1e-3  # the crop changed the frame
 
 
-@pytest.mark.parametrize("what", ["normals", "operators", "envmap", "extra_dims", "compact"])
+@pytest.mark.parametrize("what", ["normals", "operators", "envmap", "extra_dims"])
 def test_unported_options_raise(scene, what):
     _, _, _, tm, tg = scene
     opts, kw, error = trender.RenderOptions(chunk=128), {}, NotImplementedError
@@ -214,13 +220,60 @@ def test_unported_options_raise(scene, what):
         error = TypeError
     elif what == "envmap":
         kw["envmap"] = torch.zeros(4, 8, 4)
-    elif what == "extra_dims":
-        kw["extra_dims"] = torch.zeros(3)
     else:
-        opts = trender.RenderOptions(chunk=128, compact_frac=0.5)
+        kw["extra_dims"] = torch.zeros(3)
     xf = torch.from_numpy(look_at(CENTER + np.array([1.1, -0.9, 0.4], np.float32)))
     with pytest.raises(error):
         trender.render_frame(tm, None, tg, (8, 8), xf, torch.tensor([8.0, 8.0]), opts=opts, **kw)
+
+
+def _exact_field(p, d):
+    """A field whose every output is one correctly rounded operation, so
+    that JAX and torch compute it bit for bit."""
+    return p + d, p[:, 0] * d[:, 1]
+
+
+@pytest.mark.parametrize("share,budget", [(0.3, 512), (0.7, 256), (0.0, 256)], ids=["fits", "overflows", "none-valid"])
+def test_compacted_field_eval_matches_jax(share, budget):
+    # bit-equal: the same rows reach the same slab slots, and rows past the
+    # budget (or invalid) read 0
+    rng = np.random.default_rng(3)
+    n = 1000
+    pos = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    dirs = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    valid = rng.uniform(0, 1, n) < share
+    assert (valid.sum() > budget) == (share == 0.7)
+    jrgb, jsig = jrender._compacted_field_eval(_exact_field, jnp.asarray(pos), jnp.asarray(dirs), jnp.asarray(valid), budget)
+    trgb, tsig = trender._compacted_field_eval(
+        _exact_field, torch.from_numpy(pos), torch.from_numpy(dirs), torch.from_numpy(valid), budget
+    )
+    np.testing.assert_array_equal(trgb.numpy(), np.asarray(jrgb))
+    np.testing.assert_array_equal(tsig.numpy(), np.asarray(jsig))
+    kept = valid & (np.cumsum(valid) <= budget)
+    assert (tsig.numpy()[~kept] == 0).all() and (tsig.numpy()[kept] != 0).all()
+
+
+@pytest.mark.parametrize("edited", [False, True], ids=["plain", "affine-duplicate"])
+@pytest.mark.parametrize("frac", [0.75, 0.05], ids=["no-drops", "drops"])
+def test_compacted_render_matches_jax(scene, frac, edited):
+    # the frame's chunks hold 4096 slots, 54-64% of them valid: the
+    # 3072-row slab of 0.75 keeps every valid slot, and the port's frame
+    # then equals its uncompacted frame; the 256-row slab of 0.05 drops
+    # most, in both packages alike (rgba within 1e-4, as without compaction)
+    ops = ()
+    if edited:
+        from nerfshop_tpu.editing import operators as jops
+
+        ops = (jops.AffineDuplicationOp.create(center=[0.62, 0.5, 0.5], half_extents=[0.2, 0.2, 0.2],
+                                               transform_t=[-0.3, 0.05, 0.1]),)
+    jr, jd, tr, td = _render_both(scene, dict(compact_frac=frac), operators=ops)
+    np.testing.assert_allclose(tr, jr, rtol=0, atol=1e-4)
+    _check_depth(jd, td)
+    _, _, full, _ = _render_both(scene, {}, operators=ops)
+    if frac == 0.75:
+        np.testing.assert_allclose(tr, full, rtol=0, atol=1e-6)
+    else:
+        assert np.abs(tr - full).max() > 1e-3
 
 
 def test_render_options_match_jax_fields():
