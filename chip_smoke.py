@@ -37,6 +37,22 @@ Phases, each printing one line of its own numbers:
  10. held-out: one 128×128 view through ``Testbed.render``, scored in PSNR;
  11. snapshot: ``save_snapshot`` → a fresh ``Testbed`` → ``load_snapshot``
      renders the same view as before saving;
+ 11a. [encode-dx]: kernel F (the encode's gradient with respect to the
+     positions) against its plain version (autograd of the plain forward)
+     at the training shape with every level's boundary points (p0 =
+     res − 1), at N = 1, at one block plus one and at the frame shape;
+ 11b. [normals]: ``Testbed.render(1920, 1080)`` in ``RenderMode.Normals``
+     (kernel F once a chunk, kernel A never, B without fracs only), and the
+     middle chunk's normals and σ against the plain encode's;
+ 11c. [mesh]: ``compute_marching_cubes_mesh(256)`` of the trained sphere
+     (seconds by stage; the vertices within one cell of the field's σ = 2.5
+     level and within three of the analytic sphere, no floaters), then
+     ``optimise_mesh`` for 100 steps (kernel F once a step);
+ 11d. [cli]: the sphere's views written to disk (transforms.json + PNGs
+     through the port's writer) and ``nerfshop_tpu_torch.run.main`` in
+     process on them from the snapshot: 64 steps, a snapshot, a mesh at
+     128, the held-out score (``psnr_mean`` ≥ 14 dB), a 1080p screenshot and
+     3 1080p frames of a camera path, each read back;
  12. kernel D (dynamic gathers) against its plain version and the library
      call, bit for bit, at the shapes of the TPU gather kernels and of the
      render march (run before the training phase);
@@ -74,7 +90,8 @@ march; a membrane frame launches ``WARP_MEMBRANE`` once a chunk and no
 other instance of E; a distillation step launches kernel B with fracs for
 the student's two forwards only. Then a JSON line with every
 kernel's launches on the main paths (training, counted by graph replays,
-render, compacted render, frame, edit, membrane frame and distillation),
+render, compacted render, frame, Normals frame, mesh, CLI, edit, membrane
+frame and distillation),
 error, times, bound and library-call time, the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the script exits non-zero;
@@ -93,6 +110,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -594,6 +612,7 @@ def kernel_wrappers():
     return {
         "segsum": segsum.sorted_segment_rowsum_cuda,
         "grid_encode": table_ops.grid_encode_cuda,
+        "grid_encode_dx": table_ops.grid_encode_dx_cuda,
         "fused_mlp": fused_mlp.fused_mlp_cuda,
         "gather": gather.gather_cuda,
         "tet_lookup": operators.tet_lookup_cuda,
@@ -1074,23 +1093,23 @@ def phase_held_out(tb, focal, principal):
     return xf
 
 
-def phase_snapshot(tb, xf, focal, principal):
-    """save_snapshot → fresh Testbed → load_snapshot → the same view: max |Δ| ≤ 1e-6."""
+def phase_snapshot(tb, xf, focal, principal, workdir: Path) -> Path:
+    """save_snapshot → fresh Testbed → load_snapshot → the same view: max |Δ| ≤ 1e-6
+    → the snapshot's path (in ``workdir``, read again by [cli])."""
     from nerfshop_tpu_torch.testbed import Testbed
 
     kw = dict(camera_matrix=xf, focal=focal, principal=principal, exact=True)
     before = tb.render(RES, RES, **kw)
-    with tempfile.TemporaryDirectory() as d:
-        path = f"{d}/model.snap"
-        t0 = time.perf_counter()
-        tb.save_snapshot(path)
-        save_s = time.perf_counter() - t0
-        size = Path(path).stat().st_size
-        fresh = Testbed(device=tb.device, seed=1)
-        t0 = time.perf_counter()
-        fresh.load_snapshot(path)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
+    path = workdir / "model.snap"
+    t0 = time.perf_counter()
+    tb.save_snapshot(str(path))
+    save_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    fresh = Testbed(device=tb.device, seed=1)
+    t0 = time.perf_counter()
+    fresh.load_snapshot(str(path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     after = fresh.render(RES, RES, **kw)
     delta = float(np.abs(after - before).max())
     check(delta <= 1e-6, f"snapshot round trip changed the frame: max |delta| {delta:.3e}")
@@ -1099,6 +1118,361 @@ def phase_snapshot(tb, xf, focal, principal):
         f"{RES}x{RES} frame max |delta| {delta:.3e} (bound 1e-6)",
         flush=True,
     )
+    return path
+
+
+# ------------------------------------------------- kernel F and the outputs
+
+
+def boundary_points(enc, dev) -> torch.Tensor:
+    """Per level, points whose cell is the last one (p0 = res − 1) on one
+    axis and on all three (where x ≤ 1 reaches it)."""
+    pts = []
+    for scale, res in zip(enc.level_scales, enc.level_res):
+        u = min((res - 0.75) / scale, 1.0)
+        pts += [[u, 0.3, 0.6], [0.2, u, 0.7], [u, u, u]]
+    return torch.tensor(pts, dtype=torch.float32, device=dev)
+
+
+def encode_dx_case(label, enc, table, x, g):
+    """Kernel F against its plain version (autograd of the plain forward) on
+    x with a seeded dout → its numbers: max |Δ| within 1e-5 of max |d_x|."""
+    from nerfshop_tpu_torch.ops import table_ops
+
+    N, L = x.shape[0], enc.n_levels
+    dout = torch.randn((N, 2 * L), generator=g, device=x.device)
+    got = table_ops.grid_encode_dx_cuda(table, x, dout, enc)
+    ref = table_ops.grid_encode_dx_plain(table, x, dout, enc)
+    torch.cuda.synchronize()
+    check(got.shape == (N, 3) and bool(torch.isfinite(got).all()), f"kernel F out bad ({label})")
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    check(err <= 1e-5 * max(scale, 1e-30), f"kernel F disagrees ({label}): {err:.3e} vs max |d_x| {scale:.3e}")
+    fn = lambda: table_ops.grid_encode_dx_cuda(table, x, dout, enc)  # noqa: E731
+    ms, dev_ms = both_ms(fn)
+    plain_ms = median_ms(lambda: table_ops.grid_encode_dx_plain(table, x, dout, enc))
+    # bytes: x, dout and d_x once, and each table row the 8 corners touch
+    touched = touched_rows(enc, enc.brick_fracs(x)[0])
+    n_bytes = nbytes(x, dout, got) + touched * 2 * 4
+    b_ms, b_by = bound(n_bytes)
+    print(
+        f"[encode-dx] {label} N={N} L={L}: max |delta| {err:.3e} = {err / max(scale, 1e-30):.3e} of max |d_x| "
+        f"{scale:.3e} (bound 1e-5); kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound "
+        f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table rows touched), "
+        f"device/bound {dev_ms / b_ms:.2f}; no library call computes d_x",
+        flush=True,
+    )
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_encode_dx(dev, g, tb, chunk_x):
+    """[encode-dx]: kernel F at the training shape (2^18 uniform samples with
+    the cube's corners and every level's boundary points), at N = 1, at one
+    block of samples plus one, and at the frame shape (the 1080p middle
+    chunk's positions, as [encode] takes them) → the training shape's numbers."""
+    enc, x = _encoding(dev, g)
+    x = torch.cat([boundary_points(enc, dev), x[: x.shape[0] - 3 * enc.n_levels]])
+    table = enc.table.detach()
+    result = encode_dx_case("training shape (boundary points included)", enc, table, x, g)
+    for label, n in (("training inputs", 1), ("training inputs, one block (64 samples) plus one", 65)):
+        encode_dx_case(label, enc, table, x[:n].contiguous(), g)
+    frame_enc = tb.model.pos_encoding
+    encode_dx_case("1080p march chunk", frame_enc, frame_enc.table.detach(), chunk_x, g)
+    return result
+
+
+def phase_normals(tb, W=1920, H=1080):
+    """[normals]: ``Testbed.render`` of the trained model in
+    ``RenderMode.Normals``: kernel F once a chunk, kernel A never, kernel B
+    without fracs only; the middle chunk's normals and σ against the plain
+    versions' (the plain encode and its autograd) → the frame's launches."""
+    from nerfshop_tpu_torch.common import RenderMode
+    from nerfshop_tpu_torch.models.nerf_network import density_activation_fn
+    from nerfshop_tpu_torch.ops import fused_mlp, table_ops
+
+    tb.set_look_at(eye=CENTER + np.array([0.9, -0.9, 0.5], np.float32))
+    tb.render_mode = RenderMode.Normals
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with encode_input_of_call(tb.model.pos_encoding, middle_chunk(W, H)) as kept:
+        t0 = time.perf_counter()
+        img = tb.render(W, H, spp=1, exact=True)
+        first_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    tb.render(W, H, spp=1, exact=True)
+    frame_s = time.perf_counter() - t0
+    tb.render_mode = RenderMode.Shade
+    opts = tb._render_options()
+    n_chunks = -(-W * H // opts.chunk)
+    check(img.shape == (H, W, 4) and np.isfinite(img).all(), "Normals frame is not finite / of the expected shape")
+    check(float(img[..., 3].max()) > 0.5 and float(np.ptp(img[..., :3][img[..., 3] > 0.5])) > 0.2,
+          "Normals frame shows no shaded content")
+    check(launches["grid_encode_dx"] == n_chunks, f"kernel F not launched once a chunk ({n_chunks}): {launches}")
+    check(launches["segsum"] == 0 and launches["grid_encode_fracs"] == 0,
+          f"a Normals frame formed a table gradient or wrote fracs: {launches}")
+    check(len(kept) == 1, "the middle chunk's positions were not captured")
+
+    # the middle chunk's slots: the kernels' path (B, F) against the plain
+    # encode under autograd, both with the plain MLP and the EMA weights
+    x = kept[0]
+    params = {k: v.detach() for k, v in tb.inference_params.items()}
+    enc, mlp = tb.model.pos_encoding, tb.model.density_mlp
+    ws = [params[f"density_mlp.weights.{i}"] for i in range(len(mlp.weights))]
+    table = params["pos_encoding.table"]
+
+    def normals(encode):
+        with torch.enable_grad():
+            p = x.detach().requires_grad_(True)
+            raw = fused_mlp.fused_mlp_plain(encode(p), ws)[:, 0]
+            sig = density_activation_fn(raw, tb.model.density_activation)
+            (grad,) = torch.autograd.grad(sig.sum(), p)
+        return sig.detach(), grad
+
+    sig_k, grad_k = normals(lambda p: table_ops.GridEncodeFunction.apply(table, p, enc))
+    sig_p, grad_p = normals(lambda p: table_ops.grid_encode_plain(table, p, enc, with_fracs=False)[0])
+    torch.cuda.synchronize()
+    norm = torch.linalg.vector_norm(grad_p, dim=-1)
+    well = norm > 1e-3 * float(norm.max())  # where the direction is well conditioned
+    n_k = grad_k / (torch.linalg.vector_norm(grad_k, dim=-1, keepdim=True) + 1e-9)
+    n_p = grad_p / (norm[:, None] + 1e-9)
+    # kernel B's features and the plain encode's differ by an ulp (another
+    # summation order), which can move a bf16-rounded MLP input by 2^-8 on a
+    # rare slot, and raw σ (log σ) by up to ~2^-8 · Σ|w·h| ≈ 0.01-0.03 with
+    # it: 99.9% of slots within 1e-4 (normals) and 1e-5 (σ relative), all
+    # within 0.05
+    n_d = (n_k - n_p)[well].abs().amax(dim=-1)
+    s_d = (sig_k - sig_p).abs() / sig_p.abs().clamp_min(1e-6)
+    n_share, s_share = float((n_d <= 1e-4).float().mean()), float((s_d <= 1e-5).float().mean())
+    n_err, s_err = float(n_d.max()), float(s_d.max())
+    check(n_share >= 0.999 and s_share >= 0.999 and n_err <= 0.05 and s_err <= 0.05,
+          f"Normals chunk disagrees with the plain versions: normals within 1e-4 on {n_share:.5f} (max {n_err:.3e}), "
+          f"sigma within 1e-5 relative on {s_share:.5f} (max {s_err:.3e})")
+    print(
+        f"[normals] {W}x{H} exact spp=1: first frame {first_s * 1e3:.1f} ms, second {frame_s * 1e3:.1f} ms, peak "
+        f"memory {peak / 2**30:.3f} GiB ({opts.chunk} rays x {opts.k_samples * opts.n_windows} slots a chunk under "
+        f"autograd); launches in one frame {launches} ({n_chunks} chunks); middle chunk ({x.shape[0]} slots, "
+        f"{int(well.sum())} with |grad sigma| > 1e-3 of its max) against the plain encode: normals within 1e-4 on "
+        f"{n_share:.5f} of them (max |delta| {n_err:.3e}; bounds 0.999, 0.05), sigma within 1e-5 relative on "
+        f"{s_share:.5f} (max {s_err:.3e}; bounds 0.999, 0.05)",
+        flush=True,
+    )
+    return launches
+
+
+@contextlib.contextmanager
+def timed_calls(times: dict, targets):
+    """While open, time every call of each ``(owner, name)`` in ``targets``
+    (card drained before and after) into ``times[name]``."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    for owner, name, fn in saved:
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield times
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def phase_mesh(tb, res=256, steps=100):
+    """[mesh]: ``compute_marching_cubes_mesh(res)`` of the trained sphere
+    (seconds by stage; the mean distance of its vertices to the field's own
+    σ = 2.5 level within one grid cell, and to the analytic sphere within
+    three), then ``optimise_mesh`` for ``steps`` steps (mean
+    |σ − 2.5| at the vertices before and after) → the path's launches."""
+    from nerfshop_tpu_torch.geometry import isosurface
+
+    torch.cuda.synchronize()
+    reset_launches()
+    times = {}
+    with timed_calls(times, ((tb, "get_density_on_grid"), (isosurface, "marching_tets"),
+                             (isosurface, "orient_consistently"))):
+        t0 = time.perf_counter()
+        mesh = tb.compute_marching_cubes_mesh(res)
+        total_s = time.perf_counter() - t0
+    check(mesh.n_vertices > 1000 and mesh.colors is not None and np.isfinite(mesh.colors).all(),
+          f"the mesh is empty or its colours bad ({mesh.n_vertices} vertices)")
+    cell = 1.0 / res
+    signed = np.linalg.norm(mesh.vertices - CENTER, axis=-1) - RADIUS
+    dist = np.abs(signed)
+    density = tb._density_fn()
+
+    def off_iso(v):
+        with torch.no_grad():
+            return float((density(torch.as_tensor(v, device=tb.device)) - 2.5).abs().mean())
+
+    before = off_iso(mesh.vertices)
+    verts0 = mesh.vertices.copy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tb.optimise_mesh(mesh, n_steps=steps)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    after = off_iso(mesh.vertices)
+    launches = read_launches()
+    check(np.isfinite(mesh.vertices).all(), "optimise_mesh produced non-finite vertices")
+    check_launched(launches, ("grid_encode", "fused_mlp", "grid_encode_dx"), "mesh path")
+    check(launches["grid_encode_dx"] == steps and launches["segsum"] == 0,
+          f"optimise_mesh did not take d_x from kernel F once a step without a table gradient: {launches}")
+    # the extraction against its own field: each vertex's distance to the
+    # σ = 2.5 level, |σ − 2.5| / |∇σ| (the gradient through kernel F), within
+    # a cell on average; against the analytic sphere: a closed shell with no
+    # floaters, whose offset is the trained density's fall-off outside the
+    # surface (σ = 2.5 lies ~2 cells out after 256 steps; PERF.md PR 9)
+    with torch.enable_grad():
+        v = torch.as_tensor(verts0, device=tb.device).requires_grad_(True)
+        sig = density(v)
+        (grad,) = torch.autograd.grad(sig.sum(), v)
+    to_iso = float(((sig.detach() - 2.5).abs() / torch.linalg.vector_norm(grad, dim=-1).clamp_min(1e-6)).mean())
+    check(to_iso <= cell, f"the mesh lies {to_iso:.3e} from its field's iso level, more than a cell ({cell:.3e})")
+    far = float((dist > 0.02).mean())
+    # the trained density's fall-off across the analytic surface: median σ
+    # on the grid in shells of 0.005 around RADIUS
+    field = tb.get_density_on_grid(res)
+    g = (np.arange(res) + 0.5) / res - CENTER[0]
+    r = np.sqrt(g[:, None, None] ** 2 + g[None, :, None] ** 2 + g[None, None, :] ** 2)
+    shells = {f"{lo:+.3f}": round(float(np.median(field[(r >= RADIUS + lo) & (r < RADIUS + lo + 0.005)])), 3)
+              for lo in (-0.01, -0.005, 0.0, 0.005, 0.01, 0.015)}
+    check(dist.mean() <= 3 * cell and far <= 0.01,
+          f"the mesh is not a shell at the sphere: mean distance {dist.mean():.3e} (bound 3 cells, {3 * cell:.3e}), "
+          f"{far:.4f} of the vertices farther than 0.02 (bound 0.01)")
+    print(
+        f"[mesh] compute_marching_cubes_mesh({res}): {total_s:.3f} s (density grid {times['get_density_on_grid']:.3f} s, "
+        f"marching tets {times['marching_tets']:.3f} s, orientation {times['orient_consistently']:.3f} s, vertex "
+        f"colours and the rest {total_s - sum(times.values()):.3f} s); {mesh.n_vertices} vertices, {mesh.n_faces} faces; "
+        f"distance to the field's sigma = 2.5 level mean {to_iso:.3e} (bound one cell, {cell:.3e}); to the analytic "
+        f"sphere mean {dist.mean():.3e} = {dist.mean() / cell:.2f} cells (bound 3), signed median {np.median(signed):.3e}, "
+        f"p1 {np.percentile(signed, 1):.3e} p99 {np.percentile(signed, 99):.3e}, share beyond 0.02 {far:.4f} (bound 0.01); "
+        f"median sigma in shells of 0.005 from r = RADIUS + {json.dumps(shells)}; "
+        f"optimise_mesh {steps} steps {opt_s:.3f} s: mean |sigma - 2.5| at the vertices {before:.4f} -> {after:.4f}, "
+        f"vertices moved mean {np.linalg.norm(mesh.vertices - verts0, axis=-1).mean():.3e}; launches {launches}",
+        flush=True,
+    )
+    return launches
+
+
+class _Stamped:
+    """A stdout stand-in that keeps each written line with its time."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, text):
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        self.lines += [(time.perf_counter(), line) for line in done]
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def write_scene(ds, root: Path) -> Path:
+    """``ds`` (the smoke's sphere views) as a scene on disk: transforms.json
+    (scale 1, offset 0: the matrices as they are) and RGBA PNGs through the
+    port's writer."""
+    from nerfshop_tpu_torch.data import image_io
+    from nerfshop_tpu_torch.data.nerf_loader import ngp_matrix_to_nerf
+
+    (root / "images").mkdir(parents=True)
+    frames = []
+    for i, (img, xf, intr) in enumerate(zip(ds.images, ds.xforms, ds.intrinsics)):
+        image_io.write_image(root / "images" / f"{i:03d}.png", img, linear_input=False)
+        m = np.eye(4)
+        m[:3] = ngp_matrix_to_nerf(np.asarray(xf, np.float32), 1.0, np.zeros(3, np.float32))
+        frames.append({"file_path": f"images/{i:03d}.png", "transform_matrix": m.tolist()})
+    f, c = ds.intrinsics[0].focal, ds.intrinsics[0].principal
+    meta = {"fl_x": float(f[0]), "fl_y": float(f[1]), "cx": float(c[0] * RES), "cy": float(c[1] * RES),
+            "w": RES, "h": RES, "scale": 1.0, "offset": [0.0, 0.0, 0.0], "aabb_scale": 1, "frames": frames}
+    (root / "transforms.json").write_text(json.dumps(meta))
+    return root
+
+
+def phase_cli(dev, snapshot: Path, workdir: Path, W=1920, H=1080):
+    """[cli]: the smoke's sphere views written to disk as a scene, then
+    ``nerfshop_tpu_torch.run.main`` in process on it from the snapshot:
+    64 steps, a snapshot, a mesh at 128, the held-out score, a 1080p
+    screenshot and 3 1080p frames of a 3-keyframe camera path. Every file
+    must decode through the port's readers and ``psnr_mean`` reach 14 dB →
+    the run's launches."""
+    from nerfshop_tpu_torch import run
+    from nerfshop_tpu_torch.data import image_io
+    from nerfshop_tpu_torch.geometry import mesh_io
+    from nerfshop_tpu_torch.io import snapshot as snap_lib
+    from nerfshop_tpu_torch.render.camera_path import CameraPath
+
+    ds, _, _ = sphere_dataset(dev, seed=1)
+    scene = write_scene(ds, workdir / "scene")
+    path = CameraPath()
+    for eye in ((1.0, -0.9, 0.4), (1.2, 0.2, 0.6), (0.6, 1.1, 0.3)):
+        path.add_camera(look_at(CENTER + np.array(eye, np.float32)), fov_deg=50.0)
+    path.save(workdir / "path.json")
+    out = workdir / "cli"
+    argv = [
+        "--scene", str(scene), "--load_snapshot", str(snapshot), "--n_steps", "64", "--save_snapshot",
+        str(out / "model.snap"), "--save_mesh", str(out / "mesh.obj"), "--marching_cubes_res", "128",
+        "--test_transforms", str(scene / "transforms.json"), "--screenshot_dir", str(out / "shots"), "--width", str(W),
+        "--height", str(H), "--screenshot_spp", "1", "--video_camera_path", str(workdir / "path.json"),
+        "--video_n_frames", "3", "--video_spp", "1", "--video_output", str(out / "video"), "--device", "cuda",
+    ]
+    out.mkdir()
+    stamped = _Stamped()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stamped):
+        cli_tb = run.main(argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    lines = stamped.lines
+    result = json.loads(next(line for _, line in lines if line.startswith('{"psnr_mean"')))
+
+    def at(prefix):
+        return next(t for t, line in lines if line.lstrip().startswith(prefix))
+
+    stages = {
+        "load": at("training") - t0, "train": at("trained in") - at("training"),
+        "save snapshot": at("saved snapshot") - at("trained in"), "mesh": at("evaluating on") - at("marching cubes"),
+        "evaluate": at('{"psnr_mean"') - at("evaluating on"), "screenshot": at("wrote " + str(out / "shots")) - at('{"psnr_mean"'),
+        "video": at("wrote 3 frames") - at("wrote " + str(out / "shots")),
+    }
+    shot = image_io.read_image(out / "shots" / "screenshot.png", linear=False)
+    check(shot.shape == (H, W, 4) and float(shot[..., 3].max()) > 0.5, f"the screenshot is bad: {shot.shape}")
+    for i in range(3):
+        frame = image_io.read_image(out / "video" / f"frame_{i:04d}.png", linear=False)
+        check(frame.shape == (H, W, 4) and float(frame[..., 3].max()) > 0.5, f"video frame {i} is bad")
+    mesh = mesh_io.load_mesh(out / "mesh.obj")
+    check(mesh.n_vertices > 100 and mesh.n_faces > 100, f"the CLI's mesh is empty: {mesh.n_vertices} vertices")
+    snap = snap_lib.load_snapshot(str(out / "model.snap"))
+    check(snap.get("step") == 256 + 64, f"the CLI's snapshot holds step {snap.get('step')}, expected 320")
+    check(result["n_views"] == N_VIEWS and result["psnr_mean"] >= 14.0,
+          f"the CLI's held-out score is {result} (bound 14 dB over {N_VIEWS} views)")
+    check_launched(launches, ("segsum", "grid_encode", "fused_mlp", "gather"), "CLI path")
+    check(cli_tb.stats.step == 256 + 64, f"the CLI trained to step {cli_tb.stats.step}")
+    print(
+        f"[cli] python -m nerfshop_tpu_torch.run in process, {len(lines)} lines printed, {total_s:.2f} s: "
+        f"psnr_mean {result['psnr_mean']:.2f} dB (bound 14) ssim_mean {result['ssim_mean']:.4f} over "
+        f"{result['n_views']} views; seconds by stage {json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
+        f"written and read back: snapshot (step {snap.get('step')}), {W}x{H} screenshot, 3 {W}x{H} video frames, "
+        f"mesh ({mesh.n_vertices} vertices); launches {launches}",
+        flush=True,
+    )
+    return launches
 
 
 # ------------------------------------------------------------------ the edit
@@ -1851,7 +2225,13 @@ def main() -> None:
     compact_launches = phase_render_compact(tb)
     frame_launches = phase_frame(tb)
     xf = phase_held_out(tb, focal, principal)
-    phase_snapshot(tb, xf, focal, principal)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    snapshot = phase_snapshot(tb, xf, focal, principal, workdir)
+    fdx = phase_encode_dx(dev, g, tb, chunk_x)
+    normals_launches = phase_normals(tb)
+    mesh_launches = phase_mesh(tb)
+    cli_launches = phase_cli(dev, snapshot, workdir)
+    shutil.rmtree(workdir)
     torch.cuda.synchronize()
     reset_launches()
     gs, op, edited_frame_launches, chunk_pts = phase_edit(tb, focal, principal)
@@ -1859,8 +2239,10 @@ def main() -> None:
     check_launched(edit_launches, ("grid_encode", "fused_mlp", "gather", "cage_warp_samples", "cage_warp_positions"),
                    "edit path")
     paths = {"train": train_launches, "render": render_launches, "render_compact": compact_launches,
-             "frame": frame_launches, "edit": edit_launches}
-    for name in ("render", "render_compact", "frame", "edit"):
+             "frame": frame_launches, "normals": normals_launches, "mesh": mesh_launches, "cli": cli_launches,
+             "edit": edit_launches}
+    check_launched(normals_launches, ("grid_encode", "grid_encode_dx", "gather"), "Normals frame")
+    for name in ("render", "render_compact", "frame", "normals", "mesh", "edit"):
         check(paths[name]["grid_encode_fracs"] == 0, f"kernel B wrote fracs on the {name} path: {paths[name]}")
     check(edited_frame_launches["grid_encode_fracs"] == 0, "kernel B wrote fracs in the edited frame")
     split = {k: (v["grid_encode_fracs"], v["grid_encode"] - v["grid_encode_fracs"]) for k, v in paths.items()}
@@ -1878,6 +2260,7 @@ def main() -> None:
     rows = (
         ("sorted_segment_rowsum", "segsum", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", seg),
         ("grid_encode", "grid_encode", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", enc),
+        ("grid_encode_dx", "grid_encode_dx", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:263", fdx),
         ("fused_mlp", "fused_mlp", "fused_mlp.cu", "scratch/probe_arch.py:56", mlp),
         ("gather", "gather", "gather.cu", "scratch/probe_arch.py:32", gat),
         ("tet_lookup", "tet_lookup", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:74", tet["tet_lookup"]),

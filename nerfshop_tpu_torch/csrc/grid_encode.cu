@@ -1,4 +1,5 @@
-// Kernel B: hash-grid encode forward (brick-layout slots, canonical table).
+// Kernel B: hash-grid encode forward (brick-layout slots, canonical table),
+// and kernel F, its gradient with respect to the positions (after B below).
 //
 // Replaces the XLA-fused op GridEncoding._brick_fracs + make_brick_encode's
 // _reference (nerfshop_tpu/models/encodings.py:270-300,
@@ -222,6 +223,104 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
     }
 }
 
+// Kernel F: the encode's gradient with respect to the positions.
+//
+// Replaces what JAX takes by autodiff through the custom VJP of the brick
+// encode (nerfshop_tpu/ops/table_ops.py:263-267, d_w8 from the saved
+// features) and back through corner_products and _brick_fracs
+// (nerfshop_tpu/models/encodings.py:270-300):
+//   d_x[n, d] = sum_l scale_l [p0_d != res_l - 1]
+//               sum_c dw8_c/dw1_d sum_f dout[n, l, f] table[row(l, n, c), f].
+// p, p0, the folded fractions, the base slot and the corner rows are
+// recomputed from x with kernel B's arithmetic above (the same rounding
+// steps, the same hash and wrap), so it needs none of B's saved slots or
+// fractions and reads exactly the rows B read.
+//
+// What bounds it on the H100: bytes, like B: x 12 B, dout 8L B and d_x 12 B
+// a sample, and every table row the corners touch, 8 B once; the corner
+// reads are as scattered as B's.
+//
+// Design (a first version, simple and right): kFLanes threads own a sample,
+// each a quarter of its levels (l = lane, lane + 4, ...); a thread issues its
+// level's 8 corner loads, dots each row with the level's dout pair, forms
+// the three fraction derivatives in registers, and the lanes of a sample
+// (neighbours in one warp) sum their partial d_x with two shuffles. No
+// atomics, no shared memory; a sample's d_x is written once by its first
+// lane.
+constexpr int kFLanes = 4;
+
+__global__ void __launch_bounds__(kThreads)
+grid_encode_dx_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
+                      const float* __restrict__ meta_f, const float2* __restrict__ table,
+                      const float2* __restrict__ dout, float* __restrict__ dx, int n, int n_levels) {
+    const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+    const long long s = t / kFLanes;
+    const int lane = threadIdx.x % kFLanes;
+    float acc[3] = {0.f, 0.f, 0.f};
+    if (s < n) {
+        const float xs[3] = {__ldg(x + 3 * s), __ldg(x + 3 * s + 1), __ldg(x + 3 * s + 2)};
+#pragma unroll 1
+        for (int l = lane; l < n_levels; l += kFLanes) {
+            const int* mi = meta_i + l * kMetaInts;
+            const int res = __ldg(mi);
+            const uint32_t m = (uint32_t)__ldg(mi + 1);
+            const float scale = __ldg(meta_f + l);
+            float w1[3];
+            bool moves[3];
+            uint32_t cu[3];
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+                float p = __fadd_rn(__fmul_rn(xs[d], scale), 0.5f);
+                float p0f = floorf(p);
+                float frac = __fsub_rn(p, p0f);
+                int p0 = min(max((int)p0f, 0), res - 1);
+                moves[d] = p0 != res - 1;
+                w1[d] = moves[d] ? frac : 0.f;
+                cu[d] = (uint32_t)p0;
+            }
+            uint32_t base;
+            if (__ldg(mi + 3)) {
+                base = cu[0] + (uint32_t)res * (cu[1] + (uint32_t)res * cu[2]);
+            } else {
+                base = (cu[0] + cu[1] * 2654435761u + cu[2] * 805459861u) & (m - 1u);
+            }
+            const float2* tl = table + __ldg(mi + 2);
+            const float2 g = dout[s * n_levels + l];
+            float gc[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+                const float2 v = load_row(tl, wrap(base, (uint32_t)__ldg(mi + 4 + c), m));
+                gc[c] = fmaf(g.x, v.x, g.y * v.y);
+            }
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+                // dw8_c/dw1_d: the other two axes' factors, + where bit d of c is set
+                float dw = 0.f;
+#pragma unroll
+                for (int c = 0; c < 8; ++c) {
+                    float w = 1.f;
+#pragma unroll
+                    for (int e = 0; e < 3; ++e) {
+                        if (e != d) w *= ((c >> e) & 1) ? w1[e] : 1.f - w1[e];
+                    }
+                    dw = ((c >> d) & 1) ? fmaf(w, gc[c], dw) : fmaf(-w, gc[c], dw);
+                }
+                if (moves[d]) acc[d] = fmaf(scale, dw, acc[d]);
+            }
+        }
+    }
+#pragma unroll
+    for (int o = 1; o < kFLanes; o <<= 1) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], o);
+    }
+    if (s < n && lane == 0) {
+        dx[3 * s] = acc[0];
+        dx[3 * s + 1] = acc[1];
+        dx[3 * s + 2] = acc[2];
+    }
+}
+
 }  // namespace
 
 // samples per block of a launch at n_levels levels (the tile that
@@ -251,5 +350,20 @@ extern "C" int nst_grid_encode(const void* x, const void* meta_i, const void* me
             (const float*)x, (const int*)meta_i, (const float*)meta_f, (const float2*)table, (float2*)out,
             nullptr, nullptr, n, n_levels, group);
     }
+    return (int)cudaGetLastError();
+}
+
+
+// Kernel F: dx [N, 3] f32 from x [N, 3], the table, dout [N, L*2] (8-byte
+// aligned) and kernel B's level metadata.
+extern "C" int nst_grid_encode_dx(const void* x, const void* meta_i, const void* meta_f, const void* table,
+                                  const void* dout, void* dx, int n, int n_levels, void* stream) {
+    if (n < 0 || n_levels < 0) return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaGetLastError();
+    const long long threads = (long long)n * kFLanes;
+    const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
+    grid_encode_dx_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (const int*)meta_i, (const float*)meta_f, (const float2*)table, (const float2*)dout,
+        (float*)dx, n, n_levels);
     return (int)cudaGetLastError();
 }

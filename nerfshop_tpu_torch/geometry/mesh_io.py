@@ -214,12 +214,9 @@ def save_obj(path: str | Path, mesh: TriMesh, unwrap: bool = False) -> None:
                 f.write(
                     f"f {face[0]}/{t + 1} {face[1]}/{t + 2} {face[2]}/{t + 3}\n"
                 )
-            try:
-                from PIL import Image
+            from nerfshop_tpu_torch.data.image_io import write_png
 
-                Image.fromarray(tex).save(Path(path).with_suffix(".png"))
-            except Exception:
-                pass
+            write_png(Path(path).with_suffix(".png"), tex)
         else:
             for face in mesh.faces + 1:
                 f.write(f"f {face[0]} {face[1]} {face[2]}\n")

@@ -1,6 +1,8 @@
-"""Build and bind the port's native host library (``csrc/host_ops.cpp``).
+"""Build and bind the port's native host libraries: ``csrc/host_ops.cpp``
+(the edit's host stages) and ``csrc/image_ops.cpp`` (the PNG reader's row
+unfiltering).
 
-The source is compiled with ``g++`` on first use into
+Each source is compiled with ``g++`` on first use into
 ``build/nerfshop_tpu_torch/`` at the root of the checkout, keyed by a hash
 of the source and flags: each build writes a file of its own in a
 temporary directory there and renames it into place, so processes that
@@ -25,17 +27,18 @@ from pathlib import Path
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "host_ops.cpp"
+IMAGE_SOURCE = SOURCE.with_name("image_ops.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "nerfshop_tpu_torch"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
 def library_path(source: Path = SOURCE) -> Path:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     h.update(source.read_bytes())
-    return BUILD_DIR / f"libhost_ops_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def build(source: Path = SOURCE, compiler: str = "g++") -> Path:
@@ -58,24 +61,46 @@ def build(source: Path = SOURCE, compiler: str = "g++") -> Path:
     return so
 
 
-def get_lib() -> ctypes.CDLL:
-    """The bound library, built on first call."""
-    global _lib
+_I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_F32P = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_U8P = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_I64, _I32, _F32 = ctypes.c_int64, ctypes.c_int, ctypes.c_float
+#: each source's entry points → (restype, argtypes)
+_SIGNATURES = {
+    SOURCE: {
+        "voxelize_tets": (_I32, [_F32P, _I32P, _I64, _I32, _F32P, _F32P, _I32, _I32P]),
+        "region_grow": (_I64, [_F32P, _U8P, _I32, _I32P, _I64, _F32, _I64]),
+        "clear_cells_in_tets": (None, [_F32P, _I32P, _I64, _I32, _F32, _F32, _F32P]),
+    },
+    IMAGE_SOURCE: {"png_unfilter": (_I64, [_U8P, _U8P, _I64, _I64, _I32])},
+}
+
+
+def get_lib(source: Path = SOURCE) -> ctypes.CDLL:
+    """The bound library of ``source``, built on first call."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-            f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-            i64, i32, f32 = ctypes.c_int64, ctypes.c_int, ctypes.c_float
-            lib.voxelize_tets.restype = i32
-            lib.voxelize_tets.argtypes = [f32p, i32p, i64, i32, f32p, f32p, i32, i32p]
-            lib.region_grow.restype = i64
-            lib.region_grow.argtypes = [f32p, u8p, i32, i32p, i64, f32, i64]
-            lib.clear_cells_in_tets.restype = None
-            lib.clear_cells_in_tets.argtypes = [f32p, i32p, i64, i32, f32, f32, f32p]
-            _lib = lib
-        return _lib
+        if source not in _libs:
+            lib = ctypes.CDLL(str(build(source)))
+            for name, (restype, argtypes) in _SIGNATURES[source].items():
+                getattr(lib, name).restype = restype
+                getattr(lib, name).argtypes = argtypes
+            _libs[source] = lib
+        return _libs[source]
+
+
+def png_unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the row filters of an inflated PNG stream ``raw`` (uint8,
+    ``height`` rows of a filter byte and ``stride`` bytes; ``bpp`` bytes a
+    pixel) → [height, stride] uint8. Raises ``ValueError`` on a short
+    stream or a filter byte outside 0-4."""
+    raw = np.ascontiguousarray(raw, np.uint8).reshape(-1)
+    if raw.size < height * (stride + 1):
+        raise ValueError(f"PNG data too short: {raw.size} bytes for {height} rows of {stride + 1}")
+    out = np.empty((height, stride), np.uint8)
+    bad = get_lib(IMAGE_SOURCE).png_unfilter(raw, out, height, stride, bpp)
+    if bad:
+        raise ValueError(f"PNG row {bad - 1} has filter type {raw[(bad - 1) * (stride + 1)]} (0-4 only)")
+    return out
 
 
 def voxelize_tets(verts: np.ndarray, tets: np.ndarray, res: int, bbox_lo: np.ndarray, inv_cell: np.ndarray,

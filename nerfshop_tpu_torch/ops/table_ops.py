@@ -1,4 +1,4 @@
-"""Hash-grid encode forward and its table gradient.
+"""Hash-grid encode forward, its table gradient and its position gradient.
 
 Counterpart of ``nerfshop_tpu/ops/table_ops.py::make_brick_encode``. The
 forward gathers each sample's 2^D cell corners straight from the canonical
@@ -9,7 +9,12 @@ render and grid-refresh forwards ask for the features alone. The backward
 sorts each level's ``(idx, w1, dout)`` by slot, sums each sorted run with kernel A
 (:mod:`nerfshop_tpu_torch.ops.segsum`), and reduces the brick-row gradient
 back onto canonical slots with one ``torch.roll`` per corner (same sign as
-``jnp.roll``, ``table_ops.py:402-412``).
+``jnp.roll``, ``table_ops.py:402-412``). The gradient with respect to the
+positions (what JAX's autodiff takes through the custom VJP's ``d_w8``,
+``table_ops.py:263-267``, and ``_brick_fracs``) is kernel F on a CUDA
+tensor (``csrc/grid_encode.cu``), which recomputes the cells and fractions
+from x; the backward computes each of the two gradients only when autograd
+asks for it.
 """
 
 from __future__ import annotations
@@ -85,6 +90,54 @@ def grid_encode(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: bool = Tr
     return grid_encode_cuda(table, x, enc, with_fracs)
 
 
+def grid_encode_dx_plain(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor, enc) -> torch.Tensor:
+    """Plain version of kernel F: autograd of :func:`grid_encode_plain`'s
+    arithmetic with respect to x → d_x [N, D]."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        out = grid_encode_plain(table.detach(), xg, enc, with_fracs=False)[0]
+        (dx,) = torch.autograd.grad(out, xg, dout.reshape(out.shape).to(out.dtype))
+    return dx
+
+
+@kernels.counted("launches")
+def grid_encode_dx_cuda(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor, enc) -> torch.Tensor:
+    """Kernel F → d_x [N, 3] f32 from x [N, 3], the table [Σm, 2] and the
+    output cotangent dout [N, L·2]. Takes D = 3, F = 2 and raises on
+    anything else."""
+    dev = x.device
+    N = x.shape[0]
+    L = enc.n_levels
+    if enc.n_input_dims != 3 or enc.n_features_per_level != 2:
+        raise ValueError("grid_encode_dx kernel supports D=3, F=2 only")
+    if dev.type != "cuda":
+        raise ValueError(f"grid_encode_dx kernel: x on {dev}, expected a CUDA device")
+    kernels.require(x, "x", torch.float32, (N, 3), dev)
+    kernels.require(table, "table", torch.float32, (enc.table_size, 2), dev)
+    kernels.require(dout, "dout", torch.float32, (N, L * 2), dev)
+    if dout.data_ptr() % 8:
+        dout = dout.clone()  # the kernel reads float2 pairs
+    meta_i, meta_f = enc.kernel_meta(dev)
+    dx = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    err = kernels.load().nst_grid_encode_dx(
+        x.data_ptr(), meta_i.data_ptr(), meta_f.data_ptr(), table.data_ptr(), dout.data_ptr(), dx.data_ptr(), N, L,
+        kernels.stream_ptr(dev),
+    )
+    kernels.check(err, "grid_encode_dx")
+    grid_encode_dx_cuda.launches += 1
+    return dx
+
+
+def grid_encode_dx(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor, enc) -> torch.Tensor:
+    """d_x [N, D] of Σ dout · encode(table, x). CPU tensors take the plain
+    version; CUDA tensors launch kernel F or raise."""
+    if x.device.type == "cpu":
+        return grid_encode_dx_plain(table, x, dout, enc)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_encode_dx: unsupported device {x.device}")
+    return grid_encode_dx_cuda(table.detach().contiguous(), x.detach().contiguous(), dout.float().contiguous(), enc)
+
+
 def table_grad(idx: torch.Tensor, w1: torch.Tensor, dout: torch.Tensor, enc) -> torch.Tensor:
     """d_table [Σm, F] from the saved idx [L, N], w1 [L, N, D] and the output
     cotangent dout [N, L·F]: per-level sort, sorted segment sum, corner
@@ -114,21 +167,22 @@ def table_grad(idx: torch.Tensor, w1: torch.Tensor, dout: torch.Tensor, enc) -> 
 
 
 class GridEncodeFunction(torch.autograd.Function):
-    """table [Σm, F], x [N, D] in [0,1] → [N, L·F]. Gradient flows to the
-    table only: sample positions carry none while camera optimization is
-    off, and asking for d_x raises."""
+    """table [Σm, F], x [N, D] in [0,1] → [N, L·F], differentiable in both.
+    The forward writes the slots and fractions only when the table needs a
+    gradient (the sort + kernel A + rolls of :func:`table_grad` read them),
+    and keeps the table and x only when x needs one (:func:`grid_encode_dx`,
+    kernel F on the card)."""
 
     @staticmethod
     def forward(ctx, table, x, enc):
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError("grid encode: gradient w.r.t. positions is not ported yet")
-        out, idx, w1 = grid_encode(table, x, enc)
-        ctx.save_for_backward(idx, w1)
+        out, idx, w1 = grid_encode(table, x, enc, with_fracs=ctx.needs_input_grad[0])
+        ctx.save_for_backward(idx, w1, *((table, x) if ctx.needs_input_grad[1] else ()))
         ctx.enc = enc
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        idx, w1 = ctx.saved_tensors
+        idx, w1, *table_x = ctx.saved_tensors
         d_table = table_grad(idx, w1, dout, ctx.enc) if ctx.needs_input_grad[0] else None
-        return d_table, None, None
+        d_x = grid_encode_dx(*table_x, dout, ctx.enc) if ctx.needs_input_grad[1] else None
+        return d_table, d_x, None

@@ -1,7 +1,7 @@
 """Progressive render buffer: spp accumulation, exposure, tonemap, sRGB.
 
-Counterpart of ``RenderBuffer`` in ``nerfshop_tpu/render/buffer.py``. The
-ground-truth overlay is not ported.
+Counterpart of ``RenderBuffer`` and ``overlay_ground_truth`` in
+``nerfshop_tpu/render/buffer.py``.
 """
 
 from __future__ import annotations
@@ -68,3 +68,30 @@ class RenderBuffer:
                 rgb = tm.linear_to_srgb(rgb)
         rgb = torch.clamp(rgb, 0.0, 1.0)
         return torch.cat([rgb, torch.clamp(img[..., 3:], 0.0, 1.0)], dim=-1)
+
+
+def overlay_ground_truth(pred: torch.Tensor, gt: torch.Tensor, mode: str = "split") -> torch.Tensor:
+    """Ground-truth comparison overlays of display-space ``pred`` and ``gt``
+    ([H, W, 3 or 4]) on ``pred``'s device → [H, W, 4] with alpha 1. ``mode``:
+    "split" (left half GT, right half prediction), "error" (false-colour
+    |pred − gt|, blue → green → red) or "blend" (50/50). A ``gt`` of
+    another size is resized bilinearly first, with the triangle filter
+    widened when it shrinks (what ``jax.image.resize(..., "linear")`` does)."""
+    p = pred[..., :3]
+    g = gt[..., :3].to(p.device, p.dtype)
+    if g.shape[:2] != p.shape[:2]:
+        g = torch.nn.functional.interpolate(
+            g.permute(2, 0, 1)[None], size=tuple(p.shape[:2]), mode="bilinear", align_corners=False, antialias=True
+        )[0].permute(1, 2, 0)
+    if mode == "split":
+        W = p.shape[1]
+        mask = (torch.arange(W, device=p.device) < W // 2)[None, :, None]
+        out = torch.where(mask, g, p)
+    elif mode == "error":
+        err = torch.clamp(torch.abs(p - g).mean(-1, keepdim=True) * 4.0, 0.0, 1.0)
+        out = torch.cat([err, 1.0 - torch.abs(2 * err - 1.0), 1.0 - err], dim=-1) * torch.ones_like(p)
+    elif mode == "blend":
+        out = 0.5 * p + 0.5 * g
+    else:
+        raise ValueError(mode)
+    return torch.cat([out, torch.ones_like(out[..., :1])], dim=-1)

@@ -21,10 +21,13 @@ membrane.
 The march fields (the dilated coarse occupancy and the occupancy-masked
 density) are built once per frame and handed to every chunk's march.
 
-Not ported, each raising ``NotImplementedError``: ``RenderMode.Normals``
-(it needs the encode's gradient with respect to positions), the envmap
-background and extra network dims. The tiled render paths stay with the
-JAX package.
+``RenderMode.Normals`` shades each slot with −∇σ / |∇σ| at its (warped)
+position, the gradient taken by autograd per chunk through the encode's
+position gradient (kernel F on the card) with detached parameters, so that
+no table gradient is formed; as in JAX it evaluates every slot.
+
+Not ported, each raising ``NotImplementedError``: the envmap background
+and extra network dims. The tiled render paths stay with the JAX package.
 """
 
 from __future__ import annotations
@@ -137,7 +140,16 @@ def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: R
     flat_pos = pos_w.reshape(R * K, 3)
     flat_dir = dir_w.reshape(R * K, 3)
     budget = compact_budget(R * K, opts.compact_frac)
-    if opts.mode == RenderMode.Positions:
+    if opts.mode == RenderMode.Normals:
+        # JAX's autodiff of the density sum; σ from the same forward
+        with torch.enable_grad():
+            p = flat_pos.detach().requires_grad_(True)
+            sig = density(p)
+            (grad,) = torch.autograd.grad(sig.sum(), p)
+        normals = -grad / (torch.linalg.vector_norm(grad, dim=-1, keepdim=True) + 1e-9)
+        rgb = normals * 0.5 + 0.5
+        sigma = sig.detach()
+    elif opts.mode == RenderMode.Positions:
         rgb = flat_pos
         sigma = field(flat_pos, flat_dir)[1]
     elif 0 < budget < R * K:
@@ -249,8 +261,6 @@ def render_frame(
     """Render one frame in pixel chunks of ``opts.chunk`` rays. ``params`` is
     a state dict of ``model`` (e.g. the EMA copy) or None for the model's
     own parameters. ``lens`` is 'pinhole', 'ftheta' or 'latlong'."""
-    if opts.mode == RenderMode.Normals:
-        raise NotImplementedError("RenderMode.Normals needs the encode's position gradient, which is not ported")
     if envmap is not None:
         raise NotImplementedError("the envmap background is not ported")
     if extra_dims is not None:
@@ -270,6 +280,9 @@ def render_frame(
     origins = torch.cat([bundle.origins, torch.zeros((n_pad, 3), device=dev)])
     dirs = torch.cat([bundle.directions, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(n_pad, 3)])
 
+    if opts.mode == RenderMode.Normals:
+        # the gradient is taken with respect to positions only
+        params = dict(model.state_dict()) if params is None else {k: v.detach() for k, v in params.items()}
     field = _field(model, params)
     fields = march_fields(grid)
     rgba, depth = [], []

@@ -11,9 +11,12 @@ bucket), the camera API, ``render`` / ``render_dynamic``
 ``load_snapshot`` in the native format, and the edit API (``begin_cage_edit``
 → a ``GrowingSelection``; ``add_edit_operator`` and its siblings, which
 refresh the density grid through the operator stack; ``save_edits`` /
-``load_edits``). ``render`` always takes the exact path, through the edit
-stack: the tiled path is not ported, and ``exact=False`` raises. The other
-testbed modes are not ported yet.
+``load_edits``), and the outputs: ``screenshot`` (PNG or EXR),
+``load_camera_path``, the density grid, the marching-tets mesh with
+vertex colours, its refinement and export, and density slices. ``render``
+always takes the exact path, through the edit stack: the tiled path is not
+ported, and ``exact=False`` raises. The other testbed modes are not ported
+yet.
 
 Without a ``device`` the testbed takes ``cuda:0`` and raises when CUDA is
 absent; the CPU runs only when asked for by name (``device="cpu"``).
@@ -137,6 +140,8 @@ class Testbed:
         self._loops: dict = {}
         self._last_depth: Optional[np.ndarray] = None
         self._edit_operators: list = []
+        #: the keyframed path of ``load_camera_path``
+        self.camera_path = None
         #: dynamic-resolution factor in [1/8, 1]
         self._dyn_res_factor = 1.0
         self._view_distance = 1.5
@@ -581,6 +586,21 @@ class Testbed:
             img = upsample_bilinear(img, width, height)
         return img.cpu().numpy()
 
+    def load_camera_path(self, path: str) -> None:
+        """Load a keyframed camera path (JSON, ``render/camera_path.py``)."""
+        from nerfshop_tpu_torch.render.camera_path import CameraPath
+
+        self.camera_path = CameraPath.load(path)
+
+    def screenshot(self, path: str, width: int = 1920, height: int = 1080, spp: int = 8) -> np.ndarray:
+        """Render exactly (linear for an ``.exr`` path, sRGB otherwise) and
+        write the frame to ``path`` → the [H, W, 4] frame."""
+        from nerfshop_tpu_torch.data import image_io
+
+        img = self.render(width, height, spp=spp, linear=str(path).endswith(".exr"), exact=True)
+        image_io.write_image(path, img, linear_input=False)
+        return img
+
     # ---------------------------------------------------------------- editing
 
     def add_edit_operator(self, op, refresh_grid: bool = True) -> None:
@@ -655,6 +675,101 @@ class Testbed:
         self._edit_operators = serialization.load_edits(path, self.device)
         if self._edit_operators and self._model is not None and self._grid is not None and self._state is not None:
             self.refresh_grid_for_edits()
+
+    # ---------------------------------------------------------------- meshing
+
+    def _density_fn(self):
+        """World positions → σ with the EMA parameters (which need no
+        gradient): differentiable in the positions only."""
+        from nerfshop_tpu_torch.models.nerf_network import density_with
+        from nerfshop_tpu_torch.ops import coords
+
+        if self._model is None:
+            raise RuntimeError("no network: pass a config or load training data or a snapshot first")
+        full = coords.BoundingBox.from_aabb_scale(self._train_cfg.aabb_scale, device=self.device)
+        params = {k: v.detach() for k, v in self.inference_params.items()}
+        return lambda pos: density_with(self._model, params, torch.clamp(coords.warp_position(pos, full), 0.0, 1.0))
+
+    @torch.no_grad()
+    def get_density_on_grid(self, resolution: int = 256, aabb=None) -> np.ndarray:
+        """σ at the cell centres of a ``resolution``³ grid over ``aabb`` (a
+        ``coords.BoundingBox``; the unit cube when None) → [res, res, res]
+        float32, x-major; chunks of 2^18 positions through kernels B and C."""
+        from nerfshop_tpu_torch.ops import coords
+
+        dev = self.device
+        if aabb is None:
+            aabb = coords.BoundingBox(torch.zeros(3, device=dev), torch.ones(3, device=dev))
+        g = (torch.arange(resolution, dtype=torch.float32, device=dev) + 0.5) / resolution
+        xs, ys, zs = torch.meshgrid(g, g, g, indexing="ij")
+        pos = aabb.min.to(dev) + torch.stack([xs, ys, zs], -1).reshape(-1, 3) * aabb.diag.to(dev)
+        density = self._density_fn()
+        chunk = 1 << 18
+        out = torch.cat([density(pos[i:i + chunk]) for i in range(0, pos.shape[0], chunk)])
+        return out.reshape(resolution, resolution, resolution).cpu().numpy()
+
+    def compute_marching_cubes_mesh(self, resolution: int = 256, density_threshold: float = 2.5):
+        """The density field's iso-surface (marching tets over
+        :meth:`get_density_on_grid`, consistently oriented) with vertex
+        colours from the radiance field, looking along the inward normal."""
+        from nerfshop_tpu_torch.geometry import isosurface
+        from nerfshop_tpu_torch.models.nerf_network import forward_with
+        from nerfshop_tpu_torch.ops import coords
+
+        field = self.get_density_on_grid(resolution)
+        mesh = isosurface.marching_tets(
+            field, iso=density_threshold, origin=(0.5 / resolution,) * 3, spacing=(1.0 / resolution,) * 3,
+        )
+        mesh = isosurface.orient_consistently(mesh)
+        if mesh.n_vertices:
+            dev = self.device
+            full = coords.BoundingBox.from_aabb_scale(self._train_cfg.aabb_scale, device=dev)
+            normals = torch.as_tensor(mesh.vertex_normals(), dtype=torch.float32, device=dev)
+            verts = torch.as_tensor(mesh.vertices, dtype=torch.float32, device=dev)
+            with torch.no_grad():
+                pos_w = torch.clamp(coords.warp_position(verts, full), 0.0, 1.0)
+                rgb, _ = forward_with(self._model, self.inference_params, pos_w, (-normals + 1.0) * 0.5)
+            mesh.colors = np.clip(rgb.cpu().numpy(), 0, 1)
+        return mesh
+
+    def compute_and_save_marching_cubes_mesh(
+        self, filename: str, resolution: int = 256, density_threshold: float = 2.5,
+        optimize_steps: int = 0, unwrap: bool = False,
+    ) -> None:
+        """Extract, optionally refine (``optimize_steps``), and write the mesh
+        (.obj or .ply; ``unwrap`` adds the quad-atlas UVs and a debug texture
+        to an .obj)."""
+        from nerfshop_tpu_torch.geometry import mesh_io
+
+        mesh = self.compute_marching_cubes_mesh(resolution, density_threshold)
+        if optimize_steps > 0:
+            mesh = self.optimise_mesh(mesh, n_steps=optimize_steps, thresh=density_threshold)
+        mesh_io.save_mesh(filename, mesh, unwrap=unwrap)
+
+    def optimise_mesh(self, mesh, n_steps: int = 100, thresh: float = 2.5, density_amount: float = 0.001,
+                      smooth_amount: float = 4.0, inflate_amount: float = 0.0):
+        """Refine the mesh's vertices against the density iso-surface on the
+        testbed's device (``geometry/mesh_opt.py``)."""
+        from nerfshop_tpu_torch.geometry import mesh_opt
+
+        return mesh_opt.optimize_mesh(
+            self._density_fn(), mesh, n_steps=n_steps, thresh=thresh, density_amount=density_amount,
+            smooth_amount=smooth_amount, inflate_amount=inflate_amount, device=self.device,
+        )
+
+    def compute_and_save_png_slices(self, filename: str, resolution: int = 128, density_threshold: float = 2.5) -> None:
+        """Write the density grid as a sheet of z-slice tiles, σ / (2 ·
+        threshold) clipped to [0, 1]."""
+        from nerfshop_tpu_torch.data import image_io
+
+        field = self.get_density_on_grid(resolution)
+        occ = np.clip(field / max(density_threshold * 2.0, 1e-6), 0, 1)
+        n = int(np.ceil(np.sqrt(resolution)))
+        sheet = np.zeros((n * resolution, n * resolution), np.float32)
+        for z in range(resolution):
+            r, c = divmod(z, n)
+            sheet[r * resolution:(r + 1) * resolution, c * resolution:(c + 1) * resolution] = occ[:, :, z]
+        image_io.write_image(filename, np.repeat(sheet[..., None], 3, axis=-1))
 
     # --------------------------------------------------------------- snapshots
 

@@ -2,7 +2,7 @@
 """Device profile of one exact 1920×1080 frame of the port on one NVIDIA GPU.
 
 Run from the root of a checkout:
-  python3 profile_render.py [--out FILE] [--compact FRAC | --edited | --train | --distill]
+  python3 profile_render.py [--out FILE] [--compact FRAC | --edited | --normals | --train | --distill]
   python3 profile_render.py --save-chunk FILE
   python3 profile_render.py --kernels --chunk FILE [--root DIR]
   python3 profile_render.py --save-edit DIR
@@ -29,6 +29,11 @@ the edited frame of the same side view the same way, and prints the device
 time the edit adds, by kernel name; then it computes the moved cage's
 Poisson membrane, profiles the edited frame with it ("target" blend) and
 prints the device time the membrane adds, by kernel name.
+
+With ``--normals`` it profiles the same view's frame shaded and then in
+``RenderMode.Normals`` (the density's gradient per chunk, through kernel F),
+prints the device time the Normals frame adds, by kernel name, and the
+Normals frame's peak device memory.
 
 With ``--distill`` it builds that edit with the membrane, refreshes the
 grid through the stack, runs 8 distillation steps of the default
@@ -529,6 +534,7 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=None, help="write the full per-kernel table here")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--edited", action="store_true", help="also profile the frame of chip_smoke.py's edit")
+    mode.add_argument("--normals", action="store_true", help="also profile the frame in RenderMode.Normals")
     mode.add_argument("--train", action="store_true", help="profile the eager and the captured training loop instead of a frame")
     mode.add_argument("--distill", action="store_true", help="profile 8 distillation steps of the edit with a membrane")
     mode.add_argument("--kernels", action="store_true", help="time kernels A, B and D alone (no training)")
@@ -541,7 +547,7 @@ def main() -> None:
     ap.add_argument("--chunk", type=Path, default=None, help="with --kernels: the file --save-chunk wrote")
     ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
     args = ap.parse_args()
-    if args.compact is not None and (args.edited or args.train or args.distill or args.kernels or args.warp
+    if args.compact is not None and (args.edited or args.normals or args.train or args.distill or args.kernels or args.warp
                                      or args.save_chunk is not None or args.save_edit is not None):
         ap.error("--compact goes with the frame mode only")
     if args.root is not None and not (args.kernels or args.warp):
@@ -595,6 +601,15 @@ def main() -> None:
         print_delta("the membrane", edited, membrane)
         return
     tb.set_look_at(eye=chip_smoke.CENTER + np.array([0.9, -0.9, 0.5], np.float32))
+    if args.normals:
+        shaded = profile_frame(tb, "shaded")
+        tb.render_mode = RenderMode.Normals
+        torch.cuda.reset_peak_memory_stats()
+        normals = profile_frame(tb, "Normals", args.out)
+        print(f"[profile] Normals frame: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+              flush=True)
+        print_delta("RenderMode.Normals", shaded, normals)
+        return
     profile_frame(tb, "unedited", args.out)
     if args.compact is not None:
         plain = profile_frame(tb, "render_frame, compact_frac 0", render=compact_render(tb, 0.0))

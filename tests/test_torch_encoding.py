@@ -181,10 +181,20 @@ def test_table_grad_matches_jax_grad(name):
 
 
 def test_position_grad_raises():
+    # the position gradient is ported (kernel F, held to JAX in
+    # test_torch_encode_dx.py); what raises is kernel F's wrapper on what it
+    # does not take: a tensor off the card (it never falls back to the plain
+    # version) and a grid other than D = 3, F = 2
     _, te, _ = _pair("hash")
     x = torch.from_numpy(_points(5)).requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        te(x)
+    (dx,) = torch.autograd.grad(te(x).sum(), [x])
+    assert dx.shape == x.shape and bool(torch.isfinite(dx).all()) and float(dx.abs().max()) > 0
+    dout = torch.ones((x.shape[0], te.n_output_dims))
+    with pytest.raises(ValueError, match="CUDA device"):
+        table_ops.grid_encode_dx_cuda(te.table.detach(), x.detach(), dout, te)
+    flat = tenc.GridEncoding(n_input_dims=2, n_levels=2, log2_hashmap_size=8)
+    with pytest.raises(ValueError, match="D=3, F=2"):
+        table_ops.grid_encode_dx_cuda(flat.table.detach(), torch.zeros((4, 2)), torch.zeros((4, 4)), flat)
 
 
 @pytest.mark.parametrize("degree", [1, 2, 3, 4])

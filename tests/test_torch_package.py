@@ -49,7 +49,9 @@ def test_no_jax_import_in_source(path):
         else:
             continue
         for n in names:
-            assert n.split(".")[0] not in ("jax", "jaxlib", "optax", "flax", "nerfshop_tpu"), (path, n)
+            # PIL and msgpack too, also where imported inside a function: the
+            # card has neither (P5 was a lazy PIL import)
+            assert n.split(".")[0] not in ("jax", "jaxlib", "optax", "flax", "msgpack", "PIL", "nerfshop_tpu"), (path, n)
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "profile_render.py"])

@@ -205,13 +205,11 @@ def test_render_aabb_crop_matches(scene):
     assert np.abs(tr - full).max() > 1e-3  # the crop changed the frame
 
 
-@pytest.mark.parametrize("what", ["normals", "operators", "envmap", "extra_dims"])
+@pytest.mark.parametrize("what", ["operators", "envmap", "extra_dims"])
 def test_unported_options_raise(scene, what):
     _, _, _, tm, tg = scene
     opts, kw, error = trender.RenderOptions(chunk=128), {}, NotImplementedError
-    if what == "normals":
-        opts = trender.RenderOptions(chunk=128, mode=tcommon.RenderMode.Normals)
-    elif what == "operators":
+    if what == "operators":
         # edit operators and their Poisson membranes are ported; a membrane
         # that is not a poisson.MembraneData raises
         from nerfshop_tpu_torch.editing.operators import CageDeformationOp
