@@ -81,7 +81,21 @@ Phases, each printing one line of its own numbers:
      and the student's render without operators against the edited render
      of a side view in PSNR (bound 25 dB);
  17. native: the host library's LUT build, region growing and ``vanish``
-     against the numpy paths.
+     against the numpy paths;
+ 18. [sdf]: an 81920-face bumpy icosphere written as .obj and trained
+     through ``run.main(["--mode", "sdf", ...])`` (1000 steps at batch
+     2^16); kernel G (the BVH signed distance) against its plain version,
+     the brute force, and timed at 2^15 and 2^18 points; ``calculate_iou``
+     ≥ 0.9; a 1920×1080 sphere-traced frame;
+ 19. [image]: kernels B and A at D = 2 against their plain versions at the
+     Image config's shapes; a 2048×2048 PNG trained through ``run.main(
+     ["--mode", "image", ...])`` (1000 steps at batch 2^18), its
+     ``image_psnr`` line and ``compute_image_mse`` (≥ 18 dB); the table
+     backward's corner fold and concatenation timed;
+ 20. [volume]: ``synthetic_smoke(256)`` as .npy through
+     ``load_training_data``, 1000 steps at batch 2^16 (the loss halves), a
+     1920×1080 delta-tracked frame at spp 4 and a 64×64 one against the
+     ground-truth tracker's.
 A [launches] line gives each path's launches by kernel, and kernel B's
 split into launches with fracs (training forwards only) and without
 (render, grid refresh, edited frames); the edited frame runs the cage warp
@@ -141,7 +155,7 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def median_ms(fn, runs: int = TIMING_RUNS, queued: bool = False) -> float:
+def median_ms(fn, runs: int = TIMING_RUNS, queued: bool = False, warmups: int = 3) -> float:
     """Median time of ``fn()`` in ms: CUDA events around one call, after 3
     warm-up calls. Unqueued (the ``ms`` of the kernels line, the method of
     every earlier measurement of the port), the events also count the time
@@ -150,7 +164,7 @@ def median_ms(fn, runs: int = TIMING_RUNS, queued: bool = False) -> float:
     ``device_ms``): a spin kernel runs first, so the call is enqueued behind
     it and the events time the device work alone: what a call costs on a
     path where the host runs ahead of the card."""
-    for _ in range(3):
+    for _ in range(warmups):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -320,12 +334,56 @@ SEGSUM_CASES = (
 )
 
 
-def phase_segsum(dev, g):
-    """Kernel A against its plain version in every case of SEGSUM_CASES.
+def segsum_case(tag, label, key, w1, dout, m):
+    """Kernel A on one sorted case against its plain version → its numbers.
     Tolerance: |kernel − plain| ≤ 1e-5 · Σ|terms| of the row (fp32, other
-    summation order); rows no sample hits are 0.0; two calls are bit-equal."""
+    summation order); rows no sample hits are 0.0; two calls are bit-equal.
+    D (2 or 3) is w1's width; the rows are 2^D · 2 floats wide."""
     from nerfshop_tpu_torch.ops import segsum
 
+    N, D = w1.shape
+    W = (1 << D) * 2
+    ker = segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
+    again = segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
+    plain = segsum.sorted_segment_rowsum_plain(key, w1, dout, m)
+    absum = segsum.sorted_segment_rowsum_plain(key, w1, dout.abs(), m)
+    torch.cuda.synchronize()
+    check(ker.shape == (m, W), f"kernel A's rows are {tuple(ker.shape)}, expected ({m}, {W}) ({label})")
+    err = (ker - plain).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= 1e-5 * absum + 1e-30).all()), f"kernel A disagrees ({label}): max err {max_err}")
+    untouched = absum.sum(1) == 0
+    check(bool((ker[untouched] == 0).all()), f"kernel A left an unhit row non-zero ({label})")
+    check(torch.equal(ker.view(torch.int32), again.view(torch.int32)), f"kernel A is not bit-reproducible ({label})")
+    ms, dev_ms = both_ms(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
+    plain_ms = median_ms(lambda: segsum.sorted_segment_rowsum_plain(key, w1, dout, m))
+    # library call: index_add_ of the formed [N, W] contributions
+    ct = (segsum.corner_products(w1)[:, :, None] * dout[:, None, :]).reshape(N, W)
+    key64 = key.long()
+    lib = lambda: torch.zeros((m, W), device=key.device).index_add_(0, key64, ct)  # noqa: E731
+    lib_ms, lib_dev_ms = both_ms(lib)
+    us = host_us(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
+    lib_us = host_us(lib)
+    # bytes: key, w1, dout in, [m, W] out; ops: the 2^D corner weights
+    # ((D − 1) multiplies each), the 2^D × 2 outer product and its sums, per
+    # sample (48 at D = 3, 20 at D = 2)
+    b_ms, b_by = bound(nbytes(key, w1, dout) + m * W * 4, N * float((1 << D) * (D - 1) + 4 * (1 << D)))
+    print(
+        f"[{tag}] {label} m={m} N={N} D={D}: max_abs_err {max_err:.3e} (bound 1e-5*row sum|terms|), two calls "
+        f"bit-equal; events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms index_add_ {lib_ms:.4f} ms, "
+        f"kernel/index_add_ {ms / lib_ms:.3f}; device (queued): kernel {dev_ms:.4f} ms index_add_ "
+        f"{lib_dev_ms:.4f} ms, kernel/index_add_ {dev_ms / lib_dev_ms:.3f}; bound {b_ms:.4f} ms ({b_by}), "
+        f"device/bound {dev_ms / b_ms:.2f}; host per call: wrapper {us:.1f} us, index_add_ (with its zeros) "
+        f"{lib_us:.1f} us",
+        flush=True,
+    )
+    return dict(max_abs_err=max_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_segsum(dev, g):
+    """Kernel A against its plain version in every case of SEGSUM_CASES
+    (:func:`segsum_case`)."""
     result = {}
     for label, m, N in SEGSUM_CASES:
         key = segsum_keys(label, m, N if N is not None else 0, g, dev)
@@ -337,40 +395,7 @@ def phase_segsum(dev, g):
             w1 = torch.cat([w1.reshape(-1)[:1], w1.reshape(-1)])[1:].view(N, 3)
             dout = torch.cat([dout.reshape(-1)[:1], dout.reshape(-1)])[1:].view(N, 2)
             check(key.data_ptr() % 16 == 4 and w1.data_ptr() % 16 == 4, "the views are not 4-byte aligned")
-        ker = segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
-        again = segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
-        plain = segsum.sorted_segment_rowsum_plain(key, w1, dout, m)
-        absum = segsum.sorted_segment_rowsum_plain(key, w1, dout.abs(), m)
-        torch.cuda.synchronize()
-        err = (ker - plain).abs()
-        max_err = float(err.max()) if err.numel() else 0.0
-        check(bool((err <= 1e-5 * absum + 1e-30).all()), f"kernel A disagrees ({label}): max err {max_err}")
-        untouched = absum.sum(1) == 0
-        check(bool((ker[untouched] == 0).all()), f"kernel A left an unhit row non-zero ({label})")
-        check(torch.equal(ker.view(torch.int32), again.view(torch.int32)), f"kernel A is not bit-reproducible ({label})")
-        ms, dev_ms = both_ms(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
-        plain_ms = median_ms(lambda: segsum.sorted_segment_rowsum_plain(key, w1, dout, m))
-        # library call: index_add_ of the formed [N, 16] contributions
-        ct = (segsum.corner_products(w1)[:, :, None] * dout[:, None, :]).reshape(N, 16)
-        key64 = key.long()
-        lib = lambda: torch.zeros((m, 16), device=dev).index_add_(0, key64, ct)  # noqa: E731
-        lib_ms, lib_dev_ms = both_ms(lib)
-        us = host_us(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
-        lib_us = host_us(lib)
-        # bytes: key, w1, dout in, [m, 16] out; ops: 8 corner weights (16
-        # multiplies), the 8 × 2 outer product and its sums, per sample
-        b_ms, b_by = bound(nbytes(key, w1, dout) + m * 16 * 4, N * 48.0)
-        print(
-            f"[segsum] {label} m={m} N={N}: max_abs_err {max_err:.3e} (bound 1e-5*row sum|terms|), two calls "
-            f"bit-equal; events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms index_add_ {lib_ms:.4f} ms, "
-            f"kernel/index_add_ {ms / lib_ms:.3f}; device (queued): kernel {dev_ms:.4f} ms index_add_ "
-            f"{lib_dev_ms:.4f} ms, kernel/index_add_ {dev_ms / lib_dev_ms:.3f}; bound {b_ms:.4f} ms ({b_by}), "
-            f"device/bound {dev_ms / b_ms:.2f}; host per call: wrapper {us:.1f} us, index_add_ (with its zeros) "
-            f"{lib_us:.1f} us",
-            flush=True,
-        )
-        result[label] = dict(max_abs_err=max_err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+        result[label] = segsum_case("segsum", label, key, w1, dout, m)
     return {**result["hash"], "max_abs_err": max(r["max_abs_err"] for r in result.values())}
 
 
@@ -397,7 +422,7 @@ def touched_rows(enc, idx) -> int:
     return int(torch.unique(rows).numel())
 
 
-def encode_case(label, enc, table, x, with_fracs: bool, note: str = ""):
+def encode_case(label, enc, table, x, with_fracs: bool, note: str = "", tag: str = "encode"):
     """Kernel B in one mode against its plain version on x → its numbers.
     With fracs: slots equal, w1 and out within 1e-6 absolute. Without: no
     slots or fracs, out within 1e-6 of the plain version and bit-equal to the
@@ -409,6 +434,8 @@ def encode_case(label, enc, table, x, with_fracs: bool, note: str = ""):
     torch.cuda.synchronize()
     N, L = x.shape[0], enc.n_levels
     check(out_k.shape == (N, 2 * L) and bool(torch.isfinite(out_k).all()), f"kernel B out bad ({label})")
+    if with_fracs:
+        check(w1_k.shape == (L, N, enc.n_input_dims), f"kernel B fracs of shape {tuple(w1_k.shape)} ({label})")
     out_err = float((out_k - out_p).abs().max())
     if with_fracs:
         n_diff = int((idx_k != idx_p).sum())
@@ -432,7 +459,8 @@ def encode_case(label, enc, table, x, with_fracs: bool, note: str = ""):
     n_bytes = nbytes(x, out_k) + touched * 2 * 4 + (nbytes(idx_k, w1_k) if with_fracs else 0)
     b_ms, b_by = bound(n_bytes, N * L * 65.0)
     print(
-        f"[encode] {label} N={N} L={L} {'with' if with_fracs else 'without'} fracs: {what}, out err {out_err:.3e} "
+        f"[{tag}] {label} N={N} L={L} D={enc.n_input_dims} {'with' if with_fracs else 'without'} fracs: {what}, "
+        f"out err {out_err:.3e} "
         f"(bound 1e-6); kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
         f"({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table rows touched), device/bound "
         f"{dev_ms / b_ms:.2f}; host per call {us:.1f} us{note}",
@@ -607,6 +635,7 @@ def phase_mlp(dev, g):
 def kernel_wrappers():
     """Kernel name → the wrapper that counts its launches."""
     from nerfshop_tpu_torch.editing import operators
+    from nerfshop_tpu_torch.geometry import bvh
     from nerfshop_tpu_torch.ops import fused_mlp, gather, segsum, table_ops
 
     return {
@@ -619,6 +648,7 @@ def kernel_wrappers():
         "cage_warp_samples": operators.cage_warp_samples_cuda,
         "cage_warp_positions": operators.cage_warp_positions_cuda,
         "cage_warp_membrane": operators.cage_warp_membrane_cuda,
+        "bvh_signed_distance": bvh.bvh_signed_distance_cuda,
     }
 
 
@@ -747,16 +777,20 @@ def phase_gather(dev, g):
 
 
 def reset_launches():
-    for fn in kernel_wrappers().values():
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
-    kernel_wrappers()["grid_encode"].fracs_launches = 0
+    wrappers["grid_encode"].fracs_launches = wrappers["grid_encode"].d2_launches = 0
+    wrappers["segsum"].d2_launches = 0
 
 
 def read_launches():
-    """Launches by kernel, and kernel B's launches with fracs as
-    ``grid_encode_fracs``."""
+    """Launches by kernel, kernel B's launches with fracs as
+    ``grid_encode_fracs``, and kernels B's and A's D = 2 instances' as
+    ``grid_encode_d2`` and ``segsum_d2`` (within their totals)."""
     wrappers = kernel_wrappers()
-    return {**{k: fn.launches for k, fn in wrappers.items()}, "grid_encode_fracs": wrappers["grid_encode"].fracs_launches}
+    return {**{k: fn.launches for k, fn in wrappers.items()}, "grid_encode_fracs": wrappers["grid_encode"].fracs_launches,
+            "grid_encode_d2": wrappers["grid_encode"].d2_launches, "segsum_d2": wrappers["segsum"].d2_launches}
 
 
 def middle_chunk(W=1920, H=1080) -> int:
@@ -1381,6 +1415,21 @@ class _Stamped:
         pass
 
 
+def stamped_main(argv):
+    """``nerfshop_tpu_torch.run.main(argv)`` in process with its stdout kept
+    line by line with times → (testbed, lines, start time, launches)."""
+    from nerfshop_tpu_torch import run
+
+    stamped = _Stamped()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stamped):
+        tb = run.main(argv)
+    torch.cuda.synchronize()
+    return tb, stamped.lines, t0, read_launches()
+
+
 def write_scene(ds, root: Path) -> Path:
     """``ds`` (the smoke's sphere views) as a scene on disk: transforms.json
     (scale 1, offset 0: the matrices as they are) and RGBA PNGs through the
@@ -1409,7 +1458,6 @@ def phase_cli(dev, snapshot: Path, workdir: Path, W=1920, H=1080):
     screenshot and 3 1080p frames of a 3-keyframe camera path. Every file
     must decode through the port's readers and ``psnr_mean`` reach 14 dB →
     the run's launches."""
-    from nerfshop_tpu_torch import run
     from nerfshop_tpu_torch.data import image_io
     from nerfshop_tpu_torch.geometry import mesh_io
     from nerfshop_tpu_torch.io import snapshot as snap_lib
@@ -1430,16 +1478,8 @@ def phase_cli(dev, snapshot: Path, workdir: Path, W=1920, H=1080):
         "--video_n_frames", "3", "--video_spp", "1", "--video_output", str(out / "video"), "--device", "cuda",
     ]
     out.mkdir()
-    stamped = _Stamped()
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(stamped):
-        cli_tb = run.main(argv)
-    torch.cuda.synchronize()
+    cli_tb, lines, t0, launches = stamped_main(argv)
     total_s = time.perf_counter() - t0
-    launches = read_launches()
-    lines = stamped.lines
     result = json.loads(next(line for _, line in lines if line.startswith('{"psnr_mean"')))
 
     def at(prefix):
@@ -2202,6 +2242,284 @@ def phase_native(tb, gs):
     )
 
 
+
+# ---------------------------------------------------- the other testbeds
+
+
+def icosphere(subdiv: int):
+    """The unit icosphere → (vertices [V, 3], faces [F, 3] int64, outward),
+    20 · 4^subdiv faces, by midpoint subdivision."""
+    t = (1 + 5**0.5) / 2
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0], [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+                  [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float64)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9], [5, 11, 4], [11, 10, 2],
+                  [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9], [4, 9, 5], [2, 4, 11],
+                  [6, 2, 10], [8, 6, 7], [9, 8, 1]], np.int64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    for _ in range(subdiv):
+        F = len(f)
+        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+        uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+        mid = v[uniq].mean(1)
+        mid /= np.linalg.norm(mid, axis=1, keepdims=True)
+        inv = inv.reshape(-1) + len(v)
+        ab, bc, ca = inv[:F], inv[F:2 * F], inv[2 * F:]
+        a, b, c = f.T
+        v = np.concatenate([v, mid])
+        f = np.concatenate([np.stack(q, 1) for q in ((a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca))])
+    return v, f
+
+
+def bumpy_mesh(subdiv: int = 6):
+    """The [sdf] mesh: an icosphere subdivided ``subdiv`` times (81920 faces
+    at 6), displaced radially by a smooth bump field, so that it is closed
+    but neither a sphere nor convex."""
+    from nerfshop_tpu_torch.geometry import mesh_io
+
+    v, f = icosphere(subdiv)
+    x, y, z = v.T
+    r = 1 + 0.12 * np.sin(5 * x) * np.cos(4 * y) * np.sin(3 * z + 1) + 0.04 * np.sin(11 * x + 7 * y)
+    return mesh_io.TriMesh((v * r[:, None]).astype(np.float32), f.astype(np.int32))
+
+
+def training_lines(lines, steps):
+    """(steps/s between the CLI's "training" and "trained in" lines, the loss
+    of every printed chunk)."""
+    t_a = next(t for t, line in lines if line.startswith("training"))
+    t_b = next(t for t, line in lines if line.startswith("trained in"))
+    losses = [float(line.split("loss")[1].split()[0]) for _, line in lines if line.lstrip().startswith("step")]
+    return steps / (t_b - t_a), losses, t_a
+
+
+def phase_sdf(dev, g, workdir: Path, W=1920, H=1080, steps=1000):
+    """[sdf]: the bumpy 81920-face mesh written as .obj and trained through
+    ``run.main(["--mode", "sdf", ...])`` (1000 steps at batch 2^16, the
+    loss falling); kernel G against its plain version (the brute force) on
+    4096 of a training batch's points and 4096 uniform ones (max |Δd| ≤
+    1e-5, no sign disagreement where |d| > 1e-6), timed at 2^15 (a batch's
+    ground-truth points) and 2^18 points (the IoU's); ``calculate_iou`` ≥
+    0.9; a 1920×1080 ``render`` → ({path: launches}, G's numbers)."""
+    from nerfshop_tpu_torch.geometry import bvh as bvh_lib
+    from nerfshop_tpu_torch.geometry import mesh_io
+
+    mesh = bumpy_mesh()
+    check(mesh.n_faces == 81920, f"the [sdf] mesh has {mesh.n_faces} faces")
+    obj = workdir / "bumpy.obj"
+    mesh_io.save_obj(obj, mesh)
+    tb, lines, t0, train_launches = stamped_main(
+        ["--mode", "sdf", "--scene", str(obj), "--n_steps", str(steps), "--batch_size", str(1 << 16), "--device", "cuda"])
+    steps_s, losses, t_train = training_lines(lines, steps)
+    check(tb.mode.value == "sdf" and tb.stats.step == steps, f"the SDF CLI trained {tb.stats.step} steps")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], f"the SDF loss did not fall: {losses}")
+    check_launched(train_launches, ("bvh_signed_distance", "grid_encode", "segsum"), "SDF training path")
+    check(train_launches["bvh_signed_distance"] == steps, f"kernel G not once a step: {train_launches}")
+
+    sdf = tb.sdf
+    bvh = sdf.bvh
+    tris = bvh.triangles()
+    n_exact = sdf.batch_sizes(1 << 16)[0]
+    batch_pts = sdf._sample_batch(1 << 16)[0][n_exact:].contiguous()  # 2^15: 3/4 near the surface, 1/4 uniform
+    errs, flips = {}, {}
+    for label, pts in (("batch", batch_pts[::8].contiguous()),
+                       ("uniform", torch.rand((4096, 3), generator=g, device=dev))):
+        d_k = bvh_lib.bvh_signed_distance_cuda(bvh, pts)
+        d_p = bvh_lib.signed_distance_plain(tris, pts)
+        torch.cuda.synchronize()
+        errs[label] = float((d_k - d_p).abs().max())
+        clear = d_p.abs() > 1e-6
+        flips[label] = float((torch.sign(d_k[clear]) != torch.sign(d_p[clear])).float().mean())
+        check(errs[label] <= 1e-5 and flips[label] == 0.0,
+              f"kernel G disagrees ({label}): max |dd| {errs[label]:.3e}, sign flips {flips[label]}")
+    bvh_bytes = sum(nbytes(t) for t in bvh)
+    timing = {}
+    for label, pts in (("2^15", batch_pts), ("2^18", torch.rand((1 << 18, 3), generator=g, device=dev))):
+        ms, dev_ms = both_ms(lambda: bvh_lib.bvh_signed_distance_cuda(bvh, pts))
+        b_ms, b_by = bound(nbytes(pts) + pts.shape[0] * 4 + bvh_bytes)
+        timing[label] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by)
+    # the brute force at 2^15 takes seconds a call: one timed call (its
+    # kernels warmed up by the comparison above)
+    plain_ms = median_ms(lambda: bvh_lib.signed_distance_plain(tris, batch_pts), runs=1, warmups=0)
+
+    iou = tb.calculate_iou()
+    check(iou >= 0.9, f"SDF IoU {iou:.4f} < 0.9")
+    tb.render(64, 36)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    img = tb.render(W, H)
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t1) * 1e3
+    render_launches = read_launches()
+    hit = float(img[..., 3].mean())
+    check(img.shape == (H, W, 4) and bool(np.isfinite(img).all()) and 0.05 < hit < 0.95,
+          f"the SDF frame is bad: {img.shape}, hit share {hit}")
+    check_launched(render_launches, ("grid_encode", "fused_mlp", "grid_encode_dx"), "SDF frame")
+    check(render_launches["grid_encode_fracs"] == 0 and render_launches["segsum"] == 0,
+          f"the SDF frame wrote fracs or ran kernel A: {render_launches}")
+    print(f"[sdf] run.main --mode sdf on a {mesh.n_faces}-face bumpy icosphere: load + BVH build "
+          f"{t_train - t0:.3f} s, {steps} steps batch {1 << 16} at {steps_s:.3f} steps/s, loss by 100 steps "
+          f"{losses}; launches {train_launches}", flush=True)
+    print(f"[sdf] kernel G vs brute force: max |dd| {errs} (bound 1e-5), sign disagreements where |d| > 1e-6 {flips} "
+          f"(bound 0); BVH {bvh.node_min.shape[0]} nodes, {bvh_bytes / 1e6:.2f} MB; " + "; ".join(
+              f"{k} points: events {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']}), device/bound {v['device_ms'] / v['bound_ms']:.1f}" for k, v in timing.items())
+          + f"; brute force at 2^15 {plain_ms:.2f} ms (at 2^18 not measured)", flush=True)
+    print(f"[sdf] calculate_iou {iou:.5f} (bound 0.9); {W}x{H} render {render_ms:.1f} ms, hit share {hit:.4f}, "
+          f"launches B {render_launches['grid_encode']} C {render_launches['fused_mlp']} "
+          f"F {render_launches['grid_encode_dx']} G {render_launches['bvh_signed_distance']}", flush=True)
+    g_row = dict(max_abs_err=max(errs.values()), plain_ms=plain_ms, library_ms=None, library_device_ms=None,
+                 **timing["2^15"])
+    return {"sdf_train": train_launches, "sdf_render": render_launches}, g_row
+
+
+def detail_image(H=2048, W=2048):
+    """[image]'s target: RGB with detail at every scale: sinusoids from 2 to
+    256 cycles across, a checkerboard of 64-pixel squares and discs of
+    radius 8 to 400 pixels."""
+    y, x = (np.mgrid[0:H, 0:W] + 0.5) / np.array([H, W], np.float64)[:, None, None]
+    waves = sum(a * np.sin(2 * np.pi * (k * x + 0.6 * k * y)) for a, k in ((0.2, 2), (0.12, 9), (0.08, 37), (0.05, 256)))
+    check_board = ((x * W // 64).astype(int) + (y * H // 64).astype(int)) % 2
+    discs = np.zeros_like(x)
+    for cx, cy, r in ((0.3, 0.3, 400), (0.7, 0.6, 150), (0.5, 0.85, 40), (0.85, 0.2, 8), (0.15, 0.8, 20)):
+        discs += np.hypot((x - cx) * W, (y - cy) * H) < r
+    img = np.stack([0.5 + waves, 0.25 + 0.5 * check_board + 0.5 * waves * y, 0.2 + 0.6 * np.clip(discs, 0, 1) * x], -1)
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def phase_image(dev, g, workdir: Path, steps=1000):
+    """[image]: kernel B at D = 2 against its plain version at 2^18 uniform
+    points of configs/image/base.json's grid (a table uniform in ±1), with
+    and without fracs; kernel A at D = 2 on those points' sorted keys at a
+    dense and a hashed level; a 2048×2048 image written as PNG and trained
+    through ``run.main(["--mode", "image", ...])`` (1000 steps at batch
+    2^18: steps/s, peak memory; its ``image_psnr`` line read back);
+    ``compute_image_mse`` as PSNR ≥ 18 dB; the backward's corner fold and
+    concatenation timed on one step → ({path: launches}, B's and A's
+    numbers)."""
+    from nerfshop_tpu_torch.config import default_image_config
+    from nerfshop_tpu_torch.data import image_io
+    from nerfshop_tpu_torch.models.encodings import build_encoding
+    from nerfshop_tpu_torch.ops import segsum, table_ops
+
+    enc = build_encoding(default_image_config()["encoding"], 2, device=dev, generator=g)
+    check(enc.table_size == 139_810_048, f"not configs/image/base.json's grid: {enc.table_size} rows")
+    with torch.no_grad():
+        enc.table.uniform_(-1.0, 1.0, generator=g)
+    table = enc.table.detach()
+    x = torch.rand((1 << 18, 2), generator=g, device=dev)
+    x[:4] = torch.tensor([[0, 0], [1, 1], [1, 0], [0, 1]], device=dev)
+    b_rows = {m: encode_case("2^18 uniform xy, configs/image/base.json", enc, table, x, m, tag="image")
+              for m in (True, False)}
+    _, idx, w1 = table_ops.grid_encode_cuda(table, x, enc, True)
+    dout = torch.randn((x.shape[0], 2), generator=g, device=dev)
+    a_rows = {}
+    for l in (0, enc.n_levels - 1):
+        key, perm = torch.sort(idx[l], stable=True)
+        kind = "dense" if enc.level_dense[l] else "hash"
+        a_rows[l] = segsum_case("image", f"one step's sorted keys, level {l} ({kind})", key.contiguous(),
+                                w1[l][perm].contiguous(), dout[perm].contiguous(), enc.level_sizes[l])
+    del enc, table, idx, w1
+
+    png = workdir / "detail.png"
+    image_io.write_image(png, detail_image(), linear_input=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tb, lines, t0, launches = stamped_main(
+        ["--mode", "image", "--scene", str(png), "--n_steps", str(steps), "--batch_size", str(1 << 18), "--device", "cuda"])
+    peak = torch.cuda.max_memory_allocated()
+    steps_s, losses, t_train = training_lines(lines, steps)
+    cli = json.loads(lines[-1][1])
+    mse = tb.compute_image_mse()
+    value = -10 * math.log10(mse)
+    check(tb.mode.value == "image" and tb.stats.step == steps, f"the Image CLI trained {tb.stats.step} steps")
+    check(losses[-1] < losses[0], f"the Image loss did not fall: {losses}")
+    check(value >= 18.0, f"Image PSNR {value:.2f} dB < 18")
+    check(abs(cli["image_psnr"] - value) < 1e-6, f"the CLI's image_psnr {cli} is not compute_image_mse's {value}")
+    check(launches["grid_encode_d2"] > 0 and launches["segsum_d2"] > 0 and launches["fused_mlp"] > 0,
+          f"a kernel of the Image path was not launched: {launches}")
+
+    # the table backward of one step, by part: sort + kernel A, the corner
+    # fold (2^D rolls and adds a level), the concatenation of the levels
+    enc = tb.model.encoding
+    tab = enc.table.detach()
+    _, idx, w1 = table_ops.grid_encode_cuda(tab, torch.rand((1 << 18, 2), generator=g, device=dev), enc, True)
+    ct = torch.randn((1 << 18, 2 * enc.n_levels), generator=g, device=dev)
+    L, N = idx.shape
+    keys_s, perm = torch.sort(idx, dim=1, stable=True)
+    w1_s = torch.gather(w1, 1, perm[:, :, None].expand(L, N, 2))
+    ct_s = torch.gather(ct.reshape(N, L, 2).transpose(0, 1), 1, perm[:, :, None].expand(L, N, 2))
+    dBs = [segsum.sorted_segment_rowsum_cuda(keys_s[l].contiguous(), w1_s[l].contiguous(), ct_s[l].contiguous(),
+                                              enc.level_sizes[l]) for l in range(L)]
+    fold_ms = median_ms(lambda: [table_ops.fold_corners(dB, enc, l) for l, dB in enumerate(dBs)], runs=5)
+    folded = [table_ops.fold_corners(dB, enc, l) for l, dB in enumerate(dBs)]
+    cat_ms = median_ms(lambda: torch.cat(folded, dim=0), runs=5)
+    grad_ms = median_ms(lambda: table_ops.table_grad(idx, w1, ct, enc), runs=5)
+    del dBs, folded
+    print(f"[image] run.main --mode image on a 2048x2048 PNG: load {t_train - t0:.3f} s, {steps} steps batch "
+          f"{1 << 18} at {steps_s:.3f} steps/s, loss by 100 steps {losses}, peak memory {peak / 2**30:.3f} GiB; "
+          f"the CLI's line {json.dumps(cli)}; compute_image_mse PSNR {value:.3f} dB (bound 18); launches {launches}",
+          flush=True)
+    print(f"[image] one step's table backward (events): table_grad {grad_ms:.3f} ms, of which the corner fold "
+          f"{fold_ms:.3f} ms ({sum(1 for sh in enc.brick_shifts for v in sh if v)} rolls and their adds over {L} "
+          f"levels, {enc.table_size} rows) and the concatenation {cat_ms:.3f} ms "
+          f"({enc.table_size * 8 / 2**30:.3f} GiB)",
+          flush=True)
+    return {"image": launches}, b_rows[True], a_rows[enc.n_levels - 1]
+
+
+def phase_volume(dev, workdir: Path, steps=1000, W=1920, H=1080):
+    """[volume]: ``synthetic_smoke(256)`` written as .npy and loaded through
+    ``Testbed.load_training_data``; 1000 steps at batch 2^16 (the last loss
+    < 0.5 × the first); a 1920×1080 render at spp 4; a 64×64 render at spp 8
+    against the ground-truth tracker's (mean |Δα| < 0.25) → {path: launches}."""
+    from nerfshop_tpu_torch.testbed import Testbed
+    from nerfshop_tpu_torch.train import volume as volume_train
+
+    t0 = time.perf_counter()
+    vol = volume_train.synthetic_smoke(256)
+    npy = workdir / "smoke.npy"
+    np.save(npy, vol)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tb = Testbed("volume", device=dev, seed=0)
+    tb.load_training_data(str(npy))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    first = tb.train(1, 1 << 16)
+    last = tb.train(steps - 1, 1 << 16)
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    check(math.isfinite(last) and last < 0.5 * first, f"the Volume loss did not halve: {first} -> {last}")
+    check_launched(train_launches, ("grid_encode", "segsum"), "Volume training path")
+    tb.render(64, 36)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    img = tb.render(W, H)
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t0) * 1e3
+    render_launches = read_launches()
+    check(img.shape == (H, W, 4) and bool(np.isfinite(img).all()) and float(img[..., 3].mean()) > 0.01,
+          f"the Volume frame is bad: {img.shape}, alpha {float(img[..., 3].mean())}")
+    check_launched(render_launches, ("grid_encode", "fused_mlp"), "Volume frame")
+    cam = np.array([[1, 0, 0, 0.5], [0, -1, 0, 0.5], [0, 0, 1, -1.2]], np.float32)
+    focal = np.array([28.0 * 64 / 24] * 2, np.float32)
+    net = tb._volume.render(64, 64, cam, focal, spp=8).cpu().numpy()
+    gt = tb._volume.render(64, 64, cam, focal, spp=8, use_gt=True).cpu().numpy()
+    diff = float(np.abs(net[..., 3] - gt[..., 3]).mean())
+    check(diff < 0.25, f"the Volume render is {diff:.4f} from the ground truth's (bound 0.25)")
+    print(f"[volume] synthetic_smoke(256) ({vol.nbytes / 2**20:.0f} MiB) made and written in {gen_s:.3f} s, "
+          f"loaded in {load_s:.3f} s; {steps} steps batch {1 << 16} at {steps / train_s:.3f} steps/s, loss {first:.5f} "
+          f"-> {last:.5f} (ratio {last / first:.4f}, bound 0.5); {W}x{H} spp 4 render {render_ms:.1f} ms, alpha "
+          f"{float(img[..., 3].mean()):.4f}; 64x64 spp 8 vs ground truth mean |d alpha| {diff:.4f} (bound 0.25), mean "
+          f"|d rgb| {float(np.abs(net[..., :3] - gt[..., :3]).mean()):.4f}; launches train {train_launches} "
+          f"render {render_launches}", flush=True)
+    return {"volume_train": train_launches, "volume_render": render_launches}
+
+
 #: the numbers of a kernel in the kernels line; ``ms``, ``plain_ms`` and
 #: ``library_ms`` are events around one call, ``device_ms`` and
 #: ``library_device_ms`` the same calls queued behind a spin (:func:`median_ms`)
@@ -2256,10 +2574,21 @@ def main() -> None:
     phase_native(tb, gs)
     print(f"[launches] one 1080p membrane frame: {membrane_launches}; distillation (300 steps): {paths['distill']}",
           flush=True)
+    del tb, gs, op
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    sdf_paths, g_row = phase_sdf(dev, g, workdir)
+    image_paths, b2_row, a2_row = phase_image(dev, g, workdir)
+    volume_paths = phase_volume(dev, workdir)
+    shutil.rmtree(workdir)
+    other = {**sdf_paths, **image_paths, **volume_paths}
+    print(f"[launches] the SDF, Image and Volume paths: {other}", flush=True)
+    paths.update(other)
     launches = {k: sum(p[k] for p in paths.values()) for k in train_launches}
+    for k in ("segsum", "grid_encode"):
+        launches[f"{k}_d3"] = launches[k] - launches[f"{k}_d2"]
     rows = (
-        ("sorted_segment_rowsum", "segsum", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", seg),
-        ("grid_encode", "grid_encode", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", enc),
+        ("sorted_segment_rowsum", "segsum_d3", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", seg),
+        ("grid_encode", "grid_encode_d3", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", enc),
         ("grid_encode_dx", "grid_encode_dx", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:263", fdx),
         ("fused_mlp", "fused_mlp", "fused_mlp.cu", "scratch/probe_arch.py:56", mlp),
         ("gather", "gather", "gather.cu", "scratch/probe_arch.py:32", gat),
@@ -2270,6 +2599,9 @@ def main() -> None:
          tet["cage_warp_positions"]),
         ("cage_warp_membrane", "cage_warp_membrane", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:291",
          tet["cage_warp_membrane"]),
+        ("sorted_segment_rowsum_d2", "segsum_d2", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", a2_row),
+        ("grid_encode_d2", "grid_encode_d2", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", b2_row),
+        ("bvh_signed_distance", "bvh_signed_distance", "bvh.cu", "nerfshop_tpu/geometry/bvh.py:196", g_row),
     )
     kernels = [
         {"name": name, "route": "cuda", "source": f"nerfshop_tpu_torch/csrc/{src}", "replaces": repl,

@@ -1,5 +1,7 @@
 // Kernel B: hash-grid encode forward (brick-layout slots, canonical table),
 // and kernel F, its gradient with respect to the positions (after B below).
+// B takes D = 3 (NeRF, SDF and Volume positions) and D = 2 (the Image
+// testbed's pixel coordinates) as a template parameter; F takes D = 3.
 //
 // Replaces the XLA-fused op GridEncoding._brick_fracs + make_brick_encode's
 // _reference (nerfshop_tpu/models/encodings.py:270-300,
@@ -8,11 +10,12 @@
 //
 // Per (sample n, level l): p = x*scale_l + 0.5, base cell p0 = clamp(floor(p)),
 // folded fracs w1 (0 on an axis where p0 == res-1), base slot
-//   dense levels: x + res*(y + res*z)
-//   hash levels:  (x + y*2654435761 + z*805459861) mod m   (uint32, m = 2^k)
-// and the 8 corners read straight from the canonical [sum m, 2] table at
+//   dense levels: x + res*(y + res*z)                     (D = 2: x + res*y)
+//   hash levels:  (x + y*2654435761 + z*805459861) mod m  (D = 2: x + y*2654435761;
+//                                                          uint32, m = 2^k)
+// and the 2^D corners read straight from the canonical [sum m, 2] table at
 // (base + shift_c) mod m; no brick tables are built. Two modes:
-//   with fracs:    out [N, L*2] f32, idx [L, N] int32, w1 [L, N, 3] f32
+//   with fracs:    out [N, L*2] f32, idx [L, N] int32, w1 [L, N, D] f32
 //                  (the training forward: the backward reads idx and w1);
 //   without fracs: out only (render, grid refresh, edited frames).
 // The p = x*scale + 0.5 step uses __fmul_rn and __fadd_rn so that no FMA
@@ -109,29 +112,30 @@ __device__ __forceinline__ uint32_t wrap(uint32_t base, uint32_t shift, uint32_t
     return min(t, t - m);
 }
 
-template <bool kFracs>
+template <int D, bool kFracs>
 __global__ void __launch_bounds__(kThreads)
 grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
                    const float* __restrict__ meta_f, const float2* __restrict__ table,
                    float2* __restrict__ out, int* __restrict__ idx_out, float* __restrict__ w1_out,
                    int n, int n_levels, int group) {
+    constexpr int C = 1 << D;  // cell corners
     extern __shared__ int4 smem[];
     const int spt = threads_per_sample(group);
     const int tile = kThreads / spt;
     const int stride = group + 1;  // padded stage row, in float2
     int4* s_mi = smem;  // [group, 3] int4: res, m, offset, dense | shifts 0-3 | shifts 4-7
     float* s_scale = reinterpret_cast<float*>(s_mi + 3 * group);  // [group]
-    float* s_x = s_scale + group;  // [tile, 3]
-    float2* s_out = reinterpret_cast<float2*>(s_x + 3 * tile + (group & 1));  // [tile, group + 1]
+    float* s_x = s_scale + group;  // [tile, D]
+    float2* s_out = reinterpret_cast<float2*>(s_x + D * tile + (group & 1));  // [tile, group + 1]
 
     const int n0 = blockIdx.x * tile;
     const int l0 = blockIdx.y * group;
     const int gl = min(group, n_levels - l0);  // this block's levels
     const int rows = min(tile, n - n0);
-    const float* xt = x + (size_t)n0 * 3;
+    const float* xt = x + (size_t)n0 * D;
     int* s_mi_flat = reinterpret_cast<int*>(s_mi);
 #pragma unroll 1
-    for (int k = threadIdx.x; k < 3 * rows; k += kThreads) s_x[k] = __ldcs(xt + k);
+    for (int k = threadIdx.x; k < D * rows; k += kThreads) s_x[k] = __ldcs(xt + k);
 #pragma unroll 1
     for (int k = threadIdx.x; k < gl * kMetaInts; k += kThreads) s_mi_flat[k] = meta_i[l0 * kMetaInts + k];
     if (threadIdx.x < gl) s_scale[threadIdx.x] = meta_f[l0 + threadIdx.x];
@@ -140,10 +144,12 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
     const int s = threadIdx.x % tile;
     const int j = threadIdx.x / tile;
     if (s < rows) {
-        const float xs[3] = {s_x[3 * s], s_x[3 * s + 1], s_x[3 * s + 2]};
-        float w1[kLevelsPerThread][3];
+        float xs[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) xs[d] = s_x[D * s + d];
+        float w1[kLevelsPerThread][D];
         uint32_t base[kLevelsPerThread];
-        float2 v[kLevelsPerThread][8];
+        float2 v[kLevelsPerThread][C];
 #pragma unroll
         for (int k = 0; k < kLevelsPerThread; ++k) {
             const int ll = j + k * spt;
@@ -152,9 +158,9 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
                 const int4 sa = s_mi[3 * ll + 1], sb = s_mi[3 * ll + 2];
                 const int res = hdr.x;
                 const float scale = s_scale[ll];
-                uint32_t cu[3];
+                uint32_t cu[D];
 #pragma unroll
-                for (int d = 0; d < 3; ++d) {
+                for (int d = 0; d < D; ++d) {
                     float p = __fadd_rn(__fmul_rn(xs[d], scale), 0.5f);
                     float p0f = floorf(p);
                     float frac = __fsub_rn(p, p0f);
@@ -163,16 +169,20 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
                     cu[d] = (uint32_t)p0;
                 }
                 const uint32_t m = (uint32_t)hdr.y;
-                if (hdr.w) {
-                    base[k] = cu[0] + (uint32_t)res * (cu[1] + (uint32_t)res * cu[2]);
+                if (D == 3) {
+                    if (hdr.w) {
+                        base[k] = cu[0] + (uint32_t)res * (cu[1] + (uint32_t)res * cu[D - 1]);
+                    } else {
+                        base[k] = (cu[0] + cu[1] * 2654435761u + cu[D - 1] * 805459861u) & (m - 1u);
+                    }
                 } else {
-                    base[k] = (cu[0] + cu[1] * 2654435761u + cu[2] * 805459861u) & (m - 1u);
+                    base[k] = hdr.w ? cu[0] + (uint32_t)res * cu[1] : (cu[0] + cu[1] * 2654435761u) & (m - 1u);
                 }
                 const float2* tl = table + hdr.z;
                 const uint32_t sh[8] = {(uint32_t)sa.x, (uint32_t)sa.y, (uint32_t)sa.z, (uint32_t)sa.w,
                                         (uint32_t)sb.x, (uint32_t)sb.y, (uint32_t)sb.z, (uint32_t)sb.w};
 #pragma unroll
-                for (int c = 0; c < 8; ++c) v[k][c] = load_row(tl, wrap(base[k], sh[c], m));
+                for (int c = 0; c < C; ++c) v[k][c] = load_row(tl, wrap(base[k], sh[c], m));
             }
         }
 #pragma unroll
@@ -181,10 +191,10 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
             if (ll < gl) {
                 float acc0 = 0.f, acc1 = 0.f;
 #pragma unroll
-                for (int c = 0; c < 8; ++c) {
+                for (int c = 0; c < C; ++c) {
                     float w = ((c & 1) ? w1[k][0] : 1.f - w1[k][0]);
-                    w = __fmul_rn(w, ((c & 2) ? w1[k][1] : 1.f - w1[k][1]));
-                    w = __fmul_rn(w, ((c & 4) ? w1[k][2] : 1.f - w1[k][2]));
+#pragma unroll
+                    for (int d = 1; d < D; ++d) w = __fmul_rn(w, ((c >> d) & 1) ? w1[k][d] : 1.f - w1[k][d]);
                     acc0 = fmaf(w, v[k][c].x, acc0);
                     acc1 = fmaf(w, v[k][c].y, acc1);
                 }
@@ -192,10 +202,9 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
                 if (kFracs) {
                     const size_t li = (size_t)(l0 + ll) * n + n0 + s;
                     __stcs(idx_out + li, (int)base[k]);
-                    float* w1p = w1_out + li * 3;
-                    __stcs(w1p, w1[k][0]);
-                    __stcs(w1p + 1, w1[k][1]);
-                    __stcs(w1p + 2, w1[k][2]);
+                    float* w1p = w1_out + li * D;
+#pragma unroll
+                    for (int d = 0; d < D; ++d) __stcs(w1p + d, w1[k][d]);
                 }
             }
         }
@@ -329,27 +338,36 @@ extern "C" int nst_grid_encode_tile(int n_levels) {
     return kThreads / threads_per_sample(n_levels < kGroup ? n_levels : kGroup);
 }
 
-// meta_i [L, 12] int32 (res, m, offset, dense, 8 shifts) and meta_f [L] f32
-// (scales) on the device; idx and w1 are null in the fracs-free mode.
+template <int D>
+static void launch_encode(dim3 grid, size_t smem, cudaStream_t st, const void* x, const void* meta_i,
+                          const void* meta_f, const void* table, void* out, void* idx, void* w1, int n,
+                          int n_levels, int group) {
+    if (idx != nullptr) {
+        grid_encode_kernel<D, true><<<grid, kThreads, smem, st>>>(
+            (const float*)x, (const int*)meta_i, (const float*)meta_f, (const float2*)table, (float2*)out,
+            (int*)idx, (float*)w1, n, n_levels, group);
+    } else {
+        grid_encode_kernel<D, false><<<grid, kThreads, smem, st>>>(
+            (const float*)x, (const int*)meta_i, (const float*)meta_f, (const float2*)table, (float2*)out,
+            nullptr, nullptr, n, n_levels, group);
+    }
+}
+
+// x [n, d] f32, d = 2 or 3; meta_i [L, 12] int32 (res, m, offset, dense, 8
+// shifts, the last 4 unused at d = 2) and meta_f [L] f32 (scales) on the
+// device; idx and w1 are null in the fracs-free mode.
 extern "C" int nst_grid_encode(const void* x, const void* meta_i, const void* meta_f, const void* table,
-                               void* out, void* idx, void* w1, int n, int n_levels, void* stream) {
-    if (n_levels < 0 || (idx == nullptr) != (w1 == nullptr)) return (int)cudaErrorInvalidValue;
+                               void* out, void* idx, void* w1, int n, int n_levels, int d, void* stream) {
+    if (n_levels < 0 || (d != 2 && d != 3) || (idx == nullptr) != (w1 == nullptr)) return (int)cudaErrorInvalidValue;
     if (n == 0 || n_levels == 0) return (int)cudaGetLastError();
     const int group = n_levels < kGroup ? n_levels : kGroup;
     const int tile = nst_grid_encode_tile(n_levels);
     const dim3 grid((n + tile - 1) / tile, (n_levels + group - 1) / group);
-    const size_t smem = (size_t)group * (3 * sizeof(int4) + sizeof(float)) + (size_t)tile * 3 * sizeof(float) +
+    const size_t smem = (size_t)group * (3 * sizeof(int4) + sizeof(float)) + (size_t)tile * d * sizeof(float) +
                         (group & 1) * sizeof(float) + (size_t)tile * (group + 1) * sizeof(float2);
     cudaStream_t st = (cudaStream_t)stream;
-    if (idx != nullptr) {
-        grid_encode_kernel<true><<<grid, kThreads, smem, st>>>(
-            (const float*)x, (const int*)meta_i, (const float*)meta_f, (const float2*)table, (float2*)out,
-            (int*)idx, (float*)w1, n, n_levels, group);
-    } else {
-        grid_encode_kernel<false><<<grid, kThreads, smem, st>>>(
-            (const float*)x, (const int*)meta_i, (const float*)meta_f, (const float2*)table, (float2*)out,
-            nullptr, nullptr, n, n_levels, group);
-    }
+    if (d == 3) launch_encode<3>(grid, smem, st, x, meta_i, meta_f, table, out, idx, w1, n, n_levels, group);
+    else launch_encode<2>(grid, smem, st, x, meta_i, meta_f, table, out, idx, w1, n, n_levels, group);
     return (int)cudaGetLastError();
 }
 

@@ -3,10 +3,13 @@
 // Replaces nerfshop_tpu/ops/pallas_segsum.py::sorted_segment_rowsum (the
 // Pallas kernel behind the hash-table backward). Same inputs and output:
 //   key_s  [N]    int32, sorted ascending, each in [0, m)
-//   w1_s   [N, 3] f32 folded lerp fractions, in sorted order
+//   w1_s   [N, D] f32 folded lerp fractions, in sorted order
 //   dout_s [N, 2] f32 output cotangents, in sorted order
-//   out    [m, 16] f32: row r = sum over n with key_n == r of w8_n (x) dout_n,
-//          column c*2 + f (corner c, feature f), w8_c = prod_d lerp(w1_d).
+//   out    [m, W] f32, W = 2^D * 2: row r = sum over n with key_n == r of
+//          w8_n (x) dout_n, column c*2 + f (corner c, feature f),
+//          w8_c = prod_d lerp(w1_d).
+// D is a template parameter: 3 (16-float rows: NeRF, SDF and Volume) or 2
+// (8-float rows: the Image testbed's 2-D grid). The numbers below are D = 3's.
 //
 // What bounds it on the H100: bytes, N*24 + m*64 per level (each sample read
 // once, each row written once: 6.3 + 33.5 = 39.8 MB at N = 2^18, m = 2^19).
@@ -79,36 +82,46 @@ constexpr int kLong = kFill;  // a tile owning more rows than this leaves their 
 constexpr int kEdgeThreads = 256;  // threads per block of the second launch
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void add_sample(float acc[16], float a0, float a1, float a2, float g0, float g1) {
+// row width in floats (W) and in float4 (Q) at D
+template <int D>
+struct Row {
+    static constexpr int W = (1 << D) * 2;
+    static constexpr int Q = W / 4;
+};
+
+template <int D>
+__device__ __forceinline__ void add_sample(float* acc, const float* a, float g0, float g1) {
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-        float w = ((c & 1) ? a0 : 1.f - a0);
-        w = w * ((c & 2) ? a1 : 1.f - a1);
-        w = w * ((c & 4) ? a2 : 1.f - a2);
+    for (int c = 0; c < (1 << D); ++c) {
+        float w = ((c & 1) ? a[0] : 1.f - a[0]);
+#pragma unroll
+        for (int d = 1; d < D; ++d) w = w * (((c >> d) & 1) ? a[d] : 1.f - a[d]);
         acc[2 * c + 0] += w * g0;
         acc[2 * c + 1] += w * g1;
     }
 }
 
-template <typename Dst>
-__device__ __forceinline__ void store_row(Dst* dst, const float v[16]) {
+template <int D, typename Dst>
+__device__ __forceinline__ void store_row(Dst* dst, const float* v) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) dst[q] = make_float4(v[4 * q + 0], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    for (int q = 0; q < Row<D>::Q; ++q) dst[q] = make_float4(v[4 * q + 0], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
-__device__ __forceinline__ void store_scratch(float* scratch, int tile, int slot, const float v[16]) {
-    store_row(reinterpret_cast<float4*>(scratch + (2 * (size_t)tile + slot) * 16), v);
+template <int D>
+__device__ __forceinline__ void store_scratch(float* scratch, int tile, int slot, const float* v) {
+    store_row<D>(reinterpret_cast<float4*>(scratch + (2 * (size_t)tile + slot) * Row<D>::W), v);
 }
 
-template <bool kVec>
+template <int D, bool kVec>
 __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __restrict__ key_s,
                                                                 const float* __restrict__ w1_s,
                                                                 const float* __restrict__ dout_s,
                                                                 float4* __restrict__ out, float* __restrict__ scratch,
                                                                 int n, int m) {
-    __shared__ float4 vals[kTile][4];  // rows of the runs that closed, by (thread, sample)
+    constexpr int W = Row<D>::W, Q = Row<D>::Q;
+    __shared__ float4 vals[kTile][Q];  // rows of the runs that closed, by (thread, sample)
     __shared__ int slot_of[kWindow];  // a round's rows → their entry of vals, or -1
-    __shared__ float warp_sum[kWarps][16];
+    __shared__ float warp_sum[kWarps][W];
     __shared__ int warp_reset[kWarps];
     const int tile = blockIdx.x;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -120,13 +133,13 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
 
     // this thread's samples; past n the key is m (a run that is never written)
     int k[kPer];
-    float w[3 * kPer], g[2 * kPer];
+    float w[D * kPer], g[2 * kPer];
     if (kVec && s0 + kPer <= n) {
         const int4 kk = __ldg(reinterpret_cast<const int4*>(key_s + s0));
         k[0] = kk.x; k[1] = kk.y; k[2] = kk.z; k[3] = kk.w;
 #pragma unroll
-        for (int q = 0; q < 3; ++q) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(w1_s + 3 * (size_t)s0) + q);
+        for (int q = 0; q < D; ++q) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(w1_s + D * (size_t)s0) + q);
             w[4 * q + 0] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z; w[4 * q + 3] = v.w;
         }
 #pragma unroll
@@ -141,7 +154,7 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
             const bool in = s < n;
             k[j] = in ? __ldg(key_s + s) : m;
 #pragma unroll
-            for (int d = 0; d < 3; ++d) w[3 * j + d] = in ? __ldg(w1_s + 3 * (size_t)s + d) : 0.f;
+            for (int d = 0; d < D; ++d) w[D * j + d] = in ? __ldg(w1_s + D * (size_t)s + d) : 0.f;
 #pragma unroll
             for (int f = 0; f < 2; ++f) g[2 * j + f] = in ? __ldg(dout_s + 2 * (size_t)s + f) : 0.f;
         }
@@ -155,20 +168,20 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
     // runs inside the thread, in sample order; a run that closes at sample j
     // goes to vals[t * kPer + j] (bit j of to_out), the first one (closed
     // at jh) gets its carry from the threads before after the scan
-    float acc[16];
+    float acc[W];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+    for (int i = 0; i < W; ++i) acc[i] = 0.f;
     unsigned to_out = 0;
     int jh = -1;
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-        add_sample(acc, w[3 * j], w[3 * j + 1], w[3 * j + 2], g[2 * j], g[2 * j + 1]);
+        add_sample<D>(acc, w + D * j, g[2 * j], g[2 * j + 1]);
         if (j + 1 < kPer && k[j] != k[j + 1]) {
-            store_row(vals[t * kPer + j], acc);
+            store_row<D>(vals[t * kPer + j], acc);
             if (jh < 0) jh = j;
             to_out |= 1u << j;
 #pragma unroll
-            for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+            for (int i = 0; i < W; ++i) acc[i] = 0.f;
         }
     }
     const bool multi = jh >= 0;
@@ -179,39 +192,39 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
     bool reset = multi || !carry;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-        float u[16];
+        float u[W];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) u[i] = __shfl_up_sync(kFull, acc[i], d);
+        for (int i = 0; i < W; ++i) u[i] = __shfl_up_sync(kFull, acc[i], d);
         const bool ur = __shfl_up_sync(kFull, (int)reset, d);
         if (lane >= d) {
             if (!reset) {
 #pragma unroll
-                for (int i = 0; i < 16; ++i) acc[i] = u[i] + acc[i];
+                for (int i = 0; i < W; ++i) acc[i] = u[i] + acc[i];
             }
             reset = reset || ur;
         }
     }
     if (lane == 31) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i) warp_sum[warp][i] = acc[i];
+        for (int i = 0; i < W; ++i) warp_sum[warp][i] = acc[i];
         warp_reset[warp] = reset;
     }
     __syncthreads();
-    float pre[16];  // inclusive value at the last thread of the previous warp
+    float pre[W];  // inclusive value at the last thread of the previous warp
 #pragma unroll
-    for (int i = 0; i < 16; ++i) pre[i] = 0.f;
+    for (int i = 0; i < W; ++i) pre[i] = 0.f;
     for (int v = 0; v < warp; ++v) {
         const bool r = warp_reset[v];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) pre[i] = r ? warp_sum[v][i] : pre[i] + warp_sum[v][i];
+        for (int i = 0; i < W; ++i) pre[i] = r ? warp_sum[v][i] : pre[i] + warp_sum[v][i];
     }
     if (!reset) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] = pre[i] + acc[i];
+        for (int i = 0; i < W; ++i) acc[i] = pre[i] + acc[i];
     }
-    float prev[16];  // inclusive value at the thread before
+    float prev[W];  // inclusive value at the thread before
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < W; ++i) {
         const float up = __shfl_up_sync(kFull, acc[i], 1);
         prev[i] = lane == 0 ? pre[i] : up;
     }
@@ -220,19 +233,19 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
     // carry; if it came from the previous tile it is this tile's slot 0
     if (multi) {
         float4* hv = vals[t * kPer + jh];
-        float h[16];
+        float h[W];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < Q; ++q) {
             const float4 v = hv[q];
             h[4 * q + 0] = v.x; h[4 * q + 1] = v.y; h[4 * q + 2] = v.z; h[4 * q + 3] = v.w;
         }
         if (carry) {
 #pragma unroll
-            for (int i = 0; i < 16; ++i) h[i] = prev[i] + h[i];
-            store_row(hv, h);
+            for (int i = 0; i < W; ++i) h[i] = prev[i] + h[i];
+            store_row<D>(hv, h);
         }
         if (open_left && k[0] == tile_first) {
-            store_scratch(scratch, tile, 0, h);
+            store_scratch<D>(scratch, tile, 0, h);
             to_out &= ~(1u << jh);
         }
     }
@@ -243,10 +256,10 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
     if (kl < m && (key_next != kl || tile_last)) {
         const bool first_piece = open_left && kl == tile_first;
         const bool last_piece = open_right && tile_last;
-        if (first_piece) store_scratch(scratch, tile, 0, acc);
-        if (last_piece) store_scratch(scratch, tile, 1, acc);
+        if (first_piece) store_scratch<D>(scratch, tile, 0, acc);
+        if (last_piece) store_scratch<D>(scratch, tile, 1, acc);
         if (!first_piece && !last_piece) {
-            store_row(vals[t * kPer + kPer - 1], acc);
+            store_row<D>(vals[t * kPer + kPer - 1], acc);
             to_out |= 1u << (kPer - 1);
         }
     }
@@ -260,9 +273,9 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
             if ((to_out >> j) & 1u) {
-                float4* dst = out + 4 * (size_t)k[j];
+                float4* dst = out + Q * (size_t)k[j];
 #pragma unroll
-                for (int q = 0; q < 4; ++q) dst[q] = vals[t * kPer + j][q];
+                for (int q = 0; q < Q; ++q) dst[q] = vals[t * kPer + j][q];
             }
         }
         return;
@@ -281,12 +294,12 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
             if (((to_out >> j) & 1u) && r >= 0 && r < kWindow) slot_of[r] = t * kPer + j;
         }
         __syncthreads();
-        const int n4 = 4 * min(kWindow, r1 - lo);
-        float4* dst = out + 4 * (size_t)lo;
-        for (int i = t; i < n4; i += kThreads) {
-            if (lo + (i >> 2) == skip) continue;
-            const int slot = slot_of[i >> 2];
-            dst[i] = slot < 0 ? zero : vals[slot][i & 3];
+        const int nq = Q * min(kWindow, r1 - lo);
+        float4* dst = out + Q * (size_t)lo;
+        for (int i = t; i < nq; i += kThreads) {
+            if (lo + i / Q == skip) continue;
+            const int slot = slot_of[i / Q];
+            dst[i] = slot < 0 ? zero : vals[slot][i % Q];
         }
         __syncthreads();
     }
@@ -296,8 +309,10 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
 // end, sum the run's pieces in tile order and write its row
 // (scratch is written by launch 1 while this grid may already run, so it is
 // read with plain loads, not through the read-only path)
+template <int D>
 __device__ void cross_run(const int* __restrict__ key_s, const float* scratch, float4* __restrict__ out, int n,
                           int tiles) {
+    constexpr int W = Row<D>::W, Q = Row<D>::Q;
     const int tile = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     // the keys are inputs: read them before the wait
@@ -314,19 +329,19 @@ __device__ void cross_run(const int* __restrict__ key_s, const float* scratch, f
     // start with the key (the run's last tile). A sweep reads kSweep steps'
     // pieces and keys before its ballots, so 32 * kSweep tiles cost one
     // round trip; pieces past the run's end are read and never added
-    float acc[16];
+    float acc[W];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] = lane == 0 ? scratch[(2 * (size_t)tile + 1) * 16 + i] : 0.f;
+    for (int i = 0; i < W; ++i) acc[i] = lane == 0 ? scratch[(2 * (size_t)tile + 1) * W + i] : 0.f;
     for (int j0 = tile + 1;; j0 += 32 * kSweep) {
-        float4 piece[kSweep][4];
+        float4 piece[kSweep][Q];
         bool ends[kSweep];
 #pragma unroll
         for (int u = 0; u < kSweep; ++u) {
             const int j = j0 + 32 * u + lane;
             if (j < tiles) {
-                const float4* src = reinterpret_cast<const float4*>(scratch + (2 * (size_t)j + 0) * 16);
+                const float4* src = reinterpret_cast<const float4*>(scratch + (2 * (size_t)j + 0) * W);
 #pragma unroll
-                for (int q = 0; q < 4; ++q) piece[u][q] = src[q];
+                for (int q = 0; q < Q; ++q) piece[u][q] = src[q];
             }
             const int j_end = min((j + 1) * kTile, n);
             ends[u] = j >= tiles || j_end >= n || __ldg(key_s + j_end) != key;
@@ -338,7 +353,7 @@ __device__ void cross_run(const int* __restrict__ key_s, const float* scratch, f
             const int last = found ? __ffs(found) - 1 : 31;  // lanes 0..last hold pieces of the run
             if (!done && lane <= last) {
 #pragma unroll
-                for (int q = 0; q < 4; ++q) {
+                for (int q = 0; q < Q; ++q) {
                     acc[4 * q + 0] += piece[u][q].x; acc[4 * q + 1] += piece[u][q].y;
                     acc[4 * q + 2] += piece[u][q].z; acc[4 * q + 3] += piece[u][q].w;
                 }
@@ -350,9 +365,9 @@ __device__ void cross_run(const int* __restrict__ key_s, const float* scratch, f
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], off);
+        for (int i = 0; i < W; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], off);
     }
-    if (lane == 0) store_row(out + 4 * (size_t)key, acc);
+    if (lane == 0) store_row<D>(out + Q * (size_t)key, acc);
 }
 
 // the tile that owns row r: the last tile whose stretch starts at or before
@@ -379,7 +394,9 @@ __device__ int owner_tile(const int* __restrict__ key_s, int tiles, int r, int l
 // Only the tiles that own the first and the last row can own a long stretch
 // here; for each, its keys are marked in shared memory and its other rows in
 // the block's rows are zeroed (16 bytes a thread, coalesced)
+template <int D>
 __device__ void fill_zeros(const int* __restrict__ key_s, float4* __restrict__ out, int n, int m, int tiles, int w0) {
+    constexpr int Q = Row<D>::Q;
     __shared__ unsigned char hit[kFill];
     __shared__ int owner[2];
     const int t = threadIdx.x;
@@ -407,9 +424,9 @@ __device__ void fill_zeros(const int* __restrict__ key_s, float4* __restrict__ o
             if (key >= lo && key < hi) hit[key - lo] = 1;
         }
         __syncthreads();
-        float4* dst = out + 4 * (size_t)lo;
-        for (int i = t; i < 4 * (hi - lo); i += kEdgeThreads)
-            if (!hit[i >> 2]) dst[i] = zero;
+        float4* dst = out + Q * (size_t)lo;
+        for (int i = t; i < Q * (hi - lo); i += kEdgeThreads)
+            if (!hit[i / Q]) dst[i] = zero;
         __syncthreads();
     }
     asm volatile("griddepcontrol.wait;" ::: "memory");  // launch 2 ends after launch 1
@@ -417,31 +434,21 @@ __device__ void fill_zeros(const int* __restrict__ key_s, float4* __restrict__ o
 
 // launch 2: blocks [0, cross_blocks) sum the runs that cross tile edges, the
 // rest write the zeros of the long stretches, kFill rows each
+template <int D>
 __global__ void __launch_bounds__(kEdgeThreads) segsum_edge_kernel(const int* __restrict__ key_s,
                                                                     const float* scratch,
                                                                     float4* __restrict__ out, int n, int m, int tiles,
                                                                     int cross_blocks) {
-    if ((int)blockIdx.x < cross_blocks) cross_run(key_s, scratch, out, n, tiles);
-    else fill_zeros(key_s, out, n, m, tiles, ((int)blockIdx.x - cross_blocks) * kFill);
+    if ((int)blockIdx.x < cross_blocks) cross_run<D>(key_s, scratch, out, n, tiles);
+    else fill_zeros<D>(key_s, out, n, m, tiles, ((int)blockIdx.x - cross_blocks) * kFill);
 }
 
-}  // namespace
-
-// out [m, 16] from n sorted samples; scratch [ceil(n / kTile), 2, 16] f32.
-// vec: key_s, w1_s and dout_s are 16-byte aligned (16-byte loads).
-extern "C" int nst_segsum(const void* key_s, const void* w1_s, const void* dout_s, void* out, void* scratch, int n,
-                          int m, int vec, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (m <= 0) return (int)cudaGetLastError();
-    if (n <= 0) return (int)cudaMemsetAsync(out, 0, (size_t)m * 64, st);
+template <int D>
+int launch_segsum(const int* k, const float* w, const float* g, float4* o, float* sc, int n, int m, int vec,
+                  cudaStream_t st) {
     const int tiles = (n + kTile - 1) / kTile;
-    const int* k = (const int*)key_s;
-    const float* w = (const float*)w1_s;
-    const float* g = (const float*)dout_s;
-    float4* o = (float4*)out;
-    float* sc = (float*)scratch;
-    if (vec) segsum_tile_kernel<true><<<tiles, kThreads, 0, st>>>(k, w, g, o, sc, n, m);
-    else segsum_tile_kernel<false><<<tiles, kThreads, 0, st>>>(k, w, g, o, sc, n, m);
+    if (vec) segsum_tile_kernel<D, true><<<tiles, kThreads, 0, st>>>(k, w, g, o, sc, n, m);
+    else segsum_tile_kernel<D, false><<<tiles, kThreads, 0, st>>>(k, w, g, o, sc, n, m);
     const int err = (int)cudaGetLastError();
     if (err) return err;
     const int cross_blocks = (int)((32LL * tiles + kEdgeThreads - 1) / kEdgeThreads);
@@ -455,5 +462,24 @@ extern "C" int nst_segsum(const void* key_s, const void* w1_s, const void* dout_
     attr.val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    return (int)cudaLaunchKernelEx(&cfg, segsum_edge_kernel, k, (const float*)sc, o, n, m, tiles, cross_blocks);
+    return (int)cudaLaunchKernelEx(&cfg, segsum_edge_kernel<D>, k, (const float*)sc, o, n, m, tiles, cross_blocks);
+}
+
+}  // namespace
+
+// out [m, 2^d * 2] from n sorted samples, d = 2 or 3; scratch
+// [ceil(n / kTile), 2, 2^d * 2] f32. vec: key_s, w1_s and dout_s are
+// 16-byte aligned (16-byte loads).
+extern "C" int nst_segsum(const void* key_s, const void* w1_s, const void* dout_s, void* out, void* scratch, int n,
+                          int m, int d, int vec, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (d != 2 && d != 3) return (int)cudaErrorInvalidValue;
+    if (m <= 0) return (int)cudaGetLastError();
+    if (n <= 0) return (int)cudaMemsetAsync(out, 0, (size_t)m * (4 << d) * 2, st);
+    const int* k = (const int*)key_s;
+    const float* w = (const float*)w1_s;
+    const float* g = (const float*)dout_s;
+    float4* o = (float4*)out;
+    float* sc = (float*)scratch;
+    return d == 3 ? launch_segsum<3>(k, w, g, o, sc, n, m, vec, st) : launch_segsum<2>(k, w, g, o, sc, n, m, vec, st);
 }

@@ -27,7 +27,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("segsum.cu", "grid_encode.cu", "fused_mlp.cu", "gather.cu", "tet_lookup.cu")
+SOURCES = ("segsum.cu", "grid_encode.cu", "fused_mlp.cu", "gather.cu", "tet_lookup.cu", "bvh.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "nerfshop_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -71,6 +71,17 @@ class CageArgs(ctypes.Structure):
         ("n", ctypes.c_longlong), ("copy_mode", ctypes.c_int),
         *((name, ctypes.c_void_p) for name in ("membrane", "acc_sigma", "acc_out", "acc_rgb")),
         ("amplitude", ctypes.c_float),
+    ]
+
+
+class BvhArgs(ctypes.Structure):
+    """The BVH of one launch of kernel G, field for field ``struct BvhArgs``
+    of ``csrc/bvh.cu`` (the arrays of ``geometry/bvh.py::BvhArrays``)."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p) for name in
+        ("node_min", "node_max", "node_left", "node_leaf", "leaf_tris", "tri_a", "tri_ab", "tri_ac",
+         "tri_pseudo_v", "tri_pseudo_e", "tri_n")
     ]
 
 
@@ -127,9 +138,9 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nst_segsum.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.nst_segsum.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.nst_segsum.restype = i
-        lib.nst_grid_encode.argtypes = [p, p, p, p, p, p, p, i, i, p]
+        lib.nst_grid_encode.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.nst_grid_encode.restype = i
         lib.nst_grid_encode_dx.argtypes = [p, p, p, p, p, p, i, i, p]
         lib.nst_grid_encode_dx.restype = i
@@ -141,6 +152,8 @@ def load() -> ctypes.CDLL:
         lib.nst_gather.restype = i
         lib.nst_cage.argtypes = [ctypes.POINTER(CageArgs), i, p]
         lib.nst_cage.restype = i
+        lib.nst_bvh_sdf.argtypes = [ctypes.POINTER(BvhArgs), p, p, i, p]
+        lib.nst_bvh_sdf.restype = i
         _lib = lib
     return _lib
 

@@ -92,12 +92,13 @@ class GridEncoding(nn.Module):
         return self.n_levels * self.n_features_per_level
 
     def kernel_meta(self, device: torch.device):
-        """(meta_i [L, 12] int32: res, m, offset, dense, 8 shifts;
-        meta_f [L] f32 scales) on ``device``, for kernel B."""
+        """(meta_i [L, 12] int32: res, m, offset, dense, 8 shifts (the
+        last 4 are 0 at D = 2); meta_f [L] f32 scales) on ``device``, for
+        kernels B and F."""
         if device not in self._meta:
             rows = [
                 [self.level_res[l], self.level_sizes[l], self.level_offsets[l], int(self.level_dense[l])]
-                + list(self.brick_shifts[l])
+                + list(self.brick_shifts[l]) + [0] * (8 - len(self.brick_shifts[l]))
                 for l in range(self.n_levels)
             ]
             self._meta[device] = (

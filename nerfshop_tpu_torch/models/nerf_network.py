@@ -127,28 +127,45 @@ def forward_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor, 
     return torch.func.functional_call(model, params, (pos, direction))
 
 
-def check_kernel_range(config: dict, device) -> None:
+#: testbed mode → (n_input_dims of its grid, output width of its MLP) for
+#: the modes with one position MLP (``train/sdf.py``, ``train/image.py``,
+#: ``train/volume.py``)
+FIELD_SHAPES = {"sdf": (3, 1), "image": (2, 3), "volume": (3, 4)}
+
+
+def check_kernel_range(config: dict, device, mode="nerf") -> None:
     """Raise ``ValueError`` when ``config`` builds a network that the CUDA
-    kernels do not compute on ``device``: a grid level set other than D = 3,
-    F = 2 (kernels B and A), or an MLP outside kernel C's range
-    (:func:`~nerfshop_tpu_torch.ops.fused_mlp.check_supported`). Reads the
-    config only and allocates nothing; the CPU's plain paths take every
-    config, so a CPU device passes."""
+    kernels do not compute on ``device`` in testbed ``mode`` (a
+    ``TestbedMode`` or its value): a grid level set other than (D, F) =
+    (3, 2) or (2, 2) (kernels B and A; the Image mode's grid is 2-D, the
+    others' 3-D), or an MLP outside kernel C's range
+    (:func:`~nerfshop_tpu_torch.ops.fused_mlp.check_supported`): NeRF's
+    density and rgb MLPs, or the other modes' one MLP from L·F inputs to 1
+    (SDF), 3 (Image) or 4 (Volume) outputs. An encoding the port lacks
+    raises ``NotImplementedError`` naming it. Reads the config only and
+    allocates nothing; the CPU's plain paths take every config, so a CPU
+    device passes."""
     if torch.device(device).type != "cuda":
         return
-    pos_width, grids = enc.encoding_shape(dict(config.get("encoding", {})), 3)
+    mode = getattr(mode, "value", mode)
+    n_in, n_out = FIELD_SHAPES.get(mode, (3, None))
+    pos_width, grids = enc.encoding_shape(dict(config.get("encoding", {})), n_in)
     for D, F in grids:
-        if (D, F) != (3, 2):
+        if (D, F) not in ((3, 2), (2, 2)):
             raise ValueError(
-                "kernels B (grid_encode) and A (segsum) take n_input_dims 3 and n_features_per_level 2 only; "
+                "kernels B (grid_encode) and A (segsum) take n_input_dims 3 or 2 and n_features_per_level 2 only; "
                 f"the encoding has n_input_dims {D}, n_features_per_level {F}"
             )
-    dir_cfg = config.get("dir_encoding")
-    dir_width = enc.encoding_shape(dict(dir_cfg), 3)[0] if dir_cfg else 0
-    for name, key, n_in, n_out in (
-        ("density MLP", "network", pos_width, DENSITY_FEATURES),
-        ("rgb MLP", "rgb_network", DENSITY_FEATURES + dir_width, 3),
-    ):
+    if n_out is not None:
+        mlps = (("MLP", "network", pos_width, n_out),)
+    else:
+        dir_cfg = config.get("dir_encoding")
+        dir_width = enc.encoding_shape(dict(dir_cfg), 3)[0] if dir_cfg else 0
+        mlps = (
+            ("density MLP", "network", pos_width, DENSITY_FEATURES),
+            ("rgb MLP", "rgb_network", DENSITY_FEATURES + dir_width, 3),
+        )
+    for name, key, n_in, n_out in mlps:
         cfg = dict(config.get(key, config.get("network", {})))
         try:
             fused_mlp.check_supported(

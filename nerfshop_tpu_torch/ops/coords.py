@@ -1,7 +1,7 @@
 """Scene box, position/direction warps, the cone step size and morton order.
 
 Counterpart of the parts of ``nerfshop_tpu/ops/coords.py`` that training,
-rendering and snapshots use: ``BoundingBox`` (``from_aabb_scale``,
+rendering and snapshots use: ``BoundingBox`` (``from_aabb_scale``, ``unit``,
 ``ray_intersect``), ``warp_position``, ``warp_direction``, ``calc_dt``,
 ``mip_from_pos``, ``cascaded_grid_coords`` and the morton helpers.
 """
@@ -25,6 +25,11 @@ class BoundingBox(NamedTuple):
         c = torch.full((3,), 0.5, dtype=torch.float32, device=device)
         h = torch.full((3,), 0.5 * float(aabb_scale), dtype=torch.float32, device=device)
         return BoundingBox(c - h, c + h)
+
+    @staticmethod
+    def unit(device=None) -> "BoundingBox":
+        """The unit cube [0,1]³."""
+        return BoundingBox(torch.zeros(3, device=device), torch.ones(3, device=device))
 
     @property
     def diag(self) -> torch.Tensor:

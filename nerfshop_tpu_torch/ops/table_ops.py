@@ -51,32 +51,35 @@ def grid_encode_plain(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: boo
     return (out, idx, w1) if with_fracs else (out, None, None)
 
 
-@kernels.counted("launches", "fracs_launches")
+@kernels.counted("launches", "fracs_launches", "d2_launches")
 def grid_encode_cuda(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: bool = True):
-    """Kernel B → (out [N, L·2], idx [L, N] int32, w1 [L, N, 3]); without
-    fracs it writes out only and returns (out, None, None). Takes D = 3,
-    F = 2 and raises on anything else."""
+    """Kernel B → (out [N, L·2], idx [L, N] int32, w1 [L, N, D]); without
+    fracs it writes out only and returns (out, None, None). Takes D = 3 or
+    D = 2, F = 2, and raises on anything else. ``d2_launches`` counts the
+    D = 2 instance."""
     dev = x.device
     N = x.shape[0]
     L = enc.n_levels
-    if enc.n_input_dims != 3 or enc.n_features_per_level != 2:
-        raise ValueError("grid_encode kernel supports D=3, F=2 only")
-    kernels.require(x, "x", torch.float32, (N, 3), dev)
+    D = enc.n_input_dims
+    if D not in (2, 3) or enc.n_features_per_level != 2:
+        raise ValueError("grid_encode kernel supports D=2 or 3, F=2 only")
+    kernels.require(x, "x", torch.float32, (N, D), dev)
     kernels.require(table, "table", torch.float32, (enc.table_size, 2), dev)
     meta_i, meta_f = enc.kernel_meta(dev)
     out = torch.empty((N, L * 2), dtype=torch.float32, device=dev)
     idx = w1 = None
     if with_fracs:
         idx = torch.empty((L, N), dtype=torch.int32, device=dev)
-        w1 = torch.empty((L, N, 3), dtype=torch.float32, device=dev)
+        w1 = torch.empty((L, N, D), dtype=torch.float32, device=dev)
     err = kernels.load().nst_grid_encode(
         x.data_ptr(), meta_i.data_ptr(), meta_f.data_ptr(), table.data_ptr(), out.data_ptr(),
-        idx.data_ptr() if with_fracs else None, w1.data_ptr() if with_fracs else None, N, L,
+        idx.data_ptr() if with_fracs else None, w1.data_ptr() if with_fracs else None, N, L, D,
         kernels.stream_ptr(dev),
     )
     kernels.check(err, "grid_encode")
     grid_encode_cuda.launches += 1
     grid_encode_cuda.fracs_launches += with_fracs
+    grid_encode_cuda.d2_launches += D == 2
     return out, idx, w1
 
 
@@ -138,6 +141,20 @@ def grid_encode_dx(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor, enc
     return grid_encode_dx_cuda(table.detach().contiguous(), x.detach().contiguous(), dout.float().contiguous(), enc)
 
 
+def fold_corners(dB: torch.Tensor, enc, level: int) -> torch.Tensor:
+    """One level's brick-row gradient dB [m, 2^D·F] → its canonical [m, F]
+    gradient: each corner's column block rolled back by its slot shift and
+    summed (``torch.roll`` has ``jnp.roll``'s sign)."""
+    F = enc.n_features_per_level
+    g = dB.view(dB.shape[0], -1, F)
+    acc = None
+    for c, s in enumerate(enc.brick_shifts[level]):
+        gc = g[:, c, :]
+        gc = gc if s == 0 else torch.roll(gc, s, dims=0)
+        acc = gc if acc is None else acc + gc
+    return acc
+
+
 def table_grad(idx: torch.Tensor, w1: torch.Tensor, dout: torch.Tensor, enc) -> torch.Tensor:
     """d_table [Σm, F] from the saved idx [L, N], w1 [L, N, D] and the output
     cotangent dout [N, L·F]: per-level sort, sorted segment sum, corner
@@ -145,7 +162,6 @@ def table_grad(idx: torch.Tensor, w1: torch.Tensor, dout: torch.Tensor, enc) -> 
     L, N = idx.shape
     D = enc.n_input_dims
     F = enc.n_features_per_level
-    C = 1 << D
     dout = dout.reshape(N, L, F).transpose(0, 1).float()  # [L, N, F]
     keys_s, perm = torch.sort(idx, dim=1, stable=True)
     w1_s = torch.gather(w1, 1, perm[:, :, None].expand(L, N, D))
@@ -156,13 +172,7 @@ def table_grad(idx: torch.Tensor, w1: torch.Tensor, dout: torch.Tensor, enc) -> 
         dB = segsum.sorted_segment_rowsum(
             keys_s[l].contiguous(), w1_s[l].contiguous(), dout_s[l].contiguous(), m
         )
-        g = dB.view(m, C, F)
-        acc = None
-        for c, s in enumerate(enc.brick_shifts[l]):
-            gc = g[:, c, :]
-            gc = gc if s == 0 else torch.roll(gc, s, dims=0)
-            acc = gc if acc is None else acc + gc
-        levels.append(acc)
+        levels.append(fold_corners(dB, enc, l))
     return torch.cat(levels, dim=0)
 
 

@@ -7,13 +7,18 @@ marching-tets mesh, score held-out views in PSNR / SSIM, screenshots, the
 frames of a camera path), the same printed lines and the same final JSON
 of ``psnr_mean``, ``ssim_mean`` and ``n_views``. One argument more:
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain versions).
-Only ``--mode nerf`` is ported.
+``--mode`` is nerf, sdf, image or volume, or inferred from the scene's
+suffix (``infer_mode``); in Image mode a last JSON line gives
+``image_mse`` and ``image_psnr``. ``--save_mesh`` (NeRF's density mesh)
+raises in the other modes.
 
 A loaded snapshot survives a scene loaded after it: loading the scene
 builds a fresh network for it, so the snapshot's weights are put back.
 
 Usage examples:
     python -m nerfshop_tpu_torch.run --scene data/nerf/fox --n_steps 2000 --save_snapshot fox.nst
+    python -m nerfshop_tpu_torch.run --mode sdf --scene armadillo.obj --n_steps 1000 --batch_size 65536
+    python -m nerfshop_tpu_torch.run --scene albert.png --n_steps 1000   # Image mode, from the suffix
     python -m nerfshop_tpu_torch.run --load_snapshot fox.nst \\
         --test_transforms data/nerf/lego/transforms_test.json
     python -m nerfshop_tpu_torch.run --device cpu --load_snapshot fox.nst \\
@@ -84,14 +89,15 @@ def main(argv: Optional[Sequence[str]] = None):
     from nerfshop_tpu_torch.utils import metrics
 
     mode = args.mode or (infer_mode(args.scene) if args.scene else "nerf")
-    if mode != "nerf":
-        raise NotImplementedError(f"--mode {mode} is not ported (nerf only)")
     tb = Testbed(TestbedMode(mode), config=args.network or None, device=args.device)
 
     if args.load_snapshot:
         tb.load_snapshot(args.load_snapshot)
     if args.scene:
-        tb.load_training_data(args.scene, downscale=args.downscale)
+        if mode == "nerf":
+            tb.load_training_data(args.scene, downscale=args.downscale)
+        else:
+            tb.load_training_data(args.scene)
         if args.load_snapshot:
             tb.load_snapshot(args.load_snapshot)  # the scene's fresh network takes the snapshot's weights
     if args.near_distance >= 0:
@@ -191,6 +197,10 @@ def main(argv: Optional[Sequence[str]] = None):
             image_io.write_image(out / f"frame_{i:04d}.png", img, linear_input=False)
             print(f"  video frame {i+1}/{args.video_n_frames}", flush=True)
         print(f"wrote {args.video_n_frames} frames to {out}")
+
+    if mode == "image" and tb._image_target is not None:
+        m = tb.compute_image_mse()
+        print(json.dumps({"image_mse": m, "image_psnr": -10 * np.log10(max(m, 1e-12))}))
     return tb
 
 

@@ -1,6 +1,7 @@
-"""Testbed — the user-facing facade, NeRF part.
+"""Testbed — the user-facing facade.
 
-Counterpart of the NeRF half of ``nerfshop_tpu/testbed.py``: construct with
+Counterpart of ``nerfshop_tpu/testbed.py``, in its four modes. NeRF mode:
+construct with
 a config, load a scene (``load_training_data``, or ``set_training_data``
 with an in-memory ``NerfDataset``), ``train`` (chunks of up to 16 steps
 through ``train/nerf.py::make_train_loop``, one captured CUDA graph per
@@ -15,8 +16,17 @@ refresh the density grid through the operator stack; ``save_edits`` /
 ``load_camera_path``, the density grid, the marching-tets mesh with
 vertex colours, its refinement and export, and density slices. ``render``
 always takes the exact path, through the edit stack: the tiled path is not
-ported, and ``exact=False`` raises. The other testbed modes are not ported
-yet.
+ported, and ``exact=False`` raises.
+
+The Image, SDF and Volume modes (``train/image.py``, ``train/sdf.py``,
+``train/volume.py``) load an image, a mesh or a density volume
+(``load_training_data``), ``train``, ``render`` and ``screenshot`` the
+current camera, and save and load snapshots of their one network; the SDF
+mode has the ``sdf`` namespace (``brdf``, ``sun_dir``, the shading knobs)
+and ``calculate_iou``, the Image mode ``compute_image_mse``. The NeRF-only
+methods (edits, the density grid, meshes) raise in those modes. A loaded
+snapshot keeps its weights in every mode (the JAX package loses them in the
+SDF and Volume modes: ``ROADMAP.md`` Queue 3, F13).
 
 Without a ``device`` the testbed takes ``cuda:0`` and raises when CUDA is
 absent; the CPU runs only when asked for by name (``device="cpu"``).
@@ -35,7 +45,10 @@ import numpy as np
 import torch
 
 from nerfshop_tpu_torch.common import DEFAULT_BATCH_SIZE, DEFAULT_STEPS_PER_FRAME, RenderMode, TestbedMode, TonemapCurve
-from nerfshop_tpu_torch.config import ConfigDict, default_nerf_config, load_network_config
+from nerfshop_tpu_torch.config import (
+    ConfigDict, default_image_config, default_nerf_config, default_sdf_config, default_volume_config,
+    load_network_config,
+)
 from nerfshop_tpu_torch.device import default_device
 from nerfshop_tpu_torch.models.nerf_network import check_kernel_range
 
@@ -46,6 +59,14 @@ def upsample_bilinear(img: torch.Tensor, width: int, height: int) -> torch.Tenso
     "linear")`` does when it enlarges)."""
     x = torch.nn.functional.interpolate(img.permute(2, 0, 1)[None], size=(height, width), mode="bilinear", align_corners=False)
     return x[0].permute(1, 2, 0).contiguous()
+
+
+DEFAULT_CONFIGS = {
+    TestbedMode.Nerf: default_nerf_config,
+    TestbedMode.Image: default_image_config,
+    TestbedMode.Sdf: default_sdf_config,
+    TestbedMode.Volume: default_volume_config,
+}
 
 
 class _Namespace:
@@ -83,13 +104,11 @@ class Testbed:
         seed: Optional[int] = None,
     ):
         self.mode = TestbedMode(mode) if isinstance(mode, str) else mode
-        if self.mode != TestbedMode.Nerf:
-            raise NotImplementedError(f"testbed mode {self.mode} is not ported")
         self.device = torch.device(device) if device is not None else default_device()
         network_config = None
         if config is not None:
             network_config = load_network_config(config) if isinstance(config, (str, Path)) else ConfigDict(config)
-            check_kernel_range(network_config, self.device)  # before anything is allocated
+            check_kernel_range(network_config, self.device, self.mode)  # before anything is allocated
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(time.time()) % (1 << 31) if seed is None else seed)
         self.shall_train = False
@@ -127,8 +146,16 @@ class Testbed:
         )
         self.stats = TrainingStats()
         self.loss_history: list = []
-        self._network_config: ConfigDict = default_nerf_config()
+        self._network_config: ConfigDict = DEFAULT_CONFIGS[self.mode]()
         self._dataset = None
+        #: the other modes' data and models (None in NeRF mode)
+        self._image_target: Optional[np.ndarray] = None
+        self._image_dev: Optional[torch.Tensor] = None
+        self._image_model = None
+        self._sdf_mesh = None
+        self._sdf = None
+        self._volume_grid: Optional[np.ndarray] = None
+        self._volume = None
         self._device_data = None
         self._model = None
         self._state = None
@@ -156,11 +183,29 @@ class Testbed:
     # ------------------------------------------------------------------- data
 
     def load_training_data(self, path: str, downscale: int = 1) -> None:
-        from nerfshop_tpu_torch.data import nerf_loader
-
+        """A NeRF scene (a directory or its transforms.json), an image (Image
+        mode, read linear), a mesh (SDF mode) or a density volume (Volume
+        mode: .npy, .npz, .raw + .json, .nvdb); ``downscale`` is NeRF's."""
         path = Path(path)
-        json_path = path if path.suffix == ".json" else path / "transforms.json"
-        self.set_training_data(nerf_loader.load_nerf(json_path, downscale=downscale))
+        if self.mode == TestbedMode.Nerf:
+            from nerfshop_tpu_torch.data import nerf_loader
+
+            json_path = path if path.suffix == ".json" else path / "transforms.json"
+            self.set_training_data(nerf_loader.load_nerf(json_path, downscale=downscale))
+            return
+        if self.mode == TestbedMode.Image:
+            from nerfshop_tpu_torch.data import image_io
+
+            self._image_target = image_io.read_image(path, linear=True)[..., :3]
+        elif self.mode == TestbedMode.Sdf:
+            from nerfshop_tpu_torch.geometry import mesh_io
+
+            self._sdf_mesh = mesh_io.load_mesh(path)
+        else:
+            from nerfshop_tpu_torch.data import volume_io
+
+            self._volume_grid = volume_io.load_volume(path)
+        self._reset_network()
 
     def set_training_data(self, ds) -> None:
         """Use an in-memory ``data.nerf_loader.NerfDataset``."""
@@ -173,6 +218,9 @@ class Testbed:
     # ----------------------------------------------------------------- network
 
     def _reset_network(self) -> None:
+        if self.mode != TestbedMode.Nerf:
+            self._reset_field()
+            return
         from nerfshop_tpu_torch.models.nerf_network import build_nerf_network
         from nerfshop_tpu_torch.ops import grid as grid_lib
         from nerfshop_tpu_torch.train import nerf as nerf_train
@@ -206,9 +254,34 @@ class Testbed:
         self._loops = {}
         self.stats = TrainingStats()
 
+    def _reset_field(self) -> None:
+        """A fresh network (and its optimizer) for the Image, SDF or Volume
+        mode, from the config, the generator and the loaded data."""
+        from nerfshop_tpu_torch.train import image as image_mod
+        from nerfshop_tpu_torch.train import optim
+        from nerfshop_tpu_torch.train import sdf as sdf_train
+        from nerfshop_tpu_torch.train import volume as volume_train
+
+        cfg, dev, g = self._network_config, self.device, self.generator
+        if self.mode == TestbedMode.Image:
+            self._image_model = image_mod.ImageModel.from_config(cfg, dev, g)
+            self._state = optim.TrainState(self._image_model, optim.build_optimizer(dict(cfg.get("optimizer", {}))))
+            self._image_dev = None
+        elif self.mode == TestbedMode.Sdf:
+            self._sdf = sdf_train.SdfTestbed.create(cfg, self._sdf_mesh, dev, g)
+            self._state = self._sdf.state
+        else:
+            self._volume = volume_train.VolumeTestbed.create(cfg, self._volume_grid, dev, g)
+            self._state = self._volume.state
+        self.stats = TrainingStats()
+
     @property
     def model(self):
-        return self._model
+        """The mode's network: the NeRF network, or the Image, SDF or
+        Volume mode's field (None before one is built)."""
+        if self.mode == TestbedMode.Nerf or self._state is None:
+            return self._model
+        return self._state.model
 
     @property
     def grid(self):
@@ -233,6 +306,8 @@ class Testbed:
         """n_steps of optimization; returns the last loss."""
         from nerfshop_tpu_torch.train import nerf as nerf_train
 
+        if self.mode != TestbedMode.Nerf:
+            return self._train_field(n_steps, batch_size)
         if self._dataset is None:
             raise RuntimeError("load_training_data first")
         t_start = time.perf_counter()
@@ -294,6 +369,39 @@ class Testbed:
         self.stats.training_ms = (time.perf_counter() - t_start) * 1e3
         return loss
 
+    def _train_field(self, n_steps: int, batch_size: int) -> float:
+        """n_steps of the Image, SDF or Volume mode (batches of at most
+        2^18, 2^16 and 2^16); the loss is read back once, at the end."""
+        from nerfshop_tpu_torch.train import image as image_mod
+        from nerfshop_tpu_torch.train import losses
+
+        t_start = time.perf_counter()
+        if self.mode == TestbedMode.Image:
+            if self._image_target is None:
+                raise RuntimeError("load_training_data first")
+            if self._image_dev is None:
+                self._image_dev = torch.as_tensor(np.ascontiguousarray(self._image_target, np.float32), device=self.device)
+            loss_fn = losses.build_loss(dict(self._network_config.get("loss", {"otype": "L2"})))
+            bs = min(batch_size, 1 << 18)
+            loss = None
+            for _ in range(n_steps):
+                xy = torch.rand((bs, 2), generator=self.generator, device=self.device)
+                loss = image_mod.train_step(self._image_model, self._state, loss_fn, self._image_dev, xy)
+                self.stats.step += 1
+            loss = float(loss) if loss is not None else float(self.stats.loss)
+        else:
+            sub = self._sdf if self.mode == TestbedMode.Sdf else self._volume
+            loss = sub.train(n_steps, batch_size)
+            self.stats.step = sub.step
+        if not math.isfinite(loss):
+            self.shall_train = False
+            raise RuntimeError(f"non-finite training loss at step {self.stats.step}")
+        self.stats.loss = loss
+        self.loss_history.append((self.stats.step, loss))
+        del self.loss_history[:-512]
+        self.stats.training_ms = (time.perf_counter() - t_start) * 1e3
+        return loss
+
     def _get_loop(self, chunk: int):
         """The ``chunk``-step training loop of the current bucket
         (``train/nerf.py::make_train_loop``: captured on a CUDA device,
@@ -352,7 +460,7 @@ class Testbed:
         t0 = time.perf_counter()
         if self.shall_train:
             self.train(DEFAULT_STEPS_PER_FRAME, DEFAULT_BATCH_SIZE)
-        if self.frame_resolution is not None and self._model is not None:
+        if self.frame_resolution is not None and self.model is not None:
             w, h = self.frame_resolution
             self.frame_buffer = self.render_dynamic(w, h, spp=1)
         self.stats.frame_ms = (time.perf_counter() - t0) * 1e3
@@ -474,6 +582,8 @@ class Testbed:
         from nerfshop_tpu_torch.render import renderer
         from nerfshop_tpu_torch.render.buffer import RenderBuffer
 
+        if self.mode != TestbedMode.Nerf:
+            return self._render_field(width, height, linear, camera_matrix, focal)
         if exact is False:
             raise NotImplementedError("the tiled render path is not ported; render(exact=True)")
         if self._model is None:
@@ -533,6 +643,68 @@ class Testbed:
             # the model predicts sRGB-space radiance; convert for linear output
             img = torch.cat([tm.srgb_to_linear(img[..., :3]), img[..., 3:]], dim=-1)
         return img
+
+    def _render_field(self, width: int, height: int, linear: bool, camera_matrix, focal) -> torch.Tensor:
+        """The Image mode's field at every pixel centre (alpha 1), the SDF
+        mode's sphere-traced frame or the Volume mode's delta-tracked frame
+        (spp 4, as in JAX, whatever ``spp`` is asked) → [H, W, 4] on the
+        device."""
+        from nerfshop_tpu_torch.ops import tonemap as tm
+        from nerfshop_tpu_torch.train import image as image_mod
+
+        if self._state is None:
+            raise RuntimeError("no network: pass a config or load training data or a snapshot first")
+        if self.mode == TestbedMode.Image:
+            img = image_mod.render_full_image(self._image_model, self.inference_params, (height, width))
+            rgb = img if linear else torch.clamp(tm.linear_to_srgb(img), 0, 1)
+            return torch.cat([rgb, torch.ones((height, width, 1), device=rgb.device)], -1)
+        cam = camera_matrix if camera_matrix is not None else self.camera_matrix
+        focal = focal if focal is not None else self._focal_for(width, height)
+        sub = self._sdf if self.mode == TestbedMode.Sdf else self._volume
+        return sub.render(width, height, cam, focal, linear)
+
+    # --------------------------------------------------------- other modes
+
+    @property
+    def sdf(self):
+        """The SDF mode's testbed (the reference's ``testbed.sdf``): the
+        shading knobs ``analytic_normals``, ``fd_normals_epsilon``,
+        ``shadow_sharpness``, ``render_shadows``, ``floor_enable``, ``brdf``
+        and ``sun_dir`` live on it."""
+        if self._sdf is None:
+            raise RuntimeError("SDF mode not initialized")
+        return self._sdf
+
+    @property
+    def brdf(self):
+        return self.sdf.brdf
+
+    @property
+    def sun_dir(self) -> np.ndarray:
+        return np.asarray(self.sdf.sun_dir, np.float32)
+
+    @sun_dir.setter
+    def sun_dir(self, d) -> None:
+        self.sdf.sun_dir = tuple(np.asarray(d, np.float32).tolist())
+
+    def calculate_iou(self, n_samples: int = 128**3, scale_existing_results_factor: float = 0.0) -> float:
+        """SDF mode: IoU of the network's inside set against the mesh's on
+        min(n_samples, 2^18) uniform points."""
+        if self.mode != TestbedMode.Sdf:
+            raise RuntimeError(f"calculate_iou needs the SDF mode, not {self.mode.value}")
+        return self.sdf.calculate_iou(n_samples)
+
+    def compute_image_mse(self, quantize: bool = False) -> float:
+        """Image mode: MSE of the field rendered at the target's resolution
+        against the target (linear)."""
+        from nerfshop_tpu_torch.train import image as image_mod
+
+        if self.mode != TestbedMode.Image or self._image_target is None:
+            raise RuntimeError("compute_image_mse needs the Image mode with an image loaded")
+        H, W = self._image_target.shape[:2]
+        pred = image_mod.render_full_image(self._image_model, self.inference_params, (H, W))
+        target = torch.as_tensor(np.ascontiguousarray(self._image_target, np.float32), device=self.device)
+        return float(image_mod.compute_image_mse(pred, target, quantize))
 
     def _render_options(self, min_transmittance: Optional[float] = None, focus_z: Optional[float] = None):
         """The exact renderer's options for the testbed's state and grid."""
@@ -642,6 +814,7 @@ class Testbed:
         from nerfshop_tpu_torch.editing.growing_selection import GrowingSelection
         from nerfshop_tpu_torch.ops import coords
 
+        self._require_nerf("begin_cage_edit")
         if self._model is None:
             raise RuntimeError("no network: pass a config or load training data or a snapshot first")
         return GrowingSelection(
@@ -678,12 +851,19 @@ class Testbed:
 
     # ---------------------------------------------------------------- meshing
 
+    def _require_nerf(self, what: str) -> None:
+        """Raise unless the testbed is in NeRF mode (the JAX package asserts
+        it for the edits, the density grid and the meshes)."""
+        if self.mode != TestbedMode.Nerf:
+            raise RuntimeError(f"{what} needs the NeRF mode, not {self.mode.value}")
+
     def _density_fn(self):
         """World positions → σ with the EMA parameters (which need no
         gradient): differentiable in the positions only."""
         from nerfshop_tpu_torch.models.nerf_network import density_with
         from nerfshop_tpu_torch.ops import coords
 
+        self._require_nerf("the density field")
         if self._model is None:
             raise RuntimeError("no network: pass a config or load training data or a snapshot first")
         full = coords.BoundingBox.from_aabb_scale(self._train_cfg.aabb_scale, device=self.device)
@@ -793,11 +973,11 @@ class Testbed:
             }
         snap_lib.save_snapshot(
             path,
-            params=dict(self._model.named_parameters()),
+            params=dict(self.model.named_parameters()),
             network_config=json.loads(json.dumps(dict(self._network_config))),
             mode=self.mode.value,
             ema_params=self._state.ema,
-            density_grid=self._grid.density,
+            density_grid=self._grid.density if self.mode == TestbedMode.Nerf else None,
             metadata=metadata,
             step=self.stats.step,
         )
@@ -812,9 +992,8 @@ class Testbed:
 
         snap = snap_lib.load_snapshot(path)
         mode = TestbedMode(snap.get("mode", "nerf"))
-        if mode != TestbedMode.Nerf:
-            raise NotImplementedError(f"snapshot of mode {mode} is not ported")
-        check_kernel_range(snap["network_config"], self.device)  # before the testbed changes
+        check_kernel_range(snap["network_config"], self.device, mode)  # before the testbed changes
+        self.mode = mode
         self._network_config = ConfigDict(snap["network_config"])
         meta = snap.get("nerf")
         if meta and self._dataset is None:
@@ -831,17 +1010,23 @@ class Testbed:
                 color_space=meta.get("color_space", "srgb"),
             )
         self._reset_network()
-        params = snap_lib.restore_params(dict(self._model.named_parameters()), snap, "params")
+        # in place: the mode's own testbed (SDF, Volume) trains and renders
+        # these very tensors
+        model = self.model
+        params = snap_lib.restore_params(dict(model.named_parameters()), snap, "params")
         with torch.no_grad():
-            for name, p in self._model.named_parameters():
+            for name, p in model.named_parameters():
                 p.copy_(params[name])
             if self._state.ema is not None:
                 ema = snap_lib.restore_params(self._state.ema, snap, "ema_params") if "ema_params" in snap else params
                 for name, e in self._state.ema.items():
                     e.copy_(ema[name])
         dg = snap.get("density_grid")
-        if dg is not None and dg.shape[0] == self._grid.n_cascades:
+        if dg is not None and self._grid is not None and dg.shape[0] == self._grid.n_cascades:
             self._grid.density = torch.tensor(dg, device=self.device)
             grid_lib.update_bitfield(self._grid)
-        self._state.step = int(snap.get("step", 0))
-        self.stats.step = int(snap.get("step", 0))
+        step = int(snap.get("step", 0))
+        self._state.step = self.stats.step = step
+        for sub in (self._sdf, self._volume):
+            if sub is not None:
+                sub.step = step

@@ -6,6 +6,11 @@ The JAX ``NerfNetwork.init`` pytree, converted to numpy, has the leaves
 ``NerfNetwork`` names the same tensors ``pos_encoding.table``,
 ``density_mlp.weights.i`` and ``rgb_mlp.weights.i``, so
 ``model.load_state_dict(params_from_jax(tree))`` loads them slot for slot.
+The Image, SDF and Volume models (JAX ``ImageModel``, ``SdfModel``,
+``VolumeModel``) have the leaves ``encoding/table`` and
+``network/weights/i``; :func:`field_params_from_jax` and
+:func:`field_params_to_jax` carry them into the port's ``FieldModel``
+(``models/field.py``) and back.
 
 A snapshot stores the same leaves flat under ``/``-joined paths
 (``/pos_encoding/table``, ``/density_mlp/weights/0``, …);
@@ -51,6 +56,33 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
         n = sum(1 for k in state if k.startswith(f"{mlp}.weights."))
         tree[mlp] = {"weights": [np_of(state[f"{mlp}.weights.{i}"]) for i in range(n)]}
     return tree
+
+
+def field_params_from_jax(tree: dict, device=None) -> Dict[str, torch.Tensor]:
+    """A JAX Image / SDF / Volume params pytree (numpy leaves) → the port's
+    ``FieldModel`` state dict."""
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    out = {"encoding.table": t(tree["encoding"]["table"])}
+    for i, w in enumerate(tree["network"]["weights"]):
+        out[f"network.weights.{i}"] = t(w)
+    return out
+
+
+def field_params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
+    """The port's ``FieldModel`` state dict → a JAX params pytree with numpy
+    leaves."""
+
+    def np_of(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+
+    n = sum(1 for k in state if k.startswith("network.weights."))
+    return {
+        "encoding": {"table": np_of(state["encoding.table"])},
+        "network": {"weights": [np_of(state[f"network.weights.{i}"]) for i in range(n)]},
+    }
 
 
 _LUT_ARRAYS = ("bbox_lo", "inv_cell", "cells")

@@ -2,7 +2,7 @@
 """Device profile of one exact 1920×1080 frame of the port on one NVIDIA GPU.
 
 Run from the root of a checkout:
-  python3 profile_render.py [--out FILE] [--compact FRAC | --edited | --normals | --train | --distill]
+  python3 profile_render.py [--out FILE] [--compact FRAC | --edited | --normals | --train | --distill | --sdf | --volume]
   python3 profile_render.py --save-chunk FILE
   python3 profile_render.py --kernels --chunk FILE [--root DIR]
   python3 profile_render.py --save-edit DIR
@@ -50,6 +50,13 @@ share of kernel A, ``segsum``, among them; the full tables go to ``--out``
 and, for the eager loop, to its ``_eager`` sibling); then kernel A alone at
 ``chip_smoke.py``'s hash, dense, skewed and spread-under-a-pile cases, each
 launch's device time and the span of a call.
+
+With ``--sdf`` it trains the SDF testbed of ``chip_smoke.py``'s [sdf] phase
+instead (the 81920-face bumpy icosphere, configs/sdf/base.json, 1000 steps
+at batch 2^16) and profiles one 1920×1080 sphere-traced frame the same way
+(busy, idle share, device time by kernel name); with ``--volume`` the
+Volume testbed of its [volume] phase (``synthetic_smoke(256)``, 1000 steps)
+and one 1920×1080 delta-tracked frame at spp 4.
 
 With ``--save-chunk FILE`` it trains that model, renders one 1080p frame
 and saves the positions the frame's middle chunk encoded (8192 rays × K
@@ -183,7 +190,7 @@ def profile_frame(tb, label: str, out: Path | None = None, render=None):
         prof_wall = (time.perf_counter() - t0) * 1e3
     events, busy, by_name = device_events(prof)
     print(
-        f"[profile] {label} {W}x{H} exact frame: unprofiled median of 3 {statistics.median(times):.1f} ms "
+        f"[profile] {label} {W}x{H} frame: unprofiled median of 3 {statistics.median(times):.1f} ms "
         f"({[round(t, 1) for t in times]}); profiled frame wall {prof_wall:.1f} ms, {len(events)} device events, "
         f"device busy {busy:.1f} ms (union of event intervals), idle share of the profiled frame "
         f"{1.0 - busy / prof_wall:.3f}; busy / unprofiled median {busy / statistics.median(times):.3f}",
@@ -529,6 +536,30 @@ def time_warp(dev, root: str, edit: Path, N: int = 1 << 20) -> None:
         print(f"[warp] {label}: the lookup differs from the plain one at {diff} points", flush=True)
 
 
+def field_testbed(dev, mode: str, steps: int = 1000):
+    """The SDF or Volume testbed of ``chip_smoke.py``'s [sdf] / [volume]
+    phase, trained ``steps`` steps at batch 2^16."""
+    import tempfile
+
+    from nerfshop_tpu_torch.geometry import mesh_io
+    from nerfshop_tpu_torch.testbed import Testbed
+    from nerfshop_tpu_torch.train import volume as volume_train
+
+    tb = Testbed(mode, device=dev, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        if mode == "sdf":
+            path = Path(tmp) / "bumpy.obj"
+            mesh_io.save_obj(path, chip_smoke.bumpy_mesh())
+        else:
+            path = Path(tmp) / "smoke.npy"
+            np.save(path, volume_train.synthetic_smoke(256))
+        tb.load_training_data(str(path))
+    t0 = time.perf_counter()
+    loss = tb.train(steps, 1 << 16)
+    print(f"[profile] {mode} testbed: {steps} steps in {time.perf_counter() - t0:.3f} s, loss {loss:.6f}", flush=True)
+    return tb
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=None, help="write the full per-kernel table here")
@@ -541,6 +572,8 @@ def main() -> None:
     mode.add_argument("--save-chunk", type=Path, default=None, help="train, then save one 1080p chunk's positions here")
     mode.add_argument("--save-edit", type=Path, default=None, help="train, edit, then save the edits and a warp chunk here")
     mode.add_argument("--warp", action="store_true", help="time the cage warp of a saved edit (no training)")
+    mode.add_argument("--sdf", action="store_true", help="profile a sphere-traced frame of the SDF testbed instead")
+    mode.add_argument("--volume", action="store_true", help="profile a delta-tracked frame of the Volume testbed instead")
     ap.add_argument("--compact", type=float, default=None,
                     help="in the frame mode: also profile the frame with this compact_frac")
     ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")
@@ -548,7 +581,8 @@ def main() -> None:
     ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
     args = ap.parse_args()
     if args.compact is not None and (args.edited or args.normals or args.train or args.distill or args.kernels or args.warp
-                                     or args.save_chunk is not None or args.save_edit is not None):
+                                     or args.sdf or args.volume or args.save_chunk is not None
+                                     or args.save_edit is not None):
         ap.error("--compact goes with the frame mode only")
     if args.root is not None and not (args.kernels or args.warp):
         ap.error("--root goes with --kernels or --warp")
@@ -578,6 +612,16 @@ def main() -> None:
     smi = chip_smoke.phase_device()
     dev = torch.device("cuda", 0)
     chip_smoke.phase_build()
+    if args.sdf or args.volume:
+        print(f"[profile] card: {smi}")
+        mode = "sdf" if args.sdf else "volume"
+        tb = field_testbed(dev, mode)
+        torch.cuda.reset_peak_memory_stats()
+        profile_frame(tb, "SDF, sphere-traced" if args.sdf else "Volume, delta-tracked spp 4", args.out,
+                      render=lambda: (tb.render(W, H), torch.cuda.synchronize()))
+        print(f"[profile] {mode} frame: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+              flush=True)
+        return
     tb, focal, principal, _ = chip_smoke.phase_main_path(dev)
     print(f"[profile] card: {smi}")
     if args.train:

@@ -244,5 +244,16 @@ def test_cli_runs_every_stage_on_a_png_scene(tmp_path, capsys):
     assert again._dataset.n_images == 4 and again.stats.step == 3
     for k, v in again.inference_params.items():
         assert torch.equal(v, tb.inference_params[k]), k
-    with pytest.raises(NotImplementedError, match="--mode image"):
-        trun.main(["--mode", "image", "--device", "cpu"])
+    # --mode image (it raised before the Image testbed was ported) on one of
+    # the scene's PNGs: trains, screenshots and prints its image_mse line
+    img_cfg = {"encoding": {"otype": "HashGrid", "n_levels": 4, "log2_hashmap_size": 10, "base_resolution": 4},
+               "network": {"n_neurons": 64, "n_hidden_layers": 2}}
+    (tmp_path / "img.json").write_text(json.dumps(img_cfg))
+    capsys.readouterr()
+    image = trun.main(["--mode", "image", "--scene", str(scene / "images" / "00.png"), "--network",
+                       str(tmp_path / "img.json"), "--n_steps", "2", "--batch_size", "1024", "--screenshot_dir",
+                       str(out / "image"), "--width", "16", "--height", "16", "--device", "cpu"])
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert image.mode.value == "image" and image.stats.step == 2
+    assert set(last) == {"image_mse", "image_psnr"} and last["image_mse"] == pytest.approx(image.compute_image_mse())
+    assert tio.read_image(out / "image" / "screenshot.png", linear=False).shape == (16, 16, 4)

@@ -1,8 +1,11 @@
 """The port's own copies of the JAX package's host modules (``common``,
 ``config``, ``data``, ``utils/metrics``) and of its native host library's
 source against the originals: the same enums, constants and configs, the
-same dataset from the same files, the same metric code and values, and the
-same C++ below the header comment."""
+same dataset from the same files, the same metric and volume-ingest code
+(``data/volume_io.py``) and values, and the same C++ below the header
+comment. The port's ``build_bvh`` shares its triangle arithmetic with
+``build_triangles``, so it is no verbatim copy: ``tests/test_torch_sdf.py``
+holds its arrays equal to JAX's."""
 
 import enum
 import json
@@ -86,6 +89,13 @@ def test_metrics_code_is_the_originals():
 
     root = Path(__file__).resolve().parents[1]
     assert _code(root / "nerfshop_tpu_torch/utils/metrics.py") == _code(root / "nerfshop_tpu/utils/metrics.py")
+
+
+def test_volume_io_code_is_the_originals():
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    assert _code(root / "nerfshop_tpu_torch/data/volume_io.py") == _code(root / "nerfshop_tpu/data/volume_io.py")
 
 
 def test_host_ops_source_is_the_originals():

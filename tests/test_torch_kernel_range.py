@@ -1,9 +1,11 @@
 """The network configs the CUDA kernels compute are checked where the network
 is built (``models/nerf_network.check_kernel_range``): on a CUDA device a
-config outside kernels A/B (a grid of D = 3, F = 2) or kernel C (the fused
-MLP's widths and depth) raises ``ValueError`` naming the kernel before
+config outside kernels A/B (a grid of D = 3 or 2, F = 2) or kernel C (the
+fused MLP's widths and depth) raises ``ValueError`` naming the kernel before
 anything is allocated, so these tests run without a card; the CPU, whose
-plain paths take every config, still builds them."""
+plain paths take every config, still builds them. The check reads the
+testbed's mode: the Image mode's grid is 2-D, and the SDF, Image and Volume
+modes have one MLP with 1, 3 and 4 outputs."""
 
 from pathlib import Path
 
@@ -35,8 +37,11 @@ OUTSIDE = (
     ("3 hidden layers", lambda: _with(rgb_network={"n_hidden_layers": 3}), "kernel C.*3 hidden layers"),
     ("sigmoid output", lambda: _with(network={"output_activation": "Sigmoid"}), "kernel C.*output activation"),
     ("80-wide encoding", lambda: _with(encoding={"n_levels": 40}), "kernel C.*input width 80"),
+    # a 2-D grid is in B's and A's range since they took D = 2 (the Image
+    # testbed); F = 4 in one is not
     ("2-D grid", lambda: _with(encoding={"otype": "Composite", "nested": [
-        {"n_dims_to_encode": 1, "otype": "Identity"}, {"otype": "HashGrid", "n_levels": 15}]}), "n_input_dims 2"),
+        {"n_dims_to_encode": 1, "otype": "Identity"},
+        {"otype": "HashGrid", "n_levels": 15, "n_features_per_level": 4}]}), "n_input_dims 2, n_features_per_level 4"),
 )
 
 
@@ -59,6 +64,33 @@ def test_cuda_build_raises_before_allocating(label, make, match):
 def test_kernel_range_takes_the_default_configs(config):
     cfg = default_nerf_config() if config is None else load_network_config(ROOT / "configs/nerf" / config)
     check_kernel_range(cfg, CUDA)
+
+
+@pytest.mark.parametrize("mode", ["sdf", "image", "volume"])
+def test_kernel_range_takes_the_mode_configs(mode):
+    # each shipped config of the other modes, and the mode's default
+    from nerfshop_tpu_torch import config as tconfig
+
+    check_kernel_range(load_network_config(ROOT / "configs" / mode / "base.json"), CUDA, mode)
+    check_kernel_range(getattr(tconfig, f"default_{mode}_config")(), CUDA, testbed.TestbedMode(mode))
+
+
+@pytest.mark.parametrize("mode,change,match", [
+    ("image", {"encoding": {"n_features_per_level": 4}}, "n_input_dims 2, n_features_per_level 4"),
+    ("sdf", {"network": {"n_hidden_layers": 3}}, "MLP.*kernel C.*3 hidden layers"),
+    ("volume", {"encoding": {"n_levels": 40}}, "MLP.*kernel C.*input width 80"),
+    ("sdf", {"encoding": {"otype": "Takikawa"}}, "Takikawa"),
+])
+def test_mode_configs_outside_raise(mode, change, match):
+    cfg = load_network_config(ROOT / "configs" / mode / "base.json")
+    for key, block in change.items():
+        cfg[key] = {**cfg[key], **block}
+    error = NotImplementedError if "Takikawa" in match else ValueError
+    with pytest.raises(error, match=match):
+        check_kernel_range(cfg, CUDA, mode)
+    with pytest.raises(error, match=match):
+        testbed.Testbed(mode, config=cfg, device="cuda")
+    check_kernel_range(cfg, "cpu", mode)
 
 
 @pytest.mark.parametrize("otype,cfg,n_in", [
