@@ -84,9 +84,10 @@ Phases, each printing one line of its own numbers:
      against the numpy paths;
  18. [sdf]: an 81920-face bumpy icosphere written as .obj and trained
      through ``run.main(["--mode", "sdf", ...])`` (1000 steps at batch
-     2^16); kernel G (the BVH signed distance) against its plain version,
-     the brute force, and timed at 2^15 and 2^18 points; ``calculate_iou``
-     ≥ 0.9; a 1920×1080 sphere-traced frame;
+     2^16); kernel G (the BVH signed distance: the packed walk) against its plain version, the brute force, on a batch's,
+     uniform and near-feature points from a fixed seed, and timed at 2^15
+     and 2^18 points; ``calculate_iou`` ≥ 0.9; a 1920×1080 sphere-traced
+     frame;
  19. [image]: kernels B and A at D = 2 against their plain versions at the
      Image config's shapes; a 2048×2048 PNG trained through ``run.main(
      ["--mode", "image", ...])`` (1000 steps at batch 2^18), its
@@ -2291,14 +2292,44 @@ def training_lines(lines, steps):
     return steps / (t_b - t_a), losses, t_a
 
 
-def phase_sdf(dev, g, workdir: Path, W=1920, H=1080, steps=1000):
+#: the seed of kernel G's timing and checking points, so that two versions
+#: of the kernel are timed on the same points
+G_SEED = 2718
+
+
+def g_points(sdf) -> dict:
+    """Kernel G's points on the SDF testbed ``sdf``, drawn from its
+    generator reseeded with :data:`G_SEED`: "2^15", a training batch's
+    ground-truth points (3/4 near the surface, 1/4 uniform); "2^18", uniform
+    points in the unit box (an IoU's); "near features", 4096 points within
+    1e-4 of the mesh's vertices (half) and of points on its edges (half),
+    where triangles tie and the pseudo-normal chosen matters."""
+    gen, dev = sdf.generator, sdf.device
+    gen.manual_seed(G_SEED)
+    batch = sdf._sample_batch(1 << 16)[0][sdf.batch_sizes(1 << 16)[0]:].contiguous()
+    uniform = torch.rand((1 << 18, 3), generator=gen, device=dev)
+    v = torch.as_tensor(sdf.mesh_vertices, device=dev)
+    f = torch.as_tensor(sdf.mesh_faces.astype(np.int64), device=dev)
+    vert = v[torch.randint(v.shape[0], (2048,), generator=gen, device=dev)]
+    fi = torch.randint(f.shape[0], (2048,), generator=gen, device=dev)
+    k = torch.randint(3, (2048,), generator=gen, device=dev)
+    a, b = v[f[fi, k]], v[f[fi, (k + 1) % 3]]
+    edge = a + torch.rand((2048, 1), generator=gen, device=dev) * (b - a)
+    step = torch.randn((4096, 3), generator=gen, device=dev)
+    step *= 1e-4 * torch.rand((4096, 1), generator=gen, device=dev) / step.norm(dim=1, keepdim=True)
+    return {"2^15": batch, "2^18": uniform, "near features": (torch.cat([vert, edge]) + step).contiguous()}
+
+
+def phase_sdf(workdir: Path, W=1920, H=1080, steps=1000):
     """[sdf]: the bumpy 81920-face mesh written as .obj and trained through
     ``run.main(["--mode", "sdf", ...])`` (1000 steps at batch 2^16, the
     loss falling); kernel G against its plain version (the brute force) on
-    4096 of a training batch's points and 4096 uniform ones (max |Δd| ≤
-    1e-5, no sign disagreement where |d| > 1e-6), timed at 2^15 (a batch's
-    ground-truth points) and 2^18 points (the IoU's); ``calculate_iou`` ≥
-    0.9; a 1920×1080 ``render`` → ({path: launches}, G's numbers)."""
+    4096 of a training batch's points, 4096 uniform ones and 4096 near the
+    mesh's vertices and edges (:func:`g_points`, from a fixed seed; max
+    |Δd| ≤ 1e-5, no sign disagreement where |d| > 1e-6), timed at 2^15 (a
+    batch's ground-truth points) and 2^18 points (the IoU's);
+    ``calculate_iou`` ≥ 0.9 through one launch of G; a 1920×1080 ``render``
+    → ({path: launches}, G's numbers)."""
     from nerfshop_tpu_torch.geometry import bvh as bvh_lib
     from nerfshop_tpu_torch.geometry import mesh_io
 
@@ -2315,15 +2346,15 @@ def phase_sdf(dev, g, workdir: Path, W=1920, H=1080, steps=1000):
     check(train_launches["bvh_signed_distance"] == steps, f"kernel G not once a step: {train_launches}")
 
     sdf = tb.sdf
-    bvh = sdf.bvh
+    packed = sdf.packed_bvh
+    bvh = packed.bvh
     tris = bvh.triangles()
-    n_exact = sdf.batch_sizes(1 << 16)[0]
-    batch_pts = sdf._sample_batch(1 << 16)[0][n_exact:].contiguous()  # 2^15: 3/4 near the surface, 1/4 uniform
+    pts = g_points(sdf)
     errs, flips = {}, {}
-    for label, pts in (("batch", batch_pts[::8].contiguous()),
-                       ("uniform", torch.rand((4096, 3), generator=g, device=dev))):
-        d_k = bvh_lib.bvh_signed_distance_cuda(bvh, pts)
-        d_p = bvh_lib.signed_distance_plain(tris, pts)
+    for label, p in (("batch", pts["2^15"][::8].contiguous()), ("uniform", pts["2^18"][:4096].contiguous()),
+                     ("near features", pts["near features"])):
+        d_k = bvh_lib.bvh_signed_distance_cuda(packed, p)
+        d_p = bvh_lib.signed_distance_plain(tris, p)
         torch.cuda.synchronize()
         errs[label] = float((d_k - d_p).abs().max())
         clear = d_p.abs() > 1e-6
@@ -2331,17 +2362,30 @@ def phase_sdf(dev, g, workdir: Path, W=1920, H=1080, steps=1000):
         check(errs[label] <= 1e-5 and flips[label] == 0.0,
               f"kernel G disagrees ({label}): max |dd| {errs[label]:.3e}, sign flips {flips[label]}")
     bvh_bytes = sum(nbytes(t) for t in bvh)
+    packed_bytes = nbytes(packed.nodes, packed.tris)
     timing = {}
-    for label, pts in (("2^15", batch_pts), ("2^18", torch.rand((1 << 18, 3), generator=g, device=dev))):
-        ms, dev_ms = both_ms(lambda: bvh_lib.bvh_signed_distance_cuda(bvh, pts))
-        b_ms, b_by = bound(nbytes(pts) + pts.shape[0] * 4 + bvh_bytes)
+    for label in ("2^15", "2^18"):
+        p = pts[label]
+        ms, dev_ms = both_ms(lambda: bvh_lib.bvh_signed_distance_cuda(packed, p))
+        # the bound keeps its first definition: the points, the output and
+        # the BvhArrays once (the packed bytes are printed beside it)
+        b_ms, b_by = bound(nbytes(p) + p.shape[0] * 4 + bvh_bytes)
         timing[label] = dict(ms=ms, device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by)
     # the brute force at 2^15 takes seconds a call: one timed call (its
     # kernels warmed up by the comparison above)
-    plain_ms = median_ms(lambda: bvh_lib.signed_distance_plain(tris, batch_pts), runs=1, warmups=0)
+    plain_ms = median_ms(lambda: bvh_lib.signed_distance_plain(tris, pts["2^15"]), runs=1, warmups=0)
+    t_pack = time.perf_counter()
+    bvh_lib.pack_bvh(bvh)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t_pack
 
+    torch.cuda.synchronize()
+    reset_launches()
     iou = tb.calculate_iou()
+    torch.cuda.synchronize()
+    iou_launches = read_launches()
     check(iou >= 0.9, f"SDF IoU {iou:.4f} < 0.9")
+    check(iou_launches["bvh_signed_distance"] == 1, f"the IoU's 2^18 points did not go through kernel G once: {iou_launches}")
     tb.render(64, 36)  # warm-up
     torch.cuda.synchronize()
     reset_launches()
@@ -2360,7 +2404,9 @@ def phase_sdf(dev, g, workdir: Path, W=1920, H=1080, steps=1000):
           f"{t_train - t0:.3f} s, {steps} steps batch {1 << 16} at {steps_s:.3f} steps/s, loss by 100 steps "
           f"{losses}; launches {train_launches}", flush=True)
     print(f"[sdf] kernel G vs brute force: max |dd| {errs} (bound 1e-5), sign disagreements where |d| > 1e-6 {flips} "
-          f"(bound 0); BVH {bvh.node_min.shape[0]} nodes, {bvh_bytes / 1e6:.2f} MB; " + "; ".join(
+          f"(bound 0); BVH {bvh.node_min.shape[0]} nodes, {bvh_bytes / 1e6:.2f} MB; packed {packed.nodes.shape[0]} "
+          f"records and {packed.tris.shape[0]} triangles, {packed_bytes / 1e6:.3f} MB, depth {packed.depth}, packed in "
+          f"{pack_s:.3f} s; timing points from seed {G_SEED}: " + "; ".join(
               f"{k} points: events {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
               f"({v['bound_by']}), device/bound {v['device_ms'] / v['bound_ms']:.1f}" for k, v in timing.items())
           + f"; brute force at 2^15 {plain_ms:.2f} ms (at 2^18 not measured)", flush=True)
@@ -2369,7 +2415,7 @@ def phase_sdf(dev, g, workdir: Path, W=1920, H=1080, steps=1000):
           f"F {render_launches['grid_encode_dx']} G {render_launches['bvh_signed_distance']}", flush=True)
     g_row = dict(max_abs_err=max(errs.values()), plain_ms=plain_ms, library_ms=None, library_device_ms=None,
                  **timing["2^15"])
-    return {"sdf_train": train_launches, "sdf_render": render_launches}, g_row
+    return {"sdf_train": train_launches, "sdf_iou": iou_launches, "sdf_render": render_launches}, g_row
 
 
 def detail_image(H=2048, W=2048):
@@ -2576,7 +2622,7 @@ def main() -> None:
           flush=True)
     del tb, gs, op
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    sdf_paths, g_row = phase_sdf(dev, g, workdir)
+    sdf_paths, g_row = phase_sdf(workdir)
     image_paths, b2_row, a2_row = phase_image(dev, g, workdir)
     volume_paths = phase_volume(dev, workdir)
     shutil.rmtree(workdir)

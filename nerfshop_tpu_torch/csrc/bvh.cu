@@ -4,40 +4,56 @@
 // (:196-268, vmapped over the points; the SDF testbed's ground truth, not a
 // Pallas kernel) with _closest_point_tri (:138-188). Same inputs and output:
 //   points [N, 3] f32
-//   the arrays of build_bvh (struct BvhArgs below): node boxes [Nn, 3] x 2,
-//   left child and leaf slot [Nn] int32 (right child = left + 1), leaf
-//   triangles [Lf, 4] int32 padded with the sentinel triangle F, and per
-//   triangle (F + 1 rows) corner a, edges ab and ac, face normal, vertex and
-//   edge pseudo-normals [F + 1, 3, 3]
+//   the BVH of build_bvh, packed once a mesh by geometry/bvh.py::pack_bvh
+//   (struct BvhArgs below)
 //   out [N] f32: the distance to the closest triangle, signed by the
 //   pseudo-normal of the closest feature (face, vertex or edge) of it.
-// The traversal is JAX's: a stack of MAX_STACK node indices, a node is
-// skipped when its box is not strictly nearer than the best squared
-// distance, a leaf keeps its first strictly nearer triangle, and an inner
-// node pushes the farther child first so that the nearer one is visited
-// next. A median-split tree of F triangles is at most log2(F) + 1 deep, so
-// the stack (depth + 1 entries) never overflows 64.
+// The traversal is JAX's: the nearer child is visited first (ties to the
+// left), a box is skipped unless it is strictly nearer than the best squared
+// distance, and within a leaf, in leaf order, the first strictly nearer
+// triangle wins; the same closest-point arithmetic and pseudo-normal sign.
+// So the distance and the triangle chosen are those of the first version.
 //
 // What bounds it on the H100: neither bytes nor operations at the floor.
 // The least it must move is the points, the output and the BVH once (~16 MB
 // for 81920 faces, 5 us at 3.35 TB/s), but each point reads the nodes and
-// leaves of its own walk: a divergent, latency-bound loop of dependent
-// loads (a few dozen nodes and leaves a point near the surface, more far
-// from it), with the top of the tree in L1/L2.
+// leaves of its own walk: a latency-bound chain of dependent loads, with
+// the whole packed tree (~6 MB at 81920 faces) in L2. A point far from the
+// surface (the uniform quarter of a training batch, all of an IoU's) visits
+// every leaf whose box is nearer than its distance, thousands of nodes near
+// the centre of a closed mesh, so the slowest walks set the pace of a small
+// launch and the sum of the walks that of a large one.
 //
-// Design (a first version, simple and right): one thread a point, the stack
-// in local memory, the node and triangle arrays read through the read-only
-// path. Sorting the points by Morton code (coherent walks in a warp) and a
-// wider tree are later work.
+// Design:
+// - A record per inner node holds both children's boxes and links (Aila and
+//   Laine's two-child layout, HPG 2009): 4 float4 loads a visit test both
+//   children, with no dependent load between them. A child that is a leaf
+//   links to its triangles' range, ~((start << 2) | (count - 1)).
+// - Triangles in leaf order, three float4 each (a and the triangle's index,
+//   ab, ac), the sentinel padding dropped: it is never strictly nearer than
+//   the real triangles before it.
+// - A stack of (child, box distance), one entry a level below the root at
+//   most (pack_bvh refuses a deeper tree), sized at compile time: the
+//   farther child is pushed with its distance and tested again when it is
+//   popped. It is indexed at run time, so it lives in local memory (cached
+//   in L1), which measured faster than the same stack in shared memory.
+// - 4 lanes a point, one a leaf slot, 16 points a block of 64 threads: the
+//   lanes of a point walk the same nodes, test a leaf's triangles one each
+//   and combine their nearest (ties to the lower leaf slot) with
+//   __shfl_xor_sync, which shortens the slowest walks.
+// - The points are walked as given: sorting them in Morton order measured
+//   slower at a training batch's 2^15 points (it gathers the far points
+//   into the same warps) and saved ~10% at an IoU's 2^18 (PERF.md).
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxStack = 64;  // geometry/bvh.py MAX_STACK
 constexpr int kLeafSize = 4;  // geometry/bvh.py LEAF_SIZE
+constexpr int kLanes = kLeafSize;  // lanes a point: one a leaf slot
+constexpr int kThreads = 64;
+constexpr int kGroups = kThreads / kLanes;  // points a block
+constexpr int kStack = 32;  // geometry/bvh.py MAX_DEPTH - 1
 
 struct V3 {
     float x, y, z;
@@ -54,7 +70,7 @@ __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y 
 // Ericson's closest point on triangle (a, a + ab, a + ac) to p, and its
 // region: 0 face, 1-3 vertex a/b/c, 4-6 edge ab/bc/ca; the precedence of
 // JAX's where chain (a, b, c, ab, bc, ca, then the face)
-__device__ V3 closest_point(V3 p, V3 a, V3 ab, V3 ac, int& reg) {
+__device__ __forceinline__ V3 closest_point(V3 p, V3 a, V3 ab, V3 ac, int& reg) {
     const V3 ap = sub(p, a);
     const float d1 = dot(ab, ap), d2 = dot(ac, ap);
     const V3 bp = sub(p, add(a, ab));
@@ -91,81 +107,136 @@ __device__ __forceinline__ float box_dist2(V3 p, V3 lo, V3 hi) {
     return dx * dx + dy * dy + dz * dz;
 }
 
-}  // namespace
-
-// the arrays of geometry/bvh.py BvhArrays, in its field order
-struct BvhArgs {
-    const float* node_min;
-    const float* node_max;
-    const int* node_left;
-    const int* node_leaf;
-    const int* leaf_tris;
-    const float* tri_a;
-    const float* tri_ab;
-    const float* tri_ac;
-    const float* tri_pv;
-    const float* tri_pe;
-    const float* tri_n;
-};
-
-namespace {
-
-__global__ void __launch_bounds__(kThreads)
-bvh_sdf_kernel(const BvhArgs b, const float* __restrict__ points, float* __restrict__ out, int n) {
-    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (i >= n) return;
-    const V3 p = ld3(points, i);
-    int stack[kMaxStack];
-    int sp = 1;
-    stack[0] = 0;
-    float best_d2 = 1e30f;
-    int best_tri = -1;
-    V3 best_pt = V3{0.f, 0.f, 0.f};
-    while (sp > 0) {
-        const int ni = stack[--sp];
-        if (!(box_dist2(p, ld3(b.node_min, ni), ld3(b.node_max, ni)) < best_d2)) continue;
-        const int leaf = __ldg(b.node_leaf + ni);
-        if (leaf >= 0) {
-#pragma unroll
-            for (int j = 0; j < kLeafSize; ++j) {
-                const int t = __ldg(b.leaf_tris + kLeafSize * leaf + j);
-                int reg;
-                const V3 pt = closest_point(p, ld3(b.tri_a, t), ld3(b.tri_ab, t), ld3(b.tri_ac, t), reg);
-                const V3 d = sub(pt, p);
-                const float d2 = d.x * d.x + d.y * d.y + d.z * d.z;
-                if (d2 < best_d2) best_d2 = d2, best_tri = t, best_pt = pt;
-            }
-        } else {
-            const int li = __ldg(b.node_left + ni);
-            const float dl = box_dist2(p, ld3(b.node_min, li), ld3(b.node_max, li));
-            const float dr = box_dist2(p, ld3(b.node_min, li + 1), ld3(b.node_max, li + 1));
-            const bool left_first = dl <= dr;
-            stack[sp] = left_first ? li + 1 : li;
-            stack[sp + 1] = left_first ? li : li + 1;
-            sp += 2;
-        }
-    }
-    if (best_tri < 0) {  // no triangle: the empty mesh
-        out[i] = 1e30f;
-        return;
-    }
-    int reg;
-    closest_point(p, ld3(b.tri_a, best_tri), ld3(b.tri_ab, best_tri), ld3(b.tri_ac, best_tri), reg);
-    V3 normal;
-    if (reg == 0) normal = ld3(b.tri_n, best_tri);
-    else if (reg <= 3) normal = ld3(b.tri_pv, 3LL * best_tri + reg - 1);
-    else normal = ld3(b.tri_pe, 3LL * best_tri + reg - 4);
-    const float s = dot(sub(p, best_pt), normal) >= 0.f ? 1.f : -1.f;
-    out[i] = s * sqrtf(best_d2);
+// the squared distance from p to the triangle in packed slot s, and its
+// closest point's region (only the distance is kept in the walk)
+__device__ __forceinline__ float tri_dist2(const float4* __restrict__ tris, V3 p, long long s, V3& pt, int& reg,
+                                           int& tri) {
+    const float4 t0 = __ldg(tris + 3 * s), t1 = __ldg(tris + 3 * s + 1), t2 = __ldg(tris + 3 * s + 2);
+    tri = __float_as_int(t0.w);
+    pt = closest_point(p, V3{t0.x, t0.y, t0.z}, V3{t1.x, t1.y, t1.z}, V3{t2.x, t2.y, t2.z}, reg);
+    const V3 d = sub(pt, p);
+    return d.x * d.x + d.y * d.y + d.z * d.z;
 }
 
 }  // namespace
 
-// out [n] f32 from points [n, 3] f32 and the BVH *args (all on the device)
+// the packed BVH of geometry/bvh.py PackedBvh (nodes, tris) and the
+// pseudo-normal arrays of its BvhArrays
+struct BvhArgs {
+    const float4* nodes;  // [Ni, 4]: lo_l.xyz hi_l.x | hi_l.yz lo_r.xy | lo_r.z hi_r.xyz | link_l link_r 0 0
+    const float4* tris;  // [F, 3]: a.xyz (index bits) | ab.xyz 0 | ac.xyz 0, in leaf order
+    const float* tri_pv;  // [F + 1, 3, 3] vertex pseudo-normals at the corners
+    const float* tri_pe;  // [F + 1, 3, 3] edge pseudo-normals (ab, bc, ca)
+    const float* tri_n;  // [F + 1, 3] face normals
+};
+
+namespace {
+
+// the nearest of a leaf's triangles (link `code`) to p over this point's
+// lanes → its squared distance (+inf for none) in ld and its packed slot in
+// ls; ties go to the lower slot, as a walk of the leaf in slot order keeps
+// the first strictly nearer triangle
+__device__ __forceinline__ void leaf_min(const float4* __restrict__ tris, V3 p, int code, int lane, unsigned gmask,
+                                         float& ld, int& ls) {
+    const int start = (~code) >> 2, count = ((~code) & 3) + 1;
+    ld = __int_as_float(0x7f800000);
+    ls = start + kLeafSize;
+    if (lane < count) {
+        V3 pt;
+        int reg, tri;
+        const float d2 = tri_dist2(tris, p, (long long)start + lane, pt, reg, tri);
+        if (d2 < ld) ld = d2, ls = start + lane;
+    }
+#pragma unroll
+    for (int off = 1; off < kLanes; off <<= 1) {
+        const float od = __shfl_xor_sync(gmask, ld, off, kLanes);
+        const int os = __shfl_xor_sync(gmask, ls, off, kLanes);
+        if (od < ld || (od == ld && os < ls)) ld = od, ls = os;
+    }
+}
+
+__global__ void __launch_bounds__(kThreads)
+bvh_sdf_kernel(const BvhArgs b, const float* __restrict__ points, float* __restrict__ out, int n) {
+    int st_link[kStack];  // the farther children pushed, and their box distances
+    float st_d[kStack];
+    const long long i = (long long)blockIdx.x * kGroups + threadIdx.x / kLanes;
+    if (i >= n) return;  // all lanes of a point together
+    const int lane = threadIdx.x % kLanes;
+    const unsigned gmask = ((1u << kLanes) - 1u) << ((threadIdx.x & 31) & ~(kLanes - 1));
+    const V3 p = ld3(points, i);
+    float best = 1e30f;
+    int best_slot = -1;
+    int sp = 0;
+    int node = 0;
+    for (;;) {
+        // visit inner record `node`: test both children
+        const float4* r = b.nodes + 4LL * node;
+        const float4 r0 = __ldg(r), r1 = __ldg(r + 1), r2 = __ldg(r + 2);
+        const int4 r3 = __ldg(reinterpret_cast<const int4*>(r) + 3);
+        const float dl = box_dist2(p, V3{r0.x, r0.y, r0.z}, V3{r0.w, r1.x, r1.y});
+        const float dr = box_dist2(p, V3{r1.z, r1.w, r2.x}, V3{r2.y, r2.z, r2.w});
+        int next = 0;
+        bool go = true;
+        if (dl < best && dr < best) {
+            const bool left_first = dl <= dr;
+            next = left_first ? r3.x : r3.y;
+            st_link[sp] = left_first ? r3.y : r3.x;
+            st_d[sp] = left_first ? dr : dl;
+            ++sp;
+        } else if (dl < best) {
+            next = r3.x;
+        } else if (dr < best) {
+            next = r3.y;
+        } else {
+            go = false;
+        }
+        // leaves, and pops, until the next inner record
+        for (;;) {
+            if (go) {
+                if (next >= 0) break;
+                float ld;
+                int ls;
+                leaf_min(b.tris, p, next, lane, gmask, ld, ls);
+                if (ld < best) best = ld, best_slot = ls;
+            }
+            go = false;
+            while (sp > 0) {
+                --sp;
+                if (st_d[sp] < best) {
+                    next = st_link[sp];
+                    go = true;
+                    break;
+                }
+            }
+            if (!go) break;
+        }
+        if (!go) break;
+        node = next;
+    }
+    if (lane != 0) return;
+    if (best_slot < 0) {  // nothing nearer than 1e30: a NaN point, or one ~1e15 away
+        out[i] = 1e30f;
+        return;
+    }
+    V3 pt;
+    int reg, tri;
+    tri_dist2(b.tris, p, best_slot, pt, reg, tri);
+    V3 normal;
+    if (reg == 0) normal = ld3(b.tri_n, tri);
+    else if (reg <= 3) normal = ld3(b.tri_pv, 3LL * tri + reg - 1);
+    else normal = ld3(b.tri_pe, 3LL * tri + reg - 4);
+    const float s = dot(sub(p, pt), normal) >= 0.f ? 1.f : -1.f;
+    out[i] = s * sqrtf(best);
+}
+
+}  // namespace
+
+// out [n] f32 from points [n, 3] f32 and the packed BVH *args (all on the
+// device)
 extern "C" int nst_bvh_sdf(const BvhArgs* args, const void* points, void* out, int n, void* stream) {
     if (args == nullptr || n < 0) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
-    const dim3 grid((unsigned)((n + kThreads - 1) / kThreads));
+    const dim3 grid((unsigned)((n + kGroups - 1) / kGroups));
     bvh_sdf_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*args, (const float*)points, (float*)out, n);
     return (int)cudaGetLastError();
 }

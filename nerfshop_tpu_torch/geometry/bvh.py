@@ -6,14 +6,16 @@ triangle BVH (:func:`build_bvh`: median split over centroids, leaves of
 vertex pseudo-normals and edge pseudo-normals) and ``signed_distance``
 with the same closest-point routine and the same pseudo-normal sign rule.
 
-:func:`signed_distance` takes either a :class:`BvhArrays` or a
-:class:`TriangleSet`. On a CUDA tensor a BVH is walked by kernel G
-(``csrc/bvh.cu``, one thread a point, the JAX traversal order); on a CPU
-tensor, and for a bare triangle set on any device, every point is tested
-against every triangle (:func:`signed_distance_plain`, G's plain version),
-in chunks of points. The brute force suits the cages the editing path
-queries (at most ~10³ faces, no tree to build); the SDF testbed's meshes
-(~10⁵ faces) need the BVH.
+:func:`signed_distance` takes a :class:`PackedBvh`, a :class:`BvhArrays`
+or a :class:`TriangleSet`. On a CUDA tensor a BVH is walked by kernel G
+(``csrc/bvh.cu``: the layout of :func:`pack_bvh`, the JAX traversal
+order); a :class:`BvhArrays` is packed for that call, so a caller that
+queries one mesh often keeps its :class:`PackedBvh`. On a CPU tensor, and for a bare triangle set on any
+device, every point is tested against every triangle
+(:func:`signed_distance_plain`, G's plain version), in chunks of points.
+The brute force suits the cages the editing path queries (at most ~10³
+faces, no tree to build); the SDF testbed's meshes (~10⁵ faces) need the
+BVH.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ import torch
 from nerfshop_tpu_torch import kernels
 
 LEAF_SIZE = 4
-MAX_STACK = 64
+#: the deepest tree kernel G walks: its stack holds one entry a level below
+#: the root (a median split of F < 2^31 triangles is at most 30 deep)
+MAX_DEPTH = 33
 _FAR = 1e8
 
 #: point × triangle pairs per chunk of :func:`signed_distance_plain`
@@ -64,6 +68,16 @@ class BvhArrays(NamedTuple):
     def triangles(self) -> TriangleSet:
         """The F real triangles (views without the sentinel)."""
         return TriangleSet(*(getattr(self, k)[:-1] for k in TriangleSet._fields))
+
+
+class PackedBvh(NamedTuple):
+    """A :class:`BvhArrays` in kernel G's layout (:func:`pack_bvh`), on its
+    device."""
+
+    nodes: torch.Tensor  # [Ni, 16] f32 a record per inner node: both children's boxes, then their links' int32 bits
+    tris: torch.Tensor  # [F, 12] f32 per triangle in leaf order: a, its index's int32 bits, ab, 0, ac, 0
+    depth: int  # levels of the tree (a root leaf: 1)
+    bvh: BvhArrays  # what was packed: the sign's pseudo-normals, and the plain version's triangles
 
 
 def _triangle_arrays(vertices: np.ndarray, faces: np.ndarray):
@@ -175,6 +189,75 @@ def build_bvh(vertices: np.ndarray, faces: np.ndarray, device: torch.device) -> 
     return BvhArrays(**{k: _tensor(a, device) for k, a in arrs.items()})
 
 
+def pack_bvh(bvh: BvhArrays) -> PackedBvh:
+    """Kernel G's layout of ``bvh``, built once a mesh (vectorised numpy on
+    the host, a loop over levels only, then copied to ``bvh``'s device):
+
+    - a record per inner node, in node order (the root first), holding its
+      children's boxes and links: an inner child's record index, or for a
+      leaf ``~((start << 2) | (count - 1))``, its range of packed triangles.
+      A root leaf (F ≤ LEAF_SIZE) gets one record beside an empty box;
+    - the real triangles of every leaf, in leaf order and within a leaf in
+      slot order, the sentinel padding dropped.
+
+    Raises ``ValueError`` naming kernel G on an empty mesh, on a tree deeper
+    than :data:`MAX_DEPTH`, and on leaves it cannot link."""
+    f32 = lambda t: t.detach().cpu().numpy().astype(np.float32)  # noqa: E731
+    node_min, node_max = f32(bvh.node_min), f32(bvh.node_max)
+    node_left = bvh.node_left.cpu().numpy().astype(np.int64)
+    node_leaf = bvh.node_leaf.cpu().numpy().astype(np.int64)
+    leaf_tris = bvh.leaf_tris.cpu().numpy().astype(np.int64)
+    F = bvh.tri_a.shape[0] - 1
+    if F <= 0:
+        raise ValueError("kernel G: the mesh has no triangle")
+    if F >= 1 << 29:
+        raise ValueError(f"kernel G: {F} triangles, its leaf links take fewer than 2^29")
+
+    inner = node_left >= 0
+    depth, level = 0, np.zeros(1, np.int64)
+    while level.size:
+        depth += 1
+        if depth > MAX_DEPTH:
+            raise ValueError(f"kernel G: the BVH is deeper than {MAX_DEPTH} levels, the most its stack holds")
+        kids = node_left[level[inner[level]]]
+        level = np.concatenate([kids, kids + 1])
+
+    real = leaf_tris != F
+    counts = real.sum(1)
+    if (real[:, 1:] & ~real[:, :-1]).any() or (counts == 0).any():
+        raise ValueError("kernel G: every leaf must list its triangles before its sentinel padding")
+    starts = np.cumsum(counts) - counts
+    order = leaf_tris[real]  # leaf order, then slot order
+
+    rank = np.cumsum(inner) - 1  # the record of each inner node
+
+    def link(child):
+        leaf = node_leaf[child]
+        return np.where(inner[child], rank[child], ~((starts[leaf] << 2) | (counts[leaf] - 1)))
+
+    if inner[0]:
+        left = node_left[inner]
+        right = left + 1
+        boxes = [node_min[left], node_max[left], node_min[right], node_max[right]]
+        links = [link(left), link(right)]
+    else:  # a root leaf beside an empty box, which no point is nearer than
+        far = np.full((1, 3), np.inf, np.float32)
+        boxes = [node_min[:1], node_max[:1], far, -far]
+        links = [link(np.zeros(1, np.int64)), np.full(1, ~0, np.int64)]
+    nodes = np.zeros((boxes[0].shape[0], 16), np.float32)
+    nodes[:, :12] = np.concatenate(boxes, 1)
+    nodes.view(np.int32)[:, 12:14] = np.stack(links, 1)
+
+    tris = np.zeros((len(order), 12), np.float32)
+    tris[:, 0:3] = f32(bvh.tri_a)[order]
+    tris.view(np.int32)[:, 3] = order
+    tris[:, 4:7] = f32(bvh.tri_ab)[order]
+    tris[:, 8:11] = f32(bvh.tri_ac)[order]
+
+    dev = bvh.tri_a.device
+    return PackedBvh(_tensor(nodes, dev), _tensor(tris, dev), depth, bvh)
+
+
 def closest_point_tri(p, a, ab, ac):
     """Ericson closest point on a triangle, broadcast over leading dims.
     → (point, region): 0 face, 1-3 vertex a/b/c, 4-6 edge ab/bc/ca."""
@@ -247,41 +330,45 @@ def signed_distance_plain(tris: TriangleSet, points: torch.Tensor) -> torch.Tens
 
 
 @kernels.counted("launches")
-def bvh_signed_distance_cuda(bvh: BvhArrays, points: torch.Tensor) -> torch.Tensor:
-    """Kernel G: points [N, 3] f32 → signed distance [N] f32, one thread a
-    point walking the BVH. Raises on anything but contiguous f32 points and
-    a BVH on the points' CUDA device."""
+def bvh_signed_distance_cuda(packed: PackedBvh, points: torch.Tensor) -> torch.Tensor:
+    """Kernel G: points [N, 3] f32 → signed distance [N] f32, four lanes a
+    point walking ``packed``. Raises on anything but a :class:`PackedBvh`
+    (so a BVH is never repacked a launch), contiguous f32 points and a
+    BVH on the points' CUDA device."""
+    if not isinstance(packed, PackedBvh):
+        raise TypeError(f"kernel G walks a PackedBvh (pack_bvh), got {type(packed).__name__}")
     dev = points.device
     if dev.type != "cuda":
         raise ValueError(f"bvh kernel: points on {dev}, expected a CUDA device")
     N = points.shape[0]
     kernels.require(points, "points", torch.float32, (N, 3), dev)
-    Nn, Fp = bvh.node_min.shape[0], bvh.tri_a.shape[0]
-    for name, dtype, shape in (
-        ("node_min", torch.float32, (Nn, 3)), ("node_max", torch.float32, (Nn, 3)),
-        ("node_left", torch.int32, (Nn,)), ("node_leaf", torch.int32, (Nn,)),
-        ("leaf_tris", torch.int32, (bvh.leaf_tris.shape[0], LEAF_SIZE)),
-        ("tri_a", torch.float32, (Fp, 3)), ("tri_ab", torch.float32, (Fp, 3)), ("tri_ac", torch.float32, (Fp, 3)),
-        ("tri_pseudo_v", torch.float32, (Fp, 3, 3)), ("tri_pseudo_e", torch.float32, (Fp, 3, 3)),
-        ("tri_n", torch.float32, (Fp, 3)),
+    Fp = packed.bvh.tri_a.shape[0]
+    for name, t, shape in (
+        ("nodes", packed.nodes, (packed.nodes.shape[0], 16)), ("tris", packed.tris, (Fp - 1, 12)),
+        ("tri_pseudo_v", packed.bvh.tri_pseudo_v, (Fp, 3, 3)),
+        ("tri_pseudo_e", packed.bvh.tri_pseudo_e, (Fp, 3, 3)), ("tri_n", packed.bvh.tri_n, (Fp, 3)),
     ):
-        kernels.require(getattr(bvh, name), name, dtype, shape, dev)
+        kernels.require(t, name, torch.float32, shape, dev)
     out = torch.empty((N,), dtype=torch.float32, device=dev)
-    args = kernels.BvhArgs(*(getattr(bvh, k).data_ptr() for k in BvhArrays._fields))
+    if N == 0:
+        return out
+    args = kernels.BvhArgs(*(t.data_ptr() for t in (packed.nodes, packed.tris, packed.bvh.tri_pseudo_v,
+                                                     packed.bvh.tri_pseudo_e, packed.bvh.tri_n)))
     err = kernels.load().nst_bvh_sdf(ctypes.byref(args), points.data_ptr(), out.data_ptr(), N, kernels.stream_ptr(dev))
     kernels.check(err, "bvh_signed_distance")
     bvh_signed_distance_cuda.launches += 1
     return out
 
 
-def signed_distance(mesh: Union[BvhArrays, TriangleSet], points: torch.Tensor) -> torch.Tensor:
+def signed_distance(mesh: Union[PackedBvh, BvhArrays, TriangleSet], points: torch.Tensor) -> torch.Tensor:
     """points [N, 3] → signed distance [N] (negative inside). A BVH on CUDA
     tensors launches kernel G or raises; CPU tensors, and a bare
     :class:`TriangleSet` on any device, take :func:`signed_distance_plain`."""
-    if not isinstance(mesh, BvhArrays):
+    if isinstance(mesh, TriangleSet):
         return signed_distance_plain(mesh, points)
     if points.device.type == "cpu":
-        return signed_distance_plain(mesh.triangles(), points)
+        return signed_distance_plain((mesh.bvh if isinstance(mesh, PackedBvh) else mesh).triangles(), points)
     if points.device.type != "cuda":
         raise ValueError(f"signed_distance: unsupported device {points.device}")
-    return bvh_signed_distance_cuda(mesh, points.contiguous())
+    packed = mesh if isinstance(mesh, PackedBvh) else pack_bvh(mesh)
+    return bvh_signed_distance_cuda(packed, points.contiguous())

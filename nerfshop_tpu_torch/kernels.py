@@ -76,12 +76,11 @@ class CageArgs(ctypes.Structure):
 
 class BvhArgs(ctypes.Structure):
     """The BVH of one launch of kernel G, field for field ``struct BvhArgs``
-    of ``csrc/bvh.cu`` (the arrays of ``geometry/bvh.py::BvhArrays``)."""
+    of ``csrc/bvh.cu``: the arrays of ``geometry/bvh.py::PackedBvh`` and the
+    pseudo-normals of its ``BvhArrays``."""
 
     _fields_ = [
-        (name, ctypes.c_void_p) for name in
-        ("node_min", "node_max", "node_left", "node_leaf", "leaf_tris", "tri_a", "tri_ab", "tri_ac",
-         "tri_pseudo_v", "tri_pseudo_e", "tri_n")
+        (name, ctypes.c_void_p) for name in ("nodes", "tris", "tri_pseudo_v", "tri_pseudo_e", "tri_n")
     ]
 
 

@@ -7,8 +7,9 @@ Counterpart of ``nerfshop_tpu/train/sdf.py``:
 * training samples the reference's mix: 4/8 on the surface (target 0),
   3/8 on the surface plus logistic noise, 1/8 uniform in the slightly
   inflated box, the last 4/8 with ground truth from the BVH (kernel G on
-  the card); the step runs under autograd (kernel B with fracs, the plain
-  MLP, kernel A in the table backward);
+  the card, over the BVH packed once a mesh); the step runs under
+  autograd (kernel B with fracs, the plain MLP, kernel A in the table
+  backward);
 * rendering sphere-traces a fixed 50 iterations over every ray with the
   dead ones masked (JAX's ``while_loop(any(alive))`` computes the same,
   since a dead ray never moves, and the loop needs no host sync), shades
@@ -67,7 +68,8 @@ class SdfTestbed:
         self.loss_fn = loss_fn
         self.device = torch.device(device)
         self.generator = generator
-        self.bvh: Optional[bvh_lib.BvhArrays] = None
+        #: the mesh's BVH in kernel G's layout (its BvhArrays in ``.bvh``)
+        self.packed_bvh: Optional[bvh_lib.PackedBvh] = None
         self.tri_cdf: Optional[torch.Tensor] = None
         self.tri_v: Optional[torch.Tensor] = None  # [F, 3, 3] in the unit box
         self.step = 0
@@ -94,14 +96,15 @@ class SdfTestbed:
 
     def set_mesh(self, mesh) -> None:
         """Normalise the mesh into the unit cube (0.9 of its side, centred)
-        and build the BVH and the area CDF."""
+        and build the BVH (and kernel G's packed form of it) and the area
+        CDF."""
         v = np.asarray(mesh.vertices, np.float32)
         lo, hi = v.min(0), v.max(0)
         scale = 0.9 / max(float((hi - lo).max()), 1e-9)
         v = (v - (lo + hi) / 2) * scale + 0.5
         faces = np.asarray(mesh.faces, np.int32)
         self.mesh_vertices, self.mesh_faces = v, faces
-        self.bvh = bvh_lib.build_bvh(v, faces, self.device)
+        self.packed_bvh = bvh_lib.pack_bvh(bvh_lib.build_bvh(v, faces, self.device))
         tris = v[faces]
         area = 0.5 * np.linalg.norm(np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0]), axis=-1)
         cdf = np.cumsum(area)
@@ -146,7 +149,7 @@ class SdfTestbed:
         offset_pts = surf[n_exact:] + std * torch.log(uu / (1 - uu))
 
         pos = torch.cat([surf[:n_exact], offset_pts, uni])
-        d_rest = bvh_lib.signed_distance(self.bvh, pos[n_exact:].contiguous())
+        d_rest = bvh_lib.signed_distance(self.packed_bvh, pos[n_exact:].contiguous())
         target = torch.cat([torch.zeros(n_exact, device=pos.device), d_rest])
         return pos, target
 
@@ -161,7 +164,7 @@ class SdfTestbed:
         return loss.detach()
 
     def train(self, n_steps: int, batch_size: int = 1 << 16) -> float:
-        if self.bvh is None:
+        if self.packed_bvh is None:
             raise RuntimeError("load a mesh first")
         batch_size = min(batch_size, 1 << 16)
         loss = torch.zeros(())
@@ -296,7 +299,7 @@ class SdfTestbed:
         if points is None:
             n = min(n_samples, 1 << 18)
             points = torch.rand((n, 3), generator=self.generator, device=self.device)
-        gt_inside = bvh_lib.signed_distance(self.bvh, points) < 0
+        gt_inside = bvh_lib.signed_distance(self.packed_bvh, points) < 0
         pred_inside = self.model.apply(self.state.inference_params, points) < 0
         inter = int((gt_inside & pred_inside).sum())
         union = int((gt_inside | pred_inside).sum())

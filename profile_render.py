@@ -53,8 +53,12 @@ launch's device time and the span of a call.
 
 With ``--sdf`` it trains the SDF testbed of ``chip_smoke.py``'s [sdf] phase
 instead (the 81920-face bumpy icosphere, configs/sdf/base.json, 1000 steps
-at batch 2^16) and profiles one 1920×1080 sphere-traced frame the same way
-(busy, idle share, device time by kernel name); with ``--volume`` the
+at batch 2^16), prints its IoU, profiles one 1920×1080 sphere-traced frame
+the same way (busy, idle share, device time by kernel name), then 16 eager
+training steps of batch 2^16 after a warm-up call, their draws from the
+generator reseeded with ``chip_smoke.G_SEED``: per step, wall, device busy,
+idle share, launches, and kernel G's device time (``bvh`` in the
+kernel's name) and share; with ``--volume`` the
 Volume testbed of its [volume] phase (``synthetic_smoke(256)``, 1000 steps)
 and one 1920×1080 delta-tracked frame at spp 4.
 
@@ -245,6 +249,36 @@ def profile_train(tb, out: Path | None = None, steps: int = 16) -> None:
         print(f"[profile] {label} loop, per step, by kernel name (device ms, share, launches):")
         write_table(by_name, out if captured or out is None else out.with_name(f"{out.stem}_eager{out.suffix}"),
                     per=steps)
+
+
+def profile_sdf_train(tb, out: Path | None = None, steps: int = 16) -> None:
+    """Profile one ``steps``-step call of the SDF testbed's eager training
+    after a warm-up call, the generator reseeded with ``chip_smoke.G_SEED``
+    (so two versions profile the same batches): per step, wall, device busy,
+    idle share, launches, and kernel G's device time and share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tb.train(steps, 1 << 16)
+    torch.cuda.synchronize()
+    tb.sdf.generator.manual_seed(chip_smoke.G_SEED)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tb.train(steps, 1 << 16)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events, busy, by_name = device_events(prof)
+    g = [e for e in events if "bvh" in e.name]
+    g_ms = sum(e.time_range.end - e.time_range.start for e in g) / 1e3
+    print(
+        f"[profile] SDF training, eager, {steps} steps of batch {1 << 16}: per step wall {wall / steps:.3f} ms, device "
+        f"busy {busy / steps:.3f} ms (union of event intervals), idle share {1.0 - busy / wall:.3f}, "
+        f"{len(events) / steps:.1f} device launches; kernel G (the bvh kernel) {g_ms / steps:.4f} ms and "
+        f"{len(g) / steps:.1f} launches per step, {100 * g_ms / max(busy, 1e-9):.2f}% of the device busy time and "
+        f"{100 * g_ms / wall:.2f}% of the wall time",
+        flush=True,
+    )
+    print("[profile] SDF training, per step, by kernel name (device ms, share, launches):")
+    write_table(by_name, out if out is None else out.with_name(f"{out.stem}_sdf_train{out.suffix}"), per=steps)
 
 
 def build_edit(tb, focal, principal, dev):
@@ -616,11 +650,15 @@ def main() -> None:
         print(f"[profile] card: {smi}")
         mode = "sdf" if args.sdf else "volume"
         tb = field_testbed(dev, mode)
+        if args.sdf:
+            print(f"[profile] sdf testbed: calculate_iou {tb.calculate_iou():.5f}", flush=True)
         torch.cuda.reset_peak_memory_stats()
         profile_frame(tb, "SDF, sphere-traced" if args.sdf else "Volume, delta-tracked spp 4", args.out,
                       render=lambda: (tb.render(W, H), torch.cuda.synchronize()))
         print(f"[profile] {mode} frame: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
               flush=True)
+        if args.sdf:
+            profile_sdf_train(tb, args.out)
         return
     tb, focal, principal, _ = chip_smoke.phase_main_path(dev)
     print(f"[profile] card: {smi}")

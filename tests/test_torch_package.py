@@ -54,7 +54,7 @@ def test_no_jax_import_in_source(path):
             assert n.split(".")[0] not in ("jax", "jaxlib", "optax", "flax", "msgpack", "PIL", "nerfshop_tpu"), (path, n)
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_render.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_render.py", "time_bvh.py"])
 def test_card_scripts_leave_jax_out(script):
     # the on-card scripts may use only what the port itself may use: no
     # module of the JAX package, not even a host module without JAX
@@ -74,6 +74,26 @@ def test_profile_busy_time_is_interval_union():
     # µs intervals: [0, 20) ∪ [30, 40) → 30 µs, nested and touching intervals merged
     assert profile_render.busy_ms([(30, 40), (0, 10), (5, 20), (35, 36), (20, 20)]) == pytest.approx(0.03)
     assert profile_render.busy_ms([]) == 0.0
+
+
+def test_time_bvh_reads_the_walks_ptxas_lines():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import time_bvh
+    finally:
+        sys.path.remove(str(ROOT))
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114bvh_sdf_kernelE7BvhArgsPKfPfi' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_114bvh_sdf_kernelE7BvhArgsPKfPfi",
+        "    256 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 0 barriers, 256 bytes cumulative stack size",
+    ])
+    # the walk's lines only: its stack frame and spills, then its registers
+    assert time_bvh.ptxas_lines(log) == [
+        "256 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 40 registers, used 0 barriers, 256 bytes cumulative stack size",
+    ]
 
 
 @pytest.mark.parametrize("log2_t", [12, 14])
