@@ -40,14 +40,16 @@ Phases, each printing one line of its own numbers:
  11a. [encode-dx]: kernel F (the encode's gradient with respect to the
      positions) against its plain version (autograd of the plain forward)
      at the training shape with every level's boundary points (p0 =
-     res − 1), at N = 1, at one block plus one and at the frame shape;
+     res − 1), at N = 1, at one block plus one, at 5 and 20 levels and at
+     the frame shape;
  11b. [normals]: ``Testbed.render(1920, 1080)`` in ``RenderMode.Normals``
      (kernel F once a chunk, kernel A never, B without fracs only), and the
      middle chunk's normals and σ against the plain encode's;
  11c. [mesh]: ``compute_marching_cubes_mesh(256)`` of the trained sphere
      (seconds by stage; the vertices within one cell of the field's σ = 2.5
      level and within three of the analytic sphere, no floaters), then
-     ``optimise_mesh`` for 100 steps (kernel F once a step);
+     ``optimise_mesh`` for 100 steps (kernel F once a step), and kernel F
+     timed against its plain version at the vertices its first step encodes;
  11d. [cli]: the sphere's views written to disk (transforms.json + PNGs
      through the port's writer) and ``nerfshop_tpu_torch.run.main`` in
      process on them from the snapshot: 64 steps, a snapshot, a mesh at
@@ -1169,6 +1171,12 @@ def boundary_points(enc, dev) -> torch.Tensor:
     return torch.tensor(pts, dtype=torch.float32, device=dev)
 
 
+#: the seed of kernel F's dout at the mesh vertices
+F_MESH_SEED = 1618
+#: kernel F's samples a block (kThreads / kDxLanes of csrc/grid_encode.cu)
+F_BLOCK = 128
+
+
 def encode_dx_case(label, enc, table, x, g):
     """Kernel F against its plain version (autograd of the plain forward) on
     x with a seeded dout → its numbers: max |Δ| within 1e-5 of max |d_x|."""
@@ -1204,14 +1212,25 @@ def encode_dx_case(label, enc, table, x, g):
 def phase_encode_dx(dev, g, tb, chunk_x):
     """[encode-dx]: kernel F at the training shape (2^18 uniform samples with
     the cube's corners and every level's boundary points), at N = 1, at one
-    block of samples plus one, and at the frame shape (the 1080p middle
-    chunk's positions, as [encode] takes them) → the training shape's numbers."""
+    block of samples plus one, at 5 levels (odd: the dout rows end on a
+    single level) and 20 (more levels than a sample's lanes take in one
+    round), and at the frame shape (the 1080p middle chunk's positions, as
+    [encode] takes them) → the training shape's numbers."""
+    from nerfshop_tpu_torch.models.encodings import GridEncoding
+
     enc, x = _encoding(dev, g)
     x = torch.cat([boundary_points(enc, dev), x[: x.shape[0] - 3 * enc.n_levels]])
     table = enc.table.detach()
     result = encode_dx_case("training shape (boundary points included)", enc, table, x, g)
-    for label, n in (("training inputs", 1), ("training inputs, one block (64 samples) plus one", 65)):
+    for label, n in (("training inputs", 1), (f"training inputs, one block ({F_BLOCK}) plus one", F_BLOCK + 1)):
         encode_dx_case(label, enc, table, x[:n].contiguous(), g)
+    for L, log2_size, level_scale in ((5, 14, 2.0), (20, 17, 1.5)):
+        enc_l = GridEncoding(n_levels=L, log2_hashmap_size=log2_size, per_level_scale=level_scale, device=dev, generator=g)
+        with torch.no_grad():
+            enc_l.table.uniform_(-1.0, 1.0, generator=g)
+        x_l = torch.cat([boundary_points(enc_l, dev), x[: (1 << 16) - 3 * L]])
+        encode_dx_case(f"{sum(enc_l.level_dense)} dense + {L - sum(enc_l.level_dense)} hash levels, boundary points "
+                       "included", enc_l, enc_l.table.detach(), x_l, g)
     frame_enc = tb.model.pos_encoding
     encode_dx_case("1080p march chunk", frame_enc, frame_enc.table.detach(), chunk_x, g)
     return result
@@ -1353,10 +1372,11 @@ def phase_mesh(tb, res=256, steps=100):
     before = off_iso(mesh.vertices)
     verts0 = mesh.vertices.copy()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tb.optimise_mesh(mesh, n_steps=steps)
-    torch.cuda.synchronize()
-    opt_s = time.perf_counter() - t0
+    with encode_input_of_call(tb.model.pos_encoding, 0) as kept:
+        t0 = time.perf_counter()
+        tb.optimise_mesh(mesh, n_steps=steps)
+        torch.cuda.synchronize()
+        opt_s = time.perf_counter() - t0
     after = off_iso(mesh.vertices)
     launches = read_launches()
     check(np.isfinite(mesh.vertices).all(), "optimise_mesh produced non-finite vertices")
@@ -1397,6 +1417,13 @@ def phase_mesh(tb, res=256, steps=100):
         f"vertices moved mean {np.linalg.norm(mesh.vertices - verts0, axis=-1).mean():.3e}; launches {launches}",
         flush=True,
     )
+    # kernel F where its refinement launches run: the positions the first
+    # step encodes (the vertices in the unit cube) and the EMA table
+    check(len(kept) == 1, "the first refinement step's positions were not captured")
+    g = torch.Generator(device=tb.device)
+    g.manual_seed(F_MESH_SEED)
+    encode_dx_case("mesh vertices (optimise_mesh's first step)", tb.model.pos_encoding,
+                   tb.inference_params["pos_encoding.table"].detach(), kept[0].contiguous(), g)
     return launches
 
 

@@ -84,6 +84,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -110,6 +111,14 @@ __device__ __forceinline__ float2 load_row(const float2* tl, uint32_t slot) {
 __device__ __forceinline__ uint32_t wrap(uint32_t base, uint32_t shift, uint32_t m) {
     const uint32_t t = base + shift;
     return min(t, t - m);
+}
+
+// a + w (b - a): the linear blend of a and b at w in two operations
+__device__ __forceinline__ float lerp(float a, float b, float w) { return fmaf(w, b - a, a); }
+
+// the bilinear blend of e00, e10 (along u at v = 0) and e01, e11 (v = 1)
+__device__ __forceinline__ float lerp2(float e00, float e10, float e01, float e11, float u, float v) {
+    return lerp(lerp(e00, e10, u), lerp(e01, e11, u), v);
 }
 
 template <int D, bool kFracs>
@@ -246,87 +255,138 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
 // fractions and reads exactly the rows B read.
 //
 // What bounds it on the H100: bytes, like B: x 12 B, dout 8L B and d_x 12 B
-// a sample, and every table row the corners touch, 8 B once; the corner
-// reads are as scattered as B's.
+// a sample, and every table row the corners touch, 8 B once (2^20 frame
+// positions: 0.0499 ms; 2^18 uniform training samples: 0.0256 ms). What the
+// card reaches is further off. At random positions the 8 corner reads of a
+// (sample, level) are scattered 32-byte sectors through L2, as B's are:
+// every variant timed took 0.219-0.28 ms there, and which was fastest
+// followed the compiled load schedule more than the arithmetic. At the
+// frame shape most positions repeat, so the rows are L1 hits: instructions,
+// L1 traffic and each level's chain of dependent loads set the pace.
 //
-// Design (a first version, simple and right): kFLanes threads own a sample,
-// each a quarter of its levels (l = lane, lane + 4, ...); a thread issues its
-// level's 8 corner loads, dots each row with the level's dout pair, forms
-// the three fraction derivatives in registers, and the lanes of a sample
-// (neighbours in one warp) sum their partial d_x with two shuffles. No
-// atomics, no shared memory; a sample's d_x is written once by its first
-// lane.
-constexpr int kFLanes = 4;
+// What the first version (4 threads a sample, a level at a time; 40
+// registers, no spills, no shared memory; 0.2256 ms device at the training
+// shape, 0.1486 at the frame shape, NVIDIA H100 80GB HBM3 at 700 W) lost:
+//   1. 13 scalar metadata loads a (sample, level) through L1, beside the
+//      table rows it wants there;
+//   2. about 40 float operations for the three fraction derivatives, each
+//      axis rebuilding the corner weights; a select between the dense and
+//      the hashed base slot;
+//   3. x and dout read through L1 with the default policy (each of a
+//      sample's lanes reloading x), evicting table rows at the frame shape.
+//
+// Design (v2), each step timed against v1 in one call (PERF.md, Findings):
+//   1. The level records (kernel_records in models/encodings.py: res - 1,
+//      m, offset and scale | the base slot's strides and mask | 8 corner
+//      shifts, four 16-byte fields a level) travel in the launch's
+//      parameters, read through the constant cache. Staging them (and x) in
+//      shared memory behind a barrier, as B does, was faster at the frame
+//      shape but slower by 0.015-0.03 ms at the training shape: each block
+//      then waits for its slowest load before any corner load is issued.
+//   2. The base slot is (cu0 + k1 cu1 + k2 cu2) & mask for both kinds of
+//      level (dense: res, res^2, all ones; hashed: the primes, m - 1).
+//   3. The factored trilinear derivative: for axis d the 4 differences of
+//      the corner dots along d, blended bilinearly in the other two axes'
+//      folded fractions (a + w (b - a), one FMA each): 30 operations a level.
+//   4. x and dout are streaming loads (ld.global.cs), so L1 keeps the table
+//      rows: streaming x alone took a variant from 0.1477 to 0.1379 ms at
+//      the frame shape.
+//   5. Two threads a sample, each one level at a time (levels j, j + 2, ...):
+//      a warp's dout load reads 16 contiguous 16-byte pieces, the two lanes
+//      combine with one shuffle, and lane j stores components j and j + 2.
+//   Tried and slower at one shape or both (PERF.md): every level of a
+//   thread in flight at once (4 levels, 126-128 registers), two levels'
+//   dout as one 16-byte load, 1, 4 and 8 threads a sample, the records
+//   through L1, a floor without the conversion unit, a register cap.
+//   Registers, from nvcc -Xptxas -v: 44, no stack, no spills, no shared
+//   memory (v1: 40, the same).
+constexpr int kDxLanes = 2;  // threads a sample
+constexpr int kDxMaxLevels = 32;
+
+// kernel F's level records, passed by value: level l's four fields at
+// r[4l .. 4l + 3]
+struct DxLevels {
+    int4 r[4 * kDxMaxLevels];
+};
 
 __global__ void __launch_bounds__(kThreads)
-grid_encode_dx_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
-                      const float* __restrict__ meta_f, const float2* __restrict__ table,
-                      const float2* __restrict__ dout, float* __restrict__ dx, int n, int n_levels) {
-    const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-    const long long s = t / kFLanes;
-    const int lane = threadIdx.x % kFLanes;
+grid_encode_dx_kernel(const float* __restrict__ x, const __grid_constant__ DxLevels lv,
+                      const float2* __restrict__ table, const float2* __restrict__ dout,
+                      float* __restrict__ dx, int n, int n_levels) {
+    const long long s = ((long long)blockIdx.x * kThreads + threadIdx.x) / kDxLanes;
+    const int j = threadIdx.x % kDxLanes;
+    float xs[3] = {0.f, 0.f, 0.f};
+    if (s < n) {
+        xs[0] = __ldcs(x + 3 * s);
+        xs[1] = __ldcs(x + 3 * s + 1);
+        xs[2] = __ldcs(x + 3 * s + 2);
+    }
     float acc[3] = {0.f, 0.f, 0.f};
     if (s < n) {
-        const float xs[3] = {__ldg(x + 3 * s), __ldg(x + 3 * s + 1), __ldg(x + 3 * s + 2)};
+        const float2* drow = dout + (size_t)s * n_levels;
 #pragma unroll 1
-        for (int l = lane; l < n_levels; l += kFLanes) {
-            const int* mi = meta_i + l * kMetaInts;
-            const int res = __ldg(mi);
-            const uint32_t m = (uint32_t)__ldg(mi + 1);
-            const float scale = __ldg(meta_f + l);
-            float w1[3];
-            bool moves[3];
-            uint32_t cu[3];
+        for (int l0 = 0; l0 < n_levels; l0 += kDxLanes) {
+            const int l = l0 + j;
+            float2 g, v[8];
+            float w1[3], sc[3];
+            if (l < n_levels) g = __ldcs(drow + l);
+            // the level's cell and its 8 corner rows: every load before any
+            // arithmetic on them. The loop of one iteration keeps this block
+            // apart from the dout load's: without it nvcc 12.8 merges the two
+            // and issues the dout load among the corner loads, 0.025 ms slower
+            // at the training shape (PERF.md, Findings)
 #pragma unroll
-            for (int d = 0; d < 3; ++d) {
-                float p = __fadd_rn(__fmul_rn(xs[d], scale), 0.5f);
-                float p0f = floorf(p);
-                float frac = __fsub_rn(p, p0f);
-                int p0 = min(max((int)p0f, 0), res - 1);
-                moves[d] = p0 != res - 1;
-                w1[d] = moves[d] ? frac : 0.f;
-                cu[d] = (uint32_t)p0;
-            }
-            uint32_t base;
-            if (__ldg(mi + 3)) {
-                base = cu[0] + (uint32_t)res * (cu[1] + (uint32_t)res * cu[2]);
-            } else {
-                base = (cu[0] + cu[1] * 2654435761u + cu[2] * 805459861u) & (m - 1u);
-            }
-            const float2* tl = table + __ldg(mi + 2);
-            const float2 g = dout[s * n_levels + l];
-            float gc[8];
+            for (int once = 0; once < 1; ++once) {
+                if (l < n_levels) {
+                    const int4 hdr = lv.r[4 * l];  // res - 1, m, offset, scale
+                    const int4 hk = lv.r[4 * l + 1];  // k1, k2, mask
+                    const int4 sa = lv.r[4 * l + 2];  // corner shifts 0-3
+                    const int4 sb = lv.r[4 * l + 3];  // corner shifts 4-7
+                    const float scale = __int_as_float(hdr.w);
+                    uint32_t cu[3];
 #pragma unroll
-            for (int c = 0; c < 8; ++c) {
-                const float2 v = load_row(tl, wrap(base, (uint32_t)__ldg(mi + 4 + c), m));
-                gc[c] = fmaf(g.x, v.x, g.y * v.y);
-            }
-#pragma unroll
-            for (int d = 0; d < 3; ++d) {
-                // dw8_c/dw1_d: the other two axes' factors, + where bit d of c is set
-                float dw = 0.f;
-#pragma unroll
-                for (int c = 0; c < 8; ++c) {
-                    float w = 1.f;
-#pragma unroll
-                    for (int e = 0; e < 3; ++e) {
-                        if (e != d) w *= ((c >> e) & 1) ? w1[e] : 1.f - w1[e];
+                    for (int d = 0; d < 3; ++d) {
+                        const float p = __fadd_rn(__fmul_rn(xs[d], scale), 0.5f);
+                        const float p0f = floorf(p);
+                        const float frac = __fsub_rn(p, p0f);
+                        const int p0 = min(max((int)p0f, 0), hdr.x);
+                        const bool moves = p0 != hdr.x;
+                        w1[d] = moves ? frac : 0.f;
+                        sc[d] = moves ? scale : 0.f;
+                        cu[d] = (uint32_t)p0;
                     }
-                    dw = ((c >> d) & 1) ? fmaf(w, gc[c], dw) : fmaf(-w, gc[c], dw);
+                    const uint32_t m = (uint32_t)hdr.y;
+                    const uint32_t base = (cu[0] + cu[1] * (uint32_t)hk.x + cu[2] * (uint32_t)hk.y) & (uint32_t)hk.z;
+                    const float2* tl = table + hdr.z;
+                    const uint32_t sh[8] = {(uint32_t)sa.x, (uint32_t)sa.y, (uint32_t)sa.z, (uint32_t)sa.w,
+                                            (uint32_t)sb.x, (uint32_t)sb.y, (uint32_t)sb.z, (uint32_t)sb.w};
+#pragma unroll
+                    for (int c = 0; c < 8; ++c) v[c] = load_row(tl, wrap(base, sh[c], m));
                 }
-                if (moves[d]) acc[d] = fmaf(scale, dw, acc[d]);
+            }
+            // then the dots, the factored derivative and the sum
+            if (l < n_levels) {
+                float gc[8];
+#pragma unroll
+                for (int c = 0; c < 8; ++c) gc[c] = fmaf(g.x, v[c].x, g.y * v[c].y);
+                const float dd[3] = {lerp2(gc[1] - gc[0], gc[3] - gc[2], gc[5] - gc[4], gc[7] - gc[6], w1[1], w1[2]),
+                                     lerp2(gc[2] - gc[0], gc[3] - gc[1], gc[6] - gc[4], gc[7] - gc[5], w1[0], w1[2]),
+                                     lerp2(gc[4] - gc[0], gc[5] - gc[1], gc[6] - gc[2], gc[7] - gc[3], w1[0], w1[1])};
+#pragma unroll
+                for (int d = 0; d < 3; ++d) acc[d] = fmaf(sc[d], dd[d], acc[d]);
             }
         }
     }
 #pragma unroll
-    for (int o = 1; o < kFLanes; o <<= 1) {
+    for (int o = 1; o < kDxLanes; o <<= 1) {
 #pragma unroll
         for (int d = 0; d < 3; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], o);
     }
-    if (s < n && lane == 0) {
-        dx[3 * s] = acc[0];
-        dx[3 * s + 1] = acc[1];
-        dx[3 * s + 2] = acc[2];
+    if (s < n) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            if (d % kDxLanes == j) dx[3 * s + d] = acc[d];
+        }
     }
 }
 
@@ -372,16 +432,19 @@ extern "C" int nst_grid_encode(const void* x, const void* meta_i, const void* me
 }
 
 
-// Kernel F: dx [N, 3] f32 from x [N, 3], the table, dout [N, L*2] (8-byte
-// aligned) and kernel B's level metadata.
-extern "C" int nst_grid_encode_dx(const void* x, const void* meta_i, const void* meta_f, const void* table,
-                                  const void* dout, void* dx, int n, int n_levels, void* stream) {
-    if (n < 0 || n_levels < 0) return (int)cudaErrorInvalidValue;
+// Kernel F: dx [N, 3] f32 from x [N, 3], its level records [L, 16] int32
+// in host memory (copied into the launch's parameters, L <= kDxMaxLevels),
+// the table and dout [N, L*2].
+extern "C" int nst_grid_encode_dx(const void* x, const void* rec, const void* table, const void* dout, void* dx,
+                                  int n, int n_levels, void* stream) {
+    if (n < 0 || n_levels < 0 || n_levels > kDxMaxLevels) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
-    const long long threads = (long long)n * kFLanes;
+    DxLevels lv;
+    memset(&lv, 0, sizeof(lv));
+    memcpy(lv.r, rec, (size_t)n_levels * 4 * sizeof(int4));
+    const long long threads = (long long)n * kDxLanes;
     const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
     grid_encode_dx_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const int*)meta_i, (const float*)meta_f, (const float2*)table, (const float2*)dout,
-        (float*)dx, n, n_levels);
+        (const float*)x, lv, (const float2*)table, (const float2*)dout, (float*)dx, n, n_levels);
     return (int)cudaGetLastError();
 }

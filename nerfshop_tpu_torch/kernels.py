@@ -141,7 +141,7 @@ def load() -> ctypes.CDLL:
         lib.nst_segsum.restype = i
         lib.nst_grid_encode.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.nst_grid_encode.restype = i
-        lib.nst_grid_encode_dx.argtypes = [p, p, p, p, p, p, i, i, p]
+        lib.nst_grid_encode_dx.argtypes = [p, p, p, p, p, i, i, p]
         lib.nst_grid_encode_dx.restype = i
         lib.nst_grid_encode_tile.argtypes = [i]
         lib.nst_grid_encode_tile.restype = i

@@ -94,7 +94,7 @@ class GridEncoding(nn.Module):
     def kernel_meta(self, device: torch.device):
         """(meta_i [L, 12] int32: res, m, offset, dense, 8 shifts (the
         last 4 are 0 at D = 2); meta_f [L] f32 scales) on ``device``, for
-        kernels B and F."""
+        kernel B."""
         if device not in self._meta:
             rows = [
                 [self.level_res[l], self.level_sizes[l], self.level_offsets[l], int(self.level_dense[l])]
@@ -106,6 +106,25 @@ class GridEncoding(nn.Module):
                 torch.tensor(self.level_scales, dtype=torch.float32, device=device),
             )
         return self._meta[device]
+
+    def kernel_records(self) -> torch.Tensor:
+        """Kernel F's level records [L, 16] int32 in host memory (the launch
+        copies them into its parameters), four 16-byte fields a level:
+        res − 1, m, offset, the scale's float32 bits | the base slot's
+        strides and mask, (cu_0 + k1·cu_1 + k2·cu_2) & mask (dense: res,
+        res², all ones; hashed: the primes mod 2^32, m − 1), 0 | the 8
+        corner shifts (D = 3)."""
+        key = "records"
+        if key not in self._meta:
+            scale_bits = torch.tensor(self.level_scales, dtype=torch.float32).view(torch.int32).tolist()
+            rows = []
+            for l in range(self.n_levels):
+                res, m = self.level_res[l], self.level_sizes[l]
+                k1, k2, mask = (res, res * res, -1) if self.level_dense[l] else (2654435761 - (1 << 32), 805459861, m - 1)
+                shifts = list(self.brick_shifts[l]) + [0] * (8 - len(self.brick_shifts[l]))
+                rows.append([res - 1, m, self.level_offsets[l], scale_bits[l], k1, k2, mask, 0, *shifts])
+            self._meta[key] = torch.tensor(rows, dtype=torch.int32).reshape(self.n_levels, 16)
+        return self._meta[key]
 
     def shift_table(self, device: torch.device) -> torch.Tensor:
         """Corner slot shifts [L, 2^D] int64 on ``device``."""

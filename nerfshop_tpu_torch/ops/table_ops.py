@@ -103,16 +103,21 @@ def grid_encode_dx_plain(table: torch.Tensor, x: torch.Tensor, dout: torch.Tenso
     return dx
 
 
+#: the most levels kernel F takes (``kDxMaxLevels`` of ``csrc/grid_encode.cu``:
+#: its level records travel in the launch's parameters)
+DX_MAX_LEVELS = 32
+
+
 @kernels.counted("launches")
 def grid_encode_dx_cuda(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor, enc) -> torch.Tensor:
     """Kernel F → d_x [N, 3] f32 from x [N, 3], the table [Σm, 2] and the
-    output cotangent dout [N, L·2]. Takes D = 3, F = 2 and raises on
-    anything else."""
+    output cotangent dout [N, L·2]. Takes D = 3, F = 2 and at most
+    ``DX_MAX_LEVELS`` levels, and raises on anything else."""
     dev = x.device
     N = x.shape[0]
     L = enc.n_levels
-    if enc.n_input_dims != 3 or enc.n_features_per_level != 2:
-        raise ValueError("grid_encode_dx kernel supports D=3, F=2 only")
+    if enc.n_input_dims != 3 or enc.n_features_per_level != 2 or L > DX_MAX_LEVELS:
+        raise ValueError(f"grid_encode_dx kernel supports D=3, F=2 and at most {DX_MAX_LEVELS} levels only")
     if dev.type != "cuda":
         raise ValueError(f"grid_encode_dx kernel: x on {dev}, expected a CUDA device")
     kernels.require(x, "x", torch.float32, (N, 3), dev)
@@ -120,11 +125,10 @@ def grid_encode_dx_cuda(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor
     kernels.require(dout, "dout", torch.float32, (N, L * 2), dev)
     if dout.data_ptr() % 8:
         dout = dout.clone()  # the kernel reads float2 pairs
-    meta_i, meta_f = enc.kernel_meta(dev)
+    rec = enc.kernel_records()
     dx = torch.empty((N, 3), dtype=torch.float32, device=dev)
     err = kernels.load().nst_grid_encode_dx(
-        x.data_ptr(), meta_i.data_ptr(), meta_f.data_ptr(), table.data_ptr(), dout.data_ptr(), dx.data_ptr(), N, L,
-        kernels.stream_ptr(dev),
+        x.data_ptr(), rec.data_ptr(), table.data_ptr(), dout.data_ptr(), dx.data_ptr(), N, L, kernels.stream_ptr(dev)
     )
     kernels.check(err, "grid_encode_dx")
     grid_encode_dx_cuda.launches += 1

@@ -14,8 +14,8 @@ the host clock, then renders one frame under ``torch.profiler`` and
 reports, for that same profiled frame, its host wall time, the device busy
 time (the union of the intervals of every device event: kernels and
 copies) and the idle share 1 − busy / wall. Then the device time by
-kernel name (the 20 largest here, all of them in ``--out``), kernel B's
-share of it, and, from one Cost-mode frame, how many of the evaluated
+kernel name (the 20 largest here, all of them in ``--out``), the shares
+of kernels B and F in it, and, from one Cost-mode frame, how many of the evaluated
 sample slots were composited.
 
 With ``--compact FRAC`` it then profiles the same frame through
@@ -68,9 +68,11 @@ slots) and the trained table: kernel B's frame shape.
 
 With ``--kernels --chunk FILE`` it trains nothing: it times kernels A and D
 of the ``nerfshop_tpu_torch`` package found under ``--root`` (default: this
-checkout) at ``KERNEL_CASES``, and kernel B at ``chip_smoke.py``'s
-training shape and at the saved frame shape, in each mode its wrapper has,
-from the same inputs every run, each by both of ``chip_smoke.median_ms``'s
+checkout) at ``KERNEL_CASES``, kernel B at ``chip_smoke.py``'s training
+shape and at the saved frame shape, in each mode its wrapper has, and
+kernel F (the encode's position gradient) at the same two shapes, with
+the training shape's boundary points and a seeded dout, all from the same
+inputs every run, each by both of ``chip_smoke.median_ms``'s
 methods (events around one call, and queued behind a spin), with the
 library call beside it and the wrapper's host µs per call. Pointed at an
 unpacked older commit, it times that commit's kernels on the same inputs:
@@ -201,14 +203,17 @@ def profile_frame(tb, label: str, out: Path | None = None, render=None):
         flush=True,
     )
     write_table(by_name, out)
-    b_ms = sum(ms for name, (ms, _) in by_name.items() if "grid_encode" in name)
-    b_n = sum(n for name, (_, n) in by_name.items() if "grid_encode" in name)
     total = sum(ms for ms, _ in by_name.values())
-    print(
-        f"[profile] {label}: kernel B {b_ms:.3f} ms in {b_n} launches, {100 * b_ms / total:.2f}% of the frame's "
-        f"{total:.1f} ms of kernel and copy time",
-        flush=True,
-    )
+    for kernel, picks in (("B", lambda name: "grid_encode" in name and "grid_encode_dx" not in name),
+                          ("F", lambda name: "grid_encode_dx" in name)):
+        k_ms = sum(ms for name, (ms, _) in by_name.items() if picks(name))
+        k_n = sum(n for name, (_, n) in by_name.items() if picks(name))
+        if k_n:
+            print(
+                f"[profile] {label}: kernel {kernel} {k_ms:.3f} ms in {k_n} launches, {100 * k_ms / total:.2f}% of the "
+                f"frame's {total:.1f} ms of kernel and copy time, {100 * k_ms / busy:.2f}% of its busy time",
+                flush=True,
+            )
     return by_name
 
 
@@ -435,6 +440,34 @@ def time_encode(dev, chunk: Path) -> None:
             )
 
 
+def time_encode_dx(dev, chunk: Path) -> None:
+    """Kernel F of the package at ``chip_smoke.py``'s training shape (with
+    every level's boundary points) and at the saved frame shape, each with a
+    dout drawn from a generator seeded the same way every run; checked
+    against its plain version (max |Δ| within 1e-5 of max |d_x|), then
+    timed by both methods."""
+    from nerfshop_tpu_torch.ops import table_ops
+
+    for label, enc, table, x in encode_inputs(dev, chunk):
+        if label == "training shape":
+            label = "training shape (boundary points included)"
+            x = torch.cat([chip_smoke.boundary_points(enc, dev), x[: x.shape[0] - 3 * enc.n_levels]])
+        g = torch.Generator(device=dev)
+        g.manual_seed(4321)
+        dout = torch.randn((x.shape[0], 2 * enc.n_levels), generator=g, device=dev)
+        got = table_ops.grid_encode_dx_cuda(table, x, dout, enc)
+        ref = table_ops.grid_encode_dx_plain(table, x, dout, enc)
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        chip_smoke.check(err <= 1e-5 * scale, f"kernel F disagrees ({label}): {err:.3e} vs max |d_x| {scale:.3e}")
+        ms, dev_ms = chip_smoke.both_ms(lambda: table_ops.grid_encode_dx_cuda(table, x, dout, enc))
+        us = chip_smoke.host_us(lambda: table_ops.grid_encode_dx_cuda(table, x, dout, enc))
+        print(
+            f"[kernels] F {label} N={x.shape[0]}: max |delta| {err / scale:.3e} of max |d_x|; events {ms:.4f} ms "
+            f"device {dev_ms:.4f} ms; wrapper host {us:.1f} us per call",
+            flush=True,
+        )
+
+
 def save_chunk(dev, path: Path) -> None:
     """``--save-chunk``: train the smoke's model, render one 1080p frame of the
     render view and save the positions its middle chunk encoded, with the
@@ -452,12 +485,13 @@ def save_chunk(dev, path: Path) -> None:
 
 def time_kernels(dev, root: str, chunk: Path) -> None:
     """``--kernels``: kernels A and D of the package under ``root`` at
-    KERNEL_CASES and kernel B at its two shapes, each checked against its
-    plain version, then timed."""
+    KERNEL_CASES and kernels B and F at their two shapes, each checked
+    against its plain version, then timed."""
     from nerfshop_tpu_torch.ops import gather, segsum
 
     print(f"[kernels] package {Path(segsum.__file__).resolve().parent.parent} (root {root})", flush=True)
     time_encode(dev, chunk)
+    time_encode_dx(dev, chunk)
     seg_labels, gather_cases = KERNEL_CASES
     for label, m, N in chip_smoke.SEGSUM_CASES:
         if label not in seg_labels:
@@ -602,7 +636,7 @@ def main() -> None:
     mode.add_argument("--normals", action="store_true", help="also profile the frame in RenderMode.Normals")
     mode.add_argument("--train", action="store_true", help="profile the eager and the captured training loop instead of a frame")
     mode.add_argument("--distill", action="store_true", help="profile 8 distillation steps of the edit with a membrane")
-    mode.add_argument("--kernels", action="store_true", help="time kernels A, B and D alone (no training)")
+    mode.add_argument("--kernels", action="store_true", help="time kernels A, B, D and F alone (no training)")
     mode.add_argument("--save-chunk", type=Path, default=None, help="train, then save one 1080p chunk's positions here")
     mode.add_argument("--save-edit", type=Path, default=None, help="train, edit, then save the edits and a warp chunk here")
     mode.add_argument("--warp", action="store_true", help="time the cage warp of a saved edit (no training)")

@@ -69,6 +69,63 @@ def _dx_formula(te, table, x, dout):
     return dx
 
 
+#: kernel F's threads a sample (``kDxLanes`` of ``csrc/grid_encode.cu``):
+#: lane j sums levels j, j + F_LANES, ... one at a time
+F_LANES = 2
+
+
+def _fma(a, b, c):
+    """fmaf: a·b + c rounded once to float32 (a·b is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _blend2(e00, e10, e01, e11, u, v):
+    """The kernel's bilinear blend: along u at v = 0 and at v = 1 (a + u·(b − a),
+    one FMA each), then along v."""
+    def blend(a, b, w):
+        return _fma(w, b - a, a)
+
+    return blend(blend(e00, e10, u), blend(e01, e11, u), v)
+
+
+def _kernel_f_model(te, table, x, dout):
+    """Kernel F's arithmetic in float32, in its order. Per level: the corner
+    dots ⟨dout, row_c⟩; for each axis the four differences of the dots along
+    it, blended bilinearly in the other two axes' folded fractions; times
+    scale_l where the axis moves. A sample's F_LANES lanes each sum their
+    levels (lane j: levels j, j + F_LANES, ...) in turn; the xor shuffles
+    then add the lanes 1 apart, 2 apart, ..."""
+    xt = torch.from_numpy(x)
+    tab = torch.from_numpy(table)
+    N, L = x.shape[0], te.n_levels
+    g = torch.from_numpy(dout).reshape(N, L, 2)
+    idx, w1 = te.brick_fracs(xt)
+    terms = []
+    for l in range(L):
+        m, res, off = te.level_sizes[l], te.level_res[l], te.level_offsets[l]
+        scale = torch.tensor(te.level_scales[l], dtype=torch.float32)
+        p0 = torch.clamp(torch.floor(xt * scale + 0.5), 0, res - 1)
+        sc = torch.where(p0 != res - 1, scale, torch.zeros(()))
+        rows = (idx[l].long()[:, None] + torch.tensor(te.brick_shifts[l])[None, :]) % m + off
+        v = tab[rows]  # [N, 8, 2]
+        gc = _fma(g[:, l, None, 0], v[..., 0], g[:, l, None, 1] * v[..., 1]).unbind(1)
+        wx, wy, wz = w1[l].unbind(1)
+        dd = torch.stack([
+            _blend2(gc[1] - gc[0], gc[3] - gc[2], gc[5] - gc[4], gc[7] - gc[6], wy, wz),
+            _blend2(gc[2] - gc[0], gc[3] - gc[1], gc[6] - gc[4], gc[7] - gc[5], wx, wz),
+            _blend2(gc[4] - gc[0], gc[5] - gc[1], gc[6] - gc[2], gc[7] - gc[3], wx, wy),
+        ], 1)
+        terms.append((sc, dd))
+    acc = [torch.zeros((N, 3)) for _ in range(F_LANES)]
+    for l, (sc, dd) in enumerate(terms):
+        acc[l % F_LANES] = _fma(sc, dd, acc[l % F_LANES])
+    o = 1
+    while o < F_LANES:
+        acc = [acc[j] + acc[j ^ o] for j in range(F_LANES)]
+        o *= 2
+    return acc[0].numpy()
+
+
 def _module_dx(te, x, ct, table_grad=False):
     """d_x (and d_table) of Σ ct · te(x) through ``GridEncodeFunction``."""
     te.table.requires_grad_(table_grad)
@@ -117,6 +174,55 @@ def test_dx_matches_autograd_and_kernel_sum(name):
     (edge,) = _module_dx(te, ones, ct[:1])
     if all(int(np.floor(s + 0.5)) >= r - 1 for s, r in zip(te.level_scales, te.level_res)):
         assert torch.equal(edge, torch.zeros_like(edge))
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_kernel_f_arithmetic_matches_jax_grad(name):
+    # the factored derivative of kernel F, in its order in float32, against
+    # JAX's autodiff and the float64 sum on the cube's corners and every
+    # level's last-cell points: 1e-5 of max |d_x|, as above
+    je, te, table = _pair(name)
+    x = _points(te, 1)
+    ct = np.random.default_rng(2).standard_normal((x.shape[0], te.n_output_dims)).astype(np.float32)
+
+    def f(xx):
+        return jnp.sum(je.apply({"table": jnp.asarray(table)}, xx) * ct)
+
+    ref = np.asarray(jax.grad(f)(jnp.asarray(x)))
+    ours = _kernel_f_model(te, table, x, ct)
+    formula = _dx_formula(te, table, x, ct)
+    assert np.abs(ref).max() > 1e-2
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    np.testing.assert_allclose(ours, formula, rtol=0, atol=1e-5 * np.abs(formula).max())
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_kernel_f_records_give_the_slots(name):
+    # kernel F's level records, read as the kernel reads them: res − 1, m,
+    # offset and the scale's float32 bits; the base slot (cu0 + k1·cu1 +
+    # k2·cu2) & mask in uint32 equal to the plain slots on every point; the
+    # corner shifts the brick shifts
+    _, te, _ = _pair(name)
+    x = _points(te, 9)
+    rec = te.kernel_records()
+    assert rec.dtype == torch.int32 and rec.shape == (te.n_levels, 16) and rec.device.type == "cpu"
+    rec = rec.numpy()
+    idx = te.brick_fracs(torch.from_numpy(x))[0].numpy()
+    for l in range(te.n_levels):
+        r = rec[l]
+        assert r[0] == te.level_res[l] - 1 and r[1] == te.level_sizes[l] and r[2] == te.level_offsets[l]
+        assert r[3:4].view(np.float32)[0] == np.float32(te.level_scales[l])
+        assert list(r[8:]) == list(te.brick_shifts[l])
+        p = x * r[3:4].view(np.float32)[0] + np.float32(0.5)  # float32 steps, as the kernel rounds them
+        cu = np.clip(np.floor(p), 0, r[0]).astype(np.uint32)
+        k1, k2, mask = r[4:7].view(np.uint32)
+        with np.errstate(over="ignore"):
+            base = (cu[:, 0] + cu[:, 1] * k1 + cu[:, 2] * k2) & mask
+        np.testing.assert_array_equal(base, idx[l].astype(np.uint32))
+    # the records travel in the launch's parameters: at most 32 levels
+    deep = tenc.GridEncoding(n_levels=table_ops.DX_MAX_LEVELS + 1, log2_hashmap_size=8, per_level_scale=1.1)
+    with pytest.raises(ValueError, match="at most 32 levels"):
+        table_ops.grid_encode_dx_cuda(deep.table.detach(), torch.zeros((4, 3)), torch.zeros((4, 2 * deep.n_levels)), deep)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
