@@ -31,6 +31,16 @@ Phases, each printing one line of its own numbers:
      middle chunk's valid share rounded up, and twice that: frame ms, the
      share of valid rows dropped past the slab, and the change against the
      uncompacted frame (≤ 1e-5 where no row was dropped, else PSNR);
+  8a. [baked]: the baked interactive preview of the trained sphere:
+     ``bake_interactive()`` at 256³ over the tight box (seconds; kernels B
+     without fracs and C), σ at 2^16 seeded cells against the field
+     evaluated there (within bf16 rounding); kernels H (the shear-warp slice
+     composite) and I (the screen warp) against their plain versions on six
+     views (each major axis, both flips) at 1920×1080 with a 384² base
+     raster (raster and rgba within 1e-4), timed; ``render_interactive(1920,
+     1080)`` (median of 3 after a warm-up; one launch of H and of I a
+     frame); the baked frame against the exact one (PSNR ≥ 24 dB,
+     ``tests/test_baked.py``);
   9. the viewer path: ``Testbed.frame()`` (no training) three times into a
      1920×1080 frame buffer, through ``render_dynamic``'s dynamic
      resolution and its on-device bilinear upsample;
@@ -78,12 +88,25 @@ Phases, each printing one line of its own numbers:
      points and on the tie and NaN LUTs, with the share of in-target points
      that pass the membrane's gate (the phase fails at 0); the 1080p frame
      of the stack with the membrane ("target" blend) against it without;
+ 15a. [baked-edit]: the stack with the membrane and the duplicate baked in
+     full (one ``WARP_MEMBRANE`` launch a chunk); the cage dragged 0.02
+     further and swapped in without a grid refresh: an incremental rebake,
+     its seconds, within 1e-2 of a forced full bake; one edited 1080p baked
+     frame against the exact one (PSNR, no bound);
  16. distill: the edited scene distilled into a standalone student (300
      steps of the default ``DistillConfig`` at the trained scale), steps/s,
      and the student's render without operators against the edited render
      of a side view in PSNR (bound 25 dB);
  17. native: the host library's LUT build, region growing and ``vanish``
      against the numpy paths;
+ 17a. [viewer]: ``ViewerServer`` on a free port in a background thread,
+     driven with ``urllib``: ``GET /`` and ``/state``, four 1080p
+     ``/render`` (the first bakes), a sphere selection's cage applied and
+     translated (an incremental rebake, seen in ``/state``'s
+     ``last_rebake_s`` and the testbed's flag), ``/train`` of 16 steps (a
+     replay of the captured graph), a frame after it (a full rebake), an
+     unknown verb (``ok: false``); each request's ms, the frame's and the
+     PNG encode's, every PNG read back at 1920×1080;
  18. [sdf]: an 81920-face bumpy icosphere written as .obj and trained
      through ``run.main(["--mode", "sdf", ...])`` (1000 steps at batch
      2^16); kernel G (the BVH signed distance: the packed walk) against its plain version, the brute force, on a batch's,
@@ -108,7 +131,9 @@ other instance of E; a distillation step launches kernel B with fracs for
 the student's two forwards only. Then a JSON line with every
 kernel's launches on the main paths (training, counted by graph replays,
 render, compacted render, frame, Normals frame, mesh, CLI, edit, membrane
-frame and distillation),
+frame, distillation, the baked preview and the viewer; kernels H and I
+as ``shear_warp_composite`` and ``shear_warp_screen``, their numbers the
+median over the six views, the error the largest),
 error, times, bound and library-call time, the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the script exits non-zero;
@@ -640,6 +665,7 @@ def kernel_wrappers():
     from nerfshop_tpu_torch.editing import operators
     from nerfshop_tpu_torch.geometry import bvh
     from nerfshop_tpu_torch.ops import fused_mlp, gather, segsum, table_ops
+    from nerfshop_tpu_torch.render import baked
 
     return {
         "segsum": segsum.sorted_segment_rowsum_cuda,
@@ -652,6 +678,8 @@ def kernel_wrappers():
         "cage_warp_positions": operators.cage_warp_positions_cuda,
         "cage_warp_membrane": operators.cage_warp_membrane_cuda,
         "bvh_signed_distance": bvh.bvh_signed_distance_cuda,
+        "shear_warp_composite": baked.shear_warp_composite_cuda,
+        "shear_warp_screen": baked.shear_warp_screen_cuda,
     }
 
 
@@ -2593,6 +2621,328 @@ def phase_volume(dev, workdir: Path, steps=1000, W=1920, H=1080):
     return {"volume_train": train_launches, "volume_render": render_launches}
 
 
+# ------------------------------------------------------- the baked preview
+
+#: the interactive bake's side, its frame's base raster, the seed of the
+#: cells whose σ is checked, and the cage drag of [baked-edit]
+BAKE_RES = 256
+BAKED_BI = 384
+BAKE_SEED = 1313
+BAKE_DRAG = np.array([0.02, 0.0, 0.0], np.float32)
+
+
+def baked_views():
+    """Six cameras 1.6 from the centre, one along each world axis each way
+    (tilted a little), naming (view-major axis, flip)."""
+    e = np.eye(3, dtype=np.float32)
+    return {
+        f"{'xyz'[m]}{'+-'[s < 0]}": look_at(CENTER - s * 1.6 * e[m] + 0.25 * e[(m + 1) % 3] - 0.15 * e[(m + 2) % 3],
+                                             up=e[(m + 2) % 3])
+        for m in range(3) for s in (1, -1)
+    }
+
+
+def shear_warp_case(label, vol, xf, focal, W, H):
+    """Kernels H and I against their plain versions on one view of ``vol``
+    (with depth), timed as the preview calls them (without) → numbers."""
+    from nerfshop_tpu_torch.render import baked as baked_lib
+
+    fp = baked_lib.frame_params(vol.resolution, vol.aabb_lo, vol.aabb_hi, (W, H), xf, focal, None, (0.0, 0.0, 0.0, 0.0),
+                                BAKED_BI, with_depth=True)
+    field = vol.fields[fp.major]
+    raster = baked_lib.shear_warp_composite_cuda(field, fp)
+    raster_p = baked_lib.shear_warp_composite_plain(field, fp)
+    rgba, depth = baked_lib.shear_warp_screen_cuda(raster_p, fp)
+    rgba_p, depth_p = baked_lib.shear_warp_screen_plain(raster_p, fp)
+    torch.cuda.synchronize()
+    err_h = float((raster - raster_p).abs().max())
+    err_i = float((rgba - rgba_p).abs().max())
+    opaque = rgba_p[..., 3] > 0.5
+    err_d = float((depth - depth_p).abs()[opaque].max()) if bool(opaque.any()) else 0.0
+    check(bool(torch.isfinite(raster).all() and torch.isfinite(rgba).all()), f"kernel H or I output not finite ({label})")
+    check(err_h <= 1e-4, f"kernel H disagrees with its plain version ({label}): {err_h:.3e} > 1e-4")
+    check(err_i <= 1e-4, f"kernel I disagrees with its plain version ({label}): {err_i:.3e} > 1e-4")
+    fp = fp._replace(with_depth=False)
+    ms_h, dev_h = both_ms(lambda: baked_lib.shear_warp_composite_cuda(field, fp))
+    plain_h = median_ms(lambda: baked_lib.shear_warp_composite_plain(field, fp), runs=5, warmups=1)
+    ms_i, dev_i = both_ms(lambda: baked_lib.shear_warp_screen_cuda(raster, fp))
+    plain_i = median_ms(lambda: baked_lib.shear_warp_screen_plain(raster, fp), runs=5, warmups=1)
+    B, Bi = fp.B, fp.Bi
+    # H: the layout read once and the raster written; ~50 fp32 operations and
+    # 2 exponentials a texel and slice. I: the raster read, the frame written.
+    bound_h = bound(B**3 * 8 + Bi * Bi * 5 * 4, 50.0 * B * Bi * Bi)
+    bound_i = bound(Bi * Bi * 5 * 4 + W * H * (4 + 1) * 4, 60.0 * W * H)
+    print(
+        f"[baked] view {label} (major {'xyz'[fp.major]}, flip {fp.flip}): kernel H vs plain max|d raster| {err_h:.3e} "
+        f"(bound 1e-4), kernel I vs plain max|d rgba| {err_i:.3e} (bound 1e-4), max|d depth| where alpha > 0.5 "
+        f"{err_d:.3e}; H {ms_h:.4f} ms (device {dev_h:.4f}) plain {plain_h:.2f} ms bound {bound_h[0]:.4f} ms "
+        f"({bound_h[1]}); I {ms_i:.4f} ms (device {dev_i:.4f}) plain {plain_i:.2f} ms bound {bound_i[0]:.4f} ms "
+        f"({bound_i[1]}); alpha > 0.5 on {float(opaque.float().mean()):.4f} of the frame",
+        flush=True,
+    )
+    return (
+        dict(max_abs_err=err_h, ms=ms_h, device_ms=dev_h, plain_ms=plain_h, bound_ms=bound_h[0], bound_by=bound_h[1],
+             library_ms=None, library_device_ms=None),
+        dict(max_abs_err=err_i, ms=ms_i, device_ms=dev_i, plain_ms=plain_i, bound_ms=bound_i[0], bound_by=bound_i[1],
+             library_ms=None, library_device_ms=None),
+    )
+
+
+def median_rows(rows):
+    """One kernels-line entry from per-view numbers: the largest error, the
+    median of each time, the bound of the first view (the same bytes)."""
+    return {
+        **{k: statistics.median(r[k] for r in rows) for k in ("ms", "device_ms", "plain_ms")},
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **{k: rows[0][k] for k in ("bound_ms", "bound_by", "library_ms", "library_device_ms")},
+    }
+
+
+def interactive_frames(tb, W, H, n=3):
+    """``render_interactive`` ``n`` times after a warm-up → (frame, host s)."""
+    img = tb.render_interactive(W, H)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        img = tb.render_interactive(W, H)
+        times.append(time.perf_counter() - t0)
+    return img, times
+
+
+def phase_baked(tb, W=1920, H=1080):
+    """[baked]: the trained sphere baked at 256³ through ``bake_interactive``
+    (seconds; kernels B without fracs and C); σ at 2^16 seeded cells against
+    the field evaluated there; kernels H and I against their plain versions
+    on six views; ``render_interactive`` at 1080p (one launch of H and one of
+    I a frame); the baked frame against the exact one in PSNR (bound 24 dB,
+    ``tests/test_baked.py``) → (bake launches, frame launches, H row, I row)."""
+    from nerfshop_tpu_torch.models.nerf_network import density_with
+    from nerfshop_tpu_torch.ops import coords
+    from nerfshop_tpu_torch.render import baked as baked_lib
+
+    dev = tb.device
+    tb.set_look_at(eye=CENTER + np.array([0.9, -0.9, 0.5], np.float32))
+    tb.interactive_bake_resolution = BAKE_RES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tb.bake_interactive()
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    bake_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    vol = tb._baked
+    check(not tb.last_bake_incremental and vol.resolution == BAKE_RES, "the first bake was not a full 256^3 bake")
+    check(all(f.shape == (BAKE_RES,) * 3 + (4,) and f.dtype == torch.bfloat16 for f in (*vol.fields, vol.canonical)),
+          "the bake's volumes are not [256, 256, 256, 4] bf16")
+    check_launched(bake_launches, ("grid_encode", "fused_mlp"), "bake")
+    check(bake_launches["grid_encode_fracs"] == 0, f"kernel B wrote fracs in the bake: {bake_launches}")
+
+    # σ at seeded cells against the field evaluated there (the same kernels)
+    g = torch.Generator(device=dev)
+    g.manual_seed(BAKE_SEED)
+    zyx = torch.randint(0, BAKE_RES, (1 << 16, 3), generator=g, device=dev)
+    lo, hi = (torch.as_tensor(v, device=dev) for v in (vol.aabb_lo, vol.aabb_hi))
+    pos = lo + (zyx.flip(-1).to(torch.float32) + 0.5) / BAKE_RES * (hi - lo)
+    full = coords.BoundingBox.from_aabb_scale(tb.train_config.aabb_scale, device=dev)
+    with torch.no_grad():
+        direct = density_with(tb.model, tb.inference_params, torch.clamp(coords.warp_position(pos, full), 0.0, 1.0))
+        direct = direct * baked_lib.occupancy_at(tb.grid.occupancy, pos)
+    baked_sigma = vol.canonical[zyx[:, 0], zyx[:, 1], zyx[:, 2], 3].float()
+    sig_err = (baked_sigma - direct).abs()
+    sig_ok = float((sig_err <= direct.abs() * 2.0**-8 + 1e-6).float().mean())
+    check(sig_ok == 1.0, f"baked sigma off the field beyond bf16 rounding at {1 - sig_ok:.2e} of the cells "
+                         f"(max {float(sig_err.max()):.3e})")
+    occupied = float((baked_sigma > 0).float().mean())
+    print(
+        f"[baked] bake_interactive {BAKE_RES}^3 over the tight box {vol.aabb_lo.tolist()} .. {vol.aabb_hi.tolist()}: "
+        f"{bake_s:.3f} s (first, after a sync), peak memory {peak / 2**30:.3f} GiB, launches {bake_launches}; sigma at "
+        f"{1 << 16} seeded cells within bf16 rounding of the field (2^-8 relative) on {sig_ok:.6f} of them, max "
+        f"|d| {float(sig_err.max()):.4e}, {occupied:.4f} of them > 0",
+        flush=True,
+    )
+
+    focal = tb._focal_for(W, H)
+    rows = [shear_warp_case(label, vol, xf, focal, W, H) for label, xf in baked_views().items()]
+    h_row, i_row = median_rows([r[0] for r in rows]), median_rows([r[1] for r in rows])
+
+    torch.cuda.synchronize()
+    reset_launches()
+    img, times = interactive_frames(tb, W, H)
+    frame_launches = read_launches()
+    check(tb._baked is vol, "render_interactive rebaked with nothing changed")
+    check(frame_launches["shear_warp_composite"] == frame_launches["shear_warp_screen"] == 4
+          and frame_launches["grid_encode"] == 0,
+          f"a baked frame did not launch H and I once each and nothing else of the kernels: {frame_launches}")
+    exact = tb.render(W, H, spp=1, exact=True)
+    check(img.shape == (H, W, 4) and np.isfinite(img).all(), "the baked frame is not finite / of the expected shape")
+    value = psnr(np.clip(img[..., :3], 0, 1), exact[..., :3])
+    print(
+        f"[baked] render_interactive {W}x{H} (Bi {BAKED_BI}) median of 3 {statistics.median(times) * 1e3:.2f} ms "
+        f"({[round(t * 1e3, 2) for t in times]}), launches in 4 frames {frame_launches}; baked vs exact frame PSNR "
+        f"{value:.2f} dB (bound 24)",
+        flush=True,
+    )
+    check(value >= 24.0, f"baked vs exact PSNR {value:.2f} dB < 24")
+    return bake_launches, frame_launches, h_row, i_row
+
+
+def phase_baked_edit(tb, gs, op_mem, W=1920, H=1080):
+    """[baked-edit]: the edited stack (the moved cage with its membrane, the
+    duplicate) baked in full through kernel E; the cage dragged
+    ``BAKE_DRAG`` further, replaced without a grid refresh (as
+    ``tests/test_interactive_rebake.py`` does, so that both bakes read one
+    grid and one box), rebaked incrementally and held to a forced full bake
+    within 1e-2; then one edited 1080p baked frame against the exact one
+    (PSNR, no bound). The stack is left as it was found → launches of the
+    full bake."""
+    from nerfshop_tpu_torch.render import baked as baked_lib
+
+    tb.set_look_at(eye=SIDE_EYE)
+    check(len(tb.edit_operators) == 2 and tb.edit_operators[0] is op_mem, "not the membrane stack")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    tb.bake_interactive()
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    launches = read_launches()
+    chunks = -(-BAKE_RES // max(1, (1 << 18) // BAKE_RES**2))
+    check(not tb.last_bake_incremental, "the first bake of the edited stack was not full")
+    check(launches["cage_warp_membrane"] == chunks and launches["cage_warp_samples"] == 0 and launches["tet_lookup"] == 0,
+          f"the edited bake did not warp each chunk by one WARP_MEMBRANE launch: {launches}")
+    check(launches["grid_encode_fracs"] == 0, f"kernel B wrote fracs in the edited bake: {launches}")
+
+    gs.translate_cage(BAKE_DRAG)
+    dragged = gs.make_operator()
+    tb.replace_edit_operator(0, dragged, refresh_grid=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tb.bake_interactive()
+    torch.cuda.synchronize()
+    incr_s = time.perf_counter() - t0
+    check(tb.last_bake_incremental, "the drag did not rebake incrementally")
+    from nerfshop_tpu_torch.editing.operators import operator_roi_aabb
+
+    roi = [np.minimum(operator_roi_aabb(op_mem)[0], operator_roi_aabb(dragged)[0]),
+           np.maximum(operator_roi_aabb(op_mem)[1], operator_roi_aabb(dragged)[1])]
+    _, dims = baked_lib._roi_dims(*roi, baked_lib.coords.BoundingBox(tb._baked.aabb_lo, tb._baked.aabb_hi), BAKE_RES)
+    incr = tb._baked.canonical.clone()
+    t0 = time.perf_counter()
+    tb.bake_interactive(force_full=True)
+    torch.cuda.synchronize()
+    forced_s = time.perf_counter() - t0
+    diff = float((incr.float() - tb._baked.canonical.float()).abs().max())
+    del incr
+    check(diff <= 1e-2, f"the incremental rebake is {diff:.3e} from a full bake (bound 1e-2)")
+    tb.refresh_grid_for_edits()
+    img, times = interactive_frames(tb, W, H)
+    exact = tb.render(W, H, spp=1, exact=True)
+    value = psnr(np.clip(img[..., :3], 0, 1), exact[..., :3])
+    print(
+        f"[baked-edit] the stack (moved cage with membrane, duplicate) baked in full in {full_s:.3f} s, launches "
+        f"{launches}; the cage dragged {BAKE_DRAG.tolist()} further: incremental rebake of a {dims} (z, y, x) region "
+        f"in {incr_s:.3f} s, a forced full bake {forced_s:.3f} s, max|incremental - full| {diff:.3e} (bound 1e-2); "
+        f"after a grid refresh the {W}x{H} edited baked frame median of 3 {statistics.median(times) * 1e3:.2f} ms, "
+        f"PSNR against the exact edited frame {value:.2f} dB (no bound)",
+        flush=True,
+    )
+    gs.translate_cage(-BAKE_DRAG)
+    tb.replace_edit_operator(0, op_mem)
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_viewer(tb, W=1920, H=1080):
+    """[viewer]: ``ViewerServer`` on a free port in the background, driven
+    with ``urllib``: the page, the state, four 1080p baked frames (the first
+    bakes), a cage edit applied and dragged (an incremental rebake), 16
+    training steps (a graph replay) and a frame after them (a full rebake),
+    an unknown verb; each request's ms, the frame's and the PNG's, every PNG
+    read back at its size → the launches of the whole phase."""
+    import urllib.request
+
+    from nerfshop_tpu_torch.data import image_io
+    from nerfshop_tpu_torch.viewer.server import ViewerServer
+
+    srv = ViewerServer(tb, port=free_port(), bake_resolution=BAKE_RES)
+    httpd = srv.start_background()
+    url = f"http://127.0.0.1:{srv.port}"
+    timings = []
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_viewer_"))
+
+    def request(path, body=None):
+        t0 = time.perf_counter()
+        if body is None:
+            out = urllib.request.urlopen(url + path, timeout=600).read()
+        else:
+            req = urllib.request.Request(url + path, data=json.dumps(body).encode(), method="POST")
+            out = urllib.request.urlopen(req, timeout=600).read()
+        ms = (time.perf_counter() - t0) * 1e3
+        if path == "/render":
+            (tmp / "frame.png").write_bytes(out)
+            img = image_io.read_png(tmp / "frame.png")
+            check(img.shape == (H, W, 4), f"the viewer's PNG is {img.shape}, expected {(H, W, 4)}")
+            timings.append(f"{path} {ms:.1f} ms (frame {srv.last_frame_ms:.1f}, png {srv.last_png_ms:.1f})")
+            return img
+        timings.append(f"{path} {ms:.1f} ms")
+        return out if path == "/" else json.loads(out)
+
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        check(b"nerfshop_tpu viewer" in request("/"), "GET / did not serve the viewer page")
+        check(request("/edit/clear", {})["n_operators"] == 0, "clear left operators")
+        check(request("/state")["n_operators"] == 0, "the state shows operators after clear")
+        cam = look_at(CENTER + np.array([0.9, -0.9, 0.5], np.float32)).tolist()
+        frame = {"camera": cam, "width": W, "height": H}
+        rebakes = []
+        for _ in range(4):
+            request("/render", frame)
+            rebakes.append(srv.last_rebake_s)
+        check(not tb.last_bake_incremental and rebakes[0] is not None and len(set(rebakes)) == 1,
+              f"the first frame did not bake in full once, or a later one rebaked: {rebakes}")
+        check(request("/edit/select_sphere", {"center": [0.5, 0.5, 0.5], "radius": 0.1})["ok"], "select_sphere failed")
+        check(request("/edit/compute_proxy", {})["stage"] == "ProxyMesh", "compute_proxy failed")
+        check(request("/edit/extract_cage", {})["stage"] == "TetMesh", "extract_cage failed")
+        check(request("/edit/apply", {})["n_operators"] == 1, "apply failed")
+        request("/render", frame)
+        full_s = srv.last_rebake_s
+        check(not tb.last_bake_incremental, "the frame after apply did not bake in full")
+        check(request("/edit/translate", {"offset": [0.03, 0.0, 0.0]})["ok"], "translate failed")
+        request("/render", frame)
+        incr_s = request("/state")["last_rebake_s"]
+        check(tb.last_bake_incremental and incr_s != full_s, "the drag did not rebake incrementally")
+        replays = tb.stats.graph_replays
+        out = request("/train", {"n_steps": 16})
+        check(math.isfinite(out["loss"]) and tb.stats.graph_replays == replays + 1,
+              f"/train did not replay the captured graph once: {tb.stats.graph_replays - replays} replays")
+        request("/render", frame)
+        check(not tb.last_bake_incremental and request("/state")["last_rebake_s"] != incr_s,
+              "the frame after training did not rebake in full")
+        check(request("/edit/nonsense", {})["ok"] is False, "an unknown verb did not answer ok: false")
+        check(request("/edit/clear", {})["n_operators"] == 0, "clear left operators")
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(launches["shear_warp_composite"] == launches["shear_warp_screen"] == 7,
+          f"the viewer's 7 frames did not launch H and I once each: {launches}")
+    print(f"[viewer] requests: {'; '.join(timings)}; rebakes: full {full_s:.3f} s, after the drag {incr_s:.3f} s "
+          f"(incremental); launches {launches}", flush=True)
+    return launches
+
+
 #: the numbers of a kernel in the kernels line; ``ms``, ``plain_ms`` and
 #: ``library_ms`` are events around one call, ``device_ms`` and
 #: ``library_device_ms`` the same calls queued behind a spin (:func:`median_ms`)
@@ -2613,6 +2963,7 @@ def main() -> None:
     tb, focal, principal, train_launches = phase_main_path(dev)
     phase_train_loop(tb)
     render_launches, chunk_x = phase_render(tb)
+    bake_launches, baked_frame_launches, h_row, i_row = phase_baked(tb)
     compact_launches = phase_render_compact(tb)
     frame_launches = phase_frame(tb)
     xf = phase_held_out(tb, focal, principal)
@@ -2629,11 +2980,14 @@ def main() -> None:
     edit_launches = read_launches()
     check_launched(edit_launches, ("grid_encode", "fused_mlp", "gather", "cage_warp_samples", "cage_warp_positions"),
                    "edit path")
-    paths = {"train": train_launches, "render": render_launches, "render_compact": compact_launches,
-             "frame": frame_launches, "normals": normals_launches, "mesh": mesh_launches, "cli": cli_launches,
-             "edit": edit_launches}
+    paths = {"train": train_launches, "render": render_launches,
+             "baked": {k: bake_launches[k] + baked_frame_launches[k] for k in bake_launches},
+             "render_compact": compact_launches, "frame": frame_launches, "normals": normals_launches,
+             "mesh": mesh_launches, "cli": cli_launches, "edit": edit_launches}
+    check_launched(paths["baked"], ("grid_encode", "fused_mlp", "shear_warp_composite", "shear_warp_screen"),
+                   "baked path")
     check_launched(normals_launches, ("grid_encode", "grid_encode_dx", "gather"), "Normals frame")
-    for name in ("render", "render_compact", "frame", "normals", "mesh", "edit"):
+    for name in ("render", "baked", "render_compact", "frame", "normals", "mesh", "edit"):
         check(paths[name]["grid_encode_fracs"] == 0, f"kernel B wrote fracs on the {name} path: {paths[name]}")
     check(edited_frame_launches["grid_encode_fracs"] == 0, "kernel B wrote fracs in the edited frame")
     split = {k: (v["grid_encode_fracs"], v["grid_encode"] - v["grid_encode_fracs"]) for k, v in paths.items()}
@@ -2641,13 +2995,18 @@ def main() -> None:
     print(f"[launches] kernel B (with fracs, without) per path: {split}", flush=True)
     phase_encode_frame(tb, chunk_x)
     tet = phase_tetlookup(op, g, chunk_pts)
-    _, tet["cage_warp_membrane"], membrane_launches = phase_membrane(tb, gs, op, g, chunk_pts)
+    op_mem, tet["cage_warp_membrane"], membrane_launches = phase_membrane(tb, gs, op, g, chunk_pts)
     paths["membrane"] = membrane_launches
+    paths["baked_edit"] = phase_baked_edit(tb, gs, op_mem)
+    check_launched(paths["baked_edit"], ("grid_encode", "fused_mlp", "cage_warp_membrane"), "edited bake")
     paths["distill"] = phase_distill(tb)
     phase_native(tb, gs)
-    print(f"[launches] one 1080p membrane frame: {membrane_launches}; distillation (300 steps): {paths['distill']}",
-          flush=True)
-    del tb, gs, op
+    paths["viewer"] = phase_viewer(tb)
+    check_launched(paths["viewer"], ("grid_encode", "fused_mlp", "segsum", "shear_warp_composite", "shear_warp_screen"),
+                   "viewer backend")
+    print(f"[launches] one 1080p membrane frame: {membrane_launches}; distillation (300 steps): {paths['distill']}; "
+          f"the edited bake: {paths['baked_edit']}; the viewer phase: {paths['viewer']}", flush=True)
+    del tb, gs, op, op_mem
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     sdf_paths, g_row = phase_sdf(workdir)
     image_paths, b2_row, a2_row = phase_image(dev, g, workdir)
@@ -2675,6 +3034,8 @@ def main() -> None:
         ("sorted_segment_rowsum_d2", "segsum_d2", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", a2_row),
         ("grid_encode_d2", "grid_encode_d2", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", b2_row),
         ("bvh_signed_distance", "bvh_signed_distance", "bvh.cu", "nerfshop_tpu/geometry/bvh.py:196", g_row),
+        ("shear_warp_composite", "shear_warp_composite", "baked.cu", "nerfshop_tpu/render/baked.py:492", h_row),
+        ("shear_warp_screen", "shear_warp_screen", "baked.cu", "nerfshop_tpu/render/baked.py:566", i_row),
     )
     kernels = [
         {"name": name, "route": "cuda", "source": f"nerfshop_tpu_torch/csrc/{src}", "replaces": repl,

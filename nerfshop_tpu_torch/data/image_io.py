@@ -78,17 +78,17 @@ def read_png(path: str | Path) -> np.ndarray:
     return img[..., 0] if channels == 1 else img
 
 
-def write_png(path: str | Path, data: np.ndarray) -> None:
-    """Write uint8 [H, W] or [H, W, C] (C = 1-4) as an 8-bit PNG, filter
-    None on every row, deflated with ``zlib``."""
+def encode_png(data: np.ndarray) -> bytes:
+    """uint8 [H, W] or [H, W, C] (C = 1-4) → the bytes of an 8-bit PNG,
+    filter None on every row, deflated with ``zlib``."""
     data = np.asarray(data)
     if data.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8, got {data.dtype}")
+        raise ValueError(f"encode_png takes uint8, got {data.dtype}")
     if data.ndim == 2:
         data = data[..., None]
     height, width, channels = data.shape
     if channels not in _CHANNELS_PNG:
-        raise ValueError(f"write_png takes 1-4 channels, got {channels}")
+        raise ValueError(f"encode_png takes 1-4 channels, got {channels}")
     rows = np.zeros((height, 1 + width * channels), np.uint8)
     rows[:, 1:] = data.reshape(height, width * channels)
 
@@ -96,9 +96,12 @@ def write_png(path: str | Path, data: np.ndarray) -> None:
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
     header = struct.pack(">IIBBBBB", width, height, 8, _CHANNELS_PNG[channels], 0, 0, 0)
-    Path(path).write_bytes(
-        PNG_SIGNATURE + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b"")
-    )
+    return PNG_SIGNATURE + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b"")
+
+
+def write_png(path: str | Path, data: np.ndarray) -> None:
+    """Write :func:`encode_png`'s bytes of ``data`` to ``path``."""
+    Path(path).write_bytes(encode_png(data))
 
 
 def srgb_to_linear(img: np.ndarray) -> np.ndarray:

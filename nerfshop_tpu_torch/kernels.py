@@ -27,7 +27,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("segsum.cu", "grid_encode.cu", "fused_mlp.cu", "gather.cu", "tet_lookup.cu", "bvh.cu")
+SOURCES = ("segsum.cu", "grid_encode.cu", "fused_mlp.cu", "gather.cu", "tet_lookup.cu", "bvh.cu", "baked.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "nerfshop_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -81,6 +81,19 @@ class BvhArgs(ctypes.Structure):
 
     _fields_ = [
         (name, ctypes.c_void_p) for name in ("nodes", "tris", "tri_pseudo_v", "tri_pseudo_e", "tri_n")
+    ]
+
+
+class FrameArgs(ctypes.Structure):
+    """One baked frame's camera and raster, field for field ``struct
+    FrameArgs`` of ``csrc/baked.cu`` (filled from
+    ``render/baked.py::FrameParams``)."""
+
+    _fields_ = [
+        ("e", ctypes.c_float * 3), ("box", ctypes.c_float * 4), ("cell_world", ctypes.c_float),
+        ("rows", ctypes.c_float * 9), ("scale", ctypes.c_float * 3), ("focal", ctypes.c_float * 2),
+        ("principal_px", ctypes.c_float * 2), ("sky", ctypes.c_float * 4),
+        *((name, ctypes.c_int) for name in ("B", "Bi", "W", "H", "flip", "with_depth")),
     ]
 
 
@@ -153,6 +166,10 @@ def load() -> ctypes.CDLL:
         lib.nst_cage.restype = i
         lib.nst_bvh_sdf.argtypes = [ctypes.POINTER(BvhArgs), p, p, i, p]
         lib.nst_bvh_sdf.restype = i
+        lib.nst_shear_composite.argtypes = [ctypes.POINTER(FrameArgs), p, p, p]
+        lib.nst_shear_composite.restype = i
+        lib.nst_shear_screen.argtypes = [ctypes.POINTER(FrameArgs), p, p, p, p]
+        lib.nst_shear_screen.restype = i
         _lib = lib
     return _lib
 

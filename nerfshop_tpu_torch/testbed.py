@@ -16,7 +16,11 @@ refresh the density grid through the operator stack; ``save_edits`` /
 ``load_camera_path``, the density grid, the marching-tets mesh with
 vertex colours, its refinement and export, and density slices. ``render``
 always takes the exact path, through the edit stack: the tiled path is not
-ported, and ``exact=False`` raises.
+ported, and ``exact=False`` raises. The baked interactive preview
+(``bake_interactive``, ``render_interactive``; ``render/baked.py``) bakes
+the edited field into a dense grid and rebakes only the region a changed
+operator touches; what changed is told by version counters (the network's,
+the grid's, and one per operator slot), never by ``id()``.
 
 The Image, SDF and Volume modes (``train/image.py``, ``train/sdf.py``,
 ``train/volume.py``) load an image, a mesh or a density volume
@@ -34,6 +38,7 @@ absent; the CPU runs only when asked for by name (``device="cpu"``).
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import time
@@ -167,6 +172,19 @@ class Testbed:
         self._loops: dict = {}
         self._last_depth: Optional[np.ndarray] = None
         self._edit_operators: list = []
+        #: versions of what a bake reads: the network's parameters, the
+        #: density grid, and each slot of the operator stack (a fresh number
+        #: from ``_versions`` whenever the slot's operator is set)
+        self._versions = itertools.count(1)
+        self._params_version = 0
+        self._grid_version = 0
+        self._op_versions: list = []
+        #: the baked preview: side of its grid, the bake and what it was made of
+        self.interactive_bake_resolution = 256
+        self.last_bake_incremental = False
+        self._baked = None
+        self._baked_key = None
+        self._baked_ops: list = []
         #: the keyframed path of ``load_camera_path``
         self.camera_path = None
         #: dynamic-resolution factor in [1/8, 1]
@@ -253,6 +271,8 @@ class Testbed:
         self._step_ready = False
         self._loops = {}
         self.stats = TrainingStats()
+        self._params_version = next(self._versions)
+        self._grid_version = next(self._versions)
 
     def _reset_field(self) -> None:
         """A fresh network (and its optimizer) for the Image, SDF or Volume
@@ -286,6 +306,12 @@ class Testbed:
     @property
     def grid(self):
         return self._grid
+
+    @grid.setter
+    def grid(self, grid) -> None:
+        """Replace the density grid (e.g. by ``GrowingSelection.vanish``'s)."""
+        self._grid = grid
+        self._grid_version = next(self._versions)
 
     @property
     def inference_params(self):
@@ -358,6 +384,8 @@ class Testbed:
             self.stats.loss = loss
             self.stats.measured_batch_size = measured
         del self.loss_history[:-512]
+        self._params_version = next(self._versions)
+        self._grid_version = next(self._versions)
         # adaptive (rays, K) bucket: most rays filling K → fewer, longer rays
         overflow = overflow_sum / max(n_chunks, 1)
         if n_chunks and overflow > 0.6 and self._k_bucket < 1024:
@@ -399,6 +427,7 @@ class Testbed:
         self.stats.loss = loss
         self.loss_history.append((self.stats.step, loss))
         del self.loss_history[:-512]
+        self._params_version = next(self._versions)
         self.stats.training_ms = (time.perf_counter() - t_start) * 1e3
         return loss
 
@@ -758,6 +787,169 @@ class Testbed:
             img = upsample_bilinear(img, width, height)
         return img.cpu().numpy()
 
+    # ------------------------------------------------------ the baked preview
+
+    def bake_interactive(self, resolution: Optional[int] = None, force_full: bool = False) -> None:
+        """Bake the current (edited) field for :meth:`render_interactive`.
+
+        Incremental when only operators changed since the previous bake (a
+        drag replaces one): the region the changed operators can touch, and
+        every newer operator that maps points into it (the JAX package stops
+        at the changed ones, ``ROADMAP.md`` Queue 3 F15), is re-evaluated and
+        patched into the previous bake, shaded toward the previous bake's
+        eye. A full bake, over a tight cubic box around the
+        occupied content and shaded toward the current camera, when the
+        network changed (training, a snapshot), the stack changed in length
+        or kind, only the grid changed, the region would cover half the scene
+        box, the occupied content has left the previous bake's box (the JAX
+        package patches on and loses what left it, ``ROADMAP.md`` Queue 3
+        F5), or ``force_full``."""
+        from nerfshop_tpu_torch.ops import coords
+        from nerfshop_tpu_torch.render import baked as baked_lib
+
+        self._require_nerf("bake_interactive")
+        if self._model is None:
+            raise RuntimeError("no network: pass a config or load training data or a snapshot first")
+        if resolution is None:
+            resolution = self.interactive_bake_resolution
+        aabb = coords.BoundingBox.from_aabb_scale(self._train_cfg.aabb_scale, device=self.device)
+        ops = list(self._edit_operators)
+        occ = self._grid.occupancy if self._grid is not None else None
+        roi = None if force_full else self._incremental_bake_roi(resolution, ops, aabb)
+        prev = self._baked
+        if roi is not None:
+            self._baked = baked_lib.update_volume_region(
+                prev, self._model, self.inference_params, coords.BoundingBox(prev.aabb_lo, prev.aabb_hi), roi[0], roi[1],
+                operators=tuple(ops), camera_pos=prev.camera_pos, occupancy=occ, field_aabb=aabb,
+            )
+        else:
+            self._baked = None  # the old bake's memory goes before the new one is made
+            self._baked = baked_lib.bake_volume(
+                self._model, self.inference_params, self._tight_bake_box(aabb, resolution), resolution=resolution,
+                operators=tuple(ops), camera_pos=np.asarray(self.camera_matrix)[:, 3], occupancy=occ, field_aabb=aabb,
+            )
+        self._baked_key = self._interactive_key()
+        self._baked_ops = ops
+        self.last_bake_incremental = roi is not None
+
+    def _occupied_box(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """World (lo, hi) float32 of the occupied cells of the density grid
+        (union over cascades; occupancy axes are [C, x, y, z]), or None when
+        there is no grid or no occupied cell. One read from the device."""
+        if self._grid is None:
+            return None
+        occ = self._grid.occupancy
+        C, R = occ.shape[0], occ.shape[1]
+        per_axis = torch.stack([occ.any(3).any(2), occ.any(3).any(1), occ.any(2).any(1)], 1).cpu().numpy()  # [C, 3, R]
+        lo_w = np.full(3, np.inf, np.float32)
+        hi_w = np.full(3, -np.inf, np.float32)
+        for c in range(C):
+            if not per_axis[c].any(1).all():
+                continue
+            idx = [np.nonzero(per_axis[c, a])[0] for a in range(3)]
+            # cascade-local cell [i/R, (i+1)/R) → world (q − 0.5)·2^c + 0.5
+            q_lo = np.asarray([i[0] for i in idx], np.float32) / R
+            q_hi = (np.asarray([i[-1] for i in idx], np.float32) + 1.0) / R
+            lo_w = np.minimum(lo_w, (q_lo - 0.5) * (1 << c) + 0.5)
+            hi_w = np.maximum(hi_w, (q_hi - 0.5) * (1 << c) + 0.5)
+        if not np.all(np.isfinite(lo_w)) or np.any(hi_w <= lo_w):
+            return None
+        return lo_w, hi_w
+
+    def _tight_bake_box(self, aabb, resolution: int):
+        """The bake's box: a cube around the occupied content with a margin of
+        two bake cells, inside the training box (the frame assumes isotropic
+        cells), as host float32 arrays; the training box when nothing is
+        occupied."""
+        from nerfshop_tpu_torch.ops import coords
+
+        alo = aabb.min.cpu().numpy().astype(np.float32)
+        ahi = aabb.max.cpu().numpy().astype(np.float32)
+        content = self._occupied_box()
+        if content is None:
+            return coords.BoundingBox(alo, ahi)
+        lo_w, hi_w = content
+        ext = float((hi_w - lo_w).max())
+        margin = 2.0 * ext / resolution
+        ext = min(ext + 2 * margin, float((ahi - alo).min()))
+        center = (lo_w + hi_w) / 2
+        lo_box = np.clip(center - ext / 2, alo, ahi)
+        hi_box = np.minimum(lo_box + ext, ahi)
+        lo_box = hi_box - ext
+        return coords.BoundingBox(lo_box.astype(np.float32), hi_box.astype(np.float32))
+
+    def _incremental_bake_roi(self, resolution: int, ops: list, aabb):
+        """World (lo, hi) to rebake incrementally, or None for a full bake."""
+        from nerfshop_tpu_torch.editing import operators as op_lib
+
+        prev = self._baked
+        old_key = self._baked_key
+        if prev is None or prev.canonical is None or prev.resolution != resolution or old_key is None:
+            return None
+        params_v, _, new_v = self._interactive_key()
+        old_params_v, _, old_v = old_key
+        old_ops = self._baked_ops
+        if params_v != old_params_v or len(old_ops) != len(ops) or any(
+            type(a) is not type(b) for a, b in zip(old_ops, ops)
+        ):
+            return None
+        changed = [i for i, (va, vb) in enumerate(zip(old_v, new_v)) if va != vb]
+        if not changed:  # the grid alone changed (a vanish, a clean-up): rebake all
+            return None
+        lo = np.full(3, np.inf, np.float32)
+        hi = np.full(3, -np.inf, np.float32)
+        # the changed operators' regions, then every newer operator (applied
+        # before them) whose region meets the box: it maps points into it, so
+        # they change too (the JAX package stops at the changed operators,
+        # ROADMAP.md Queue 3, F15)
+        for j in range(changed[0], len(ops)):
+            for op in (old_ops[j], ops[j]):
+                l, h = op_lib.operator_roi_aabb(op)
+                if j in changed or (np.all(l <= hi) and np.all(h >= lo)):
+                    lo = np.minimum(lo, l)
+                    hi = np.maximum(hi, h)
+        alo = aabb.min.cpu().numpy().astype(np.float32)
+        ahi = aabb.max.cpu().numpy().astype(np.float32)
+        if float(np.prod(np.clip(hi - lo, 0.0, None)) / max(np.prod(ahi - alo), 1e-12)) >= 0.5:
+            return None  # most of the box: a full bake costs the same and reshades
+        content = self._occupied_box()
+        if content is not None and (
+            np.any(np.maximum(content[0], alo) < prev.aabb_lo) or np.any(np.minimum(content[1], ahi) > prev.aabb_hi)
+        ):
+            return None  # F5: occupied cells outside the previous bake's box would be lost
+        return lo, hi
+
+    def _interactive_key(self) -> tuple:
+        """(network version, grid version, each operator slot's version): what
+        a bake was made of."""
+        return self._params_version, self._grid_version, tuple(self._slot_versions())
+
+    def render_interactive(
+        self,
+        width: int,
+        height: int,
+        camera_matrix: Optional[np.ndarray] = None,
+        focal: Optional[np.ndarray] = None,
+        base_resolution: int = 384,
+        rebake: bool = False,
+    ) -> np.ndarray:
+        """A frame of the baked preview → [H, W, 4] float32 numpy (the field's
+        colours, view-dependent shading frozen at bake time, no tonemap), from
+        a ``base_resolution``² raster. Bakes first when nothing is baked, the
+        network, grid or operators changed since, or ``rebake``."""
+        from nerfshop_tpu_torch.render import baked as baked_lib
+
+        if rebake or self._baked is None or self._baked_key != self._interactive_key():
+            self.bake_interactive()
+        cam = camera_matrix if camera_matrix is not None else self.camera_matrix
+        focal = focal if focal is not None else self._focal_for(width, height)
+        out = baked_lib.render_baked(
+            self._baked, (width, height), np.asarray(cam, np.float32), np.asarray(focal, np.float32),
+            background=tuple(np.asarray(self.background_color, np.float32)), base_resolution=base_resolution,
+            with_depth=False,
+        )
+        return out.rgba.cpu().numpy()
+
     def load_camera_path(self, path: str) -> None:
         """Load a keyframed camera path (JSON, ``render/camera_path.py``)."""
         from nerfshop_tpu_torch.render.camera_path import CameraPath
@@ -778,21 +970,42 @@ class Testbed:
     def add_edit_operator(self, op, refresh_grid: bool = True) -> None:
         """Add an operator and refresh the density grid through the stack, so
         that the march reaches the deformed target region."""
+        versions = self._slot_versions()
         self._edit_operators.append(op)
+        versions.append(next(self._versions))
         if refresh_grid and self._grid is not None and self._state is not None:
             self.refresh_grid_for_edits()
 
     def replace_edit_operator(self, idx: int, op, refresh_grid: bool = True) -> None:
         """Swap an applied operator in place (a drag of an applied cage) and
         refresh the grid."""
+        versions = self._slot_versions()
         self._edit_operators[idx] = op
+        versions[idx] = next(self._versions)
         if refresh_grid and self._grid is not None and self._state is not None:
             self.refresh_grid_for_edits()
 
     def remove_edit_operator(self, idx: int) -> None:
+        versions = self._slot_versions()
         self._edit_operators.pop(idx)
+        versions.pop(idx)
         if self._grid is not None and self._state is not None:
             self.refresh_grid_for_edits()
+
+    def clear_edit_operators(self) -> None:
+        """Remove every operator and refresh the grid."""
+        self._edit_operators = []
+        self._op_versions = []
+        if self._grid is not None and self._state is not None:
+            self.refresh_grid_for_edits()
+
+    def _slot_versions(self) -> list:
+        """The version of each slot of the operator stack. A stack that was
+        set without the edit API (its length no longer matches) gets fresh
+        versions in every slot."""
+        if len(self._op_versions) != len(self._edit_operators):
+            self._op_versions = [next(self._versions) for _ in self._edit_operators]
+        return self._op_versions
 
     def refresh_grid_for_edits(self) -> None:
         """Full density-grid re-estimate through the operator stack, from the
@@ -803,6 +1016,7 @@ class Testbed:
             self._model, self._grid, self._train_cfg, self.generator, full_refresh=True,
             operators=tuple(self._edit_operators), params=self.inference_params,
         )
+        self._grid_version = next(self._versions)
 
     @property
     def edit_operators(self) -> list:
@@ -833,6 +1047,7 @@ class Testbed:
                 self._model, self._grid, self._train_cfg, self.generator, full_refresh=False,
                 operators=tuple(self._edit_operators), params=self.inference_params,
             )
+        self._grid_version = next(self._versions)
 
     def save_edits(self, path: str) -> None:
         """Write the operator list (edits JSON v1, readable by both packages)."""
@@ -846,6 +1061,7 @@ class Testbed:
         from nerfshop_tpu_torch.editing import serialization
 
         self._edit_operators = serialization.load_edits(path, self.device)
+        self._op_versions = [next(self._versions) for _ in self._edit_operators]
         if self._edit_operators and self._model is not None and self._grid is not None and self._state is not None:
             self.refresh_grid_for_edits()
 
@@ -1030,3 +1246,5 @@ class Testbed:
         for sub in (self._sdf, self._volume):
             if sub is not None:
                 sub.step = step
+        self._params_version = next(self._versions)
+        self._grid_version = next(self._versions)

@@ -18,7 +18,8 @@ A snapshot stores the same leaves flat under ``/``-joined paths
 their EMA copy between that form and a state dict.
 
 :func:`operators_from_jax` and :func:`operators_to_jax` move edit
-operators between the two packages.
+operators between the two packages, and :func:`baked_from_jax` a baked
+volume from the JAX package to the port.
 """
 
 from __future__ import annotations
@@ -172,6 +173,33 @@ def operators_to_jax(ops) -> list:
             raise TypeError(f"not an edit operator: {type(op)}")
         out.append(d)
     return out
+
+
+def _bf16_from(a, device) -> torch.Tensor:
+    """An array of bfloat16 values (numpy's 2-byte bfloat16, as a JAX array
+    converts, or any float array) → a bf16 tensor on ``device``."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.itemsize == 2 and a.dtype.kind not in "fiu":  # bfloat16: the bits as they are
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.asarray(a, np.float32), device=device).to(torch.bfloat16)
+
+
+def baked_from_jax(vol, device):
+    """A JAX ``BakedVolume`` (read by its field names; any array type numpy
+    takes) → the port's ``render.baked.BakedVolume`` with its tensors on
+    ``device``: the three layouts and the canonical volume bit for bit, the
+    box and the shading eye as host float32 arrays."""
+    from nerfshop_tpu_torch.render.baked import BakedVolume
+
+    canonical = None if getattr(vol, "canonical", None) is None else _bf16_from(vol.canonical, device)
+    cam = getattr(vol, "camera_pos", None)
+    return BakedVolume(
+        tuple(_bf16_from(f, device) for f in vol.fields),
+        np.asarray(vol.aabb_lo, np.float32).reshape(3).copy(),
+        np.asarray(vol.aabb_hi, np.float32).reshape(3).copy(),
+        None if cam is None else np.asarray(cam, np.float32).reshape(3).copy(),
+        canonical,
+    )
 
 
 def snapshot_path(name: str) -> str:

@@ -2,7 +2,8 @@
 """Device profile of one exact 1920×1080 frame of the port on one NVIDIA GPU.
 
 Run from the root of a checkout:
-  python3 profile_render.py [--out FILE] [--compact FRAC | --edited | --normals | --train | --distill | --sdf | --volume]
+  python3 profile_render.py [--out FILE] [--compact FRAC | --edited | --normals | --train | --distill | --sdf | --volume
+                             | --baked]
   python3 profile_render.py --save-chunk FILE
   python3 profile_render.py --kernels --chunk FILE [--root DIR]
   python3 profile_render.py --save-edit DIR
@@ -61,6 +62,13 @@ idle share, launches, and kernel G's device time (``bvh`` in the
 kernel's name) and share; with ``--volume`` the
 Volume testbed of its [volume] phase (``synthetic_smoke(256)``, 1000 steps)
 and one 1920×1080 delta-tracked frame at spp 4.
+
+With ``--baked`` it bakes that model for the interactive preview (256³)
+and profiles one 1920×1080 ``render_interactive`` frame the same way
+(kernels H and I, the frame's copy to the host); then it builds the edit of
+``--edited``, bakes it, and profiles one incremental rebake after a drag of
+the cage by ``chip_smoke.BAKE_DRAG`` (each timed rebake swaps between the
+cage and its dragged copy, without a grid refresh).
 
 With ``--save-chunk FILE`` it trains that model, renders one 1080p frame
 and saves the positions the frame's middle chunk encoded (8192 rays × K
@@ -317,6 +325,33 @@ def print_delta(label: str, before, after, top: int = 20) -> None:
     print(f"[profile] device time {label} adds: {sum(d for _, d, _ in delta):.1f} ms; by kernel name (ms, launches):")
     for name, d, n in delta[:top]:
         print(f"    {d:10.3f} ms {n:7d}  {name[:130]}")
+
+
+def profile_baked(tb, focal, principal, dev, out: Path | None = None) -> None:
+    """The baked preview: one 1080p ``render_interactive`` frame of the
+    trained model, then one incremental rebake of the smoke's edit after a
+    drag of its cage."""
+    tb.set_look_at(eye=chip_smoke.CENTER + np.array([0.9, -0.9, 0.5], np.float32))
+    tb.interactive_bake_resolution = chip_smoke.BAKE_RES
+    t0 = time.perf_counter()
+    tb.bake_interactive()
+    torch.cuda.synchronize()
+    print(f"[profile] bake_interactive {chip_smoke.BAKE_RES}^3: {time.perf_counter() - t0:.3f} s", flush=True)
+    profile_frame(tb, "baked preview (render_interactive)", out, render=lambda: tb.render_interactive(W, H))
+    gs, op = build_edit(tb, focal, principal, dev)
+    tb.bake_interactive()
+    gs.translate_cage(chip_smoke.BAKE_DRAG)
+    ops = [gs.make_operator(), op]
+
+    def rebake():
+        tb.replace_edit_operator(0, ops[0], refresh_grid=False)
+        ops.reverse()
+        tb.bake_interactive()
+        torch.cuda.synchronize()
+        if not tb.last_bake_incremental:
+            raise AssertionError("the drag did not rebake incrementally")
+
+    profile_frame(tb, "incremental rebake after a cage drag", render=rebake)
 
 
 def profile_distill(tb, out: Path | None = None, steps: int = 8) -> None:
@@ -642,6 +677,7 @@ def main() -> None:
     mode.add_argument("--warp", action="store_true", help="time the cage warp of a saved edit (no training)")
     mode.add_argument("--sdf", action="store_true", help="profile a sphere-traced frame of the SDF testbed instead")
     mode.add_argument("--volume", action="store_true", help="profile a delta-tracked frame of the Volume testbed instead")
+    mode.add_argument("--baked", action="store_true", help="profile a baked preview frame and an incremental rebake")
     ap.add_argument("--compact", type=float, default=None,
                     help="in the frame mode: also profile the frame with this compact_frac")
     ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")
@@ -649,7 +685,7 @@ def main() -> None:
     ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
     args = ap.parse_args()
     if args.compact is not None and (args.edited or args.normals or args.train or args.distill or args.kernels or args.warp
-                                     or args.sdf or args.volume or args.save_chunk is not None
+                                     or args.sdf or args.volume or args.baked or args.save_chunk is not None
                                      or args.save_edit is not None):
         ap.error("--compact goes with the frame mode only")
     if args.root is not None and not (args.kernels or args.warp):
@@ -704,6 +740,9 @@ def main() -> None:
         gs, op = build_edit(tb, focal, principal, dev)
         with_membrane(tb, gs, op)
         profile_distill(tb, args.out)
+        return
+    if args.baked:
+        profile_baked(tb, focal, principal, dev, args.out)
         return
     if args.edited:
         tb.set_look_at(eye=chip_smoke.SIDE_EYE)

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's host modules (``common``,
-``config``, ``data``, ``utils/metrics``) and of its native host library's
-source against the originals: the same enums, constants and configs, the
+``config``, ``data``, ``utils/metrics``, the viewer's overlays and page)
+and of its native host library's source against the originals: the same enums, constants and configs, the
 same dataset from the same files, the same metric and volume-ingest code
 (``data/volume_io.py``) and values, and the same C++ below the header
 comment. The port's ``build_bvh`` shares its triangle arithmetic with
@@ -96,6 +96,21 @@ def test_volume_io_code_is_the_originals():
 
     root = Path(__file__).resolve().parents[1]
     assert _code(root / "nerfshop_tpu_torch/data/volume_io.py") == _code(root / "nerfshop_tpu/data/volume_io.py")
+
+
+def test_viewer_overlay_code_is_the_originals():
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    assert _code(root / "nerfshop_tpu_torch/viewer/overlay.py") == _code(root / "nerfshop_tpu/viewer/overlay.py")
+
+
+def test_viewer_page_is_the_originals():
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    page = "viewer/static/index.html"
+    assert (root / "nerfshop_tpu_torch" / page).read_bytes() == (root / "nerfshop_tpu" / page).read_bytes()
 
 
 def test_host_ops_source_is_the_originals():

@@ -4,6 +4,7 @@ test imports: every colour type at 8 and 16 bits and every row filter
 decode as PIL decodes them, write → read is bit-exact, the quantization is
 the JAX writer's, and a PNG scene loads with PIL absent."""
 
+import io
 import json
 import struct
 import sys
@@ -116,6 +117,15 @@ def test_write_read_round_trip(tmp_path, shape):
     tio.write_image(ours, img, linear_input=True)
     jio.write_image(ref, img, linear_input=True)
     np.testing.assert_array_equal(tio.read_png(ours), np.asarray(Image.open(ref)))
+
+
+@pytest.mark.parametrize("shape", [(9, 14), (9, 14, 3), (9, 14, 4)], ids=["gray", "rgb", "rgba"])
+def test_encode_png_is_what_write_png_writes(tmp_path, shape):
+    data = np.random.default_rng(shape[-1]).integers(0, 256, shape, dtype=np.uint8)
+    tio.write_png(tmp_path / "a.png", data)
+    png = tio.encode_png(data)
+    assert png == (tmp_path / "a.png").read_bytes()
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(png))), data)
 
 
 def test_unsupported_files_raise(tmp_path):
