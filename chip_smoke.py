@@ -36,8 +36,12 @@ Phases, each printing one line of its own numbers:
      without fracs and C), σ at 2^16 seeded cells against the field
      evaluated there (within bf16 rounding); kernels H (the shear-warp slice
      composite) and I (the screen warp) against their plain versions on six
-     views (each major axis, both flips) at 1920×1080 with a 384² base
-     raster (raster and rgba within 1e-4), timed; ``render_interactive(1920,
+     views (each major axis, both flips) and two more (an eye inside the bake
+     box, and a close view whose back slices overflow H's shared-memory box)
+     at 1920×1080 with a 384² base raster (raster and rgba within 1e-4),
+     timed, with H's tile-slices skipped, staged and read directly (equal to
+     ``composite_plan``'s; both paths run over the eight views);
+     ``render_interactive(1920,
      1080)`` (median of 3 after a warm-up; one launch of H and of I a
      frame); the baked frame against the exact one (PSNR ≥ 24 dB,
      ``tests/test_baked.py``);
@@ -2642,15 +2646,31 @@ def baked_views():
     }
 
 
+def baked_extra_views():
+    """Two views beside :func:`baked_views`: an eye inside the bake box
+    looking across it (the base plane lies behind the eye: 1 / s < 0), and
+    a close view, 0.5 from the centre, whose back slices' tile footprints
+    are too large for kernel H's box buffers (read directly)."""
+    return {
+        "inside": look_at(CENTER + np.array([0.05, -0.1, 0.03], np.float32),
+                          target=CENTER + np.array([1.0, 0.3, 0.2], np.float32)),
+        "close": look_at(CENTER + np.array([0.03, -0.5, 0.02], np.float32)),
+    }
+
+
 def shear_warp_case(label, vol, xf, focal, W, H):
     """Kernels H and I against their plain versions on one view of ``vol``
-    (with depth), timed as the preview calls them (without) → numbers."""
+    (with depth), timed as the preview calls them (without) → (H numbers, I
+    numbers, H's tile-slices by path)."""
     from nerfshop_tpu_torch.render import baked as baked_lib
 
     fp = baked_lib.frame_params(vol.resolution, vol.aabb_lo, vol.aabb_hi, (W, H), xf, focal, None, (0.0, 0.0, 0.0, 0.0),
                                 BAKED_BI, with_depth=True)
     field = vol.fields[fp.major]
-    raster = baked_lib.shear_warp_composite_cuda(field, fp)
+    counted = torch.zeros(3, dtype=torch.int32, device=field.device)
+    raster = baked_lib.shear_warp_composite_cuda(field, fp, paths=counted)
+    paths, plan = dict(zip(("skipped", "staged", "direct"), counted.tolist())), baked_lib.composite_plan(fp).counts()
+    check(paths == plan, f"kernel H's tile-slices by path {paths} are not composite_plan's {plan}")
     raster_p = baked_lib.shear_warp_composite_plain(field, fp)
     rgba, depth = baked_lib.shear_warp_screen_cuda(raster_p, fp)
     rgba_p, depth_p = baked_lib.shear_warp_screen_plain(raster_p, fp)
@@ -2673,7 +2693,8 @@ def shear_warp_case(label, vol, xf, focal, W, H):
     bound_h = bound(B**3 * 8 + Bi * Bi * 5 * 4, 50.0 * B * Bi * Bi)
     bound_i = bound(Bi * Bi * 5 * 4 + W * H * (4 + 1) * 4, 60.0 * W * H)
     print(
-        f"[baked] view {label} (major {'xyz'[fp.major]}, flip {fp.flip}): kernel H vs plain max|d raster| {err_h:.3e} "
+        f"[baked] view {label} (major {'xyz'[fp.major]}, flip {fp.flip}, eye {fp.e.tolist()}, base box {fp.box.tolist()}):"
+        f" H's tile-slices {paths}; kernel H vs plain max|d raster| {err_h:.3e} "
         f"(bound 1e-4), kernel I vs plain max|d rgba| {err_i:.3e} (bound 1e-4), max|d depth| where alpha > 0.5 "
         f"{err_d:.3e}; H {ms_h:.4f} ms (device {dev_h:.4f}) plain {plain_h:.2f} ms bound {bound_h[0]:.4f} ms "
         f"({bound_h[1]}); I {ms_i:.4f} ms (device {dev_i:.4f}) plain {plain_i:.2f} ms bound {bound_i[0]:.4f} ms "
@@ -2685,6 +2706,7 @@ def shear_warp_case(label, vol, xf, focal, W, H):
              library_ms=None, library_device_ms=None),
         dict(max_abs_err=err_i, ms=ms_i, device_ms=dev_i, plain_ms=plain_i, bound_ms=bound_i[0], bound_by=bound_i[1],
              library_ms=None, library_device_ms=None),
+        paths,
     )
 
 
@@ -2713,7 +2735,8 @@ def phase_baked(tb, W=1920, H=1080):
     """[baked]: the trained sphere baked at 256³ through ``bake_interactive``
     (seconds; kernels B without fracs and C); σ at 2^16 seeded cells against
     the field evaluated there; kernels H and I against their plain versions
-    on six views; ``render_interactive`` at 1080p (one launch of H and one of
+    on eight views (the kernels line's numbers: the median over the first
+    six); ``render_interactive`` at 1080p (one launch of H and one of
     I a frame); the baked frame against the exact one in PSNR (bound 24 dB,
     ``tests/test_baked.py``) → (bake launches, frame launches, H row, I row)."""
     from nerfshop_tpu_torch.models.nerf_network import density_with
@@ -2766,6 +2789,9 @@ def phase_baked(tb, W=1920, H=1080):
     focal = tb._focal_for(W, H)
     rows = [shear_warp_case(label, vol, xf, focal, W, H) for label, xf in baked_views().items()]
     h_row, i_row = median_rows([r[0] for r in rows]), median_rows([r[1] for r in rows])
+    rows += [shear_warp_case(label, vol, xf, focal, W, H) for label, xf in baked_extra_views().items()]
+    paths = {k: sum(r[2][k] for r in rows) for k in rows[0][2]}
+    check(paths["staged"] > 0 and paths["direct"] > 0, f"kernel H did not take both paths over the eight views: {paths}")
 
     torch.cuda.synchronize()
     reset_launches()

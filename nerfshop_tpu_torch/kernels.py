@@ -168,6 +168,8 @@ def load() -> ctypes.CDLL:
         lib.nst_bvh_sdf.restype = i
         lib.nst_shear_composite.argtypes = [ctypes.POINTER(FrameArgs), p, p, p]
         lib.nst_shear_composite.restype = i
+        lib.nst_shear_composite_paths.argtypes = [ctypes.POINTER(FrameArgs), p, p, p, p]
+        lib.nst_shear_composite_paths.restype = i
         lib.nst_shear_screen.argtypes = [ctypes.POINTER(FrameArgs), p, p, p, p]
         lib.nst_shear_screen.restype = i
         _lib = lib

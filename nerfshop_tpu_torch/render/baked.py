@@ -394,12 +394,106 @@ def _source(base: torch.Tensor, e_ax: float, inv_s: torch.Tensor, B: int):
     return q0i, frac, valid
 
 
-def shear_warp_composite_plain(field: torch.Tensor, fp: FrameParams) -> torch.Tensor:
-    """Plain version of kernel H: slice resample (y, then x) and the front-to-
-    back composite of ``field`` (the layout of ``fp.major``, [B, B, B, 4]
-    bf16) → the base raster [Bi (x'), Bi (y'), 5] float32 (rgb, 1 − T,
-    depth), step for step as ``_frame_impl`` :492-564."""
-    dev = field.device
+#: kernel H's tile (x' × y' texels, a thread each), the largest footprint of
+#: a tile in a slice (rows × columns of layout cells) that it stages in
+#: shared memory, and its box buffers: ``kTileX`` × ``kTileY``, ``kBoxRows``
+#: × ``kTileX`` and ``kStages`` of ``csrc/baked.cu`` (a buffer is two
+#: columns wider, as its copy starts on an even column)
+COMPOSITE_TILE = (16, 8)
+COMPOSITE_BOX = (10, 16)
+COMPOSITE_STAGES = 4
+#: the largest B kernel H takes (``kMaxB``: a cell's index fits 31 bits)
+COMPOSITE_MAX_B = 1024
+#: what kernel H does with a slice of a tile: skip it (behind the eye, or no
+#: texel of the tile meets it), stage its box in shared memory, or read its
+#: taps from the layout directly (the footprint is larger than
+#: ``COMPOSITE_BOX``, or B is odd or below the buffer's width: the copies
+#: move 16-byte pairs of cells from even columns)
+SKIP, STAGED, DIRECT = 0, 1, 2
+
+
+def composite_smem(B: int) -> int:
+    """Kernel H's dynamic shared memory a block: the box buffers (8 bytes a
+    cell), the y-lerped footprint columns of the tile's rows (16 bytes
+    each), 16 bytes of scan sums, then each slice's list entry (16 bytes)
+    and terms (8 bytes)."""
+    rows, cols = COMPOSITE_BOX
+    return COMPOSITE_STAGES * rows * (cols + 2) * 8 + COMPOSITE_TILE[1] * cols * 16 + 16 + B * 24
+
+
+class CompositePlan(NamedTuple):
+    """Kernel H's per-tile, per-slice work (:func:`composite_plan`). Tile
+    (tx, ty) holds the texels x' in [tx, tx + 1) · ``COMPOSITE_TILE[0]``
+    and y' in [ty, ty + 1) · ``COMPOSITE_TILE[1]``; slice k is the
+    front-to-back index (before the flip)."""
+
+    mode: np.ndarray  # [tiles x', tiles y', B] int8: SKIP, STAGED or DIRECT
+    box: np.ndarray  # [tiles x', tiles y', B, 4] int32: the taps' first and last row (y), first and last column (x)
+
+    def counts(self) -> dict:
+        """Tile-slices of each mode."""
+        return {name: int((self.mode == m).sum()) for name, m in (("skipped", SKIP), ("staged", STAGED),
+                                                                   ("direct", DIRECT))}
+
+
+def composite_plan(fp: FrameParams) -> CompositePlan:
+    """The host mirror of kernel H's block set-up: for each tile and slice,
+    the box of layout cells its texels' taps can read. A texel's source
+    coordinate is monotone in its base coordinate (every rounded step is),
+    so the tile's first and last texel of each axis bound the others'; the
+    float32 steps are the kernel's, so the boxes are the kernel's. A slice
+    is skipped when it is behind the eye or the edges' source range misses
+    [0, B − 1] on an axis (then no texel of the tile meets it)."""
+    f32 = np.float32
+    B, Bi = fp.B, fp.Bi
+    by0, by1, bx0, bx1 = (f32(v) for v in fp.box)
+    ez, ey, ex = (f32(v) for v in fp.e)
+    rel = (np.arange(B, dtype=f32) + f32(0.5)) - ez
+    front = rel > f32(1e-3)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        s = (f32(0.5) - ez) / rel
+        s = np.where(np.abs(s) < f32(1e-6), f32(1e-6), s)
+        inv_s = np.where(front, f32(1.0) / s, f32(0.0)).astype(f32)
+
+    def axis(b0, b1, e, T):
+        first = np.arange(0, Bi, T)
+        edges = np.stack([first, np.minimum(first + T, Bi) - 1], -1).astype(f32)  # [tiles, 2]: first, last texel
+        base = b0 + (edges + f32(0.5)) * (b1 - b0) / f32(Bi)
+        src = ((base[None] - e) * inv_s[:, None, None] + e) - f32(0.5)  # [B, tiles, 2]
+        meets = (src.max(-1) >= 0) & (src.min(-1) <= f32(B - 1))
+        q0 = np.clip(np.floor(src), 0, B - 2).astype(np.int32)
+        return meets, q0.min(-1), q0.max(-1) + 1
+
+    my, y_lo, y_hi = axis(by0, by1, ey, COMPOSITE_TILE[1])
+    mx, x_lo, x_hi = axis(bx0, bx1, ex, COMPOSITE_TILE[0])
+    meets = front[:, None, None] & my[:, None, :] & mx[:, :, None]  # [B, tiles x', tiles y']
+    ylo, yhi = np.broadcast_to(y_lo[:, None, :], meets.shape), np.broadcast_to(y_hi[:, None, :], meets.shape)
+    xlo, xhi = np.broadcast_to(x_lo[:, :, None], meets.shape), np.broadcast_to(x_hi[:, :, None], meets.shape)
+    fits = (yhi - ylo + 1 <= COMPOSITE_BOX[0]) & (xhi - xlo + 1 <= COMPOSITE_BOX[1]) & (B % 2 == 0) & (
+        B >= COMPOSITE_BOX[1] + 2)
+    mode = np.where(meets, np.where(fits, STAGED, DIRECT), SKIP).astype(np.int8)
+    box = np.stack([ylo, yhi, xlo, xhi], -1)
+    return CompositePlan(np.ascontiguousarray(mode.transpose(1, 2, 0)),
+                         np.ascontiguousarray(box.transpose(1, 2, 0, 3)).astype(np.int32))
+
+
+class SliceSources(NamedTuple):
+    """What the plain kernel H computes before it reads the layout: each
+    slice's distance from the eye in slices (``rel`` [B]) and whether it is
+    in front of it, each base texel's ray obliquity (``sec`` [y', x']), and
+    the per-slice source row and column of every base texel (``y``, ``x``:
+    the :func:`_source` triples, [B, Bi])."""
+
+    rel: torch.Tensor
+    front: torch.Tensor
+    sec: torch.Tensor
+    y: tuple
+    x: tuple
+
+
+def slice_sources(fp: FrameParams, dev) -> SliceSources:
+    """:class:`SliceSources` of a frame on ``dev``, as
+    :func:`shear_warp_composite_plain` computes them."""
     B, Bi = fp.B, fp.Bi
     f32 = torch.float32
     ez, ey, ex = (float(v) for v in fp.e)
@@ -413,14 +507,26 @@ def shear_warp_composite_plain(field: torch.Tensor, fp: FrameParams) -> torch.Te
     dby = base_y[:, None] - ey
     dbx = base_x[None, :] - ex
     sec = torch.sqrt(dby * dby + dbx * dbx + dz0 * dz0) / _scalar(abs(dz0), dev)  # [y', x']
-    dt_map = (float(fp.cell_world) * sec).T  # [x', y']
 
     rel = torch.arange(B, dtype=f32, device=dev) + 0.5 - ez
     front = rel > 1e-3
     s_all = _scalar(dz0, dev) / rel
     inv_s = torch.where(front, _scalar(1.0, dev) / torch.where(s_all.abs() < 1e-6, 1e-6, s_all), 0.0)
-    y0i, fy, vy = _source(base_y, ey, inv_s, B)
-    x0i, fx, vx = _source(base_x, ex, inv_s, B)
+    return SliceSources(rel, front, sec, _source(base_y, ey, inv_s, B), _source(base_x, ex, inv_s, B))
+
+
+def shear_warp_composite_plain(field: torch.Tensor, fp: FrameParams) -> torch.Tensor:
+    """Plain version of kernel H: slice resample (y, then x) and the front-to-
+    back composite of ``field`` (the layout of ``fp.major``, [B, B, B, 4]
+    bf16) → the base raster [Bi (x'), Bi (y'), 5] float32 (rgb, 1 − T,
+    depth), step for step as ``_frame_impl`` :492-564."""
+    dev = field.device
+    B, Bi = fp.B, fp.Bi
+    f32 = torch.float32
+    src = slice_sources(fp, dev)
+    rel, front, sec = src.rel, src.front, src.sec
+    (y0i, fy, vy), (x0i, fx, vx) = src.y, src.x
+    dt_map = (float(fp.cell_world) * sec).T  # [x', y']
 
     # pass 1 resamples y: rows (k, y) of [x, c]; a flipped view reads the
     # slices from the back
@@ -507,20 +613,30 @@ def _check_frame(fp: FrameParams, name: str) -> None:
 
 
 @kernels.counted("launches")
-def shear_warp_composite_cuda(field: torch.Tensor, fp: FrameParams) -> torch.Tensor:
+def shear_warp_composite_cuda(field: torch.Tensor, fp: FrameParams, paths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel H (``csrc/baked.cu``): :func:`shear_warp_composite_plain` in one
-    launch, one thread per base texel looping over the slices front to back."""
+    launch, a block a tile of texels looping over the slices its tile meets
+    front to back (:func:`composite_plan`). ``paths``: an int32 [3] CUDA
+    tensor to which the launch adds its tile-slices skipped, staged and
+    read directly."""
     dev = field.device
     if dev.type != "cuda":
         raise ValueError(f"shear_warp_composite: field on {dev}, expected a CUDA device")
     _check_frame(fp, "shear_warp_composite")
+    if fp.B > COMPOSITE_MAX_B:
+        raise ValueError(f"shear_warp_composite: B = {fp.B} is above kernel H's {COMPOSITE_MAX_B}")
     kernels.require(field, "field", torch.bfloat16, (fp.B, fp.B, fp.B, 4), dev)
-    if field.data_ptr() % 8:
-        raise ValueError("shear_warp_composite: the field must start on an 8-byte boundary")
+    if field.data_ptr() % 16:  # the staging copies move 16-byte pairs of cells
+        raise ValueError("shear_warp_composite: the field must start on a 16-byte boundary")
     raster = torch.empty((fp.Bi, fp.Bi, 5), dtype=torch.float32, device=dev)
     args = _frame_args(fp)
-    err = kernels.load().nst_shear_composite(ctypes.byref(args), field.data_ptr(), raster.data_ptr(),
-                                             kernels.stream_ptr(dev))
+    lib = kernels.load()
+    if paths is None:
+        err = lib.nst_shear_composite(ctypes.byref(args), field.data_ptr(), raster.data_ptr(), kernels.stream_ptr(dev))
+    else:
+        kernels.require(paths, "paths", torch.int32, (3,), dev)
+        err = lib.nst_shear_composite_paths(ctypes.byref(args), field.data_ptr(), raster.data_ptr(), paths.data_ptr(),
+                                            kernels.stream_ptr(dev))
     kernels.check(err, "shear_warp_composite")
     shear_warp_composite_cuda.launches += 1
     return raster

@@ -8,6 +8,7 @@ Run from the root of a checkout:
   python3 profile_render.py --kernels --chunk FILE [--root DIR]
   python3 profile_render.py --save-edit DIR
   python3 profile_render.py --warp --edit DIR [--root DIR]
+  python3 profile_render.py --composite --parent FILE
 
 Trains the model of ``chip_smoke.py`` (default config, 256 steps on the
 analytic sphere), renders one warm-up frame, times 3 unprofiled frames on
@@ -69,6 +70,17 @@ and profiles one 1920×1080 ``render_interactive`` frame the same way
 ``--edited``, bakes it, and profiles one incremental rebake after a drag of
 the cage by ``chip_smoke.BAKE_DRAG`` (each timed rebake swaps between the
 cage and its dragged copy, without a grid refresh).
+
+With ``--composite --parent FILE`` it bakes that model as ``--baked`` does
+and times kernel H of ``FILE`` (an older ``csrc/baked.cu`` with the same
+``FrameArgs`` and ``nst_shear_composite`` entry, e.g. ``git show
+591ac5e:nerfshop_tpu_torch/csrc/baked.cu > build/baked_parent.cu``) against
+this checkout's on chip_smoke.py's eight [baked] views: both built into
+libraries of their own under ``build/baked_versions/`` (``time_bvh.
+build_versions``, each kernel's registers, spills and shared memory
+printed), each view's raster with depth compared bit for bit, then each
+version timed without depth (as the preview calls it) by both of
+``chip_smoke.both_ms``'s methods, old, new, new, old.
 
 With ``--save-chunk FILE`` it trains that model, renders one 1080p frame
 and saves the positions the frame's middle chunk encoded (8192 rays × K
@@ -352,6 +364,68 @@ def profile_baked(tb, focal, principal, dev, out: Path | None = None) -> None:
             raise AssertionError("the drag did not rebake incrementally")
 
     profile_frame(tb, "incremental rebake after a cage drag", render=rebake)
+
+
+def time_composite(tb, parent: Path) -> None:
+    """Kernel H of ``parent`` (v1) against this checkout's (v2) on the
+    smoke's 256³ bake of ``tb`` and its eight [baked] views."""
+    import ctypes
+
+    import time_bvh
+    from nerfshop_tpu_torch import kernels
+    from nerfshop_tpu_torch.render import baked as baked_lib
+
+    v1, v2 = "v1 (parent)", "v2 (this checkout)"
+    libs = time_bvh.build_versions({v1: parent, v2: kernels.CSRC / "baked.cu"},
+                                   kernels.BUILD_DIR.parent / "baked_versions", "baked")
+    for label, (lib, log) in libs.items():
+        lib.nst_shear_composite.argtypes = [ctypes.POINTER(kernels.FrameArgs)] + [ctypes.c_void_p] * 3
+        lib.nst_shear_composite.restype = ctypes.c_int
+        print(f"[composite] ptxas {label}: {' | '.join(time_bvh.ptxas_lines(log, 'composite_kernel'))}", flush=True)
+    print(f"[composite] v2's dynamic shared memory a block at B = {chip_smoke.BAKE_RES}: "
+          f"{baked_lib.composite_smem(chip_smoke.BAKE_RES)} bytes; v1 none", flush=True)
+    tb.set_look_at(eye=chip_smoke.CENTER + np.array([0.9, -0.9, 0.5], np.float32))
+    tb.interactive_bake_resolution = chip_smoke.BAKE_RES
+    tb.bake_interactive()
+    vol = tb._baked
+    focal = tb._focal_for(W, H)
+    dev = vol.canonical.device
+    stream = kernels.stream_ptr(dev)
+
+    def launch(label, field, fp, raster):
+        args = baked_lib._frame_args(fp)
+        kernels.check(libs[label][0].nst_shear_composite(ctypes.byref(args), field.data_ptr(), raster.data_ptr(),
+                                                          stream), label)
+
+    views = {**chip_smoke.baked_views(), **chip_smoke.baked_extra_views()}
+    ratios = {}
+    for name, xf in views.items():
+        fp = baked_lib.frame_params(vol.resolution, vol.aabb_lo, vol.aabb_hi, (W, H), xf, focal, None,
+                                    (0.0, 0.0, 0.0, 0.0), chip_smoke.BAKED_BI, with_depth=True)
+        field = vol.fields[fp.major]
+        out = {label: torch.empty((fp.Bi, fp.Bi, 5), dtype=torch.float32, device=dev) for label in libs}
+        for label in libs:
+            launch(label, field, fp, out[label])
+        torch.cuda.synchronize()
+        differ = int((out[v2] != out[v1]).sum())
+        chip_smoke.check(differ == 0, f"view {name}: v2's raster differs from v1's in {differ} values")
+        fp = fp._replace(with_depth=False)
+        raster = torch.empty((fp.Bi, fp.Bi, 5), dtype=torch.float32, device=dev)
+        times = {label: [] for label in libs}
+        for order in ((v1, v2), (v2, v1)):
+            for label in order:
+                times[label].append(chip_smoke.both_ms(lambda: launch(label, field, fp, raster)))
+        b_ms, b_by = chip_smoke.bound(fp.B**3 * 8 + fp.Bi * fp.Bi * 5 * 4, 50.0 * fp.B * fp.Bi * fp.Bi)
+        med = {label: statistics.median(t[1] for t in times[label]) for label in libs}
+        ratios[name] = med[v1] / med[v2]
+        for label in libs:
+            print(f"[composite] view {name} {label}: device {' / '.join(f'{t[1]:.4f}' for t in times[label])} ms, "
+                  f"events {' / '.join(f'{t[0]:.4f}' for t in times[label])} ms (forward / reversed pass); "
+                  f"device/bound {med[label] / b_ms:.2f}", flush=True)
+        print(f"[composite] view {name}: v2 bit-equal to v1 (raster with depth); v1/v2 (device medians) "
+              f"{ratios[name]:.2f}x; bound {b_ms:.4f} ms ({b_by}); H's tile-slices "
+              f"{baked_lib.composite_plan(fp).counts()}", flush=True)
+    print(f"[composite] v1/v2 over the views: {min(ratios.values()):.2f}-{max(ratios.values()):.2f}x", flush=True)
 
 
 def profile_distill(tb, out: Path | None = None, steps: int = 8) -> None:
@@ -678,14 +752,19 @@ def main() -> None:
     mode.add_argument("--sdf", action="store_true", help="profile a sphere-traced frame of the SDF testbed instead")
     mode.add_argument("--volume", action="store_true", help="profile a delta-tracked frame of the Volume testbed instead")
     mode.add_argument("--baked", action="store_true", help="profile a baked preview frame and an incremental rebake")
+    mode.add_argument("--composite", action="store_true", help="time kernel H of --parent against this checkout's")
     ap.add_argument("--compact", type=float, default=None,
                     help="in the frame mode: also profile the frame with this compact_frac")
     ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")
     ap.add_argument("--chunk", type=Path, default=None, help="with --kernels: the file --save-chunk wrote")
     ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
+    ap.add_argument("--parent", type=Path, default=None, help="with --composite: the older csrc/baked.cu")
     args = ap.parse_args()
+    if (args.parent is not None) != args.composite:
+        ap.error("--composite needs --parent, and --parent goes with --composite")
     if args.compact is not None and (args.edited or args.normals or args.train or args.distill or args.kernels or args.warp
-                                     or args.sdf or args.volume or args.baked or args.save_chunk is not None
+                                     or args.sdf or args.volume or args.baked or args.composite
+                                     or args.save_chunk is not None
                                      or args.save_edit is not None):
         ap.error("--compact goes with the frame mode only")
     if args.root is not None and not (args.kernels or args.warp):
@@ -743,6 +822,9 @@ def main() -> None:
         return
     if args.baked:
         profile_baked(tb, focal, principal, dev, args.out)
+        return
+    if args.composite:
+        time_composite(tb, args.parent.resolve())
         return
     if args.edited:
         tb.set_look_at(eye=chip_smoke.SIDE_EYE)

@@ -16,6 +16,9 @@ float32: max |Δrgba| ≤ 2e-2, mean ≤ 1e-3. A float64 numpy model of the
 kernels' per-texel and per-pixel arithmetic, in their order, holds the plain
 versions (the kernels' CPU stand-ins) within 1e-5."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -218,13 +221,18 @@ def test_frame_matches_jax(jax_volume, view):
     assert np.abs(td - jd)[ok].max() <= 2e-2 * max(1.0, float(np.abs(jd).max()))
 
 
+def corners_behind_view():
+    """A wide view from below and outside the volume, looking up and
+    across → (xform, focal)."""
+    eye = CENTER + np.array([-0.5, 0.0, -0.3], np.float32)
+    return look_at(eye, target=eye + np.array([0.5, 0.4, 0.5], np.float32)), np.array([16.0, 16.0], np.float32)
+
+
 def test_frame_corners_behind_the_eye(jax_volume):
     """A wide view from below and outside the volume, looking up and
     across: one corner ray points away from the base plane, so three of
     the four span the base raster (``valid_c``)."""
-    eye = CENTER + np.array([-0.5, 0.0, -0.3], np.float32)
-    xf = look_at(eye, target=eye + np.array([0.5, 0.4, 0.5], np.float32))
-    focal = np.array([16.0, 16.0], np.float32)
+    xf, focal = corners_behind_view()
     fp = tbaked.frame_params(B, LO, HI, (W, H), xf, focal, None, (0, 0, 0, 0), BI)
     cu = np.array([[0, 0], [1, 0], [0, 1], [1, 1]], np.float32) * [W, H]
     c_idx = np.concatenate([(cu - 0.5 * np.array([W, H])) / focal, np.ones((4, 1))], 1) @ xf[:, :3].T
@@ -321,6 +329,43 @@ def test_float64_model_of_the_kernels_matches_the_plain_versions(jax_volume, vie
     np.testing.assert_allclose(rgba.numpy(), m_rgba, rtol=0, atol=1e-5)
     np.testing.assert_allclose(depth.numpy(), m_depth, rtol=0, atol=1e-5)
     assert float(raster[..., 3].max()) > 0.5  # the slices in front of an eye inside too
+
+
+@pytest.mark.parametrize("view", ["x+", "z-", "inside", "corners_behind"])
+def test_composite_plan_boxes_hold_every_tap(view):
+    """Kernel H's tile boxes (``composite_plan``, the host mirror of its
+    block set-up): every tap of a valid texel that the plain version's
+    ``_source`` gives lies in its tile's box of that slice when the box is
+    staged, and no valid texel's tile skips its slice."""
+    xf, focal = corners_behind_view() if view == "corners_behind" else (VIEWS[view], FOCAL)
+    fp = tbaked.frame_params(B, LO, HI, (W, H), xf, focal, None, (0, 0, 0, 0), BI)
+    plan = tbaked.composite_plan(fp)
+    tx, ty = tbaked.COMPOSITE_TILE
+    assert plan.mode.shape == (-(-BI // tx), -(-BI // ty), B)
+    src = tbaked.slice_sources(fp, CPU)
+    (y0, _, vy), (x0, _, vx) = src.y, src.x
+    y0, x0 = y0.numpy()[:, :, None], x0.numpy()[:, None, :]  # [B, y', x']
+    valid = src.front.numpy()[:, None, None] & vy.numpy()[:, :, None] & vx.numpy()[:, None, :]
+    k = np.arange(B)[:, None, None]
+    tile_y, tile_x = (np.arange(BI) // ty)[None, :, None], (np.arange(BI) // tx)[None, None, :]
+    mode = plan.mode[tile_x, tile_y, k]
+    box = plan.box[tile_x, tile_y, k]  # [B, y', x', 4]
+    assert not (valid & (mode == tbaked.SKIP)).any()
+    staged = valid & (mode == tbaked.STAGED)
+    assert staged.sum() > 0.3 * valid.sum() > 0
+    inside = (y0 >= box[..., 0]) & (y0 + 1 <= box[..., 1]) & (x0 >= box[..., 2]) & (x0 + 1 <= box[..., 3])
+    assert inside[staged].all()
+    rows, cols = tbaked.COMPOSITE_BOX
+    fits = (plan.box[..., 1] - plan.box[..., 0] < rows) & (plan.box[..., 3] - plan.box[..., 2] < cols)
+    assert fits[plan.mode == tbaked.STAGED].all() and not fits[plan.mode == tbaked.DIRECT].any()
+
+
+def test_composite_plan_constants_are_the_kernels():
+    src = (Path(tbaked.__file__).parent.parent / "csrc" / "baked.cu").read_text()
+    const = {m[0]: int(m[1]) for m in re.findall(r"(k\w+) = (\d+)[;,]", src)}
+    assert (const["kTileX"], const["kTileY"]) == tbaked.COMPOSITE_TILE
+    assert (const["kBoxRows"], const["kTileX"]) == tbaked.COMPOSITE_BOX
+    assert (const["kStages"], const["kMaxB"]) == (tbaked.COMPOSITE_STAGES, tbaked.COMPOSITE_MAX_B)
 
 
 def test_wrappers_take_the_plain_version_on_cpu_and_check_cuda_inputs(jax_volume):

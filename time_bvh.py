@@ -10,8 +10,9 @@ the ``BvhArrays``, C entry ``nst_bvh_sdf(args, points, out, n, stream)``),
 for example ``git show <commit>:nerfshop_tpu_torch/csrc/bvh.cu``. It and
 this checkout's ``csrc/bvh.cu`` are built into libraries of their own under
 ``build/bvh_versions/``, one ``nvcc -Xptxas -v`` each, both started
-together; their walks' registers, stack frames, spills and shared memory
-are printed.
+together (``build_versions``, which ``profile_render.py --composite`` uses
+for kernel H too); their walks' registers, stack frames, spills and shared
+memory are printed.
 
 The points are ``chip_smoke.g_points`` on the [sdf] testbed of
 ``chip_smoke.py`` (the 81920-face bumpy icosphere, untrained: the points do
@@ -54,15 +55,16 @@ class V1Args(ctypes.Structure):
     ]
 
 
-def build_both(parent: Path, out_dir: Path) -> dict:
-    """{label: (library, ptxas log)} for the first version and this
-    checkout's, built in parallel."""
+def build_versions(sources: dict, out_dir: Path, stem: str) -> dict:
+    """{label: (library, ptxas log)}: each source of ``sources`` ({label:
+    path}) built alone into ``out_dir/lib<stem>_<i>.so`` with ``-Xptxas
+    -v``, all started together; the caller binds the entries."""
     from nerfshop_tpu_torch import kernels
 
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for i, (label, src) in enumerate(((V1, parent), (V2, kernels.CSRC / "bvh.cu"))):
-        so = out_dir / f"libbvh_{i}.so"
+    for i, (label, src) in enumerate(sources.items()):
+        so = out_dir / f"lib{stem}_{i}.so"
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(so), str(src)]
         procs.append((label, so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
@@ -70,21 +72,30 @@ def build_both(parent: Path, out_dir: Path) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {label}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nst_bvh_sdf.restype = i
-        lib.nst_bvh_sdf.argtypes = [ctypes.POINTER(V1Args if label == V1 else kernels.BvhArgs), p, p, i, p]
-        libs[label] = (lib, log)
+        libs[label] = (ctypes.CDLL(str(so)), log)
     return libs
 
 
-def ptxas_lines(log: str) -> list:
-    """The ptxas lines of the walk kernel: its registers, stack frame,
-    spills and shared memory."""
+def build_both(parent: Path, out_dir: Path) -> dict:
+    """{label: (library, ptxas log)} for the first version and this
+    checkout's, built in parallel."""
+    from nerfshop_tpu_torch import kernels
+
+    libs = build_versions({V1: parent, V2: kernels.CSRC / "bvh.cu"}, out_dir, "bvh")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for label, (lib, _) in libs.items():
+        lib.nst_bvh_sdf.restype = i
+        lib.nst_bvh_sdf.argtypes = [ctypes.POINTER(V1Args if label == V1 else kernels.BvhArgs), p, p, i, p]
+    return libs
+
+
+def ptxas_lines(log: str, kernel: str = "bvh_sdf_kernel") -> list:
+    """The ptxas lines of ``kernel`` (a part of its mangled name): its
+    registers, stack frame, spills and shared memory."""
     lines = log.splitlines()
     out = []
     for k, line in enumerate(lines):
-        if "Compiling entry function" in line and "bvh_sdf_kernel" in line:
+        if "Compiling entry function" in line and kernel in line:
             for s in lines[k + 1 : k + 4]:
                 if "Compiling" in s:
                     break
