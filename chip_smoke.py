@@ -56,6 +56,24 @@ Phases, each printing one line of its own numbers:
      at the training shape with every level's boundary points (p0 =
      res − 1), at N = 1, at one block plus one, at 5 and 20 levels and at
      the frame shape;
+ 11a'. [density]: the torch density module (``torch_interop.py``) over the
+     trained model at 2^18 positions uniform in the occupied box and 2^16
+     within one grid cell of the surface: ``fwd_density``, ``bwd_density``,
+     ``bwd_bwd_input_density`` and an eikonal-style step (kernel J once per
+     second-order backward), all finite and, on every 8th position, held to
+     the plain route on the CPU; kernel J against its plain version on the
+     inputs of the module's double backward, timed beside its bound;
+ 11a''. [train-extras]: the sphere's views, 12 as opaque photos over black
+     and 4 with transparent targets over the envmap, every view's pose
+     perturbed (0.02 rad, 0.02 units) and 4 views darkened by 0.8, trained
+     256 steps at batch 2^18 through captured chunks with pose and
+     distortion-map optimization, exposure, the error map and the envmap
+     on: kernel F in the training step, the camera leaves moved and finite,
+     the corrected poses' mean rotation and translation errors printed
+     every 32 steps and the views' log exposures printed (JAX's rule, the
+     network's Adam, lets both drift: F16), the loss falling as [train]'s,
+     held-out PSNR ≥ 14 dB, the captured loop held to eager over 32 steps
+     (as [train-loop]), one 1080p frame with the envmap background;
  11b. [normals]: ``Testbed.render(1920, 1080)`` in ``RenderMode.Normals``
      (kernel F once a chunk, kernel A never, B without fracs only), and the
      middle chunk's normals and σ against the plain encode's;
@@ -134,7 +152,7 @@ march; a membrane frame launches ``WARP_MEMBRANE`` once a chunk and no
 other instance of E; a distillation step launches kernel B with fracs for
 the student's two forwards only. Then a JSON line with every
 kernel's launches on the main paths (training, counted by graph replays,
-render, compacted render, frame, Normals frame, mesh, CLI, edit, membrane
+the density module, training with the options on, render, compacted render, frame, Normals frame, mesh, CLI, edit, membrane
 frame, distillation, the baked preview and the viewer; kernels H and I
 as ``shear_warp_composite`` and ``shear_warp_screen``, their numbers the
 median over the six views, the error the largest),
@@ -675,6 +693,7 @@ def kernel_wrappers():
         "segsum": segsum.sorted_segment_rowsum_cuda,
         "grid_encode": table_ops.grid_encode_cuda,
         "grid_encode_dx": table_ops.grid_encode_dx_cuda,
+        "grid_encode_dx_bwd": table_ops.grid_encode_dx_bwd_cuda,
         "fused_mlp": fused_mlp.fused_mlp_cuda,
         "gather": gather.gather_cuda,
         "tet_lookup": operators.tet_lookup_cuda,
@@ -956,7 +975,7 @@ def phase_main_path(dev):
         f"{refresh['grid_encode_fracs']} with fracs), peak memory {peak / 2**30:.3f} GiB, launches {launches}",
         flush=True,
     )
-    return tb, focal, principal, launches
+    return tb, focal, principal, launches, STEPS / train_s
 
 
 #: the largest relative loss difference on any step, and the largest
@@ -968,12 +987,14 @@ LOOP_LOSS_TOL = 1e-4
 LOOP_PARAM_TOL = 1e-3
 
 
-def phase_train_loop(tb, chunk=16, calls=2):
-    """[train-loop]: copies of the trained model's state and generator; the
-    eager loop (``make_train_loop(..., captured=False)``) and the captured
-    one each run ``calls`` × ``chunk`` steps from them on the same grid →
-    the captured loop's launches by kernel in its timed call. The second
-    call of each is timed (the first of the captured loop captures)."""
+def phase_train_loop(tb, chunk=16, calls=2, tag="[train-loop]"):
+    """[train-loop]: copies of the trained model's state and generator (and
+    of its error map, where it has one); the eager loop
+    (``make_train_loop(..., captured=False)``) and the captured one each run
+    ``calls`` × ``chunk`` steps from them on the same grid → the captured
+    loop's launches by kernel in its timed call. The second call of each is
+    timed (the first of the captured loop captures). The error maps after
+    the steps are held to each other with the state."""
     import copy
 
     from nerfshop_tpu_torch.train import nerf as nerf_train
@@ -985,7 +1006,9 @@ def phase_train_loop(tb, chunk=16, calls=2):
         g.set_state(tb.generator.get_state())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        loop = nerf_train.make_train_loop(state, tb.grid, tb._device_data, tb.train_config, chunk, captured=captured)
+        em = None if tb._error_map is None else tb._error_map.clone()
+        loop = nerf_train.make_train_loop(state, tb.grid, tb._device_data, tb.train_config, chunk, captured=captured,
+                                          error_map=em)
         losses, times = [], []
         for _ in range(calls):
             reset_launches()
@@ -993,19 +1016,20 @@ def phase_train_loop(tb, chunk=16, calls=2):
             ys = loop(tb.grid, g)
             losses.append(ys["loss"].cpu().numpy())  # the host pull syncs
             times.append(time.perf_counter() - t0)
-        runs[captured] = (np.concatenate(losses), state, times[-1], read_launches(), torch.cuda.max_memory_allocated(),
+        written = state.tensors() + ([em] if em is not None else [])
+        runs[captured] = (np.concatenate(losses), written, times[-1], read_launches(), torch.cuda.max_memory_allocated(),
                           loop)
     (le, se, te, _, pe, _), (lc, sc, tc, launches, pc, loop) = runs[False], runs[True]
     loss_diff = float(np.max(np.abs(lc - le) / np.maximum(np.abs(le), 1e-30)))
     param_diff = max(float(torch.linalg.vector_norm(a - b) / torch.clamp_min(torch.linalg.vector_norm(b), 1e-30))
-                     for a, b in zip(sc.tensors(), se.tensors()))
-    equal = all(torch.equal(a, b) for a, b in zip(sc.tensors(), se.tensors())) and bool((lc == le).all())
+                     for a, b in zip(sc, se))
+    equal = all(torch.equal(a, b) for a, b in zip(sc, se)) and bool((lc == le).all())
     check(loop.replays == calls and loop.graph_launches, f"the captured loop was not replayed: {loop.replays} replays")
     check(np.isfinite(lc).all() and np.isfinite(le).all(), "non-finite loss in the loop comparison")
     check(loss_diff <= LOOP_LOSS_TOL, f"captured vs eager: a step's loss differs by {loss_diff:.3e} > {LOOP_LOSS_TOL}")
     check(param_diff <= LOOP_PARAM_TOL, f"captured vs eager: the state differs by {param_diff:.3e} > {LOOP_PARAM_TOL}")
     print(
-        f"[train-loop] {calls * chunk} steps eager vs captured from one state and generator (batch "
+        f"{tag} {calls * chunk} steps eager vs captured from one state and generator (batch "
         f"{tb.train_config.n_rays_per_batch} x {tb.train_config.k_samples}): largest relative loss difference "
         f"{loss_diff:.3e} (bound {LOOP_LOSS_TOL}), largest relative state difference {param_diff:.3e} (bound "
         f"{LOOP_PARAM_TOL}), bit-equal {equal}; a {chunk}-step call after the first, draws included, no grid "
@@ -1266,6 +1290,341 @@ def phase_encode_dx(dev, g, tb, chunk_x):
     frame_enc = tb.model.pos_encoding
     encode_dx_case("1080p march chunk", frame_enc, frame_enc.table.detach(), chunk_x, g)
     return result
+
+
+#: kernel J within this share of max |dh| and of max |d_x2| of its plain
+#: version (F's bound: the same float32 terms in another order)
+J_TOL = 1e-5
+#: the density module on the card against its plain route on the CPU
+#: (relative L2 norm): the MLP's operands and cotangents are rounded to bf16
+#: on both sides, and cuBLAS sums the products in another order than the CPU,
+#: so a value on a rounding boundary can round the other way
+DENSITY_TOL = 5e-3
+#: positions of [density] held to the plain route on the CPU: every 8th
+DENSITY_CPU_STRIDE = 8
+
+
+def density_positions(tb):
+    """[density]'s positions (warped coordinates), from a generator seeded
+    with :data:`G_SEED`: 2^18 uniform in the box of the trained grid's
+    occupied cells, then 2^16 within one grid cell of the sphere's surface
+    → (positions [2^18 + 2^16, 3], box lo, box hi)."""
+    dev = tb.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(G_SEED)
+    occ = tb.grid.occupancy[0]
+    res = occ.shape[-1]
+    cells = occ.nonzero()
+    lo, hi = cells.min(0).values.float() / res, (cells.max(0).values.float() + 1) / res
+    uniform = lo + (hi - lo) * torch.rand((1 << 18, 3), generator=gen, device=dev)
+    d = torch.randn((1 << 16, 3), generator=gen, device=dev)
+    r = RADIUS + (2.0 * torch.rand((1 << 16, 1), generator=gen, device=dev) - 1.0) / res
+    near = torch.as_tensor(CENTER, device=dev) + r * d / d.norm(dim=1, keepdim=True)
+    return torch.cat([uniform, near]).contiguous(), lo, hi
+
+
+def rel_l2(a, b) -> float:
+    return float(torch.linalg.vector_norm((a - b).double()) / torch.clamp_min(torch.linalg.vector_norm(b.double()), 1e-30))
+
+
+def phase_density(tb):
+    """[density]: the torch density module (``torch_interop.py``) over the
+    trained model's EMA weights at :func:`density_positions`:
+    ``fwd_density``, ``bwd_density`` and ``bwd_bwd_input_density``, then an
+    eikonal-style step (the positions' gradient of mean((|∇σ| − 1)²), σ the
+    raw density); kernel J once per second-order backward; every output
+    finite and, on every 8th position, held to the plain route (the model
+    copied to the CPU); kernel J alone against its plain version on the
+    inputs the module's double backward gave it, timed beside its bound →
+    (J's kernels-line numbers, the path's launches)."""
+    import copy
+
+    from nerfshop_tpu_torch.ops import table_ops
+    from nerfshop_tpu_torch.torch_interop import NerfDensityModule
+
+    dev = tb.device
+    x, lo, hi = density_positions(tb)
+    N = x.shape[0]
+    enc = tb.model.pos_encoding
+    mod = NerfDensityModule(tb.model, tb.inference_params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(G_SEED + 1)
+    d_out = torch.randn((N, mod.n_density_output_dims), generator=gen, device=dev)
+    d_dpos = torch.randn((N, 3), generator=gen, device=dev)
+    j_inputs, dispatch = [], table_ops.grid_encode_dx_bwd
+
+    def spy(table, xx, g, v, enc_):
+        j_inputs.append((table.detach(), xx.detach().contiguous(), g.detach().float().contiguous(),
+                         v.detach().float().contiguous()))
+        return dispatch(table, xx, g, v, enc_)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    table_ops.grid_encode_dx_bwd = spy
+    try:
+        t0 = time.perf_counter()
+        feats = mod.fns.fwd_density(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g1 = mod.fns.bwd_density(x, d_out)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        d_pos2, d_dout = mod.fns.bwd_bwd_input_density(x, d_out, d_dpos)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        api = read_launches()
+        p = x.clone().requires_grad_(True)
+        (grad,) = torch.autograd.grad(mod(p)[:, 0].sum(), p, create_graph=True)
+        eik = ((grad.norm(dim=-1) - 1.0) ** 2).mean()
+        (g_eik,) = torch.autograd.grad(eik, p)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+    finally:
+        table_ops.grid_encode_dx_bwd = dispatch
+    launches = read_launches()
+    outs = {"fwd": feats, "bwd": g1, "d_pos2": d_pos2, "d_dout": d_dout, "eikonal grad": g_eik}
+    check(all(bool(torch.isfinite(t).all()) for t in outs.values()) and math.isfinite(float(eik.detach())),
+          "[density]: a non-finite output")
+    check(feats.shape == d_dout.shape == (N, mod.n_density_output_dims) and g1.shape == d_pos2.shape == (N, 3),
+          "[density]: an output of the wrong shape")
+    check(api["grid_encode_dx_bwd"] == 1 and launches["grid_encode_dx_bwd"] == 2 and len(j_inputs) == 2,
+          f"kernel J was not launched once per second-order backward: {launches}")
+    check(float(g_eik.abs().max()) > 0 and float(d_pos2.abs().max()) > 0, "[density]: a second-order gradient is 0")
+
+    # the plain route: the model and weights copied to the CPU, every 8th position
+    sub = slice(None, None, DENSITY_CPU_STRIDE)
+    cpu_mod = NerfDensityModule(copy.deepcopy(tb.model).cpu(), {k: v.cpu() for k, v in tb.inference_params.items()})
+    xc, doc, ddc = (t[sub].cpu() for t in (x, d_out, d_dpos))
+    ref = {"fwd": cpu_mod.fns.fwd_density(xc), "bwd": cpu_mod.fns.bwd_density(xc, doc)}
+    ref["d_pos2"], ref["d_dout"] = cpu_mod.fns.bwd_bwd_input_density(xc, doc, ddc)
+    errs = {k: rel_l2(outs[k][sub].cpu(), ref[k]) for k in ref}
+    check(all(e <= DENSITY_TOL for e in errs.values()),
+          f"[density] the module disagrees with its plain route: {errs} (bound {DENSITY_TOL})")
+
+    # kernel J alone on the inputs of the module's double backward
+    table, xx, g, v = j_inputs[0]
+    got_h, got_x = table_ops.grid_encode_dx_bwd_cuda(table, xx, g, v, enc)
+    ref_h, ref_x = table_ops.grid_encode_dx_bwd_plain(table, xx, g, v, enc)
+    torch.cuda.synchronize()
+    err_h, err_x = float((got_h - ref_h).abs().max()), float((got_x - ref_x).abs().max())
+    scale_h, scale_x = float(ref_h.abs().max()), float(ref_x.abs().max())
+    check(err_h <= J_TOL * scale_h and err_x <= J_TOL * scale_x,
+          f"kernel J disagrees: dh {err_h:.3e} of {scale_h:.3e}, d_x2 {err_x:.3e} of {scale_x:.3e} (bound {J_TOL})")
+    ms, dev_ms = both_ms(lambda: table_ops.grid_encode_dx_bwd_cuda(table, xx, g, v, enc))
+    plain_ms = median_ms(lambda: table_ops.grid_encode_dx_bwd_plain(table, xx, g, v, enc))
+    touched = touched_rows(enc, enc.brick_fracs(xx)[0])
+    n_bytes = nbytes(xx, g, v, got_h, got_x) + touched * 2 * 4
+    b_ms, b_by = bound(n_bytes)
+    print(
+        f"[density] NerfDensityModule over the trained model's EMA weights at {N} positions ({1 << 18} uniform in "
+        f"the occupied box {[round(float(a), 4) for a in lo]}-{[round(float(a), 4) for a in hi]}, {1 << 16} within "
+        f"one cell of the surface): fwd_density {(t1 - t0) * 1e3:.2f} ms, bwd_density {(t2 - t1) * 1e3:.2f} ms, "
+        f"bwd_bwd_input_density {(t3 - t2) * 1e3:.2f} ms, eikonal step {(t4 - t3) * 1e3:.2f} ms (loss {float(eik.detach()):.4e}, "
+        f"max |grad| {float(g_eik.abs().max()):.3e}); launches {launches}",
+        flush=True,
+    )
+    print(
+        f"[density] against the plain route on the CPU at every {DENSITY_CPU_STRIDE}th position (relative L2, bound "
+        f"{DENSITY_TOL}): {', '.join(f'{k} {e:.3e}' for k, e in errs.items())}",
+        flush=True,
+    )
+    print(
+        f"[density] kernel J N={xx.shape[0]} L={enc.n_levels}: max |delta| dh {err_h:.3e} = {err_h / scale_h:.3e} of "
+        f"max |dh|, d_x2 {err_x:.3e} = {err_x / scale_x:.3e} of max |d_x2| (bound {J_TOL}); kernel {ms:.4f} ms "
+        f"(device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, "
+        f"{touched} of {enc.table_size} table rows touched), device/bound {dev_ms / b_ms:.2f}; launches on the path "
+        f"{launches['grid_encode_dx_bwd']} (one per second-order backward); no library call computes it",
+        flush=True,
+    )
+    row = dict(max_abs_err=max(err_h, err_x), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+               library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return row, launches
+
+
+#: the seed of [train-extras]' pose perturbation
+POSE_SEED = 31
+#: the perturbation: each view's rotation by this angle (rad) about a random
+#: axis, and its camera centre moved this far in a random direction
+POSE_NOISE = 0.02
+#: views whose rgb is darkened (the first ones), and the factor
+DARK_VIEWS, DARK = 4, 0.8
+#: views whose targets stay transparent (the last ones), composited over
+#: the trainable envmap, where the envmap and the field compete for the
+#: sphere; the others are opaque photos over black
+CLEAR_VIEWS = 4
+
+
+def pose_errors(xf, true) -> tuple[float, float]:
+    """(mean rotation angle in rad, mean camera-centre distance) of poses
+    ``xf`` [N, 3, 4] against ``true``."""
+    rel = xf[:, :, :3].transpose(1, 2) @ true[:, :, :3]
+    cos = (rel.diagonal(dim1=1, dim2=2).sum(-1) - 1.0) / 2.0
+    return float(torch.arccos(cos.clamp(-1.0, 1.0)).mean()), float((xf[:, :, 3] - true[:, :, 3]).norm(dim=-1).mean())
+
+
+def extras_dataset(dev):
+    """The smoke's sphere dataset, its last :data:`CLEAR_VIEWS` views
+    transparent (over the envmap) and the others opaque photos over black,
+    its poses perturbed (:data:`POSE_NOISE`) and its first
+    :data:`DARK_VIEWS` views darkened → (dataset, focal, principal, true
+    poses, perturbed poses)."""
+    from nerfshop_tpu_torch.ops import rays
+
+    ds, focal, principal = sphere_dataset(dev)
+    opaque = slice(0, N_VIEWS - CLEAR_VIEWS)
+    a = ds.images[opaque, ..., 3:]
+    ds.images[opaque] = np.concatenate([ds.images[opaque, ..., :3] * a, np.ones_like(a)], -1)
+    true = torch.as_tensor(ds.xforms, device=dev)
+    rng = np.random.default_rng(POSE_SEED)
+
+    def directions(n):
+        v = rng.normal(size=(n, 3))
+        return torch.as_tensor((v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32), device=dev)
+
+    noisy = rays.apply_pose_delta(true, directions(N_VIEWS) * POSE_NOISE, directions(N_VIEWS) * POSE_NOISE)
+    ds.xforms = noisy.cpu().numpy()
+    ds.images[:DARK_VIEWS, ..., :3] *= DARK
+    return ds, focal, principal, true, noisy
+
+
+def f_step_times(tb) -> None:
+    """Kernel F at the positions and output cotangent of one training step
+    of ``tb`` (an eager step from its draws, the inputs kept by a spy on
+    the dispatcher), timed by events and on the device beside its plain
+    version and its bound."""
+    from nerfshop_tpu_torch.ops import table_ops
+    from nerfshop_tpu_torch.train import nerf as nerf_train
+
+    kept, dispatch = [], table_ops.grid_encode_dx
+
+    def spy(table, x, dout, enc):
+        kept.append((table.detach().contiguous(), x.detach().contiguous(), dout.detach().float().contiguous(), enc))
+        return dispatch(table, x, dout, enc)
+
+    cfg, data = tb.train_config, tb._device_data
+    draws = nerf_train.draw_step(cfg, data, tb.generator)
+    pix = nerf_train.pixels_of_step(cfg, data, draws[0], draws[1], tb._error_map)
+    table_ops.grid_encode_dx = spy
+    try:
+        nerf_train.grads_from_draws(tb.model, tb.grid, data, cfg, draws[0], pix, *draws[2:], extra=tb._state.extra)
+    finally:
+        table_ops.grid_encode_dx = dispatch
+    check(len(kept) == 1, f"one training step called kernel F's dispatcher {len(kept)} times")
+    table, x, dout, enc = kept[0]
+    ms, dev_ms = both_ms(lambda: table_ops.grid_encode_dx_cuda(table, x, dout, enc))
+    plain_ms = median_ms(lambda: table_ops.grid_encode_dx_plain(table, x, dout, enc))
+    n_bytes = nbytes(x, dout) + x.numel() * 4 + touched_rows(enc, enc.brick_fracs(x)[0]) * 2 * 4
+    b_ms, _ = bound(n_bytes)
+    print(
+        f"[train-extras] kernel F at one training step's {x.shape[0]} positions ({cfg.n_rays_per_batch} rays x "
+        f"{cfg.k_samples}): kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms, "
+        f"device/bound {dev_ms / b_ms:.2f}",
+        flush=True,
+    )
+
+
+def phase_train_extras(dev, train_steps_per_s, W=1920, H=1080):
+    """[train-extras]: the sphere with perturbed poses, darkened views and
+    some transparent ones (:func:`extras_dataset`), every training option
+    on (pose and distortion-map optimization, exposure, the error map, the
+    trainable envmap), ``Testbed.train`` for 256 steps at batch 2^18 in
+    captured chunks; kernel F in the training step; the camera leaves moved
+    and finite; the corrected poses' errors and the log exposures printed
+    (the camera leaves take the network's Adam, as in JAX, and drift: F16,
+    ``ROADMAP.md`` Queue 3); the loss falling; the held-out PSNR;
+    the captured loop held to eager; one 1080p frame with the envmap
+    background; kernel F timed at one training step's inputs → the
+    training's launches."""
+    from nerfshop_tpu_torch.common import TestbedMode
+    from nerfshop_tpu_torch.config import default_nerf_config
+    from nerfshop_tpu_torch.ops import rays
+    from nerfshop_tpu_torch.testbed import Testbed
+
+    ds, focal, principal, true, noisy = extras_dataset(dev)
+    tb = Testbed(TestbedMode.Nerf, config=default_nerf_config(), device=dev, seed=0)
+    t = tb.nerf.training
+    t.optimize_extrinsics = t.optimize_distortion = t.optimize_exposure = t.use_error_map = t.train_envmap = True
+    tb.set_training_data(ds)
+    cfg = tb.train_config
+    check(cfg.optimize_extrinsics and cfg.optimize_exposure and cfg.use_error_map and cfg.train_envmap,
+          f"[train-extras] a knob did not reach the training config: {cfg}")
+    extra = tb._state.extra
+    check(sorted(extra) == ["camera.distortion_map", "camera.log_exposure", "camera.rot", "camera.trans", "envmap"],
+          f"[train-extras] the training leaves: {sorted(extra)}")
+    err0 = pose_errors(noisy, true)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    trace = []
+    t0 = time.perf_counter()
+    for _ in range(STEPS // 32):
+        tb.train(n_steps=32, batch_size=BATCH)
+        corrected = rays.apply_pose_delta(noisy, extra["camera.rot"].detach(), extra["camera.trans"].detach())
+        trace.append(pose_errors(corrected, true))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [lv for _, lv in tb.loss_history]
+    check(len(losses) == STEPS and all(math.isfinite(v) for v in losses), "[train-extras] non-finite or missing losses")
+    check(tb.stats.captured_steps == STEPS == tb.stats.step, "[train-extras] a step ran outside the captured loop")
+    per_step = {k: v / 16 for k, v in tb.stats.graph_launches.items()}
+    check(launches["grid_encode_dx"] > 0 and per_step.get("grid_encode_dx_cuda.launches", 0) > 0,
+          f"[train-extras] kernel F was not launched in the training step: {launches}")
+    check_launched(launches, ("segsum", "grid_encode", "fused_mlp", "gather"), "[train-extras] training path")
+    err1 = trace[-1]
+    le = extra["camera.log_exposure"].detach()
+    dark_le, other_le = float(le[:DARK_VIEWS].mean()), float(le[DARK_VIEWS:].mean())
+    clear_le = float(le[N_VIEWS - CLEAR_VIEWS:].mean())
+    em = tb._error_map
+    print(
+        f"[train-extras] {STEPS} steps batch {BATCH} with pose, distortion-map and exposure optimization, the error "
+        f"map and the envmap in {train_s:.3f} s (the graphs' captures included): {STEPS / train_s:.3f} steps/s "
+        f"([train]: {train_steps_per_s:.3f}), loss {losses[0]:.4e} -> last-10 {float(np.mean(losses[-10:])):.4e}, "
+        f"peak memory {peak / 2**30:.3f} GiB; kernel F in the captured step: {per_step.get('grid_encode_dx_cuda.launches')} "
+        f"a step; launches {launches}",
+        flush=True,
+    )
+    print(
+        f"[train-extras] poses perturbed by {POSE_NOISE} rad and {POSE_NOISE} units: mean rotation error {err0[0]:.5f} "
+        f"-> {err1[0]:.5f} rad, mean translation error {err0[1]:.5f} -> {err1[1]:.5f} (every 32 steps: "
+        f"{[(round(a, 5), round(b, 5)) for a, b in trace]}); log exposure of the {DARK_VIEWS} views darkened by {DARK}: "
+        f"{dark_le:.4f} (others {other_le:.4f}, of which the {CLEAR_VIEWS} transparent {clear_le:.4f}; ideal difference "
+        f"{-math.log(DARK):.4f}); distortion map max "
+        f"|offset| {float(extra['camera.distortion_map'].detach().abs().max()):.3e}; envmap mean "
+        f"{float(extra['envmap'].detach()[..., :3].mean()):.4f}; error map {float(em.min()):.4e}-{float(em.max()):.4e}",
+        flush=True,
+    )
+    cam = [extra[k].detach() for k in ("camera.rot", "camera.trans", "camera.distortion_map")]
+    check(all(bool(torch.isfinite(c).all()) and float(c.abs().max()) > 0 for c in cam),
+          "[train-extras] a camera leaf did not move or is not finite")
+    check(float(np.mean(losses[-10:])) < 0.35 * losses[0], "[train-extras] the loss did not fall as [train]'s must")
+
+    # held-out PSNR, as [held-out]
+    xf = look_at(CENTER + np.array([0.9, 0.9, 0.5], np.float32))
+    b = view_rays(xf, focal, principal, tb.device)
+    gt = sphere_rgba(b.origins.cpu().numpy(), b.directions.cpu().numpy()).reshape(RES, RES, 4)
+    img = tb.render(RES, RES, spp=1, camera_matrix=xf, focal=focal, principal=principal, exact=True)
+    value = psnr(img[..., :3], gt[..., :3] * gt[..., 3:])
+    on_sphere = gt[..., 3] > 0
+    sphere_psnr = psnr(img[on_sphere, :3], gt[on_sphere, :3])
+    check(np.isfinite(img).all() and value >= 14.0, f"[train-extras] held-out PSNR {value:.2f} dB < 14")
+    f_step_times(tb)
+    phase_train_loop(tb, tag="[train-extras]")
+    tb.set_look_at(eye=CENTER + np.array([0.9, -0.9, 0.5], np.float32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = tb.render(W, H, spp=1, exact=True)
+    frame_s = time.perf_counter() - t0
+    check(frame.shape == (H, W, 4) and np.isfinite(frame).all() and float(frame[..., 3].min()) > 0.99,
+          "[train-extras] the 1080p frame with the envmap is not finite and opaque")
+    print(
+        f"[train-extras] held-out {RES}x{RES} PSNR {value:.2f} dB (bound 14; on the sphere's pixels {sphere_psnr:.2f} "
+        f"dB); {W}x{H} exact frame with the envmap "
+        f"background {frame_s * 1e3:.1f} ms (alpha min {float(frame[..., 3].min()):.4f})",
+        flush=True,
+    )
+    return launches
 
 
 def phase_normals(tb, W=1920, H=1080):
@@ -2986,7 +3345,7 @@ def main() -> None:
     phase_backward(dev, g)
     mlp = phase_mlp(dev, g)
     gat = phase_gather(dev, g)
-    tb, focal, principal, train_launches = phase_main_path(dev)
+    tb, focal, principal, train_launches, train_steps_per_s = phase_main_path(dev)
     phase_train_loop(tb)
     render_launches, chunk_x = phase_render(tb)
     bake_launches, baked_frame_launches, h_row, i_row = phase_baked(tb)
@@ -2996,6 +3355,8 @@ def main() -> None:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     snapshot = phase_snapshot(tb, xf, focal, principal, workdir)
     fdx = phase_encode_dx(dev, g, tb, chunk_x)
+    j_row, density_launches = phase_density(tb)
+    extras_launches = phase_train_extras(dev, train_steps_per_s)
     normals_launches = phase_normals(tb)
     mesh_launches = phase_mesh(tb)
     cli_launches = phase_cli(dev, snapshot, workdir)
@@ -3006,13 +3367,16 @@ def main() -> None:
     edit_launches = read_launches()
     check_launched(edit_launches, ("grid_encode", "fused_mlp", "gather", "cage_warp_samples", "cage_warp_positions"),
                    "edit path")
-    paths = {"train": train_launches, "render": render_launches,
+    paths = {"train": train_launches, "density": density_launches, "train_extras": extras_launches,
+             "render": render_launches,
              "baked": {k: bake_launches[k] + baked_frame_launches[k] for k in bake_launches},
              "render_compact": compact_launches, "frame": frame_launches, "normals": normals_launches,
              "mesh": mesh_launches, "cli": cli_launches, "edit": edit_launches}
     check_launched(paths["baked"], ("grid_encode", "fused_mlp", "shear_warp_composite", "shear_warp_screen"),
                    "baked path")
     check_launched(normals_launches, ("grid_encode", "grid_encode_dx", "gather"), "Normals frame")
+    check_launched(density_launches, ("grid_encode", "fused_mlp", "grid_encode_dx", "grid_encode_dx_bwd"),
+                   "density module")
     for name in ("render", "baked", "render_compact", "frame", "normals", "mesh", "edit"):
         check(paths[name]["grid_encode_fracs"] == 0, f"kernel B wrote fracs on the {name} path: {paths[name]}")
     check(edited_frame_launches["grid_encode_fracs"] == 0, "kernel B wrote fracs in the edited frame")
@@ -3048,6 +3412,7 @@ def main() -> None:
         ("sorted_segment_rowsum", "segsum_d3", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", seg),
         ("grid_encode", "grid_encode_d3", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", enc),
         ("grid_encode_dx", "grid_encode_dx", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:263", fdx),
+        ("grid_encode_dx_bwd", "grid_encode_dx_bwd", "grid_encode.cu", "nerfshop_tpu/torch_interop.py:55", j_row),
         ("fused_mlp", "fused_mlp", "fused_mlp.cu", "scratch/probe_arch.py:56", mlp),
         ("gather", "gather", "gather.cu", "scratch/probe_arch.py:32", gat),
         ("tet_lookup", "tet_lookup", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:74", tet["tet_lookup"]),

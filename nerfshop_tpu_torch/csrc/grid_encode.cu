@@ -1,5 +1,6 @@
 // Kernel B: hash-grid encode forward (brick-layout slots, canonical table),
-// and kernel F, its gradient with respect to the positions (after B below).
+// kernel F, its gradient with respect to the positions (after B below), and
+// kernel J, F's own backward (after F).
 // B takes D = 3 (NeRF, SDF and Volume positions) and D = 2 (the Image
 // testbed's pixel coordinates) as a template parameter; F takes D = 3.
 //
@@ -390,6 +391,110 @@ grid_encode_dx_kernel(const float* __restrict__ x, const __grid_constant__ DxLev
     }
 }
 
+// Kernel J: the backward of kernel F, for a gradient of a loss on d_x
+// (an eikonal term: torch_interop.py's bwd_bwd_input_density). Replaces
+// JAX's autodiff of the encode's VJP (nerfshop_tpu/torch_interop.py:55,
+// jax.grad of <bwd(pos, d_out), d_dpos>). With F's output d_x = J_enc(x)^T g
+// and v the cotangent on it, per sample:
+//   dh [L, 2] = J_enc(x) v, the encode's JVP (the gradient with respect to g):
+//     dh_l = sum_d sc_d v_d dT_d, dT_d the factored derivative of the corner
+//     rows along axis d, for each of the two features;
+//   d_x2 [3] = d/dx <J_enc(x)^T g, v>: the interpolation is linear in each
+//     w1_d, so only the mixed second derivatives remain; for the axis pair
+//     (i, j) with third axis k, H_ij = lerp over w1_k of the corner dots'
+//     mixed second difference, and d_x2_j += sc_i sc_j v_i H_ij (and i, j
+//     swapped). The cell index has no derivative, as in JAX.
+// What bounds it on the H100: bytes, as F. Per sample x, v and d_x2 12 B
+// each, g and dh 8L B each (292 B at L = 16), plus each table row the
+// corners touch, 8 B once: ~77 MB and the rows at 2^18 samples. The design
+// is F's (two lanes a sample, each a level at a time, the level records in
+// the launch's parameters, the 8 corner loads in flight before the
+// arithmetic); each lane writes its level's dh pair itself.
+__global__ void __launch_bounds__(kThreads)
+grid_encode_dx_bwd_kernel(const float* __restrict__ x, const __grid_constant__ DxLevels lv,
+                          const float2* __restrict__ table, const float2* __restrict__ g,
+                          const float* __restrict__ v, float2* __restrict__ dh, float* __restrict__ dx2,
+                          int n, int n_levels) {
+    const long long s = ((long long)blockIdx.x * kThreads + threadIdx.x) / kDxLanes;
+    const int j = threadIdx.x % kDxLanes;
+    float xs[3] = {0.f, 0.f, 0.f}, vs[3] = {0.f, 0.f, 0.f};
+    if (s < n) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            xs[d] = __ldcs(x + 3 * s + d);
+            vs[d] = __ldcs(v + 3 * s + d);
+        }
+    }
+    float acc[3] = {0.f, 0.f, 0.f};
+    if (s < n) {
+        const float2* grow = g + (size_t)s * n_levels;
+        float2* hrow = dh + (size_t)s * n_levels;
+#pragma unroll 1
+        for (int l0 = 0; l0 < n_levels; l0 += kDxLanes) {
+            const int l = l0 + j;
+            if (l >= n_levels) break;
+            const float2 gl = __ldcs(grow + l);
+            const int4 hdr = lv.r[4 * l];  // res - 1, m, offset, scale
+            const int4 hk = lv.r[4 * l + 1];  // k1, k2, mask
+            const int4 sa = lv.r[4 * l + 2];  // corner shifts 0-3
+            const int4 sb = lv.r[4 * l + 3];  // corner shifts 4-7
+            const float scale = __int_as_float(hdr.w);
+            float w1[3], sc[3];
+            uint32_t cu[3];
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+                const float p = __fadd_rn(__fmul_rn(xs[d], scale), 0.5f);
+                const float p0f = floorf(p);
+                const float frac = __fsub_rn(p, p0f);
+                const int p0 = min(max((int)p0f, 0), hdr.x);
+                const bool moves = p0 != hdr.x;
+                w1[d] = moves ? frac : 0.f;
+                sc[d] = moves ? scale : 0.f;
+                cu[d] = (uint32_t)p0;
+            }
+            const uint32_t m = (uint32_t)hdr.y;
+            const uint32_t base = (cu[0] + cu[1] * (uint32_t)hk.x + cu[2] * (uint32_t)hk.y) & (uint32_t)hk.z;
+            const float2* tl = table + hdr.z;
+            const uint32_t sh[8] = {(uint32_t)sa.x, (uint32_t)sa.y, (uint32_t)sa.z, (uint32_t)sa.w,
+                                    (uint32_t)sb.x, (uint32_t)sb.y, (uint32_t)sb.z, (uint32_t)sb.w};
+            float2 r[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) r[c] = load_row(tl, wrap(base, sh[c], m));
+            // dh: the rows' factored derivative along each axis, both features
+            const float sv[3] = {sc[0] * vs[0], sc[1] * vs[1], sc[2] * vs[2]};
+            float2 h;
+            h.x = sv[0] * lerp2(r[1].x - r[0].x, r[3].x - r[2].x, r[5].x - r[4].x, r[7].x - r[6].x, w1[1], w1[2]);
+            h.x = fmaf(sv[1], lerp2(r[2].x - r[0].x, r[3].x - r[1].x, r[6].x - r[4].x, r[7].x - r[5].x, w1[0], w1[2]), h.x);
+            h.x = fmaf(sv[2], lerp2(r[4].x - r[0].x, r[5].x - r[1].x, r[6].x - r[2].x, r[7].x - r[3].x, w1[0], w1[1]), h.x);
+            h.y = sv[0] * lerp2(r[1].y - r[0].y, r[3].y - r[2].y, r[5].y - r[4].y, r[7].y - r[6].y, w1[1], w1[2]);
+            h.y = fmaf(sv[1], lerp2(r[2].y - r[0].y, r[3].y - r[1].y, r[6].y - r[4].y, r[7].y - r[5].y, w1[0], w1[2]), h.y);
+            h.y = fmaf(sv[2], lerp2(r[4].y - r[0].y, r[5].y - r[1].y, r[6].y - r[2].y, r[7].y - r[3].y, w1[0], w1[1]), h.y);
+            __stcs(hrow + l, h);
+            // d_x2: the corner dots' mixed second differences
+            float gc[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) gc[c] = fmaf(gl.x, r[c].x, gl.y * r[c].y);
+            const float h01 = lerp((gc[0] - gc[1]) - (gc[2] - gc[3]), (gc[4] - gc[5]) - (gc[6] - gc[7]), w1[2]);
+            const float h02 = lerp((gc[0] - gc[1]) - (gc[4] - gc[5]), (gc[2] - gc[3]) - (gc[6] - gc[7]), w1[1]);
+            const float h12 = lerp((gc[0] - gc[2]) - (gc[4] - gc[6]), (gc[1] - gc[3]) - (gc[5] - gc[7]), w1[0]);
+            acc[0] = fmaf(sc[0], fmaf(sv[1], h01, sv[2] * h02), acc[0]);
+            acc[1] = fmaf(sc[1], fmaf(sv[0], h01, sv[2] * h12), acc[1]);
+            acc[2] = fmaf(sc[2], fmaf(sv[0], h02, sv[1] * h12), acc[2]);
+        }
+    }
+#pragma unroll
+    for (int o = 1; o < kDxLanes; o <<= 1) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], o);
+    }
+    if (s < n) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            if (d % kDxLanes == j) dx2[3 * s + d] = acc[d];
+        }
+    }
+}
+
 }  // namespace
 
 // samples per block of a launch at n_levels levels (the tile that
@@ -446,5 +551,24 @@ extern "C" int nst_grid_encode_dx(const void* x, const void* rec, const void* ta
     const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
     grid_encode_dx_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)x, lv, (const float2*)table, (const float2*)dout, (float*)dx, n, n_levels);
+    return (int)cudaGetLastError();
+}
+
+
+// Kernel J: dh [N, L*2] and dx2 [N, 3] f32 from x [N, 3], F's level records
+// (as nst_grid_encode_dx), the table, g [N, L*2] (F's dout) and v [N, 3]
+// (the cotangent on F's output).
+extern "C" int nst_grid_encode_dx_bwd(const void* x, const void* rec, const void* table, const void* g,
+                                      const void* v, void* dh, void* dx2, int n, int n_levels, void* stream) {
+    if (n < 0 || n_levels < 0 || n_levels > kDxMaxLevels) return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaGetLastError();
+    DxLevels lv;
+    memset(&lv, 0, sizeof(lv));
+    memcpy(lv.r, rec, (size_t)n_levels * 4 * sizeof(int4));
+    const long long threads = (long long)n * kDxLanes;
+    const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
+    grid_encode_dx_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)x, lv, (const float2*)table, (const float2*)g, (const float*)v, (float2*)dh, (float*)dx2, n,
+        n_levels);
     return (int)cudaGetLastError();
 }

@@ -156,6 +156,8 @@ def load() -> ctypes.CDLL:
         lib.nst_grid_encode.restype = i
         lib.nst_grid_encode_dx.argtypes = [p, p, p, p, p, i, i, p]
         lib.nst_grid_encode_dx.restype = i
+        lib.nst_grid_encode_dx_bwd.argtypes = [p, p, p, p, p, p, p, i, i, p]
+        lib.nst_grid_encode_dx_bwd.restype = i
         lib.nst_grid_encode_tile.argtypes = [i]
         lib.nst_grid_encode_tile.restype = i
         lib.nst_fused_mlp.argtypes = [p, p, p, p, p, i, i, i, i, p]

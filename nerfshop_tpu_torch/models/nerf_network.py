@@ -102,21 +102,36 @@ class NerfNetwork(nn.Module):
 
 
 class _Density(nn.Module):
-    def __init__(self, model: NerfNetwork):
+    """``model.density`` (or ``model.density_features``) as a module's
+    forward, for ``functional_call``."""
+
+    def __init__(self, model: NerfNetwork, features: bool = False):
         super().__init__()
         self.model = model
+        self.features = features
 
     def forward(self, pos: torch.Tensor) -> torch.Tensor:
-        return self.model.density(pos)
+        return self.model.density_features(pos) if self.features else self.model.density(pos)
+
+
+def _call_with(mod: _Density, params: Optional[dict], pos: torch.Tensor) -> torch.Tensor:
+    if params is None:
+        return mod(pos)
+    return torch.func.functional_call(mod, {f"model.{k}": v for k, v in params.items()}, (pos,))
 
 
 def density_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor) -> torch.Tensor:
     """Activated density at warped ``pos`` with ``params`` (a state dict of
     ``model``, e.g. the EMA copy) in place of the model's own; the model's
     own when ``params`` is None."""
-    if params is None:
-        return model.density(pos)
-    return torch.func.functional_call(_Density(model), {f"model.{k}": v for k, v in params.items()}, (pos,))
+    return _call_with(_Density(model), params, pos)
+
+
+def density_features_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor) -> torch.Tensor:
+    """The density MLP's output features [N, F] at warped ``pos``
+    (``density_features``) with ``params`` in place of the model's own, as
+    :func:`density_with`."""
+    return _call_with(_Density(model, features=True), params, pos)
 
 
 def forward_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor, direction: torch.Tensor):

@@ -4,17 +4,19 @@ latlong and f-theta lenses, and training-pixel draws.
 Counterpart of ``nerfshop_tpu/ops/rays.py``: ``pixel_to_ray`` with
 ``_apply_distortion``/``iterative_undistort``, subpixel jitter and depth of
 field, ``latlong_to_dir``/``dir_to_latlong``, ``latlong_ray``,
-``ftheta_ray``, ``rays_for_image``, the uniform branch of
-``sample_training_pixels`` and ``rays_from_pixels`` without camera
-parameters or rolling shutter. Random draws are inputs
-(:func:`pixels_from_uniform`, ``subpixel_jitter``, ``dof_uv``) or come from
-an explicit generator.
+``ftheta_ray``, ``rays_for_image``, ``rodrigues`` / ``apply_pose_delta``,
+the uniform branch of ``sample_training_pixels`` and its error-map branch
+from given draws (:func:`pixels_from_error_map`), and
+``rays_from_pixels`` with the learnable camera parameters (pose deltas and
+the screen-space distortion map), without rolling shutter. Random draws
+are inputs (:func:`pixels_from_uniform`, :func:`pixels_from_error_map`,
+``subpixel_jitter``, ``dof_uv``) or come from an explicit generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -169,6 +171,33 @@ def rays_for_image(
     )
 
 
+def rodrigues(rotvec: torch.Tensor) -> torch.Tensor:
+    """[..., 3] axis-angle → [..., 3, 3] rotation matrices (the exp map),
+    written on the unnormalized vector with smooth coefficient functions so
+    that the gradient is finite at θ = 0, where the optimizer starts."""
+    vx, vy, vz = rotvec[..., 0], rotvec[..., 1], rotvec[..., 2]
+    zero = torch.zeros_like(vx)
+    K = torch.stack(
+        [torch.stack([zero, -vz, vy], -1), torch.stack([vz, zero, -vx], -1), torch.stack([-vy, vx, zero], -1)], -2
+    )
+    t2 = (rotvec * rotvec).sum(dim=-1)[..., None, None]
+    small = t2 < 1e-8
+    one = torch.ones_like(t2)
+    t = torch.sqrt(torch.where(small, one, t2))
+    a = torch.where(small, 1.0 - t2 / 6.0, torch.sin(t) / t)  # sin θ / θ
+    b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(t)) / torch.where(small, one, t2))
+    eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device).expand(K.shape)
+    return eye + a * K + b * (K @ K)
+
+
+def apply_pose_delta(xform: torch.Tensor, rot_delta: torch.Tensor, trans_delta: torch.Tensor) -> torch.Tensor:
+    """A [..., 3, 4] camera-to-world refined by an axis-angle rotation (left
+    multiplied) and a translation."""
+    rot = rodrigues(rot_delta) @ xform[..., :3, :3]
+    t = xform[..., :3, 3] + trans_delta
+    return torch.cat([rot, t[..., None]], dim=-1)
+
+
 def pixels_from_uniform(img_idx: torch.Tensor, u: torch.Tensor, images: torch.Tensor):
     """Uniform branch of sample_training_pixels from given draws:
     img_idx [n] int, u [n, 2] in [0,1) → (img_idx, pix [n, 2] float, targets [n, 4])."""
@@ -181,12 +210,78 @@ def pixels_from_uniform(img_idx: torch.Tensor, u: torch.Tensor, images: torch.Te
     return img_idx, pix, targets
 
 
+def error_map_cdf(error_map: torch.Tensor) -> torch.Tensor:
+    """Per-image error maps [N, h, w] → one increasing sequence [N·h·w]
+    (float64): image i's cells hold i + its normalized CDF over the cells'
+    weights ``error_map + 1e-8`` (the probabilities of JAX's categorical
+    over ``log(map + 1e-8)``). Built once a step, not once a ray."""
+    N = error_map.shape[0]
+    w = error_map.reshape(N, -1).double() + 1e-8
+    cdf = torch.cumsum(w, dim=1)
+    cdf = cdf / cdf[:, -1:]
+    return (cdf + torch.arange(N, dtype=torch.float64, device=cdf.device)[:, None]).reshape(-1)
+
+
+def error_map_cells(img_idx: torch.Tensor, u: torch.Tensor, cdf: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """Cells (row-major in the map) drawn by one uniform ``u`` [n] in [0, 1)
+    a ray through the per-image CDF of :func:`error_map_cdf` → [n] int64."""
+    i = img_idx.long()
+    cell = torch.searchsorted(cdf, i.double() + u.double(), right=True) - i * n_cells
+    return cell.clamp(0, n_cells - 1)
+
+
+def pixels_from_cells(cells: torch.Tensor, jitter: torch.Tensor, map_shape: Tuple[int, int], W: int, H: int):
+    """Error-map cells [n] and the cell jitter [n, 2] in [0, 1) → pixel
+    coordinates [n, 2] (float), as JAX's error-map branch maps them."""
+    eh, ew = map_shape
+    cy = torch.div(cells, ew, rounding_mode="floor").to(torch.float32)
+    cx = (cells % ew).to(torch.float32)
+    px = torch.floor((cx + jitter[:, 0]) / ew * float(W)).clamp(0.0, W - 1.0)
+    py = torch.floor((cy + jitter[:, 1]) / eh * float(H)).clamp(0.0, H - 1.0)
+    return torch.stack([px, py], dim=-1)
+
+
+def pixels_from_error_map(img_idx: torch.Tensor, u: torch.Tensor, error_map: torch.Tensor, images: torch.Tensor):
+    """Error-map branch of sample_training_pixels from given draws: img_idx
+    [n] int, u [n, 3] in [0, 1) (the cell's uniform, then the jitter in x
+    and y), error_map [N, h, w] → (img_idx, pix [n, 2] float, targets [n, 4])."""
+    N, H, W = images.shape[:3]
+    eh, ew = error_map.shape[1:]
+    cells = error_map_cells(img_idx, u[:, 0], error_map_cdf(error_map), eh * ew)
+    pix = pixels_from_cells(cells, u[:, 1:], (eh, ew), W, H)
+    ipix = pix.long()
+    return img_idx, pix, images[img_idx.long(), ipix[:, 1], ipix[:, 0]]
+
+
 def sample_training_pixels(n_rays: int, images: torch.Tensor, generator: torch.Generator):
     """Uniform (image, pixel) pairs drawn from ``generator`` → (img_idx, pix, targets)."""
     dev = images.device
     img_idx = torch.randint(0, images.shape[0], (n_rays,), generator=generator, device=dev)
     u = torch.rand((n_rays, 2), generator=generator, device=dev)
     return pixels_from_uniform(img_idx, u, images)
+
+
+def distortion_map_offset(dm: torch.Tensor, pix: torch.Tensor, resolution: torch.Tensor) -> torch.Tensor:
+    """The learnable screen-space offset [n, 2] (in normalized image units)
+    bilinearly sampled from ``dm`` [Hd, Wd, 2] at the pixels' UV, clamped at
+    the edges (JAX's ``rays_from_pixels``; the reference's
+    TrainableBuffer<2,2> distortion grid)."""
+    Hd, Wd = dm.shape[:2]
+    uv = pix / resolution
+    fu = uv[:, 0] * Wd - 0.5
+    fv = uv[:, 1] * Hd - 0.5
+    u0 = torch.floor(fu).to(torch.int64).clamp(0, Wd - 1)
+    v0 = torch.floor(fv).to(torch.int64).clamp(0, Hd - 1)
+    u1 = (u0 + 1).clamp(0, Wd - 1)
+    v1 = (v0 + 1).clamp(0, Hd - 1)
+    du = (fu - u0).clamp(0, 1)[:, None]
+    dv = (fv - v0).clamp(0, 1)[:, None]
+    return (
+        dm[v0, u0] * (1 - du) * (1 - dv)
+        + dm[v0, u1] * du * (1 - dv)
+        + dm[v1, u0] * (1 - du) * dv
+        + dm[v1, u1] * du * dv
+    )
 
 
 def rays_from_pixels(
@@ -197,8 +292,18 @@ def rays_from_pixels(
     principals: torch.Tensor,  # [N, 2]
     resolution: torch.Tensor,  # [2] (W, H)
     distortions: Optional[torch.Tensor] = None,  # [N, 4]
+    camera_params: Optional[Dict[str, torch.Tensor]] = None,
 ) -> RayBundle:
-    """Rays through the given pixels of the given images."""
+    """Rays through the given pixels of the given images, differentiable in
+    ``camera_params``: per-image pose deltas ``rot`` and ``trans`` [N, 3]
+    (applied per image, then gathered per ray) and, where it has one, the
+    shared ``distortion_map`` [Hd, Wd, 2], whose offset moves the pixel
+    before the ray is made."""
     i = img_idx.long()
+    xf = xforms
+    if camera_params is not None:
+        xf = apply_pose_delta(xforms, camera_params["rot"], camera_params["trans"])
+        if "distortion_map" in camera_params:
+            pix = pix + distortion_map_offset(camera_params["distortion_map"], pix, resolution) * resolution
     dist = distortions[i] if distortions is not None else None
-    return pixel_to_ray(pix, xforms[i], focals[i], principals[i], resolution, dist)
+    return pixel_to_ray(pix, xf[i], focals[i], principals[i], resolution, dist)

@@ -14,7 +14,13 @@ positions (what JAX's autodiff takes through the custom VJP's ``d_w8``,
 ``table_ops.py:263-267``, and ``_brick_fracs``) is kernel F on a CUDA
 tensor (``csrc/grid_encode.cu``), which recomputes the cells and fractions
 from x; the backward computes each of the two gradients only when autograd
-asks for it.
+asks for it. That position gradient is itself differentiable
+(:class:`GridEncodeDxFunction`): under ``create_graph`` its backward is
+kernel J (the encode's JVP and the position Hessian contracted with the
+output cotangent, what ``nerfshop_tpu/torch_interop.py:55`` takes by
+``jax.grad`` of the VJP), so a loss on ∂out/∂x (an eikonal term) reaches
+the positions and the output cotangent. A second-order gradient into the
+table is not computed and raises.
 """
 
 from __future__ import annotations
@@ -145,6 +151,125 @@ def grid_encode_dx(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor, enc
     return grid_encode_dx_cuda(table.detach().contiguous(), x.detach().contiguous(), dout.float().contiguous(), enc)
 
 
+def _check_table_second_order(table_needs_grad: bool) -> None:
+    """Raise when a gradient of d_x would have to reach the table."""
+    if table_needs_grad:
+        raise NotImplementedError(
+            "a second-order gradient into the hash table is not computed (JAX's torch_interop differentiates "
+            "the positions and the output cotangent only): detach the table, or pass the parameters as a "
+            "state dict, before taking a create_graph gradient through the encode"
+        )
+
+
+def grid_encode_dx_bwd_plain(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, v: torch.Tensor, enc):
+    """Plain version of kernel J, in closed form → (dh [N, L·F], d_x2 [N, D]):
+    the backward of d_x = J_enc(x)ᵀ g with respect to g and x, for the
+    cotangent v [N, D] on d_x. Per level, with w_c = Π_d (c_d ? w1_d :
+    1 − w1_d) and sc_d = scale where the axis moves (p0_d ≠ res − 1), else 0:
+    dh = Σ_d sc_d v_d Σ_c ∂w_c/∂w1_d · row_c, and d_x2_j = Σ_{i≠j} sc_i sc_j
+    v_i Σ_c ∂²w_c/∂w1_i∂w1_j ⟨g, row_c⟩ (the interpolation is linear in each
+    w1_d, so only mixed terms remain; the cell index has no derivative)."""
+    x, g, v, table = (t.detach().float() for t in (x, g, v, table))
+    N, L, D = x.shape[0], enc.n_levels, enc.n_input_dims
+    F = enc.n_features_per_level
+    idx, w1 = enc.brick_fracs(x)
+    shifts = enc.shift_table(x.device)
+    bits = torch.tensor([[(c >> d) & 1 for d in range(D)] for c in range(1 << D)], dtype=torch.bool, device=x.device)
+    sign = torch.where(bits, 1.0, -1.0)  # [C, D]: the sign of ∂w_c/∂w1_d
+    pairs = [(i, j) for i in range(D) for j in range(i + 1, D)]
+    dh = []
+    dx2 = torch.zeros_like(x)
+    for l in range(L):
+        m, res = enc.level_sizes[l], enc.level_res[l]
+        p = x * torch.full((), enc.level_scales[l], dtype=x.dtype, device=x.device) + 0.5
+        p0 = torch.floor(p).to(torch.int64).clamp(0, res - 1)
+        sc = torch.where(p0 != res - 1, enc.level_scales[l], 0.0).to(x.dtype)  # [N, D]
+        rows = table[(idx[l].long()[:, None] + shifts[l][None, :]) % m + enc.level_offsets[l]]  # [N, C, F]
+        f = torch.where(bits[None], w1[l][:, None, :], 1.0 - w1[l][:, None, :])  # [N, C, D]
+
+        def prod_except(*axes):
+            out = torch.ones_like(f[..., 0])
+            for e in range(D):
+                if e not in axes:
+                    out = out * f[..., e]
+            return out
+
+        dw = torch.stack([sign[:, d] * prod_except(d) for d in range(D)], dim=-1)  # [N, C, D]
+        jv = (dw * (sc * v)[:, None, :]).sum(-1)  # [N, C]: Σ_d ∂w_c/∂x_d v_d
+        dh.append((jv[..., None] * rows).sum(1))
+        gc = (rows * g[:, None, l * F : (l + 1) * F]).sum(-1)  # [N, C]: ⟨g, row_c⟩
+        for i, j in pairs:
+            h = (sign[:, i] * sign[:, j] * prod_except(i, j) * gc).sum(1) * sc[:, i] * sc[:, j]
+            dx2[:, i] = dx2[:, i] + v[:, j] * h
+            dx2[:, j] = dx2[:, j] + v[:, i] * h
+    return torch.cat(dh, dim=1), dx2
+
+
+@kernels.counted("launches")
+def grid_encode_dx_bwd_cuda(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, v: torch.Tensor, enc):
+    """Kernel J → (dh [N, L·2], d_x2 [N, 3]) f32 from x [N, 3], the table
+    [Σm, 2], kernel F's output cotangent g [N, L·2] and the cotangent v
+    [N, 3] on kernel F's output. Takes D = 3, F = 2 and at most
+    ``DX_MAX_LEVELS`` levels, and raises on anything else."""
+    dev = x.device
+    N = x.shape[0]
+    L = enc.n_levels
+    if enc.n_input_dims != 3 or enc.n_features_per_level != 2 or L > DX_MAX_LEVELS:
+        raise ValueError(f"grid_encode_dx_bwd kernel supports D=3, F=2 and at most {DX_MAX_LEVELS} levels only")
+    if dev.type != "cuda":
+        raise ValueError(f"grid_encode_dx_bwd kernel: x on {dev}, expected a CUDA device")
+    kernels.require(x, "x", torch.float32, (N, 3), dev)
+    kernels.require(table, "table", torch.float32, (enc.table_size, 2), dev)
+    kernels.require(g, "g", torch.float32, (N, L * 2), dev)
+    kernels.require(v, "v", torch.float32, (N, 3), dev)
+    if g.data_ptr() % 8:
+        g = g.clone()  # the kernel reads float2 pairs
+    rec = enc.kernel_records()
+    dh = torch.empty((N, L * 2), dtype=torch.float32, device=dev)
+    dx2 = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    err = kernels.load().nst_grid_encode_dx_bwd(
+        x.data_ptr(), rec.data_ptr(), table.data_ptr(), g.data_ptr(), v.data_ptr(), dh.data_ptr(), dx2.data_ptr(),
+        N, L, kernels.stream_ptr(dev),
+    )
+    kernels.check(err, "grid_encode_dx_bwd")
+    grid_encode_dx_bwd_cuda.launches += 1
+    return dh, dx2
+
+
+def grid_encode_dx_bwd(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, v: torch.Tensor, enc):
+    """(dh, d_x2) of ⟨grid_encode_dx(table, x, g), v⟩ with respect to g and
+    x. CPU tensors take the plain version; CUDA tensors launch kernel J or
+    raise."""
+    if x.device.type == "cpu":
+        return grid_encode_dx_bwd_plain(table, x, g, v, enc)
+    if x.device.type != "cuda":
+        raise ValueError(f"grid_encode_dx_bwd: unsupported device {x.device}")
+    return grid_encode_dx_bwd_cuda(
+        table.detach().contiguous(), x.detach().contiguous(), g.detach().float().contiguous(),
+        v.detach().float().contiguous(), enc,
+    )
+
+
+class GridEncodeDxFunction(torch.autograd.Function):
+    """(table, x, dout) → d_x [N, D] = J_enc(x)ᵀ dout (:func:`grid_encode_dx`:
+    kernel F on the card), differentiable in x and dout through
+    :func:`grid_encode_dx_bwd` (kernel J on the card). Outside grad mode it
+    is :func:`grid_encode_dx` and records nothing."""
+
+    @staticmethod
+    def forward(ctx, table, x, dout, enc):
+        ctx.save_for_backward(table, x, dout)
+        ctx.enc = enc
+        return grid_encode_dx(table, x, dout, enc)
+
+    @staticmethod
+    def backward(ctx, v):
+        _check_table_second_order(ctx.needs_input_grad[0])
+        table, x, dout = ctx.saved_tensors
+        dh, dx2 = grid_encode_dx_bwd(table, x, dout, v, ctx.enc)
+        return None, dx2 if ctx.needs_input_grad[1] else None, dh.view_as(dout) if ctx.needs_input_grad[2] else None, None
+
+
 def fold_corners(dB: torch.Tensor, enc, level: int) -> torch.Tensor:
     """One level's brick-row gradient dB [m, 2^D·F] → its canonical [m, F]
     gradient: each corner's column block rolled back by its slot shift and
@@ -185,7 +310,10 @@ class GridEncodeFunction(torch.autograd.Function):
     The forward writes the slots and fractions only when the table needs a
     gradient (the sort + kernel A + rolls of :func:`table_grad` read them),
     and keeps the table and x only when x needs one (:func:`grid_encode_dx`,
-    kernel F on the card)."""
+    kernel F on the card). Under ``create_graph`` that d_x is recorded
+    (:class:`GridEncodeDxFunction`, kernel J in its backward), unless the
+    table needs a gradient too: a second-order gradient into the table is
+    not computed, so that raises ``NotImplementedError``."""
 
     @staticmethod
     def forward(ctx, table, x, enc):
@@ -196,7 +324,8 @@ class GridEncodeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        _check_table_second_order(ctx.needs_input_grad[0] and torch.is_grad_enabled())
         idx, w1, *table_x = ctx.saved_tensors
         d_table = table_grad(idx, w1, dout, ctx.enc) if ctx.needs_input_grad[0] else None
-        d_x = grid_encode_dx(*table_x, dout, ctx.enc) if ctx.needs_input_grad[1] else None
+        d_x = GridEncodeDxFunction.apply(*table_x, dout, ctx.enc) if ctx.needs_input_grad[1] else None
         return d_table, d_x, None

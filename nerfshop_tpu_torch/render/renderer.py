@@ -26,8 +26,10 @@ position, the gradient taken by autograd per chunk through the encode's
 position gradient (kernel F on the card) with detached parameters, so that
 no table gradient is formed; as in JAX it evaluates every slot.
 
-Not ported, each raising ``NotImplementedError``: the envmap background
-and extra network dims. The tiled render paths stay with the JAX package.
+With an ``envmap`` (the trainable lat-long background) the shaded modes
+composite it behind transparent pixels, as JAX's per-ray renderer does.
+Not ported, raising ``NotImplementedError``: extra network dims. The tiled
+render paths stay with the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from nerfshop_tpu_torch.models.nerf_network import density_with, forward_with
 from nerfshop_tpu_torch.ops import composite as comp
 from nerfshop_tpu_torch.ops import coords, march
 from nerfshop_tpu_torch.ops import rays as rays_lib
+from nerfshop_tpu_torch.ops.envmap import sample_envmap
 from nerfshop_tpu_torch.ops.gather import take_rows
 
 NEAR_DISTANCE_RENDER = 0.05
@@ -182,8 +185,10 @@ def _eval_window(field, samples: march.SampleBatch, origins, directions, opts: R
     return sigma.reshape(R, K), rgb.reshape(R, K, 3)
 
 
-def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions, bg, operators=(), density=None):
-    """One pixel chunk → (rgba [R, 4], depth [R])."""
+def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions, bg, operators=(), density=None,
+                  envmap=None):
+    """One pixel chunk → (rgba [R, 4], depth [R]); with ``envmap`` the
+    shaded modes composite it behind transparent pixels (alpha 1)."""
     dev = origins.device
     aabb = coords.BoundingBox.from_aabb_scale(opts.aabb_scale, device=dev)
     R = origins.shape[0]
@@ -224,6 +229,10 @@ def _render_chunk(field, grid, fields, origins, directions, opts: RenderOptions,
         rgba = torch.cat([v[:, None] * ones3, torch.ones((R, 1), device=dev)], dim=-1)
     elif opts.mode == RenderMode.AO:
         rgba = torch.cat([res.opacity[:, None] * ones3, res.opacity[:, None]], dim=-1)
+    elif envmap is not None:
+        bg_ray = sample_envmap(envmap, directions)
+        rgba = torch.cat([res.rgb + res.transmittance[:, None] * bg_ray[:, :3],
+                          (res.opacity + res.transmittance)[:, None]], dim=-1)
     else:
         rgb_out = res.rgb + res.transmittance[:, None] * bg[:3]
         alpha = res.opacity + res.transmittance * bg[3]
@@ -260,9 +269,11 @@ def render_frame(
 ) -> FrameOutput:
     """Render one frame in pixel chunks of ``opts.chunk`` rays. ``params`` is
     a state dict of ``model`` (e.g. the EMA copy) or None for the model's
-    own parameters. ``lens`` is 'pinhole', 'ftheta' or 'latlong'."""
-    if envmap is not None:
-        raise NotImplementedError("the envmap background is not ported")
+    own parameters. ``lens`` is 'pinhole', 'ftheta' or 'latlong'. ``envmap``
+    [h, w, 4] (the trainable lat-long background) replaces the background
+    colour behind transparent pixels."""
+    if envmap is not None and (envmap.dim() != 3 or envmap.shape[-1] < 3):
+        raise ValueError(f"envmap: expected a lat-long map [h, w, 4], got shape {tuple(envmap.shape)}")
     if extra_dims is not None:
         raise NotImplementedError("extra network dims are not ported")
     W, H = resolution
@@ -289,7 +300,7 @@ def render_frame(
     for i in range(0, n + n_pad, chunk):
         rgba_c, depth_c = _render_chunk(
             field, grid, fields, origins[i : i + chunk], dirs[i : i + chunk], opts, bg, tuple(operators),
-            lambda p: density_with(model, params, p),
+            lambda p: density_with(model, params, p), envmap,
         )
         rgba.append(rgba_c)
         depth.append(depth_c)

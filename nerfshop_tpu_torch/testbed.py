@@ -7,7 +7,10 @@ with an in-memory ``NerfDataset``), ``train`` (chunks of up to 16 steps
 through ``train/nerf.py::make_train_loop``, one captured CUDA graph per
 chunk length on a CUDA device; a grid refresh every 16 steps, full during
 the first 256, the degenerate-training guards and the adaptive (rays, K)
-bucket), the camera API, ``render`` / ``render_dynamic``
+bucket; the ``nerf.training`` knobs ``optimize_extrinsics``,
+``optimize_distortion`` (through the extrinsics path), ``optimize_exposure``,
+``use_error_map`` and ``train_envmap``, and a scene's envmap, which the
+renders composite behind transparent pixels), the camera API, ``render`` / ``render_dynamic``
 / ``frame`` through the exact renderer, ``save_snapshot`` /
 ``load_snapshot`` in the native format, and the edit API (``begin_cage_edit``
 → a ``GrowingSelection``; ``add_edit_operator`` and its siblings, which
@@ -167,6 +170,8 @@ class Testbed:
         self._grid = None
         self._train_cfg = None
         self._trained_mask = None
+        #: the error map a training loop with ``use_error_map`` samples and updates
+        self._error_map = None
         self._step_ready = False
         #: training loops by (rays, K, chunk) of the current network and bucket
         self._loops: dict = {}
@@ -227,8 +232,6 @@ class Testbed:
 
     def set_training_data(self, ds) -> None:
         """Use an in-memory ``data.nerf_loader.NerfDataset``."""
-        if getattr(ds, "envmap_path", None):
-            raise NotImplementedError("envmap training is not ported")
         self._dataset = ds
         self.nerf.training.n_images_for_training = ds.n_images
         self._reset_network()
@@ -251,18 +254,35 @@ class Testbed:
             cfg, aabb_scale=aabb_scale, is_hdr=bool(ds is not None and ds.is_hdr),
             device=self.device, generator=self.generator,
         )
-        self._state = optim.TrainState(self._model, optim.build_optimizer(dict(cfg.get("optimizer", {}))))
         t = self.nerf.training
+        # the trainable envmap: the scene's envmap image, or a fresh one when
+        # the knob is set; the camera leaves when any camera knob is set
+        extra = {}
+        envmap_path = getattr(ds, "envmap_path", None) if ds is not None else None
+        train_envmap = bool(envmap_path) or bool(t.train_envmap)
+        if train_envmap:
+            from nerfshop_tpu_torch.ops import envmap as envmap_lib
+
+            extra["envmap"] = (
+                envmap_lib.load_envmap(envmap_path, self.device) if envmap_path else envmap_lib.create_envmap(device=self.device)
+            )
         self._train_cfg = nerf_train.NerfTrainConfig.for_aabb_scale(
             aabb_scale,
             loss_type=cfg.get("loss", {}).get("otype", "Huber"),
             near_distance=t.near_distance,
             random_bg=bool(t.random_bg_color),
-            train_envmap=bool(t.train_envmap),
+            train_envmap=train_envmap,
+            # the distortion map rides the differentiable rays, so it turns on the camera path too
             optimize_extrinsics=bool(t.optimize_extrinsics or t.optimize_distortion),
             optimize_exposure=bool(t.optimize_exposure),
             use_error_map=bool(t.use_error_map),
         )
+        if (self._train_cfg.optimize_extrinsics or self._train_cfg.optimize_exposure) and ds is not None:
+            extra.update(nerf_train.create_camera_params(
+                ds.n_images, distortion_map=bool(t.optimize_distortion), device=self.device
+            ))
+        self._state = optim.TrainState(self._model, optim.build_optimizer(dict(cfg.get("optimizer", {}))), extra)
+        self._error_map = None
         self.nerf.cone_angle_constant = self._train_cfg.cone_angle
         self._grid = grid_lib.OccupancyGrid.create(self._train_cfg.n_cascades, device=self.device)
         self._device_data = (
@@ -341,6 +361,10 @@ class Testbed:
             self._batch_slots = max(1 << 13, batch_size)
             self._k_bucket = self._train_cfg.k_samples
             self._build_step_fn(self._batch_slots // self._k_bucket, self._k_bucket)
+            if self._train_cfg.use_error_map:
+                self._error_map = nerf_train.create_error_map(
+                    self._dataset.n_images, self._train_cfg.error_map_resolution, device=self.device
+                )
 
         loss = float(self.stats.loss)
         remaining = n_steps
@@ -442,7 +466,9 @@ class Testbed:
         key = (self._train_cfg.n_rays_per_batch, self._train_cfg.k_samples, chunk)
         loop = self._loops.get(key)
         if loop is None:
-            loop = nerf_train.make_train_loop(self._state, self._grid, self._device_data, self._train_cfg, chunk)
+            loop = nerf_train.make_train_loop(
+                self._state, self._grid, self._device_data, self._train_cfg, chunk, error_map=self._error_map
+            )
             self._loops[key] = loop
         return loop
 
@@ -656,7 +682,7 @@ class Testbed:
             out = renderer.render_frame(
                 self._model, self.inference_params, self._grid, (width, height), t(cam), t(focal), t(principal),
                 distortion=dist, opts=opts, subpixel_jitter=jitter, lens=lens, ftheta_coeffs=ftheta, dof_uv=dof_uv,
-                operators=tuple(self._edit_operators),
+                operators=tuple(self._edit_operators), envmap=self._state.inference_extra.get("envmap"),
             )
             buf.accumulate(out.rgba, out.depth)
         self._last_depth = out.depth.cpu().numpy()

@@ -7,9 +7,16 @@ the JAX step on the same draws) and :func:`draw_step` draws them from a
 ``torch.Generator``. :func:`make_train_loop`, the counterpart of JAX's
 ``lax.scan`` of steps, runs a chunk of steps from draws made beforehand:
 captured once into a CUDA graph and replayed on a CUDA device, eagerly on
-the CPU. Error map, envmap, camera/exposure optimization, light
-directions and rolling shutter are not ported and raise
-``NotImplementedError``.
+the CPU. The training options of JAX's ``make_grad_fn`` are here: pose and
+distortion-map optimization (``optimize_extrinsics``: the position
+gradient reaches per-image pose deltas and the screen-space map through
+the differentiable rays; kernel F on the card), per-image exposure
+(``optimize_exposure``), the trainable envmap background
+(``train_envmap``) and error-map importance sampling (``use_error_map``).
+The camera and envmap leaves are parameters of the ``TrainState`` beside
+the model's (``train/optim.py``), and the error map is state of the loop,
+updated in place after each step. Light directions and rolling shutter are
+not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from nerfshop_tpu_torch.common import MIN_CONE_STEPSIZE, MIN_TRANSMITTANCE_EVAL,
 from nerfshop_tpu_torch.models import nerf_network as nn_lib
 from nerfshop_tpu_torch.models.nerf_network import NerfNetwork
 from nerfshop_tpu_torch.ops import composite as comp
-from nerfshop_tpu_torch.ops import coords, grid as grid_lib, march, rays as rays_lib
+from nerfshop_tpu_torch.ops import coords, envmap as envmap_lib, grid as grid_lib, march, rays as rays_lib
 from nerfshop_tpu_torch.train import losses as loss_lib
 from nerfshop_tpu_torch.train.optim import TrainState
 
@@ -40,6 +47,8 @@ class DeviceDataset(NamedTuple):
     focals: torch.Tensor  # [N, 2]
     principals: torch.Tensor  # [N, 2]
     distortions: torch.Tensor  # [N, 4]
+    #: per-image sharpness normalized to mean 1 (weights the error-map deposit)
+    sharpness: Optional[torch.Tensor] = None  # [N]
 
     @staticmethod
     def from_dataset(ds, device) -> "DeviceDataset":
@@ -53,12 +62,17 @@ class DeviceDataset(NamedTuple):
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
+        sharp = None
+        if getattr(ds, "sharpness", None) is not None:
+            s = np.asarray(ds.sharpness, np.float32)
+            sharp = t(s / max(float(s.mean()), 1e-9))
         return DeviceDataset(
             images=t(ds.images),
             xforms=t(ds.xforms),
             focals=t(ds.focal_matrix()),
             principals=t(ds.principal_matrix()),
             distortions=t(ds.distortion_matrix()),
+            sharpness=sharp,
         )
 
 
@@ -74,15 +88,17 @@ class NerfTrainConfig:
     aabb_scale: int = 1
     n_cascades: int = 1
     loss_type: str = "Huber"
+    #: per-image pose refinement; with a ``camera.distortion_map`` leaf, the
+    #: screen-space distortion map too (it rides the differentiable rays)
     optimize_extrinsics: bool = False
+    #: per-image log exposure scaling the targets
     optimize_exposure: bool = False
+    #: error-map importance sampling of the training pixels
     use_error_map: bool = False
+    error_map_resolution: int = 32
+    error_map_decay: float = 0.97
+    #: the trainable envmap (an ``envmap`` leaf) as the rays' background
     train_envmap: bool = False
-
-    def __post_init__(self):
-        for knob in ("optimize_extrinsics", "optimize_exposure", "use_error_map", "train_envmap"):
-            if getattr(self, knob):
-                raise NotImplementedError(f"{knob} is not ported")
 
     @staticmethod
     def for_aabb_scale(aabb_scale: int, **kw) -> "NerfTrainConfig":
@@ -138,6 +154,26 @@ def nerf_loss_fn(
     return loss, aux
 
 
+def create_camera_params(
+    n_images: int, distortion_map: bool = False, dmap_resolution: int = 32, device=None
+) -> Dict[str, torch.Tensor]:
+    """Learnable per-image pose and exposure refinements, and optionally the
+    shared screen-space distortion grid, as the ``camera.*`` leaves of a
+    ``TrainState`` (JAX's ``params["camera"]``), all zero."""
+    p = {
+        "camera.rot": torch.zeros((n_images, 3), device=device),
+        "camera.trans": torch.zeros((n_images, 3), device=device),
+        "camera.log_exposure": torch.zeros((n_images,), device=device),
+    }
+    if distortion_map:
+        p["camera.distortion_map"] = torch.zeros((dmap_resolution, dmap_resolution, 2), device=device)
+    return p
+
+
+def create_error_map(n_images: int, resolution: int = 32, device=None) -> torch.Tensor:
+    return torch.ones((n_images, resolution, resolution), dtype=torch.float32, device=device)
+
+
 def grads_from_draws(
     model: NerfNetwork,
     grid: grid_lib.OccupancyGrid,
@@ -148,36 +184,88 @@ def grads_from_draws(
     t_jitter: torch.Tensor,  # [R] in [0, 1)
     spread: torch.Tensor,  # [R, K] in [0, 1)
     bg: torch.Tensor,  # [R, 3]
+    extra: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], dict]:
     """Rays → training march → network → composite + loss → gradients of
-    every model parameter, from the given draws. Makes no random draws."""
+    every model parameter and of every ``extra`` leaf (``camera.*``,
+    ``envmap``: a ``TrainState``'s ``extra``), from the given draws. Makes
+    no random draws. With ``cfg.optimize_extrinsics`` the march takes the
+    rays with the gradient stopped and the network's positions come from
+    the same rays built differentiably (JAX's ``bundle0`` and ``bundle``);
+    a leaf the loss does not reach gets a zero gradient, as in JAX."""
+    extra = extra or {}
     aabb = coords.BoundingBox.from_aabb_scale(cfg.aabb_scale, device=pix.device)
     N, H, W = data.images.shape[:3]
     res = torch.stack([torch.full((), float(W), device=pix.device), torch.full((), float(H), device=pix.device)])
     ipix = pix.long()
     targets = data.images[img_idx.long(), ipix[:, 1], ipix[:, 0]]
-    bundle = rays_lib.rays_from_pixels(img_idx, pix, data.xforms, data.focals, data.principals, res, data.distortions)
+    cam = {k[len("camera."):]: v for k, v in extra.items() if k.startswith("camera.")}
+
+    def rays(camera_params=None):
+        return rays_lib.rays_from_pixels(
+            img_idx, pix, data.xforms, data.focals, data.principals, res, data.distortions, camera_params
+        )
+
+    if cfg.optimize_extrinsics and cam:
+        with torch.no_grad():
+            bundle0 = rays(cam)
+        bundle = rays(cam)
+    else:
+        bundle0 = bundle = rays()
     samples = march.march_rays_training(
-        bundle.origins, bundle.directions, grid.occupancy, aabb.min, aabb.max, cfg.cone_angle,
+        bundle0.origins, bundle0.directions, grid.occupancy, aabb.min, aabb.max, cfg.cone_angle,
         t_jitter, spread, t_start_min=min(0.05, cfg.near_distance),
         k_samples=cfg.k_samples, n_candidates=cfg.n_candidates,
     )
+    if cfg.train_envmap and "envmap" in extra:
+        bg = envmap_lib.sample_envmap(extra["envmap"], bundle.directions)[:, :3]
+    if cfg.optimize_exposure and cam:
+        scale = torch.exp(cam["log_exposure"][img_idx.long()])[:, None]
+        targets = torch.cat([targets[:, :3] * scale, targets[:, 3:]], dim=-1)
     loss, aux = nerf_loss_fn(
         model, samples, bundle.origins, bundle.directions, targets, bg, aabb,
         loss_lib.LOSSES[cfg.loss_type], cfg.min_transmittance,
         near_distance=cfg.near_distance, mean_grid_density=grid.mean_density,
     )
-    names, params = zip(*model.named_parameters())
-    grads = torch.autograd.grad(loss, params)
+    names, params = zip(*model.named_parameters(), *extra.items())
+    grads = torch.autograd.grad(loss, params, allow_unused=bool(extra))
+    # contiguous: a slice's gradient (the pose delta's translation) comes back as a
+    # strided view, which the fused Adam refuses
+    grads = [torch.zeros_like(p) if g is None else g.contiguous() for p, g in zip(params, grads)]
     aux["sample_overflow_frac"] = (samples.n >= cfg.k_samples).to(torch.float32).mean()
     return dict(zip(names, grads)), aux
 
 
+def error_map_deposit(error_map_shape, img_idx, pix, per_ray_loss, images_shape, sharpness=None) -> torch.Tensor:
+    """The step's deposit alone: each ray's loss (times its image's
+    sharpness) summed into its pixel's cell of its image's map."""
+    N, H, W = images_shape[:3]
+    eh, ew = error_map_shape[1:]
+    ex = torch.clamp((pix[:, 0] / W * ew).to(torch.int64), 0, ew - 1)
+    ey = torch.clamp((pix[:, 1] / H * eh).to(torch.int64), 0, eh - 1)
+    if sharpness is not None:
+        per_ray_loss = per_ray_loss * sharpness[img_idx.long()]
+    out = torch.zeros(tuple(error_map_shape), dtype=torch.float32, device=pix.device)
+    return out.index_put_((img_idx.long(), ey, ex), per_ray_loss.float(), accumulate=True)
+
+
+def update_error_map(error_map, img_idx, pix, per_ray_loss, images_shape, decay: float = 0.97, sharpness=None):
+    """The decayed map plus the step's deposit (a new tensor)."""
+    return error_map * decay + error_map_deposit(error_map.shape, img_idx, pix, per_ray_loss, images_shape, sharpness)
+
+
 def draw_step(cfg: NerfTrainConfig, data: DeviceDataset, generator: torch.Generator):
-    """The draws of one training step → (img_idx, pix, t_jitter, spread, bg)."""
+    """The draws of one training step → (img_idx, pix, t_jitter, spread, bg).
+    With the error map, ``pix`` is not a pixel yet but three uniforms a ray
+    [R, 3] (the cell's, then the jitter in the cell), which the step maps
+    through the map of its own time (:func:`pixels_of_step`)."""
     dev = data.images.device
     R, K = cfg.n_rays_per_batch, cfg.k_samples
-    img_idx, pix, _ = rays_lib.sample_training_pixels(R, data.images, generator)
+    img_idx = torch.randint(0, data.images.shape[0], (R,), generator=generator, device=dev)
+    if cfg.use_error_map:
+        pix = torch.rand((R, 3), generator=generator, device=dev)
+    else:
+        pix = rays_lib.pixels_from_uniform(img_idx, torch.rand((R, 2), generator=generator, device=dev), data.images)[1]
     t_jitter = torch.rand((R,), generator=generator, device=dev)
     spread = torch.rand((R, K), generator=generator, device=dev)
     if cfg.random_bg:
@@ -185,6 +273,15 @@ def draw_step(cfg: NerfTrainConfig, data: DeviceDataset, generator: torch.Genera
     else:
         bg = torch.zeros((R, 3), device=dev)
     return img_idx, pix, t_jitter, spread, bg
+
+
+def pixels_of_step(cfg: NerfTrainConfig, data: DeviceDataset, img_idx, pix_draw, error_map=None) -> torch.Tensor:
+    """A step's pixels [R, 2] from its ``pix`` draw: the draw itself, or
+    with the error map its three uniforms a ray through the per-image CDF
+    of ``error_map`` (built once a step)."""
+    if not cfg.use_error_map:
+        return pix_draw
+    return rays_lib.pixels_from_error_map(img_idx, pix_draw, error_map, data.images)[1]
 
 
 #: the per-step values a training loop returns, in the order of its buffer
@@ -204,19 +301,25 @@ class TrainLoop:
     initialization, cuBLAS's workspace) and puts the state back, then
     records the ``n_steps`` steps; the kernels' launch counters
     (:func:`nerfshop_tpu_torch.kernels.launch_counts`) are advanced by the
-    graph's launches at every replay and not by the capture."""
+    graph's launches at every replay and not by the capture. With
+    ``cfg.use_error_map`` the steps read and update ``error_map`` [N, h, w]
+    in place (the caller's tensor, kept across loops)."""
 
     def __init__(self, state: TrainState, grid: grid_lib.OccupancyGrid, data: DeviceDataset, cfg: NerfTrainConfig,
-                 n_steps: int, captured: bool):
+                 n_steps: int, captured: bool, error_map: Optional[torch.Tensor] = None):
         dev = data.images.device
         R, K = cfg.n_rays_per_batch, cfg.k_samples
         self.state, self.data, self.cfg, self.n_steps, self.captured = state, data, cfg, n_steps, captured
+        if cfg.use_error_map and error_map is None:
+            raise ValueError("use_error_map: the loop needs the error map it updates")
+        self.error_map = error_map if cfg.use_error_map else None
 
         def buf(*shape, dtype=torch.float32):
             return torch.zeros((n_steps, *shape), dtype=dtype, device=dev)
 
         #: (img_idx, pix, t_jitter, spread, bg) of every step, stacked
-        self.draws = (buf(R, dtype=torch.int64), buf(R, 2), buf(R), buf(R, K), buf(R, 3))
+        #: (``pix`` [R, 3] with the error map: :func:`draw_step`)
+        self.draws = (buf(R, dtype=torch.int64), buf(R, 3 if cfg.use_error_map else 2), buf(R), buf(R, K), buf(R, 3))
         # the steps read only the occupancy and the mean density
         self.grid = grid_lib.OccupancyGrid(None, grid.occupancy.clone(), grid.mean_density.clone())
         self.lr = buf()
@@ -265,8 +368,17 @@ class TrainLoop:
         return {name: out[:, j] for j, name in enumerate(LOOP_OUTPUTS)}
 
     def _step(self, i: int) -> None:
-        grads, aux = grads_from_draws(self.state.model, self.grid, self.data, self.cfg, *(d[i] for d in self.draws))
+        img_idx, pix_draw, *rest = (d[i] for d in self.draws)
+        pix = pixels_of_step(self.cfg, self.data, img_idx, pix_draw, self.error_map)
+        grads, aux = grads_from_draws(
+            self.state.model, self.grid, self.data, self.cfg, img_idx, pix, *rest, extra=self.state.extra
+        )
         self.state.update(grads, self.lr[i])
+        if self.error_map is not None:
+            self.error_map.copy_(update_error_map(
+                self.error_map, img_idx, pix, aux["per_ray_loss"], self.data.images.shape, self.cfg.error_map_decay,
+                self.data.sharpness,
+            ))
         aux["measured_samples"] = aux["measured_samples"].to(torch.float32)
         self.outputs[i].copy_(torch.stack([aux[name] for name in LOOP_OUTPUTS]))
 
@@ -277,9 +389,10 @@ class TrainLoop:
         with torch.cuda.stream(side), warnings.catch_warnings():
             # the warm-up is the one uncaptured step of a capturable Adam
             warnings.filterwarnings("ignore", message=".*capturable=True.*")
-            saved = [t.clone() for t in state.tensors()]
+            written = state.tensors() + ([self.error_map] if self.error_map is not None else [])
+            saved = [t.clone() for t in written]
             self._step(0)
-            for t, s in zip(state.tensors(), saved):
+            for t, s in zip(written, saved):
                 t.copy_(s)
             del saved
         torch.cuda.current_stream().wait_stream(side)
@@ -301,6 +414,7 @@ def make_train_loop(
     cfg: NerfTrainConfig,
     n_steps: int,
     captured: Optional[bool] = None,
+    error_map: Optional[torch.Tensor] = None,
 ) -> TrainLoop:
     """``n_steps`` optimization steps as one callable, ``loop(grid,
     generator)`` → per-step ``loss``, ``measured_samples``,
@@ -314,13 +428,14 @@ def make_train_loop(
     eagerly. ``captured=False`` asks for the eager steps on a CUDA device
     (to hold the graph to them); ``captured=True`` on the CPU raises.
     ``grid``'s shapes fix the loop's grid buffers; every call copies the
-    grid it is given into them."""
+    grid it is given into them. ``error_map`` is the map that a loop with
+    ``cfg.use_error_map`` samples from and updates in place."""
     dev = data.images.device
     if captured is None:
         captured = dev.type == "cuda"
     if captured and dev.type != "cuda":
         raise ValueError(f"a captured training loop needs a CUDA device; the data are on {dev}")
-    return TrainLoop(state, grid, data, cfg, n_steps, captured)
+    return TrainLoop(state, grid, data, cfg, n_steps, captured, error_map)
 
 
 def make_density_fn(

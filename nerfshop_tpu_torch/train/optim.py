@@ -73,17 +73,27 @@ def build_optimizer(cfg: dict) -> OptimizerSpec:
 class TrainState:
     """Module parameters + Adam state + EMA copy + step count.
 
+    ``extra`` holds parameters outside the module by name: the NeRF's
+    ``camera.*`` pose, exposure and distortion-map leaves and its
+    ``envmap`` (JAX keeps them in the same params pytree), each a leaf
+    tensor that Adam, the schedule and the EMA treat as the module's
+    parameters, as JAX's ``create_train_state`` does: one Adam at the
+    schedule's rate. Their EMA copy is ``inference_extra``;
+    ``inference_params`` and ``ema`` stay the module's.
+
     ``step`` is the host's count of applied steps (the schedule's argument);
     Adam's own count, which its bias correction reads, lives on the device."""
 
-    def __init__(self, model: nn.Module, spec: OptimizerSpec):
+    def __init__(self, model: nn.Module, spec: OptimizerSpec, extra: Optional[Dict[str, torch.Tensor]] = None):
         self.model = model
         self.spec = spec
         a = spec.adam
-        self.params = [p for _, p in model.named_parameters()]
-        dev = self.params[0].device
+        self.extra = {k: v.detach().clone().float().requires_grad_(True) for k, v in (extra or {}).items()}
+        #: (name, parameter) of the module's parameters, then the extra leaves
+        self.named = list(model.named_parameters()) + list(self.extra.items())
+        self.params = [p for _, p in self.named]
         #: the learning rate of the next step, written by :meth:`update`
-        self.lr = torch.full((), spec.schedule(0), dtype=torch.float32, device=dev)
+        self.lr = torch.full((), spec.schedule(0), dtype=torch.float32, device=self.params[0].device)
         self.optimizer = torch.optim.Adam(
             self.params,
             lr=self.lr,
@@ -102,8 +112,10 @@ class TrainState:
                 "exp_avg_sq": torch.zeros_like(p),
             }
         self.ema: Optional[Dict[str, torch.Tensor]] = None
+        self.extra_ema: Dict[str, torch.Tensor] = {}
         if spec.ema_decay:
             self.ema = {k: v.detach().clone() for k, v in model.named_parameters()}
+            self.extra_ema = {k: v.detach().clone() for k, v in self.extra.items()}
         self.step = 0
 
     @property
@@ -113,20 +125,27 @@ class TrainState:
             return self.ema
         return {k: v.detach() for k, v in self.model.named_parameters()}
 
+    @property
+    def inference_extra(self) -> Dict[str, torch.Tensor]:
+        """The extra leaves' EMA where there is an EMA, else the live ones."""
+        if self.ema is not None:
+            return self.extra_ema
+        return {k: v.detach() for k, v in self.extra.items()}
+
     def tensors(self) -> List[torch.Tensor]:
         """Every tensor a step writes: parameters, Adam's state, the EMA
         copy and the learning rate."""
         out = [p.data for p in self.params] + [self.lr]
         for p in self.params:
             out += list(self.optimizer.state[p].values())
-        return out + (list(self.ema.values()) if self.ema is not None else [])
+        return out + (list(self.ema.values()) + list(self.extra_ema.values()) if self.ema is not None else [])
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], lr: Optional[torch.Tensor] = None) -> None:
         """One Adam + EMA step on the device alone, at learning rate ``lr``
         (a 0-d tensor on the parameters' device) or, without it, at the one
         already in ``self.lr``. ``step`` is not counted."""
-        for name, p in self.model.named_parameters():
+        for name, p in self.named:
             p.grad = grads[name]
         if lr is not None:
             self.lr.copy_(lr)
@@ -134,7 +153,8 @@ class TrainState:
         for p in self.params:
             p.grad = None
         if self.ema is not None:
-            torch._foreach_lerp_(list(self.ema.values()), self.params, 1.0 - self.spec.ema_decay)
+            torch._foreach_lerp_(list(self.ema.values()) + list(self.extra_ema.values()), self.params,
+                                 1.0 - self.spec.ema_decay)
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> None:
         """One step at the schedule's learning rate for ``step``, counted."""

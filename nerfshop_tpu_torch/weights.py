@@ -6,6 +6,9 @@ The JAX ``NerfNetwork.init`` pytree, converted to numpy, has the leaves
 ``NerfNetwork`` names the same tensors ``pos_encoding.table``,
 ``density_mlp.weights.i`` and ``rgb_mlp.weights.i``, so
 ``model.load_state_dict(params_from_jax(tree))`` loads them slot for slot.
+The training leaves outside the network, JAX's ``camera`` (``rot``,
+``trans``, ``log_exposure``, ``distortion_map``) and ``envmap``, come
+across as ``camera.rot`` … and ``envmap`` (a ``TrainState``'s ``extra``).
 The Image, SDF and Volume models (JAX ``ImageModel``, ``SdfModel``,
 ``VolumeModel``) have the leaves ``encoding/table`` and
 ``network/weights/i``; :func:`field_params_from_jax` and
@@ -42,12 +45,17 @@ def params_from_jax(tree: dict, device=None) -> Dict[str, torch.Tensor]:
     for mlp in _MLPS:
         for i, w in enumerate(tree[mlp]["weights"]):
             out[f"{mlp}.weights.{i}"] = t(w)
+    for k, a in tree.get("camera", {}).items():
+        out[f"camera.{k}"] = t(a)
+    if "envmap" in tree:
+        out["envmap"] = t(tree["envmap"])
     return out
 
 
 def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
-    """The port's state dict → JAX params pytree with numpy leaves (without
-    ``dir_encoding``, which has no trainable leaves)."""
+    """The port's state dict (with any ``camera.*`` and ``envmap`` leaves) →
+    JAX params pytree with numpy leaves (without ``dir_encoding``, which has
+    no trainable leaves)."""
 
     def np_of(t):
         return t.detach().cpu().numpy().astype(np.float32)
@@ -56,6 +64,11 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
     for mlp in _MLPS:
         n = sum(1 for k in state if k.startswith(f"{mlp}.weights."))
         tree[mlp] = {"weights": [np_of(state[f"{mlp}.weights.{i}"]) for i in range(n)]}
+    camera = {k[len("camera."):]: np_of(v) for k, v in state.items() if k.startswith("camera.")}
+    if camera:
+        tree["camera"] = camera
+    if "envmap" in state:
+        tree["envmap"] = np_of(state["envmap"])
     return tree
 
 

@@ -581,7 +581,7 @@ def save_chunk(dev, path: Path) -> None:
     """``--save-chunk``: train the smoke's model, render one 1080p frame of the
     render view and save the positions its middle chunk encoded, with the
     trained table."""
-    tb, _, _, _ = chip_smoke.phase_main_path(dev)
+    tb, *_ = chip_smoke.phase_main_path(dev)
     tb.set_look_at(eye=chip_smoke.CENTER + np.array([0.9, -0.9, 0.5], np.float32))
     enc = tb.model.pos_encoding
     with chip_smoke.encode_input_of_call(enc, chip_smoke.middle_chunk(W, H)) as kept:
@@ -654,7 +654,7 @@ def save_edit(dev, out: Path) -> None:
     cage moved +0.18 in x, an affine duplicate on top, seen from the side),
     render the edited frame and save the edits file and the positions and
     directions its middle chunk sent through the moved cage."""
-    tb, focal, principal, _ = chip_smoke.phase_main_path(dev)
+    tb, focal, principal, *_ = chip_smoke.phase_main_path(dev)
     gs, _, _, summary = chip_smoke.scribble_cage(tb, focal, principal)
     print(f"[profile] edit: {summary}", flush=True)
     tb.set_look_at(eye=chip_smoke.SIDE_EYE)
@@ -809,7 +809,7 @@ def main() -> None:
         if args.sdf:
             profile_sdf_train(tb, args.out)
         return
-    tb, focal, principal, _ = chip_smoke.phase_main_path(dev)
+    tb, focal, principal, *_ = chip_smoke.phase_main_path(dev)
     print(f"[profile] card: {smi}")
     if args.train:
         profile_train(tb, args.out)

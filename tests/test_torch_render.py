@@ -217,7 +217,9 @@ def test_unported_options_raise(scene, what):
         kw["operators"] = (CageDeformationOp(*([None] * 9), copy_mode=False, membrane=object()),)
         error = TypeError
     elif what == "envmap":
-        kw["envmap"] = torch.zeros(4, 8, 4)
+        # the envmap background is ported; a map that is not [h, w, 4] raises
+        kw["envmap"] = torch.zeros(4, 8)
+        error = ValueError
     else:
         kw["extra_dims"] = torch.zeros(3)
     xf = torch.from_numpy(look_at(CENTER + np.array([1.1, -0.9, 0.4], np.float32)))
