@@ -62,7 +62,10 @@ Phases, each printing one line of its own numbers:
      ``bwd_bwd_input_density`` and an eikonal-style step (kernel J once per
      second-order backward), all finite and, on every 8th position, held to
      the plain route on the CPU; kernel J against its plain version on the
-     inputs of the module's double backward, timed beside its bound;
+     inputs of the module's double backward and at its edges (N = 1, 129
+     and 12345, the table's first 15 levels, positions on the box's faces
+     and at exactly 1), each twice and bit-equal, timed beside its bound
+     with its registers and shared memory;
  11a''. [train-extras]: the sphere's views, 12 as opaque photos over black
      and 4 with transparent targets over the envmap, every view's pose
      perturbed (0.02 rad, 0.02 units) and 4 views darkened by 0.8, trained
@@ -1323,6 +1326,103 @@ def density_positions(tb):
     return torch.cat([uniform, near]).contiguous(), lo, hi
 
 
+def density_inputs(tb):
+    """[density]'s inputs: :func:`density_positions`, the density module
+    over ``tb``'s EMA weights, and the seeded cotangents of its calls →
+    (positions, box lo, box hi, module, d_out, d_dpos)."""
+    from nerfshop_tpu_torch.torch_interop import NerfDensityModule
+
+    dev = tb.device
+    x, lo, hi = density_positions(tb)
+    N = x.shape[0]
+    mod = NerfDensityModule(tb.model, tb.inference_params)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(G_SEED + 1)
+    d_out = torch.randn((N, mod.n_density_output_dims), generator=gen, device=dev)
+    d_dpos = torch.randn((N, 3), generator=gen, device=dev)
+    return x, lo, hi, mod, d_out, d_dpos
+
+
+def eikonal_step(mod, x):
+    """The positions' gradient of mean((|∇σ| − 1)²), σ the module's raw
+    density at ``x`` (its double backward) → (loss, gradient)."""
+    p = x.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(mod(p)[:, 0].sum(), p, create_graph=True)
+    eik = ((grad.norm(dim=-1) - 1.0) ** 2).mean()
+    (g_eik,) = torch.autograd.grad(eik, p)
+    return eik, g_eik
+
+
+@contextlib.contextmanager
+def j_spy():
+    """Within it, every call of ``table_ops.grid_encode_dx_bwd`` (kernel J's
+    dispatch) records its (table, x, g, v) in the list it yields."""
+    from nerfshop_tpu_torch.ops import table_ops
+
+    calls, dispatch = [], table_ops.grid_encode_dx_bwd
+
+    def spy(table, xx, g, v, enc_):
+        calls.append((table.detach(), xx.detach().contiguous(), g.detach().float().contiguous(),
+                      v.detach().float().contiguous()))
+        return dispatch(table, xx, g, v, enc_)
+
+    table_ops.grid_encode_dx_bwd = spy
+    try:
+        yield calls
+    finally:
+        table_ops.grid_encode_dx_bwd = dispatch
+
+
+def level_prefix(enc, L: int):
+    """``enc`` cut to its first ``L`` levels over the same table: the same
+    level records and rows (a shallow copy with caches of its own)."""
+    import copy
+
+    sub = copy.copy(enc)
+    sub.n_levels, sub._meta = L, {}
+    return sub
+
+
+def face_points(enc, x) -> torch.Tensor:
+    """``x`` with each axis in turn set to 0 and to exactly 1 on a share of
+    its rows (a face of the unit box; at 1 every level clamps the axis), the
+    box's corners 0 and 1, and :func:`boundary_points` (each level's last
+    cell)."""
+    x = x.clone()
+    n = x.shape[0] // 8
+    for d in range(3):
+        x[2 * d * n : (2 * d + 1) * n, d] = 0.0
+        x[(2 * d + 1) * n : (2 * d + 2) * n, d] = 1.0
+    x[6 * n] = 0.0
+    x[6 * n + 1] = 1.0
+    return torch.cat([boundary_points(enc, x.device), x]).contiguous()
+
+
+def j_case(label, enc, table, x, g, v):
+    """Kernel J against its plain version on (x, g, v): dh and d_x2 within
+    :data:`J_TOL` of their max, finite, and two runs bit-equal → (max |Δdh|,
+    max |Δd_x2|, dh, d_x2)."""
+    from nerfshop_tpu_torch.ops import table_ops
+
+    N, L = x.shape[0], enc.n_levels
+    got_h, got_x = table_ops.grid_encode_dx_bwd_cuda(table, x, g, v, enc)
+    again_h, again_x = table_ops.grid_encode_dx_bwd_cuda(table, x, g, v, enc)
+    ref_h, ref_x = table_ops.grid_encode_dx_bwd_plain(table, x, g, v, enc)
+    torch.cuda.synchronize()
+    check(got_h.shape == (N, 2 * L) and got_x.shape == (N, 3) and bool(torch.isfinite(got_h).all())
+          and bool(torch.isfinite(got_x).all()), f"kernel J ({label}): an output of the wrong shape or not finite")
+    check(torch.equal(got_h, again_h) and torch.equal(got_x, again_x), f"kernel J ({label}): two runs differ")
+    err_h, err_x = float((got_h - ref_h).abs().max()), float((got_x - ref_x).abs().max())
+    scale_h, scale_x = max(float(ref_h.abs().max()), 1e-30), max(float(ref_x.abs().max()), 1e-30)
+    check(err_h <= J_TOL * scale_h and err_x <= J_TOL * scale_x,
+          f"kernel J disagrees ({label}): dh {err_h:.3e} of {scale_h:.3e}, d_x2 {err_x:.3e} of {scale_x:.3e} "
+          f"(bound {J_TOL})")
+    print(f"[density] kernel J, {label}, N={N} L={L}: max |delta| dh {err_h:.3e} = {err_h / scale_h:.3e} of max "
+          f"|dh|, d_x2 {err_x:.3e} = {err_x / scale_x:.3e} of max |d_x2| (bound {J_TOL}); two runs bit-equal",
+          flush=True)
+    return err_h, err_x, got_h, got_x
+
+
 def rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm((a - b).double()) / torch.clamp_min(torch.linalg.vector_norm(b.double()), 1e-30))
 
@@ -1334,34 +1434,21 @@ def phase_density(tb):
     eikonal-style step (the positions' gradient of mean((|∇σ| − 1)²), σ the
     raw density); kernel J once per second-order backward; every output
     finite and, on every 8th position, held to the plain route (the model
-    copied to the CPU); kernel J alone against its plain version on the
-    inputs the module's double backward gave it, timed beside its bound →
-    (J's kernels-line numbers, the path's launches)."""
+    copied to the CPU); kernel J alone against its plain version
+    (:func:`j_case`) on the inputs the module's double backward gave it and
+    at its edges, timed beside its bound → (J's kernels-line numbers, the
+    path's launches)."""
     import copy
 
     from nerfshop_tpu_torch.ops import table_ops
     from nerfshop_tpu_torch.torch_interop import NerfDensityModule
 
-    dev = tb.device
-    x, lo, hi = density_positions(tb)
+    x, lo, hi, mod, d_out, d_dpos = density_inputs(tb)
     N = x.shape[0]
     enc = tb.model.pos_encoding
-    mod = NerfDensityModule(tb.model, tb.inference_params)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(G_SEED + 1)
-    d_out = torch.randn((N, mod.n_density_output_dims), generator=gen, device=dev)
-    d_dpos = torch.randn((N, 3), generator=gen, device=dev)
-    j_inputs, dispatch = [], table_ops.grid_encode_dx_bwd
-
-    def spy(table, xx, g, v, enc_):
-        j_inputs.append((table.detach(), xx.detach().contiguous(), g.detach().float().contiguous(),
-                         v.detach().float().contiguous()))
-        return dispatch(table, xx, g, v, enc_)
-
     torch.cuda.synchronize()
     reset_launches()
-    table_ops.grid_encode_dx_bwd = spy
-    try:
+    with j_spy() as j_inputs:
         t0 = time.perf_counter()
         feats = mod.fns.fwd_density(x)
         torch.cuda.synchronize()
@@ -1373,14 +1460,9 @@ def phase_density(tb):
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         api = read_launches()
-        p = x.clone().requires_grad_(True)
-        (grad,) = torch.autograd.grad(mod(p)[:, 0].sum(), p, create_graph=True)
-        eik = ((grad.norm(dim=-1) - 1.0) ** 2).mean()
-        (g_eik,) = torch.autograd.grad(eik, p)
+        eik, g_eik = eikonal_step(mod, x)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
-    finally:
-        table_ops.grid_encode_dx_bwd = dispatch
     launches = read_launches()
     outs = {"fwd": feats, "bwd": g1, "d_pos2": d_pos2, "d_dout": d_dout, "eikonal grad": g_eik}
     check(all(bool(torch.isfinite(t).all()) for t in outs.values()) and math.isfinite(float(eik.detach())),
@@ -1401,15 +1483,18 @@ def phase_density(tb):
     check(all(e <= DENSITY_TOL for e in errs.values()),
           f"[density] the module disagrees with its plain route: {errs} (bound {DENSITY_TOL})")
 
-    # kernel J alone on the inputs of the module's double backward
+    # kernel J alone on the inputs of the module's double backward, then at
+    # its edges
     table, xx, g, v = j_inputs[0]
-    got_h, got_x = table_ops.grid_encode_dx_bwd_cuda(table, xx, g, v, enc)
-    ref_h, ref_x = table_ops.grid_encode_dx_bwd_plain(table, xx, g, v, enc)
-    torch.cuda.synchronize()
-    err_h, err_x = float((got_h - ref_h).abs().max()), float((got_x - ref_x).abs().max())
-    scale_h, scale_x = float(ref_h.abs().max()), float(ref_x.abs().max())
-    check(err_h <= J_TOL * scale_h and err_x <= J_TOL * scale_x,
-          f"kernel J disagrees: dh {err_h:.3e} of {scale_h:.3e}, d_x2 {err_x:.3e} of {scale_x:.3e} (bound {J_TOL})")
+    err_h, err_x, got_h, got_x = j_case("module inputs", enc, table, xx, g, v)
+    for label, n in (("the first position", 1), ("the first 129 (not a multiple of a block's samples)", 129),
+                     ("the first 12345", 12345)):
+        j_case(label, enc, table, xx[:n].contiguous(), g[:n].contiguous(), v[:n].contiguous())
+    j_case("L = 15 (the table's first 15 levels)", level_prefix(enc, 15), table, xx, g[:, :30].contiguous(), v)
+    xf = face_points(enc, xx[: 1 << 14])
+    j_case("positions on the box's faces, at 0 and exactly 1, and on every level's last cell", enc, table, xf,
+           g[: xf.shape[0]].contiguous(), v[: xf.shape[0]].contiguous())
+    attrs = table_ops.grid_encode_dx_bwd_attrs(enc.n_levels)
     ms, dev_ms = both_ms(lambda: table_ops.grid_encode_dx_bwd_cuda(table, xx, g, v, enc))
     plain_ms = median_ms(lambda: table_ops.grid_encode_dx_bwd_plain(table, xx, g, v, enc))
     touched = touched_rows(enc, enc.brick_fracs(xx)[0])
@@ -1429,10 +1514,11 @@ def phase_density(tb):
         flush=True,
     )
     print(
-        f"[density] kernel J N={xx.shape[0]} L={enc.n_levels}: max |delta| dh {err_h:.3e} = {err_h / scale_h:.3e} of "
-        f"max |dh|, d_x2 {err_x:.3e} = {err_x / scale_x:.3e} of max |d_x2| (bound {J_TOL}); kernel {ms:.4f} ms "
-        f"(device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, "
-        f"{touched} of {enc.table_size} table rows touched), device/bound {dev_ms / b_ms:.2f}; launches on the path "
+        f"[density] kernel J N={xx.shape[0]} L={enc.n_levels}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain "
+        f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table "
+        f"rows touched), device/bound {dev_ms / b_ms:.2f}; {attrs['registers']} registers, "
+        f"{attrs['local_bytes']} B local, {attrs['static_smem']} B static and {attrs['dynamic_smem']} B dynamic "
+        f"shared memory a block, {attrs['blocks_per_sm']} blocks of 256 threads an SM; launches on the path "
         f"{launches['grid_encode_dx_bwd']} (one per second-order backward); no library call computes it",
         flush=True,
     )

@@ -83,6 +83,7 @@
 // in play under 16; 16 wins at the frame shape, which every render, frame()
 // and edited-frame launch has (254 launches a 1080p frame), by more.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -397,86 +398,181 @@ grid_encode_dx_kernel(const float* __restrict__ x, const __grid_constant__ DxLev
 // jax.grad of <bwd(pos, d_out), d_dpos>). With F's output d_x = J_enc(x)^T g
 // and v the cotangent on it, per sample:
 //   dh [L, 2] = J_enc(x) v, the encode's JVP (the gradient with respect to g):
-//     dh_l = sum_d sc_d v_d dT_d, dT_d the factored derivative of the corner
-//     rows along axis d, for each of the two features;
+//     dh_l = sum_d sc_d v_d dT_d, dT_d the derivative of the level's
+//     trilinear interpolation along axis d, for each of the two features;
 //   d_x2 [3] = d/dx <J_enc(x)^T g, v>: the interpolation is linear in each
 //     w1_d, so only the mixed second derivatives remain; for the axis pair
-//     (i, j) with third axis k, H_ij = lerp over w1_k of the corner dots'
-//     mixed second difference, and d_x2_j += sc_i sc_j v_i H_ij (and i, j
-//     swapped). The cell index has no derivative, as in JAX.
+//     (i, j) with third axis k, H_ij = the corner rows' mixed second
+//     difference blended over w1_k, dotted with g, and d_x2_j += sc_i sc_j
+//     v_i H_ij (and i, j swapped). The cell index has no derivative, as in
+//     JAX.
 // What bounds it on the H100: bytes, as F. Per sample x, v and d_x2 12 B
 // each, g and dh 8L B each (292 B at L = 16), plus each table row the
-// corners touch, 8 B once: ~77 MB and the rows at 2^18 samples. The design
-// is F's (two lanes a sample, each a level at a time, the level records in
-// the launch's parameters, the 8 corner loads in flight before the
-// arithmetic); each lane writes its level's dh pair itself.
-__global__ void __launch_bounds__(kThreads)
+// corners touch, 8 B once: ~77 MB and the rows at 2^18 samples. At random
+// positions the 8 corner reads of a (sample, level) are scattered 32-byte
+// sectors through L2, as F's are.
+//
+// The first version (PR 15's) was F's shape: two lanes a sample, each a
+// level at a time, the level records in the launch's parameters, the 8
+// corner loads before the arithmetic, each lane reading its level's g pair
+// and writing its dh pair itself. 57 registers (64 allocated: 4 blocks of
+// 256 threads an SM), no stack, no shared memory; 0.3536-0.3551 ms device
+// at [density]'s 327,680 positions and 0.0640-0.0649 at its 2^16
+// near-surface ones alone (NVIDIA H100 80GB HBM3 at 700 W). What it lost:
+// the g and dh rows went 16 bytes a sample an instruction at a 128-byte
+// stride, each instruction touching 16 sectors and using half of each.
+// Neither its register count nor its ~97 float operations a level held it
+// back.
+//
+// This design, timed against the first by profile_render.py --dx-bwd
+// (PERF.md, Findings, also lists the variants measured and not kept: 4
+// lanes a sample, 5 or 6 blocks an SM, level groups, resident blocks,
+// positions sorted by Morton code):
+//   1. The level's trilinear form in its 7 coefficients a feature (ex, ey,
+//      ez, exy, exz, eyz, exyz: 12 subtractions): the three mixed second
+//      derivatives are one FMA each (exy + wz exyz ...), each first
+//      derivative two more (ex + wy H_xy + wz exz ...), and d_x2 dots the
+//      mixed terms with g instead of forming 8 corner dots: ~63 operations
+//      a level against ~97. Alone it gave no speed.
+//   2. The tile's g rows are staged in shared memory by 16-byte
+//      asynchronous copies (cp.async, contiguous, issued before the first
+//      level's corner loads; the block waits for them, once, after those
+//      loads are in flight), each lane writes its dh pair over its g pair
+//      there, and the block stores the tile's dh rows as contiguous 16-byte
+//      streaming stores at the end. The stage's rows are padded so that a
+//      half-warp's 8-byte accesses fall on distinct banks. This is the
+//      gain: 0.2633-0.2638 / 0.0515-0.0528 ms, at 64 registers and 4 blocks
+//      an SM (48 registers for 5 blocks spill and are slower).
+//   Two lanes a sample (levels j, j + 2, ...), the lanes' d_x2 sums
+//   combined by xor shuffles in a fixed order: the same bits every run.
+constexpr int kJTile = kThreads / kDxLanes;  // samples a block
+
+// the stage's row stride in float2 for n_levels levels: at least n_levels,
+// even, and = kDxLanes mod 16, so that a half-warp's 16 lanes (8 samples, 2
+// levels each) read 16 distinct 8-byte bank pairs
+__host__ __device__ inline int j_stride(int n_levels) { return n_levels + ((kDxLanes - n_levels) & 15); }
+
+__host__ __device__ inline size_t j_smem_bytes(int n_levels) {
+    return (size_t)kJTile * j_stride(n_levels) * sizeof(float2);
+}
+
+// one level of one sample, as kernel F: the folded fractions w1, each
+// axis's scale where it moves (0 where clamped) and the 8 corner rows
+__device__ __forceinline__ void j_corners(const DxLevels& lv, int l, const float xs[3], const float2* __restrict__ table,
+                                          float2 r[8], float w1[3], float sc[3]) {
+    const int4 hdr = lv.r[4 * l];  // res - 1, m, offset, scale
+    const int4 hk = lv.r[4 * l + 1];  // k1, k2, mask
+    const int4 sa = lv.r[4 * l + 2];  // corner shifts 0-3
+    const int4 sb = lv.r[4 * l + 3];  // corner shifts 4-7
+    const float scale = __int_as_float(hdr.w);
+    uint32_t cu[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+        const float p = __fadd_rn(__fmul_rn(xs[d], scale), 0.5f);
+        const float p0f = floorf(p);
+        const float frac = __fsub_rn(p, p0f);
+        const int p0 = min(max((int)p0f, 0), hdr.x);
+        const bool moves = p0 != hdr.x;
+        w1[d] = moves ? frac : 0.f;
+        sc[d] = moves ? scale : 0.f;
+        cu[d] = (uint32_t)p0;
+    }
+    const uint32_t m = (uint32_t)hdr.y;
+    const uint32_t base = (cu[0] + cu[1] * (uint32_t)hk.x + cu[2] * (uint32_t)hk.y) & (uint32_t)hk.z;
+    const float2* tl = table + hdr.z;
+    const uint32_t sh[8] = {(uint32_t)sa.x, (uint32_t)sa.y, (uint32_t)sa.z, (uint32_t)sa.w,
+                            (uint32_t)sb.x, (uint32_t)sb.y, (uint32_t)sb.z, (uint32_t)sb.w};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) r[c] = load_row(tl, wrap(base, sh[c], m));
+}
+
+// one feature's corner values a0..a7 (bit 0 x, bit 1 y, bit 2 z) at the
+// fractions w → its first derivatives along x, y, z (t) and its mixed second
+// derivatives xy, xz, yz (h): the trilinear form a0 + wx ex + wy ey + wz ez
+// + wx wy exy + wx wz exz + wy wz eyz + wx wy wz exyz differentiated
+__device__ __forceinline__ void j_feature(float a0, float a1, float a2, float a3, float a4, float a5, float a6,
+                                          float a7, const float w[3], float t[3], float h[3]) {
+    const float ex = a1 - a0, ey = a2 - a0, ez = a4 - a0;
+    const float d54 = a5 - a4;
+    const float exy = (a3 - a2) - ex, exz = d54 - ex, eyz = (a6 - a4) - ey;
+    const float exyz = ((a7 - a6) - d54) - exy;
+    h[0] = fmaf(w[2], exyz, exy);
+    h[1] = fmaf(w[1], exyz, exz);
+    h[2] = fmaf(w[0], exyz, eyz);
+    t[0] = fmaf(w[2], exz, fmaf(w[1], h[0], ex));
+    t[1] = fmaf(w[2], eyz, fmaf(w[0], h[0], ey));
+    t[2] = fmaf(w[1], eyz, fmaf(w[0], h[1], ez));
+}
+
+// a block: a tile of kJTile samples at every level
+__global__ void __launch_bounds__(kThreads, 4)
 grid_encode_dx_bwd_kernel(const float* __restrict__ x, const __grid_constant__ DxLevels lv,
                           const float2* __restrict__ table, const float2* __restrict__ g,
                           const float* __restrict__ v, float2* __restrict__ dh, float* __restrict__ dx2,
                           int n, int n_levels) {
-    const long long s = ((long long)blockIdx.x * kThreads + threadIdx.x) / kDxLanes;
+    extern __shared__ float4 j_smem[];
+    float2* s_g = reinterpret_cast<float2*>(j_smem);  // [tile, j_stride]: g, then dh over it
+    const long long n0 = (long long)blockIdx.x * kJTile;
+    const int rows = (int)min((long long)kJTile, (long long)n - n0);
+    const int s = threadIdx.x / kDxLanes;  // the sample in the tile
     const int j = threadIdx.x % kDxLanes;
-    float xs[3] = {0.f, 0.f, 0.f}, vs[3] = {0.f, 0.f, 0.f};
-    if (s < n) {
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-            xs[d] = __ldcs(x + 3 * s + d);
-            vs[d] = __ldcs(v + 3 * s + d);
+    const bool live = s < rows;
+    const long long sg = n0 + s;
+    const int stride = j_stride(n_levels);
+    const int pieces = rows * n_levels;  // float2 pieces of the tile's g (and dh) rows
+    const bool pairs = n_levels % 2 == 0;  // 16-byte pieces where the rows hold whole pairs
+    // the tile's g rows into the stage
+    const float2* src = g + n0 * n_levels;
+    if (pairs) {
+        const int half = n_levels / 2;
+#pragma unroll 1
+        for (int k = threadIdx.x; k < pieces / 2; k += kThreads) {
+            const int row = k / half, col = 2 * (k - row * half);
+            __pipeline_memcpy_async(s_g + row * stride + col, src + (size_t)row * n_levels + col, 16);
+        }
+    } else {
+#pragma unroll 1
+        for (int k = threadIdx.x; k < pieces; k += kThreads) {
+            const int row = k / n_levels, col = k - row * n_levels;
+            __pipeline_memcpy_async(s_g + row * stride + col, src + (size_t)row * n_levels + col, 8);
         }
     }
+    __pipeline_commit();
+    float xs[3] = {0.f, 0.f, 0.f}, vs[3] = {0.f, 0.f, 0.f};
+    if (live) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            xs[d] = __ldcs(x + 3 * sg + d);
+            vs[d] = __ldcs(v + 3 * sg + d);
+        }
+    }
+    float2* srow = s_g + s * stride;
     float acc[3] = {0.f, 0.f, 0.f};
-    if (s < n) {
-        const float2* grow = g + (size_t)s * n_levels;
-        float2* hrow = dh + (size_t)s * n_levels;
+    // a level at a time, its corner loads first; every thread runs every
+    // round, so that the block's one wait for the staged copies comes
+    // after the first round's loads are in flight
 #pragma unroll 1
-        for (int l0 = 0; l0 < n_levels; l0 += kDxLanes) {
-            const int l = l0 + j;
-            if (l >= n_levels) break;
-            const float2 gl = __ldcs(grow + l);
-            const int4 hdr = lv.r[4 * l];  // res - 1, m, offset, scale
-            const int4 hk = lv.r[4 * l + 1];  // k1, k2, mask
-            const int4 sa = lv.r[4 * l + 2];  // corner shifts 0-3
-            const int4 sb = lv.r[4 * l + 3];  // corner shifts 4-7
-            const float scale = __int_as_float(hdr.w);
-            float w1[3], sc[3];
-            uint32_t cu[3];
-#pragma unroll
-            for (int d = 0; d < 3; ++d) {
-                const float p = __fadd_rn(__fmul_rn(xs[d], scale), 0.5f);
-                const float p0f = floorf(p);
-                const float frac = __fsub_rn(p, p0f);
-                const int p0 = min(max((int)p0f, 0), hdr.x);
-                const bool moves = p0 != hdr.x;
-                w1[d] = moves ? frac : 0.f;
-                sc[d] = moves ? scale : 0.f;
-                cu[d] = (uint32_t)p0;
-            }
-            const uint32_t m = (uint32_t)hdr.y;
-            const uint32_t base = (cu[0] + cu[1] * (uint32_t)hk.x + cu[2] * (uint32_t)hk.y) & (uint32_t)hk.z;
-            const float2* tl = table + hdr.z;
-            const uint32_t sh[8] = {(uint32_t)sa.x, (uint32_t)sa.y, (uint32_t)sa.z, (uint32_t)sa.w,
-                                    (uint32_t)sb.x, (uint32_t)sb.y, (uint32_t)sb.z, (uint32_t)sb.w};
-            float2 r[8];
-#pragma unroll
-            for (int c = 0; c < 8; ++c) r[c] = load_row(tl, wrap(base, sh[c], m));
-            // dh: the rows' factored derivative along each axis, both features
+    for (int l0 = 0; l0 < n_levels; l0 += kDxLanes) {
+        const int l = l0 + j;
+        const bool work = live && l < n_levels;
+        float2 r[8];
+        float w1[3], sc[3];
+        if (work) j_corners(lv, l, xs, table, r, w1, sc);
+        if (l0 == 0) {
+            __pipeline_wait_prior(0);
+            __syncthreads();
+        }
+        if (work) {
+            const float2 gc = srow[l];
+            float tx[3], hx[3], ty[3], hy[3];
+            j_feature(r[0].x, r[1].x, r[2].x, r[3].x, r[4].x, r[5].x, r[6].x, r[7].x, w1, tx, hx);
+            j_feature(r[0].y, r[1].y, r[2].y, r[3].y, r[4].y, r[5].y, r[6].y, r[7].y, w1, ty, hy);
             const float sv[3] = {sc[0] * vs[0], sc[1] * vs[1], sc[2] * vs[2]};
-            float2 h;
-            h.x = sv[0] * lerp2(r[1].x - r[0].x, r[3].x - r[2].x, r[5].x - r[4].x, r[7].x - r[6].x, w1[1], w1[2]);
-            h.x = fmaf(sv[1], lerp2(r[2].x - r[0].x, r[3].x - r[1].x, r[6].x - r[4].x, r[7].x - r[5].x, w1[0], w1[2]), h.x);
-            h.x = fmaf(sv[2], lerp2(r[4].x - r[0].x, r[5].x - r[1].x, r[6].x - r[2].x, r[7].x - r[3].x, w1[0], w1[1]), h.x);
-            h.y = sv[0] * lerp2(r[1].y - r[0].y, r[3].y - r[2].y, r[5].y - r[4].y, r[7].y - r[6].y, w1[1], w1[2]);
-            h.y = fmaf(sv[1], lerp2(r[2].y - r[0].y, r[3].y - r[1].y, r[6].y - r[4].y, r[7].y - r[5].y, w1[0], w1[2]), h.y);
-            h.y = fmaf(sv[2], lerp2(r[4].y - r[0].y, r[5].y - r[1].y, r[6].y - r[2].y, r[7].y - r[3].y, w1[0], w1[1]), h.y);
-            __stcs(hrow + l, h);
-            // d_x2: the corner dots' mixed second differences
-            float gc[8];
-#pragma unroll
-            for (int c = 0; c < 8; ++c) gc[c] = fmaf(gl.x, r[c].x, gl.y * r[c].y);
-            const float h01 = lerp((gc[0] - gc[1]) - (gc[2] - gc[3]), (gc[4] - gc[5]) - (gc[6] - gc[7]), w1[2]);
-            const float h02 = lerp((gc[0] - gc[1]) - (gc[4] - gc[5]), (gc[2] - gc[3]) - (gc[6] - gc[7]), w1[1]);
-            const float h12 = lerp((gc[0] - gc[2]) - (gc[4] - gc[6]), (gc[1] - gc[3]) - (gc[5] - gc[7]), w1[0]);
+            srow[l] = make_float2(fmaf(sv[2], tx[2], fmaf(sv[1], tx[1], sv[0] * tx[0])),
+                                  fmaf(sv[2], ty[2], fmaf(sv[1], ty[1], sv[0] * ty[0])));
+            const float h01 = fmaf(gc.x, hx[0], gc.y * hy[0]);
+            const float h02 = fmaf(gc.x, hx[1], gc.y * hy[1]);
+            const float h12 = fmaf(gc.x, hx[2], gc.y * hy[2]);
             acc[0] = fmaf(sc[0], fmaf(sv[1], h01, sv[2] * h02), acc[0]);
             acc[1] = fmaf(sc[1], fmaf(sv[0], h01, sv[2] * h12), acc[1]);
             acc[2] = fmaf(sc[2], fmaf(sv[0], h02, sv[1] * h12), acc[2]);
@@ -487,10 +583,28 @@ grid_encode_dx_bwd_kernel(const float* __restrict__ x, const __grid_constant__ D
 #pragma unroll
         for (int d = 0; d < 3; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], o);
     }
-    if (s < n) {
+    if (live) {
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
-            if (d % kDxLanes == j) dx2[3 * s + d] = acc[d];
+            if (d % kDxLanes == j) dx2[3 * sg + d] = acc[d];
+        }
+    }
+    // the tile's dh rows from the stage: contiguous streaming stores
+    __syncthreads();
+    float2* dst = dh + n0 * n_levels;
+    if (pairs) {
+        const int half = n_levels / 2;
+#pragma unroll 1
+        for (int k = threadIdx.x; k < pieces / 2; k += kThreads) {
+            const int row = k / half, col = 2 * (k - row * half);
+            __stcs(reinterpret_cast<float4*>(dst + (size_t)row * n_levels + col),
+                   *reinterpret_cast<const float4*>(s_g + row * stride + col));
+        }
+    } else {
+#pragma unroll 1
+        for (int k = threadIdx.x; k < pieces; k += kThreads) {
+            const int row = k / n_levels, col = k - row * n_levels;
+            __stcs(dst + (size_t)row * n_levels + col, s_g[row * stride + col]);
         }
     }
 }
@@ -556,8 +670,8 @@ extern "C" int nst_grid_encode_dx(const void* x, const void* rec, const void* ta
 
 
 // Kernel J: dh [N, L*2] and dx2 [N, 3] f32 from x [N, 3], F's level records
-// (as nst_grid_encode_dx), the table, g [N, L*2] (F's dout) and v [N, 3]
-// (the cotangent on F's output).
+// (as nst_grid_encode_dx), the table, g [N, L*2] (F's dout; 16-byte aligned)
+// and v [N, 3] (the cotangent on F's output).
 extern "C" int nst_grid_encode_dx_bwd(const void* x, const void* rec, const void* table, const void* g,
                                       const void* v, void* dh, void* dx2, int n, int n_levels, void* stream) {
     if (n < 0 || n_levels < 0 || n_levels > kDxMaxLevels) return (int)cudaErrorInvalidValue;
@@ -565,10 +679,29 @@ extern "C" int nst_grid_encode_dx_bwd(const void* x, const void* rec, const void
     DxLevels lv;
     memset(&lv, 0, sizeof(lv));
     memcpy(lv.r, rec, (size_t)n_levels * 4 * sizeof(int4));
-    const long long threads = (long long)n * kDxLanes;
-    const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
-    grid_encode_dx_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+    const dim3 grid((unsigned)((n + (long long)kJTile - 1) / kJTile));
+    grid_encode_dx_bwd_kernel<<<grid, kThreads, j_smem_bytes(n_levels), (cudaStream_t)stream>>>(
         (const float*)x, lv, (const float2*)table, (const float2*)g, (const float*)v, (float2*)dh, (float*)dx2, n,
         n_levels);
     return (int)cudaGetLastError();
+}
+
+// Kernel J's build and launch at n_levels levels → out[5]: registers a
+// thread, static shared memory, local memory a thread (bytes;
+// cudaFuncGetAttributes), the dynamic shared memory a block and the blocks
+// an SM holds at it (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int nst_grid_encode_dx_bwd_attrs(int n_levels, int* out) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, grid_encode_dx_bwd_kernel);
+    if (e != cudaSuccess) return (int)e;
+    const size_t smem = j_smem_bytes(n_levels);
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, grid_encode_dx_bwd_kernel, kThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = a.numRegs;
+    out[1] = (int)a.sharedSizeBytes;
+    out[2] = (int)a.localSizeBytes;
+    out[3] = (int)smem;
+    out[4] = blocks;
+    return 0;
 }

@@ -6,7 +6,9 @@ MessagePack map of
 * ``version`` (2), ``generator``, ``mode``, ``network_config`` (JSON tree);
 * ``params`` and ``ema_params``: every leaf flattened under its JAX path
   (``/pos_encoding/table``, ``/density_mlp/weights/0``, …) as
-  ``{dtype, shape, data}``;
+  ``{dtype, shape, data}``, with a NeRF's training leaves outside the
+  network where it has them (``/camera/rot``, ``/camera/trans``,
+  ``/camera/log_exposure``, ``/camera/distortion_map``, ``/envmap``);
 * ``density_grid``: ``{n_cascades, layout: "morton_f32", data}``, each
   cascade in morton order, float32 (float16 snapshots are read too);
 * ``nerf``: dataset metadata, so a snapshot renders without the dataset;

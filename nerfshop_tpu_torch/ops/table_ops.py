@@ -25,6 +25,8 @@ table is not computed and raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from nerfshop_tpu_torch import kernels
@@ -222,8 +224,8 @@ def grid_encode_dx_bwd_cuda(table: torch.Tensor, x: torch.Tensor, g: torch.Tenso
     kernels.require(table, "table", torch.float32, (enc.table_size, 2), dev)
     kernels.require(g, "g", torch.float32, (N, L * 2), dev)
     kernels.require(v, "v", torch.float32, (N, 3), dev)
-    if g.data_ptr() % 8:
-        g = g.clone()  # the kernel reads float2 pairs
+    if not kernels.aligned16(g):
+        g = g.clone()  # the kernel stages g by 16-byte copies
     rec = enc.kernel_records()
     dh = torch.empty((N, L * 2), dtype=torch.float32, device=dev)
     dx2 = torch.empty((N, 3), dtype=torch.float32, device=dev)
@@ -234,6 +236,16 @@ def grid_encode_dx_bwd_cuda(table: torch.Tensor, x: torch.Tensor, g: torch.Tenso
     kernels.check(err, "grid_encode_dx_bwd")
     grid_encode_dx_bwd_cuda.launches += 1
     return dh, dx2
+
+
+def grid_encode_dx_bwd_attrs(n_levels: int) -> dict:
+    """Kernel J as built, for a launch at ``n_levels`` levels: registers a
+    thread, static shared memory, local memory a thread (bytes), dynamic
+    shared memory a block (bytes) and blocks an SM at it. Builds the kernels
+    and needs a CUDA device."""
+    out = (ctypes.c_int * 5)()
+    kernels.check(kernels.load().nst_grid_encode_dx_bwd_attrs(n_levels, ctypes.addressof(out)), "grid_encode_dx_bwd")
+    return dict(zip(("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm"), out))
 
 
 def grid_encode_dx_bwd(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, v: torch.Tensor, enc):

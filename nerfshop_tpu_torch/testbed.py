@@ -1196,7 +1196,8 @@ class Testbed:
     # --------------------------------------------------------------- snapshots
 
     def save_snapshot(self, path: str) -> None:
-        """Native snapshot (see :mod:`nerfshop_tpu_torch.io.snapshot`): params,
+        """Native snapshot (see :mod:`nerfshop_tpu_torch.io.snapshot`): params
+        with the training state's ``camera.*`` and ``envmap`` leaves, their
         EMA copy, density grid, dataset metadata and step."""
         from nerfshop_tpu_torch.io import snapshot as snap_lib
 
@@ -1213,12 +1214,13 @@ class Testbed:
                 "color_space": ds.color_space,
                 "xforms": np.asarray(ds.xforms).tolist(),
             }
+        state = self._state
         snap_lib.save_snapshot(
             path,
-            params=dict(self.model.named_parameters()),
+            params=dict(self.model.named_parameters(), **state.extra),
             network_config=json.loads(json.dumps(dict(self._network_config))),
             mode=self.mode.value,
-            ema_params=self._state.ema,
+            ema_params=None if state.ema is None else dict(state.ema, **state.extra_ema),
             density_grid=self._grid.density if self.mode == TestbedMode.Nerf else None,
             metadata=metadata,
             step=self.stats.step,
@@ -1228,7 +1230,12 @@ class Testbed:
         """Load a native snapshot: network config, params, the EMA copy (the
         params where the snapshot has none), the density grid with its
         bitfield recomputed, and the step. A snapshot without a dataset gets
-        a metadata-only dataset so that it renders."""
+        a metadata-only dataset so that it renders. The training state's
+        ``camera.*`` and ``envmap`` leaves, which the ``nerf.training`` knobs
+        and the scene decide as for training, are restored with the network
+        (live and EMA, in place); as in the JAX package, a leaf the snapshot
+        lacks raises ``KeyError`` and a snapshot leaf the state lacks is
+        ignored."""
         from nerfshop_tpu_torch.io import snapshot as snap_lib
         from nerfshop_tpu_torch.ops import grid as grid_lib
 
@@ -1252,17 +1259,21 @@ class Testbed:
                 color_space=meta.get("color_space", "srgb"),
             )
         self._reset_network()
-        # in place: the mode's own testbed (SDF, Volume) trains and renders
-        # these very tensors
-        model = self.model
-        params = snap_lib.restore_params(dict(model.named_parameters()), snap, "params")
+        # in place: the mode's own testbed (SDF, Volume) and a training loop
+        # captured later train and render these very tensors; every leaf is
+        # read before any is written
+        state = self._state
+        live = dict(self.model.named_parameters(), **state.extra)
+        params = snap_lib.restore_params(live, snap, "params")
+        ema_live = None if state.ema is None else dict(state.ema, **state.extra_ema)
+        ema = params
+        if ema_live is not None and "ema_params" in snap:
+            ema = snap_lib.restore_params(ema_live, snap, "ema_params")
         with torch.no_grad():
-            for name, p in model.named_parameters():
+            for name, p in live.items():
                 p.copy_(params[name])
-            if self._state.ema is not None:
-                ema = snap_lib.restore_params(self._state.ema, snap, "ema_params") if "ema_params" in snap else params
-                for name, e in self._state.ema.items():
-                    e.copy_(ema[name])
+            for name, e in (ema_live or {}).items():
+                e.copy_(ema[name])
         dg = snap.get("density_grid")
         if dg is not None and self._grid is not None and dg.shape[0] == self._grid.n_cascades:
             self._grid.density = torch.tensor(dg, device=self.device)

@@ -9,6 +9,8 @@ Run from the root of a checkout:
   python3 profile_render.py --save-edit DIR
   python3 profile_render.py --warp --edit DIR [--root DIR]
   python3 profile_render.py --composite --parent FILE
+  python3 profile_render.py --dx-bwd --parent FILE
+  python3 profile_render.py --density [--out FILE]
 
 Trains the model of ``chip_smoke.py`` (default config, 256 steps on the
 analytic sphere), renders one warm-up frame, times 3 unprofiled frames on
@@ -81,6 +83,26 @@ build_versions``, each kernel's registers, spills and shared memory
 printed), each view's raster with depth compared bit for bit, then each
 version timed without depth (as the preview calls it) by both of
 ``chip_smoke.both_ms``'s methods, old, new, new, old.
+
+With ``--dx-bwd --parent FILE`` it times kernel J (the encode's second
+order) of ``FILE`` (an older ``csrc/grid_encode.cu`` with the same
+``nst_grid_encode_dx_bwd`` entry, e.g. ``git show
+9fc2711:nerfshop_tpu_torch/csrc/grid_encode.cu >
+build/grid_encode_parent.cu``, the first version) against this
+checkout's on the inputs of [density]'s double backward (327,680
+positions, ``chip_smoke.density_inputs``) and on its 2^16 near-surface
+positions alone: both built into libraries of their own under
+``build/dx_bwd_versions/`` (``time_bvh.build_versions``, each kernel's
+registers, spills and shared memory printed), this checkout's held to the
+parent's within ``chip_smoke.J_TOL`` of max, each bit-equal over two runs,
+then timed by both of ``chip_smoke.both_ms``'s methods, old, new, new,
+old.
+
+With ``--density`` it profiles one eikonal step of [density]
+(``chip_smoke.eikonal_step`` at its 327,680 positions: the density
+module's double backward, kernel J once) after a warm-up step, as a frame
+is profiled (host wall, device busy, idle share, device time by kernel
+name), and prints the host operators with the most self time.
 
 With ``--save-chunk FILE`` it trains that model, renders one 1080p frame
 and saves the positions the frame's middle chunk encoded (8192 rays × K
@@ -428,6 +450,110 @@ def time_composite(tb, parent: Path) -> None:
     print(f"[composite] v1/v2 over the views: {min(ratios.values()):.2f}-{max(ratios.values()):.2f}x", flush=True)
 
 
+def time_dx_bwd(tb, parent: Path) -> None:
+    """Kernel J of ``parent`` (v1) against this checkout's (v2) on
+    [density]'s double-backward inputs of ``tb``."""
+    import ctypes
+
+    import time_bvh
+    from nerfshop_tpu_torch import kernels
+
+    v1, v2 = "v1 (parent)", "v2 (this checkout)"
+    libs = time_bvh.build_versions({v1: parent, v2: kernels.CSRC / "grid_encode.cu"},
+                                   kernels.BUILD_DIR.parent / "dx_bwd_versions", "dx_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for label, (lib, log) in libs.items():
+        lib.nst_grid_encode_dx_bwd.argtypes = [p] * 7 + [i, i, p]
+        lib.nst_grid_encode_dx_bwd.restype = i
+        print(f"[dx-bwd] ptxas {label}: {' | '.join(time_bvh.ptxas_lines(log, 'grid_encode_dx_bwd_kernel'))}",
+              flush=True)
+
+    x, _, _, mod, d_out, d_dpos = chip_smoke.density_inputs(tb)
+    with chip_smoke.j_spy() as calls:
+        mod.fns.bwd_bwd_input_density(x, d_out, d_dpos)
+    table, xx, g, v = calls[0]
+    enc = tb.model.pos_encoding
+    rec = enc.kernel_records()
+    dev = xx.device
+    stream = kernels.stream_ptr(dev)
+    n_near = 1 << 16  # density_positions: the near-surface positions come last
+
+    def run(label, x_, g_, v_, dh, dx2):
+        err = libs[label][0].nst_grid_encode_dx_bwd(
+            x_.data_ptr(), rec.data_ptr(), table.data_ptr(), g_.data_ptr(), v_.data_ptr(), dh.data_ptr(),
+            dx2.data_ptr(), x_.shape[0], enc.n_levels, stream)
+        kernels.check(err, label)
+
+    def outputs(n):
+        return torch.empty((n, 2 * enc.n_levels), device=dev), torch.empty((n, 3), device=dev)
+
+    cases = {f"[density]'s {xx.shape[0]} positions": (xx, g, v),
+             f"its {n_near} near-surface positions alone": tuple(t[-n_near:] for t in (xx, g, v))}
+    for case, (x_, g_, v_) in cases.items():
+        N = x_.shape[0]
+        outs = {}
+        for label in libs:
+            first, again = outputs(N), outputs(N)
+            run(label, x_, g_, v_, *first)
+            run(label, x_, g_, v_, *again)
+            torch.cuda.synchronize()
+            chip_smoke.check(all(torch.equal(a, b) for a, b in zip(first, again)), f"{label}: two runs differ ({case})")
+            outs[label] = first
+        ref_h, ref_x = outs[v1]
+        scale_h, scale_x = float(ref_h.abs().max()), float(ref_x.abs().max())
+        err_h = float((outs[v2][0] - ref_h).abs().max()) / scale_h
+        err_x = float((outs[v2][1] - ref_x).abs().max()) / scale_x
+        chip_smoke.check(max(err_h, err_x) <= chip_smoke.J_TOL, f"v2 differs from v1 ({case}): {err_h}, {err_x}")
+        times = {label: [] for label in libs}
+        for label in (v1, v2, v2, v1):
+            dh, dx2 = outputs(N)
+            times[label].append(chip_smoke.both_ms(lambda: run(label, x_, g_, v_, dh, dx2)))
+        touched = chip_smoke.touched_rows(enc, enc.brick_fracs(x_)[0])
+        b_ms, b_by = chip_smoke.bound(chip_smoke.nbytes(x_, g_, v_, *outs[v1]) + touched * 2 * 4)
+        med = {label: statistics.median(t[1] for t in times[label]) for label in libs}
+        for label in libs:
+            print(f"[dx-bwd] {case}, {label}: device {' / '.join(f'{t[1]:.4f}' for t in times[label])} ms, events "
+                  f"{' / '.join(f'{t[0]:.4f}' for t in times[label])} ms (forward / reversed pass); device/bound "
+                  f"{med[label] / b_ms:.2f}", flush=True)
+        print(f"[dx-bwd] {case}: bound {b_ms:.4f} ms ({b_by}, {touched} of {enc.table_size} table rows touched); "
+              f"v1/v2 {med[v1] / med[v2]:.3f}x; v2 within {err_h:.2e} of max |dh|, {err_x:.2e} of max |d_x2| of "
+              "v1; both bit-equal over two runs", flush=True)
+
+
+def profile_density(tb, out: Path | None = None) -> None:
+    """One eikonal step of [density] (its double backward) under the
+    profiler after a warm-up step: wall, busy, idle share, launches, device
+    ms by kernel name, and the host operators with the most self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, _, _, mod, _, _ = chip_smoke.density_inputs(tb)
+
+    def step():
+        chip_smoke.eikonal_step(mod, x)
+        torch.cuda.synchronize()
+
+    step()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        wall = (time.perf_counter() - t0) * 1e3
+    events, busy, by_name = device_events(prof)
+    print(f"[density-profile] eikonal step at {x.shape[0]} positions: unprofiled {[round(t, 2) for t in times]} ms; "
+          f"profiled wall {wall:.2f} ms, {len(events)} device events, device busy {busy:.2f} ms, idle share "
+          f"{1.0 - busy / wall:.3f}", flush=True)
+    write_table(by_name, out)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
+    print("[density-profile] host operators by self time (ms, calls):", flush=True)
+    for e in host:
+        print(f"    {e.self_cpu_time_total / 1e3:10.3f} ms {e.count:6d}  {e.key[:110]}", flush=True)
+
+
 def profile_distill(tb, out: Path | None = None, steps: int = 8) -> None:
     """Profile ``steps`` distillation steps of the edited scene after as
     many warm-up steps: per step, wall, device busy, idle share, launches,
@@ -753,17 +879,21 @@ def main() -> None:
     mode.add_argument("--volume", action="store_true", help="profile a delta-tracked frame of the Volume testbed instead")
     mode.add_argument("--baked", action="store_true", help="profile a baked preview frame and an incremental rebake")
     mode.add_argument("--composite", action="store_true", help="time kernel H of --parent against this checkout's")
+    mode.add_argument("--dx-bwd", action="store_true", help="time kernel J of --parent against this checkout's")
+    mode.add_argument("--density", action="store_true", help="profile one eikonal step of [density]")
     ap.add_argument("--compact", type=float, default=None,
                     help="in the frame mode: also profile the frame with this compact_frac")
     ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")
     ap.add_argument("--chunk", type=Path, default=None, help="with --kernels: the file --save-chunk wrote")
     ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
-    ap.add_argument("--parent", type=Path, default=None, help="with --composite: the older csrc/baked.cu")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="with --composite: the older csrc/baked.cu; with --dx-bwd: the older csrc/grid_encode.cu")
     args = ap.parse_args()
-    if (args.parent is not None) != args.composite:
-        ap.error("--composite needs --parent, and --parent goes with --composite")
+    if (args.parent is not None) != (args.composite or args.dx_bwd):
+        ap.error("--composite and --dx-bwd need --parent, and --parent goes with them")
     if args.compact is not None and (args.edited or args.normals or args.train or args.distill or args.kernels or args.warp
                                      or args.sdf or args.volume or args.baked or args.composite
+                                     or args.dx_bwd or args.density
                                      or args.save_chunk is not None
                                      or args.save_edit is not None):
         ap.error("--compact goes with the frame mode only")
@@ -825,6 +955,12 @@ def main() -> None:
         return
     if args.composite:
         time_composite(tb, args.parent.resolve())
+        return
+    if args.dx_bwd:
+        time_dx_bwd(tb, args.parent.resolve())
+        return
+    if args.density:
+        profile_density(tb, args.out)
         return
     if args.edited:
         tb.set_look_at(eye=chip_smoke.SIDE_EYE)

@@ -37,6 +37,7 @@ from nerfshop_tpu_torch.ops import grid as tgrid
 from nerfshop_tpu_torch.render import baked as tbaked
 from test_torch_edit_render import scene  # noqa: F401 (fixture)
 from test_torch_render import CENTER, CFG, look_at, seeded_density
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 B = 32

@@ -18,6 +18,7 @@ from nerfshop_tpu_torch.geometry import bvh as tbvh
 
 from test_bvh import cube_mesh, icosphere
 from test_torch_sdf import bumpy_icosphere
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 MESHES = {"cube": cube_mesh, "sphere": lambda: icosphere(subdiv=2), "bumpy": bumpy_icosphere}

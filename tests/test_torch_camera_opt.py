@@ -29,17 +29,7 @@ from nerfshop_tpu_torch.ops import rays as trays
 from nerfshop_tpu_torch.train import nerf as tnerf
 from test_torch_train_loop import _ball_grid
 from test_torch_train_step import TINY, _models, _rel, sphere_dataset
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test on one intra-op thread: the suite runs several worker
-    processes on a few cores, where torch's thread pool spends its time
-    waiting at barriers on the many small ops of a training step."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _rotvecs():

@@ -25,6 +25,7 @@ from nerfshop_tpu_torch.geometry import mesh_io as tmesh_io
 from nerfshop_tpu_torch.render import buffer as tbuffer
 from nerfshop_tpu_torch.render import camera_path as tcp
 from nerfshop_tpu_torch.testbed import Testbed as TTestbed
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = {

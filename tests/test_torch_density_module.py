@@ -28,22 +28,12 @@ from nerfshop_tpu_torch.models import encodings as tenc
 from nerfshop_tpu_torch.models import mlp as tmlp
 from nerfshop_tpu_torch.models import nerf_network as tnn
 from nerfshop_tpu_torch.ops import table_ops
+from torch_one_thread import one_thread  # noqa: F401
 
 GRID = dict(n_input_dims=3, n_levels=4, n_features_per_level=2, log2_hashmap_size=10, base_resolution=4,
             per_level_scale=1.5)
 N = 48
 REL = 2e-3
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test on one intra-op thread: the suite runs several worker
-    processes on a few cores, where torch's thread pool spends its time
-    waiting at barriers on the many small ops of a training step."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

@@ -34,6 +34,7 @@ from test_torch_edit_render import _close, jax_stack, scene  # noqa: F401 (fixtu
 from test_torch_editing import _stack_ambiguous
 from test_torch_membrane import membrane_case  # noqa: F401 (fixture)
 from test_torch_train_step import sphere_dataset
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 R, K, NF, NE = 64, 16, 256, 512

@@ -35,6 +35,7 @@ from nerfshop_tpu_torch.train import nerf as ttrain
 from test_bvh import cube_mesh
 from test_torch_editing import _stack_ambiguous
 from test_torch_render import CENTER, CFG, look_at, seeded_density
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 W = H = 32

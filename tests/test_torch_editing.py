@@ -33,6 +33,7 @@ from nerfshop_tpu_torch.geometry import bvh as tbvh
 from nerfshop_tpu_torch.geometry.mesh_io import TriMesh as TTriMesh
 from test_bvh import cube_mesh, icosphere
 from test_concave_cage import _l_shape_cage
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]

@@ -14,6 +14,7 @@ from nerfshop_tpu.models import encodings as jenc
 from nerfshop_tpu_torch.models import encodings as tenc
 from nerfshop_tpu_torch.ops import table_ops
 from test_torch_render import CENTER, _render_both, look_at, scene  # noqa: F401  (scene: the shared fixture)
+from torch_one_thread import one_thread  # noqa: F401
 
 # (L, log2 T, base res, per-level scale): all-dense levels, and mostly hashed ones
 CONFIGS = {

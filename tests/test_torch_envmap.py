@@ -17,17 +17,7 @@ import torch
 
 from nerfshop_tpu.ops import envmap as jenvmap
 from nerfshop_tpu_torch.ops import envmap as tenvmap
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Each test on one intra-op thread: the suite runs several worker
-    processes on a few cores, where torch's thread pool spends its time
-    waiting at barriers on the many small ops of a training step."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _dirs(n=512, seed=0):

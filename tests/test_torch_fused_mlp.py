@@ -12,6 +12,7 @@ import torch
 from nerfshop_tpu.models import mlp as jmlp
 from nerfshop_tpu_torch.models import mlp as tmlp
 from nerfshop_tpu_torch.ops import fused_mlp
+from torch_one_thread import one_thread  # noqa: F401
 
 SHAPES = {"density": (32, 64, 1, 16), "rgb": (32, 64, 2, 3)}
 

@@ -12,6 +12,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from nerfshop_tpu_torch.ops import gather
+from torch_one_thread import one_thread  # noqa: F401
 
 # (probe row, form, x shape, idx shape, index range) at reduced shapes
 FORMS = [

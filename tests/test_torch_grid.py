@@ -12,6 +12,7 @@ import torch
 
 from nerfshop_tpu.ops import grid as jgrid
 from nerfshop_tpu_torch.ops import grid as tgrid
+from torch_one_thread import one_thread  # noqa: F401
 
 R = 128
 

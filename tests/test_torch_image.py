@@ -24,6 +24,7 @@ from nerfshop_tpu_torch.testbed import Testbed
 from nerfshop_tpu_torch.train import image as timage
 from nerfshop_tpu_torch.train import losses as tlosses
 from nerfshop_tpu_torch.train import optim as toptim
+from torch_one_thread import one_thread  # noqa: F401
 
 #: configs/image/base.json cut to 6 levels of at most 2^12 (dense levels
 #: and hashed ones; the 64-wide, 2-hidden-layer MLP kept). Adam's epsilon

@@ -17,6 +17,7 @@ from nerfshop_tpu_torch import testbed
 from nerfshop_tpu_torch.config import default_nerf_config, load_network_config
 from nerfshop_tpu_torch.models import encodings
 from nerfshop_tpu_torch.models.nerf_network import build_nerf_network, check_kernel_range
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 CUDA = torch.device("cuda")

@@ -11,6 +11,7 @@ from nerfshop_tpu.ops import composite as jcomp
 from nerfshop_tpu.ops import march as jmarch
 from nerfshop_tpu_torch.ops import composite as tcomp
 from nerfshop_tpu_torch.ops import march as tmarch
+from torch_one_thread import one_thread  # noqa: F401
 
 R_RAYS, K = 96, 16
 

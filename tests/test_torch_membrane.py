@@ -39,6 +39,7 @@ from test_bvh import cube_mesh
 from test_torch_edit_render import _close, _render, jax_stack, scene  # noqa: F401 (fixtures)
 from test_torch_editing import _stack_ambiguous
 from test_torch_render import CENTER, look_at
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 SHIFT = np.array([0.12, 0.0, 0.0], np.float32)

@@ -22,6 +22,7 @@ from nerfshop_tpu_torch.editing.tet_mesh import TetMesh as TTetMesh
 from nerfshop_tpu_torch.ops import grid as tgrid
 from test_bvh import cube_mesh
 from test_concave_cage import _l_shape_cage
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

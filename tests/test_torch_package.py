@@ -17,6 +17,7 @@ from nerfshop_tpu.config import default_nerf_config
 from nerfshop_tpu.models import nerf_network as jnn
 from nerfshop_tpu_torch import kernels, weights
 from nerfshop_tpu_torch.models import nerf_network as tnn
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "nerfshop_tpu_torch"

@@ -19,6 +19,7 @@ from nerfshop_tpu.data import image_io as jio
 from nerfshop_tpu.data import nerf_loader as jloader
 from nerfshop_tpu_torch import native
 from nerfshop_tpu_torch.data import image_io as tio
+from torch_one_thread import one_thread  # noqa: F401
 
 #: PNG colour type → channels
 CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}

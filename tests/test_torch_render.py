@@ -19,6 +19,7 @@ from nerfshop_tpu_torch.models import nerf_network as tnn
 from nerfshop_tpu_torch.ops import grid as tgrid
 from nerfshop_tpu_torch.ops import sampling as tsampling
 from nerfshop_tpu_torch.render import renderer as trender
+from torch_one_thread import one_thread  # noqa: F401
 
 CFG = {
     "encoding": {"otype": "HashGrid", "n_levels": 3, "n_features_per_level": 2,

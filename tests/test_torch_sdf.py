@@ -31,6 +31,7 @@ from nerfshop_tpu_torch.train import losses as tlosses
 from nerfshop_tpu_torch.train import sdf as tsdf
 
 from test_bvh import cube_mesh, icosphere
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 #: configs/sdf/base.json cut to 5 levels of 2^11 (the 64-wide, 2-hidden-layer

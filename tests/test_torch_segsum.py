@@ -9,6 +9,7 @@ import torch
 
 from nerfshop_tpu.ops import pallas_segsum
 from nerfshop_tpu_torch.ops import segsum
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _case(seed, m, N, D=3, F=2):

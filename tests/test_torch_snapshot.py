@@ -18,6 +18,7 @@ from nerfshop_tpu_torch.io import msgpack_codec, snapshot as tsnap
 from nerfshop_tpu_torch.ops import coords as tcoords
 from nerfshop_tpu_torch.ops import grid as tgrid
 from nerfshop_tpu_torch.testbed import Testbed as TTestbed
+from torch_one_thread import one_thread  # noqa: F401
 
 CFG = {
     "loss": {"otype": "Huber"},

@@ -20,6 +20,7 @@ from nerfshop_tpu_torch import weights
 from nerfshop_tpu_torch.ops import grid as tgrid
 from nerfshop_tpu_torch.ops import tonemap as ttm
 from nerfshop_tpu_torch.render import buffer as tbuffer
+from torch_one_thread import one_thread  # noqa: F401
 
 CFG = {
     "loss": {"otype": "Huber"},

@@ -20,6 +20,7 @@ from nerfshop_tpu_torch.data.nerf_loader import CameraIntrinsics, NerfDataset
 from nerfshop_tpu_torch.models import nerf_network as tnn
 from nerfshop_tpu_torch.ops import grid as tgrid
 from nerfshop_tpu_torch.train import nerf as tnerf, optim as toptim
+from torch_one_thread import one_thread  # noqa: F401
 
 R, K, STEPS = 64, 16, 3
 

@@ -20,6 +20,7 @@ from nerfshop_tpu_torch.models import nerf_network as tnn
 from nerfshop_tpu_torch.ops import grid as tgrid, rays as trays
 from nerfshop_tpu_torch import testbed as ttestbed
 from nerfshop_tpu_torch.train import nerf as tnerf, optim as toptim
+from torch_one_thread import one_thread  # noqa: F401
 
 TINY = {
     "loss": {"otype": "Huber"},

@@ -22,6 +22,7 @@ from nerfshop_tpu_torch.data import image_io
 from nerfshop_tpu_torch.viewer.server import ViewerServer
 from test_torch_baked import _ball_density, _testbed
 from test_torch_render import CENTER, look_at
+from torch_one_thread import one_thread  # noqa: F401
 
 W, H = 48, 32
 

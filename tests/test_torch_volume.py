@@ -23,6 +23,7 @@ from nerfshop_tpu_torch.testbed import Testbed
 from nerfshop_tpu_torch.train import volume as tvolume
 
 from test_volume import _write_test_nvdb
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 #: configs/volume/base.json cut to 5 levels of at most 2^11 (the 64-wide,

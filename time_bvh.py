@@ -10,9 +10,9 @@ the ``BvhArrays``, C entry ``nst_bvh_sdf(args, points, out, n, stream)``),
 for example ``git show <commit>:nerfshop_tpu_torch/csrc/bvh.cu``. It and
 this checkout's ``csrc/bvh.cu`` are built into libraries of their own under
 ``build/bvh_versions/``, one ``nvcc -Xptxas -v`` each, both started
-together (``build_versions``, which ``profile_render.py --composite`` uses
-for kernel H too); their walks' registers, stack frames, spills and shared
-memory are printed.
+together (``build_versions``, which ``profile_render.py --composite`` and
+``--dx-bwd`` use for kernels H and J too); their walks' registers, stack
+frames, spills and shared memory are printed.
 
 The points are ``chip_smoke.g_points`` on the [sdf] testbed of
 ``chip_smoke.py`` (the 81920-face bumpy icosphere, untrained: the points do
