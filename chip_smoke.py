@@ -146,7 +146,23 @@ Phases, each printing one line of its own numbers:
  20. [volume]: ``synthetic_smoke(256)`` as .npy through
      ``load_training_data``, 1000 steps at batch 2^16 (the loss halves), a
      1920×1080 delta-tracked frame at spp 4 and a 64×64 one against the
-     ground-truth tracker's.
+     ground-truth tracker's;
+ 21. [captured]: the sphere inside an opaque checkered backdrop (radius 1.6,
+     across the outer cascades) as a captured ``transforms.json`` scene: 32
+     JPEG frames at 512×384 through the port's encoder (quality 90, 4:2:0)
+     and 4 held out, ``aabb_scale`` 4 (three cascades), each frame rendered
+     in numpy through a rolling shutter with motion blur (its
+     ``transform_matrix_end``) and carrying a ``light_dir``; loaded through
+     ``Testbed.load_training_data`` (the port's JPEG decoder, ms a frame
+     with the host CPU's name), 256 steps at batch 2^18 of the default
+     config (the loss falls as [train]'s, every cascade refreshed, the inner
+     one occupied, each cascade's occupied share, the held-out views and
+     two training views at their start poses ≥ 14 dB, the renders' rgb MLP
+     at its 35-wide input through kernel C); kernel C held to its plain
+     version at that width; the extrinsics' round trip in both conventions and with pose deltas,
+     ``n_params``, ``level_stats``, ``training_step``; a ``torch.profiler``
+     trace of 16 steps and its five largest device ops; and
+     ``reload_network_from_json`` (step 0, the loss back near the first).
 A [launches] line gives each path's launches by kernel, and kernel B's
 split into launches with fracs (training forwards only) and without
 (render, grid refresh, edited frames); the edited frame runs the cage warp
@@ -156,7 +172,7 @@ other instance of E; a distillation step launches kernel B with fracs for
 the student's two forwards only. Then a JSON line with every
 kernel's launches on the main paths (training, counted by graph replays,
 the density module, training with the options on, render, compacted render, frame, Normals frame, mesh, CLI, edit, membrane
-frame, distillation, the baked preview and the viewer; kernels H and I
+frame, distillation, the baked preview, the viewer and the captured scene; kernels H and I
 as ``shear_warp_composite`` and ``shear_warp_screen``, their numbers the
 median over the six views, the error the largest),
 error, times, bound and library-call time, the
@@ -173,6 +189,8 @@ dense peak of their type (989 TFLOP/s bf16 tensor, 67 TFLOP/s fp32).
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -682,6 +700,22 @@ def phase_mlp(dev, g):
         )
         result[label] = dict(max_abs_err=float(err.max()), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                              library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+    # input widths that are not whole 16-column k-tiles: one k-tile with
+    # partial columns, and two (the 35-wide rgb input is held in [captured])
+    for n_in in (7, 23):
+        dims = (n_in, 64, 64, 3)
+        x = torch.randn((1 << 16, n_in), generator=g, device=dev)
+        ws = [(torch.rand((a, b), generator=g, device=dev) * 2 - 1) * (6.0 / a) ** 0.5 for a, b in zip(dims[:-1], dims[1:])]
+        ker = fused_mlp.fused_mlp_cuda(x, ws)
+        plain = fused_mlp.fused_mlp_plain(x, ws)
+        err = (ker - plain).abs()
+        within = float((err <= 1e-6 + 1e-5 * plain.abs()).float().mean())
+        check(ker.shape == plain.shape and bool(torch.isfinite(ker).all()) and within >= 0.995
+              and float(err.max()) <= 1e-2 * float(plain.abs().max()),
+              f"kernel C disagrees at input width {n_in}: {within:.5f} within 1e-5 rel, max err {float(err.max()):.3e}")
+        print(f"[mlp] input width {n_in} ({'->'.join(map(str, dims))}, 2^16 rows, zero-padded to whole k-tiles in the "
+              f"kernel): {within:.6f} of outputs within 1e-6+1e-5*|plain| (bound 0.995), max_abs_err "
+              f"{float(err.max()):.3e}", flush=True)
     return {**result["density"], "max_abs_err": max(r["max_abs_err"] for r in result.values())}
 
 
@@ -3417,6 +3451,388 @@ def phase_viewer(tb, W=1920, H=1080):
 #: the numbers of a kernel in the kernels line; ``ms``, ``plain_ms`` and
 #: ``library_ms`` are events around one call, ``device_ms`` and
 #: ``library_device_ms`` the same calls queued behind a spin (:func:`median_ms`)
+# ------------------------------------------------------- the captured scene
+
+CAP_VIEWS, CAP_HELD = 32, 4
+CAP_W, CAP_H = 512, 384
+CAP_FOCAL = 560.0
+CAP_QUALITY = 90
+CAP_AABB = 4
+#: transforms.json's scale and offset (the reference's defaults)
+CAP_SCALE, CAP_OFFSET = 0.33, np.array([0.5, 0.5, 0.5], np.float32)
+#: the rolling shutter: (offset, column term, row term, motion-blur jitter)
+CAP_SHUTTER = np.array([0.0, 0.2, 0.5, 0.3], np.float32)
+#: each view's camera moves this far (ngp units) over its exposure
+CAP_MOTION = 0.02
+#: the shutter times a ground-truth pixel averages
+CAP_GT_SAMPLES = 4
+CAP_SEED = 4242
+#: training steps profiled by start_profiler / stop_profiler
+CAP_PROFILED = 16
+#: the radius of the backdrop around the sphere: inside the scene's box
+#: [-1.5, 2.5]³ (aabb_scale 4), across the outer two cascades; the cameras'
+#: distance from the centre in the horizontal plane
+CAP_ROOM, CAP_EYE = 1.6, 1.0
+
+
+def captured_rgba(o, d):
+    """The captured scene's analytic render: the smoke's opaque sphere
+    (:func:`sphere_rgba`) inside a backdrop, a sphere of radius
+    :data:`CAP_ROOM` about it seen from within, a checker over smooth colour
+    bands, so that every ray ends on a textured surface, as a photo's do."""
+    rgba = sphere_rgba(o, d)
+    oc = o - CENTER
+    b = np.sum(oc * d, -1)
+    t = -b + np.sqrt(np.maximum(b * b - np.sum(oc * oc, -1) + CAP_ROOM**2, 0.0))
+    n = (oc + t[:, None] * d) / CAP_ROOM
+    # smooth colour bands under a 16 × 8 checker in longitude and latitude:
+    # edges every view can triangulate
+    band = 0.5 + 0.3 * np.stack([np.sin(3 * n[:, 0] + 1), np.sin(2 * (n[:, 1] + n[:, 2]) - 0.5), np.cos(3 * n[:, 2])], -1)
+    lon = np.floor((np.arctan2(n[:, 1], n[:, 0]) / (2 * np.pi) + 0.5) * 16)
+    lat = np.floor(np.arccos(np.clip(n[:, 2], -1.0, 1.0)) / np.pi * 8)
+    room = band * (0.55 + 0.45 * ((lon + lat) % 2))[:, None]
+    miss = rgba[:, 3] == 0
+    rgba[miss, :3] = room[miss]
+    rgba[:, 3] = 1.0
+    return rgba.astype(np.float32)
+
+
+def sphere_exposure(xf, xf_end, W, H, focal, shutter, n):
+    """The captured scene (:func:`captured_rgba`) seen through a rolling
+    shutter with motion blur, in numpy: each pixel (x, y) averages ``n``
+    renders at the shutter times
+    shutter · (1, x/W, y/H, (k + 1/2)/n), its camera matrix lerped between
+    ``xf`` and ``xf_end`` at each, its ray through the pixel's centre →
+    [H·W, 4]. ``n`` = 1 with ``xf_end`` = ``xf`` is the still frame."""
+    y, x = np.mgrid[0:H, 0:W].reshape(2, -1).astype(np.float32)
+    d_cam = np.stack([(x + 0.5 - 0.5 * W) / focal, (y + 0.5 - 0.5 * H) / focal, np.ones_like(x)], -1)
+    # the lerped matrix acts linearly: lerp the two ends' rays instead
+    d0, d1 = d_cam @ xf[:, :3].T, d_cam @ xf_end[:, :3].T
+    acc = np.zeros((H * W, 4), np.float32)
+    for k in range(n):
+        t = (shutter[0] + shutter[1] * x / W + shutter[2] * y / H + shutter[3] * (k + 0.5) / n)[:, None]
+        d = d0 * (1.0 - t) + d1 * t
+        acc += captured_rgba(xf[:, 3] * (1.0 - t) + xf_end[:, 3] * t, d / np.linalg.norm(d, axis=-1, keepdims=True))
+    return acc / n
+
+
+def captured_poses(n, rng):
+    """``n`` views around the sphere (ngp convention) and their end-of-
+    exposure poses, each moved :data:`CAP_MOTION` sideways."""
+    starts, ends = [], []
+    for i in range(n):
+        ang = 2 * np.pi * i / n + rng.uniform(0, 0.2)
+        eye = CENTER + np.array([np.cos(ang), np.sin(ang), rng.uniform(-0.3, 0.6)], np.float32) * CAP_EYE
+        xf = look_at(eye)
+        end = xf.copy()
+        end[:, 3] += xf[:, 0] * CAP_MOTION
+        starts.append(xf)
+        ends.append(end)
+    return starts, ends
+
+
+def write_captured_scene(root: Path, views=CAP_VIEWS, held=CAP_HELD, W=CAP_W, H=CAP_H, focal=CAP_FOCAL):
+    """The sphere as a captured scene: ``transforms.json`` (nerf convention,
+    ``aabb_scale`` :data:`CAP_AABB`, the rolling shutter, each frame's
+    ``transform_matrix_end`` and a unit ``light_dir``) over ``views`` JPEG
+    frames through the port's encoder at quality :data:`CAP_QUALITY`, 4:2:0,
+    rendered through the shutter (:func:`sphere_exposure`); and
+    ``held`` still views between them as JPEGs, the test set → (held-out ngp
+    poses, their JPEG paths, the encode's seconds)."""
+    from nerfshop_tpu_torch import native
+    from nerfshop_tpu_torch.data import image_io
+    from nerfshop_tpu_torch.data.nerf_loader import ngp_matrix_to_nerf
+
+    rng = np.random.default_rng(CAP_SEED)
+    starts, ends = captured_poses(views + held, rng)
+    # the held-out views spread around the ring, between training views
+    test = {int((k + 0.5) * (views + held) / held) for k in range(held)}
+    order = [i for i in range(views + held) if i not in test] + sorted(test)
+    starts, ends = [starts[i] for i in order], [ends[i] for i in order]
+    (root / "images").mkdir(parents=True)
+    (root / "test").mkdir()
+
+    def nerf(xf):
+        m = np.eye(4)
+        m[:3] = ngp_matrix_to_nerf(xf, CAP_SCALE, CAP_OFFSET)
+        return m.tolist()
+
+    def frame(i):  # numpy releases the GIL: one thread a frame
+        if i < views:
+            rgba = sphere_exposure(starts[i], ends[i], W, H, focal, CAP_SHUTTER, CAP_GT_SAMPLES)
+        else:
+            rgba = sphere_exposure(starts[i], starts[i], W, H, focal, np.zeros(4, np.float32), 1)
+        return (np.clip(rgba[:, :3], 0.0, 1.0).reshape(H, W, 3) * 255.0 + 0.5).astype(np.uint8)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        pixels = list(pool.map(frame, range(views + held)))
+    native.get_lib(native.JPEG_SOURCE)  # built with g++ at first use: not in the encoder's time
+    encode_s = 0.0
+    for i, rgb in enumerate(pixels):  # encoded one at a time, timed
+        t0 = time.perf_counter()
+        image_io.write_jpeg(root / ("images" if i < views else "test") / f"{i:03d}.jpg", rgb, CAP_QUALITY, "4:2:0")
+        encode_s += time.perf_counter() - t0
+    frames = []
+    for i in range(views):
+        light = rng.normal(size=3)
+        frames.append({"file_path": f"images/{i:03d}.jpg", "transform_matrix": nerf(starts[i]),
+                       "transform_matrix_end": nerf(ends[i]), "light_dir": (light / np.linalg.norm(light)).tolist()})
+    held_paths = [root / "test" / f"{j:03d}.jpg" for j in range(views, views + held)]
+    meta = {"fl_x": focal, "fl_y": focal, "cx": W / 2, "cy": H / 2, "w": W, "h": H, "scale": CAP_SCALE,
+            "offset": CAP_OFFSET.tolist(), "aabb_scale": CAP_AABB, "rolling_shutter": CAP_SHUTTER.tolist(),
+            "frames": frames}
+    (root / "transforms.json").write_text(json.dumps(meta))
+    return starts[views:], held_paths, encode_s
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (``/proc/cpuinfo``, else ``lscpu``), with
+    the cores this process may use."""
+    import os
+    import platform
+
+    name = ""
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if line.lower().startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    except OSError:
+        pass
+    if name.lower() in ("", "unknown"):
+        name = ""
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=10).stdout
+            name = next((l.split(":", 1)[1].strip() for l in out.splitlines() if l.startswith("Model name")), "")
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return f"{name or 'model not reported, ' + (platform.processor() or platform.machine())}, " \
+           f"{len(os.sched_getaffinity(0))} cores"
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rodrigues64(v):
+    """The axis-angle exp map in float64 numpy, the reference for the pose deltas."""
+    theta = float(np.linalg.norm(v))
+    k = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]], np.float64)
+    if theta < 1e-12:
+        return np.eye(3) + k
+    return np.eye(3) + np.sin(theta) / theta * k + (1 - np.cos(theta)) / theta**2 * (k @ k)
+
+
+def device_ops(prof, n=5):
+    """The ``n`` ops of a profile with the most device time → [(name, ms, calls)]."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0) or 0
+
+    ops = sorted(prof.key_averages(), key=dev_us, reverse=True)[:n]
+    return [(e.key[:100], round(dev_us(e) / 1e3, 4), e.count) for e in ops if dev_us(e) > 0]
+
+
+def phase_captured(dev, train_steps_per_s, workdir: Path, config=None, views=CAP_VIEWS, W=CAP_W, H=CAP_H,
+                   focal=CAP_FOCAL, steps=STEPS, batch=BATCH):
+    """[captured]: the sphere in its backdrop as a captured ``transforms.json``
+    scene of JPEG frames (:func:`write_captured_scene`) at ``aabb_scale`` 4 (three
+    cascades, cone-angle steps of 1/256), with a rolling shutter, motion
+    blur and light dirs, loaded through ``Testbed.load_training_data``
+    (the port's JPEG decoder; its ms a frame with the host CPU's name) and
+    trained ``steps`` steps at ``batch`` through captured chunks: the loss
+    falls as [train]'s must, every cascade refreshed and the inner one
+    occupied, the held-out views and two training views (at their start
+    poses, against the still scene) ≥ 14 dB, the renders running the rgb
+    MLP's 35-wide input (the default Composite's SH and light dims) through
+    kernel C, which is then held to its plain version at that width; then
+    the Testbed's surface on the
+    card: the extrinsics' round trip in both conventions (ngp exactly, nerf
+    within 4 float32 ulps: the scale and offset round), the pose deltas
+    against a float64 exp map, ``n_params``, ``level_stats``,
+    ``training_step``; a ``torch.profiler`` trace of :data:`CAP_PROFILED`
+    steps and its largest device ops; ``reload_network_from_json`` resets
+    the step and the loss → the path's launches (training, refreshes,
+    held-out renders)."""
+    from nerfshop_tpu_torch.common import TestbedMode
+    from nerfshop_tpu_torch.config import default_nerf_config
+    from nerfshop_tpu_torch.data import image_io
+    from nerfshop_tpu_torch.ops import fused_mlp
+    from nerfshop_tpu_torch.testbed import Testbed
+
+    config = config or default_nerf_config()
+    root = workdir / "captured"
+    t0 = time.perf_counter()
+    held_xf, held_paths, encode_s = write_captured_scene(root, views, CAP_HELD, W, H, focal)
+    scene_s = time.perf_counter() - t0
+    frames = sorted((root / "images").glob("*.jpg"))
+    t0 = time.perf_counter()
+    for path in frames:
+        image_io.read_jpeg(path)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    print(
+        f"[captured] scene: the sphere in a backdrop of radius {CAP_ROOM}, {views} JPEG frames {W}x{H} (quality {CAP_QUALITY}, 4:2:0, "
+        f"{sum(p.stat().st_size for p in frames) / len(frames) / 1024:.1f} KiB a frame) + {CAP_HELD} held out, "
+        f"aabb_scale {CAP_AABB}, rolling shutter {CAP_SHUTTER.tolist()}, motion {CAP_MOTION}; written in "
+        f"{scene_s:.2f} s (the port's encoder {encode_s * 1e3 / (views + CAP_HELD):.3f} ms a frame); the port's decoder "
+        f"{decode_ms:.3f} ms a frame on the host ({host_cpu()})",
+        flush=True,
+    )
+    tb = Testbed(TestbedMode.Nerf, config=config, device=dev, seed=0)
+    t0 = time.perf_counter()
+    tb.load_training_data(str(root))
+    load_s = time.perf_counter() - t0
+    ds, data, cfg = tb._dataset, tb._device_data, tb.train_config
+    check(ds.n_images == views and ds.images.shape[1:3] == (H, W) and ds.aabb_scale == CAP_AABB,
+          f"[captured] the scene loaded wrong: {ds.n_images} images {ds.images.shape}, aabb_scale {ds.aabb_scale}")
+    check(cfg.n_cascades == 3 and cfg.cone_angle == 1.0 / 256, f"[captured] not three cascades: {cfg}")
+    check(data.xforms_end is not None and data.rolling_shutter is not None and data.light_dirs is not None
+          and tb.model.n_extra_dims == 3, "[captured] the shutter, end poses or light dirs did not reach training")
+
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tb.train(n_steps=steps, batch_size=batch)
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    losses = [lv for _, lv in tb.loss_history]
+    tail = float(np.mean(losses[-10:]))
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), "[captured] non-finite or missing losses")
+    check(tail < 0.35 * losses[0], f"[captured] loss did not fall enough: first {losses[0]:.4e} last-10 {tail:.4e}")
+    check(tb.training_step == steps, f"[captured] training_step {tb.training_step} after {steps} steps")
+    if dev.type == "cuda":
+        check(tb.stats.captured_steps == steps, "[captured] a step ran outside the captured loop")
+    grid = tb.grid
+    refreshed = [bool((grid.density[c] != 0).any()) for c in range(grid.n_cascades)]
+    occupied = [float(grid.occupancy[c].float().mean()) for c in range(grid.n_cascades)]
+    check(all(refreshed), f"[captured] a cascade was never refreshed: {refreshed}")
+    check(bool(grid.occupancy[0].any()), "[captured] no cell of the inner cascade is occupied")
+    print(
+        f"[captured] {steps} steps batch {batch} at three cascades in {train_s:.3f} s (the graphs' captures "
+        f"included): {steps / train_s:.3f} steps/s ([train] at one cascade: {train_steps_per_s:.3f}), "
+        f"{tb.stats.measured_samples_total / train_s:.6g} real samples/s, loss {losses[0]:.4e} -> last-10 "
+        f"{tail:.4e} (ratio {tail / losses[0]:.3f}), final (rays, K) = ({tb.train_config.n_rays_per_batch}, "
+        f"{tb.train_config.k_samples}); load {load_s:.2f} s; occupied share by cascade {occupied}; peak memory "
+        f"{peak / 2**30:.3f} GiB",
+        flush=True,
+    )
+
+    def frame_psnr(xf, gt):
+        img = tb.render(W, H, spp=1, camera_matrix=xf, focal=np.array([focal, focal], np.float32),
+                        principal=np.array([0.5, 0.5], np.float32), exact=True)
+        check(img.shape == (H, W, 4) and np.isfinite(img).all(), "[captured] a frame is not finite")
+        return psnr(img[..., :3], gt[..., :3])
+
+    # two training views at their start poses against the still scene there
+    # (the frames themselves are blurred by the shutter), and the held-out
+    # views against their JPEGs
+    still = np.zeros(4, np.float32)
+    # the renders' rgb MLP calls and the launches of kernel C inside them
+    rgb_calls, rgb_forward = collections.Counter(), tb.model.rgb_mlp.forward
+
+    def rgb_spy(x):
+        before = fused_mlp.fused_mlp_cuda.launches
+        y = rgb_forward(x)
+        rgb_calls[(x.shape[-1], fused_mlp.fused_mlp_cuda.launches - before)] += 1
+        return y
+
+    tb.model.rgb_mlp.forward = rgb_spy
+    try:
+        seen = [frame_psnr(ds.xforms[i], np.clip(sphere_exposure(ds.xforms[i], ds.xforms[i], W, H, focal, still, 1), 0, 1)
+                           .reshape(H, W, 4)) for i in (0, views // 2)]
+        values = [frame_psnr(xf, image_io.read_image(path, linear=False)) for xf, path in zip(held_xf, held_paths)]
+    finally:
+        del tb.model.rgb_mlp.forward
+    launches = read_launches()
+    render_launches = {k: launches[k] - train_launches[k] for k in launches}
+    check(min(values) >= 14.0 and min(seen) >= 14.0,
+          f"[captured] PSNR below 14 dB: held-out views {values}, training views {seen}")
+    check_launched(launches, ("segsum", "grid_encode", "fused_mlp", "gather"), "[captured] path")
+    check(train_launches["fused_mlp"] > 0, f"[captured] kernel C did not run in the grid refresh: {train_launches}")
+    check(render_launches["fused_mlp"] > 0 and set(rgb_calls) == {(35, 1)},
+          f"[captured] the renders' rgb MLP (input width, kernel C launches) a call: {dict(rgb_calls)}")
+
+    # kernel C at the rgb MLP's input of a scene with light dirs: 16 density
+    # features, 16 SH terms and the 3 light dims of the default Composite
+    rgb_ws = [w.detach() for w in tb.model.rgb_mlp.weights]
+    x35 = torch.rand((1 << 20, rgb_ws[0].shape[0]), generator=torch.Generator(dev).manual_seed(CAP_SEED), device=dev)
+    with torch.no_grad():
+        ker = fused_mlp.fused_mlp_cuda(x35, rgb_ws) if dev.type == "cuda" else fused_mlp.fused_mlp_plain(x35, rgb_ws)
+        plain = fused_mlp.fused_mlp_plain(x35, rgb_ws)
+    err = (ker - plain).abs()
+    within = float((err <= 1e-6 + 1e-5 * plain.abs()).float().mean())
+    check(rgb_ws[0].shape[0] == 35 and within >= 0.995 and float(err.max()) <= 1e-2 * float(plain.abs().max()),
+          f"[captured] kernel C at {tuple(x35.shape)}: {within:.5f} within 1e-5 rel, max err {float(err.max()):.3e}")
+    print(f"[captured] kernel C at the rgb MLP's {rgb_ws[0].shape[0]}-wide input (2^20 rows, 3 k-tiles, zero-padded "
+          f"in the kernel): {within:.6f} of outputs within 1e-6+1e-5*|plain| (bound 0.995 as [mlp]), max_abs_err "
+          f"{float(err.max()):.3e}", flush=True)
+
+
+    # the Testbed's surface on the card
+    for conv in ("ngp", "nerf"):
+        for i in (0, views // 2, views - 1):
+            m = tb.get_camera_extrinsics(i, conv)
+            tb.set_camera_extrinsics(i, m, conv)
+            back = tb.get_camera_extrinsics(i, conv)
+            err = float(np.abs(back - m).max())
+            ulps = float(np.spacing(np.float32(np.abs(m).max())))
+            check(err == 0.0 if conv == "ngp" else err <= 4 * ulps,
+                  f"[captured] extrinsics round trip ({conv}) off by {err} ({err / ulps:.1f} ulps)")
+            check(np.array_equal(data.xforms[i].cpu().numpy(), ds.xforms[i]), "[captured] the device pose was not set")
+    probe = Testbed(TestbedMode.Nerf, config=config, device=dev, seed=1)
+    probe.nerf.training.optimize_extrinsics = True
+    probe.set_training_data(ds)
+    rng = np.random.default_rng(CAP_SEED)
+    rot = rng.normal(size=(views, 3)).astype(np.float32) * 0.05
+    trans = rng.normal(size=(views, 3)).astype(np.float32) * 0.05
+    with torch.no_grad():
+        probe._state.extra["camera.rot"].copy_(torch.from_numpy(rot))
+        probe._state.extra["camera.trans"].copy_(torch.from_numpy(trans))
+    delta_err = 0.0
+    for i in range(views):
+        xf = ds.xforms[i].astype(np.float64)
+        ref = np.concatenate([rodrigues64(rot[i].astype(np.float64)) @ xf[:, :3], (xf[:, 3] + trans[i])[:, None]], 1)
+        delta_err = max(delta_err, float(np.abs(probe.get_camera_extrinsics(i, "ngp") - ref).max()))
+    check(delta_err < 1e-5, f"[captured] get_camera_extrinsics with deltas off the float64 exp map by {delta_err}")
+    del probe
+    stats = tb.level_stats()
+    print(
+        f"[captured] extrinsics round trip: ngp exact, nerf within 4 float32 ulps; with pose deltas (0.05 rad, 0.05 units) "
+        f"against a float64 exp map: {delta_err:.3e}; n_params {tb.n_params()}; training_step {tb.training_step}; "
+        f"level_stats mean |entry| by level {[round(s['mean_abs'], 6) for s in stats]}, hashed levels "
+        f"{sum(s['hashed'] for s in stats)} of {len(stats)}; training views 0 and {views // 2} at their start poses "
+        f"{[round(v, 2) for v in seen]} dB, held-out views {[round(v, 2) for v in values]} dB (bound 14 each); the "
+        f"renders' launches {render_launches}, their rgb MLP calls by (input width, kernel C launches) {dict(rgb_calls)}",
+        flush=True,
+    )
+
+    tb.start_profiler(str(workdir / "trace"))
+    tb.train(n_steps=CAP_PROFILED, batch_size=batch)
+    trace = tb.stop_profiler()
+    check(Path(trace).stat().st_size > 0 and tb.training_step == steps + CAP_PROFILED,
+          f"[captured] the profiled steps: trace {trace}, training_step {tb.training_step}")
+    top = device_ops(tb.profiler)
+    first = losses[0]
+    tb.reload_network_from_json(config)
+    check(tb.training_step == 0, f"[captured] training_step {tb.training_step} after the reload")
+    tb.train(n_steps=16, batch_size=batch)
+    again = tb.loss_history[-16][1]
+    check(0.5 * first < again < 2.0 * first and again > 2.0 * tail,
+          f"[captured] after the reload the loss {again:.4e} is not back near the first {first:.4e}")
+    print(
+        f"[captured] profiler: {CAP_PROFILED} steps traced to {trace} ({Path(trace).stat().st_size} bytes); largest "
+        f"device ops (name, ms, calls): {top or 'not measured (no device time in the trace)'}; after "
+        f"reload_network_from_json: training_step 0, first loss {again:.4e} (the run's first {first:.4e}); "
+        f"launches {launches}",
+        flush=True,
+    )
+    return launches
+
+
 KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms")
 
 
@@ -3491,6 +3907,10 @@ def main() -> None:
     other = {**sdf_paths, **image_paths, **volume_paths}
     print(f"[launches] the SDF, Image and Volume paths: {other}", flush=True)
     paths.update(other)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    paths["captured"] = phase_captured(dev, train_steps_per_s, workdir)
+    shutil.rmtree(workdir)
+    print(f"[launches] the captured scene's path: {paths['captured']}", flush=True)
     launches = {k: sum(p[k] for p in paths.values()) for k in train_launches}
     for k in ("segsum", "grid_encode"):
         launches[f"{k}_d3"] = launches[k] - launches[f"{k}_d2"]

@@ -7,11 +7,14 @@
 // Every product of two bf16 values is exact in fp32, so only the order of
 // the fp32 sums differs from JAX and from the plain PyTorch version.
 //
-// Shapes: x [N, IN] f32 row-major with IN = 16, 32, 48 or 64; hidden width
-// 64; one or two hidden layers; out [N, n_out] f32 with n_out <= 16 (16 for
-// the density MLP, 3 for the rgb MLP: the last layer is padded on the chip
-// with zero columns to 8 or 16 and only n_out columns are stored). Weights
-// come as the fp32 master copies [fan_in, fan_out] row-major.
+// Shapes: x [N, IN] f32 row-major with 1 <= IN <= 64, zero-padded on the
+// chip to whole 16-column k-tiles (rows of whole k-tiles load by float2, the
+// others by pairs of scalars: a scene with light dirs gives the rgb MLP
+// 16 + 16 + 3 = 35 inputs); hidden width 64; one or two hidden layers; out
+// [N, n_out] f32 with n_out <= 16 (16 for the density MLP, 3 for the rgb
+// MLP: the last layer is padded on the chip with zero columns to 8 or 16
+// and only n_out columns are stored). Weights come as the fp32 master
+// copies [fan_in, fan_out] row-major; rows past fan_in read as zero.
 //
 // What bounds it on the H100: per row the density MLP (32->64->16) does
 // 2*(32*64 + 64*16) = 6 kFLOP and the rgb MLP (32->64->64->3, padded to 8)
@@ -66,15 +69,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// W [fan_in, fan_out] f32 (global) -> Wt [n_rows][fan_in + kPad] bf16 (shared),
-// rows n >= fan_out zero
-__device__ void stage_weights(const float* __restrict__ w, __nv_bfloat16* wt, int fan_in, int fan_out, int n_rows) {
+// W [k_valid, fan_out] f32 (global) -> Wt [n_rows][fan_in + kPad] bf16
+// (shared), rows n >= fan_out and columns k >= k_valid zero
+__device__ void stage_weights(const float* __restrict__ w, __nv_bfloat16* wt, int fan_in, int fan_out, int n_rows,
+                              int k_valid) {
     const int stride = fan_in + kPad;
     for (int i = threadIdx.x; i < n_rows * fan_in; i += blockDim.x) {
         const int n = i / fan_in, k = i % fan_in;
-        const float v = n < fan_out ? __ldg(w + (size_t)k * fan_out + n) : 0.f;
+        const float v = n < fan_out && k < k_valid ? __ldg(w + (size_t)k * fan_out + n) : 0.f;
         wt[n * stride + k] = __float2bfloat16_rn(v);
     }
+}
+
+// x[r, c] and x[r, c + 1] of rows n_in wide; 0 past the row's end and for a
+// row past the last (ok false)
+__device__ __forceinline__ float2 load_pair(const float* __restrict__ x, bool ok, int r, int c, int n_in) {
+    const float* row = x + (size_t)r * n_in;
+    return make_float2(ok && c < n_in ? __ldg(row + c) : 0.f, ok && c + 1 < n_in ? __ldg(row + c + 1) : 0.f);
 }
 
 // acc[NT] (+)= a[KT] @ Wt over KT k-tiles; Wt row stride = KT*16 + kPad
@@ -110,10 +121,11 @@ __device__ __forceinline__ void to_fragments(const float (&acc)[kHidNT][4], uint
     }
 }
 
-template <int IN_KT, int N_HIDDEN, int OUT_NT>
+// WHOLE: n_in == IN_KT * 16, rows of whole k-tiles, loaded by float2
+template <int IN_KT, int N_HIDDEN, int OUT_NT, bool WHOLE>
 __global__ void __launch_bounds__(kWarps * 32)
 fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w_in, const float* __restrict__ w_hid,
-                 const float* __restrict__ w_out, float* __restrict__ out, int n, int n_out) {
+                 const float* __restrict__ w_out, float* __restrict__ out, int n, int n_in, int n_out) {
     constexpr int kIn = IN_KT * 16;
     constexpr int kSizeIn = kHidden * (kIn + kPad);
     constexpr int kSizeHid = kHidden * (kHidden + kPad);
@@ -122,9 +134,9 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w_in, co
     __nv_bfloat16* wt_in = smem;
     __nv_bfloat16* wt_hid = smem + kSizeIn;
     __nv_bfloat16* wt_out = smem + kSizeIn + (N_HIDDEN - 1) * kSizeHid;
-    stage_weights(w_in, wt_in, kIn, kHidden, kHidden);
-    if (N_HIDDEN == 2) stage_weights(w_hid, wt_hid, kHidden, kHidden, kHidden);
-    stage_weights(w_out, wt_out, kHidden, n_out, OUT_NT * 8);
+    stage_weights(w_in, wt_in, kIn, kHidden, kHidden, n_in);
+    if (N_HIDDEN == 2) stage_weights(w_hid, wt_hid, kHidden, kHidden, kHidden, kHidden);
+    stage_weights(w_out, wt_out, kHidden, n_out, OUT_NT * 8, kHidden);
     __syncthreads();
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -140,10 +152,18 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w_in, co
         for (int kt = 0; kt < IN_KT; ++kt) {
             const int c = kt * 16 + 2 * t;
             const float2 z = make_float2(0.f, 0.f);
-            const float2 x00 = ok0 ? __ldg(reinterpret_cast<const float2*>(x + (size_t)r0 * kIn + c)) : z;
-            const float2 x10 = ok1 ? __ldg(reinterpret_cast<const float2*>(x + (size_t)r1 * kIn + c)) : z;
-            const float2 x01 = ok0 ? __ldg(reinterpret_cast<const float2*>(x + (size_t)r0 * kIn + c + 8)) : z;
-            const float2 x11 = ok1 ? __ldg(reinterpret_cast<const float2*>(x + (size_t)r1 * kIn + c + 8)) : z;
+            float2 x00, x10, x01, x11;
+            if (WHOLE) {
+                x00 = ok0 ? __ldg(reinterpret_cast<const float2*>(x + (size_t)r0 * kIn + c)) : z;
+                x10 = ok1 ? __ldg(reinterpret_cast<const float2*>(x + (size_t)r1 * kIn + c)) : z;
+                x01 = ok0 ? __ldg(reinterpret_cast<const float2*>(x + (size_t)r0 * kIn + c + 8)) : z;
+                x11 = ok1 ? __ldg(reinterpret_cast<const float2*>(x + (size_t)r1 * kIn + c + 8)) : z;
+            } else {
+                x00 = load_pair(x, ok0, r0, c, n_in);
+                x10 = load_pair(x, ok1, r1, c, n_in);
+                x01 = load_pair(x, ok0, r0, c + 8, n_in);
+                x11 = load_pair(x, ok1, r1, c + 8, n_in);
+            }
             a_in[kt][0] = pack_bf16(x00.x, x00.y);
             a_in[kt][1] = pack_bf16(x10.x, x10.y);
             a_in[kt][2] = pack_bf16(x01.x, x01.y);
@@ -175,10 +195,10 @@ fused_mlp_kernel(const float* __restrict__ x, const float* __restrict__ w_in, co
     }
 }
 
-template <int IN_KT, int N_HIDDEN, int OUT_NT>
-int launch(const float* x, const float* w_in, const float* w_hid, const float* w_out, float* out, int n, int n_out,
-           cudaStream_t stream) {
-    auto kernel = fused_mlp_kernel<IN_KT, N_HIDDEN, OUT_NT>;
+template <int IN_KT, int N_HIDDEN, int OUT_NT, bool WHOLE>
+int launch(const float* x, const float* w_in, const float* w_hid, const float* w_out, float* out, int n, int n_in,
+           int n_out, cudaStream_t stream) {
+    auto kernel = fused_mlp_kernel<IN_KT, N_HIDDEN, OUT_NT, WHOLE>;
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -186,43 +206,50 @@ int launch(const float* x, const float* w_in, const float* w_hid, const float* w
     const int n_tiles = (n + kRowsPerCta - 1) / kRowsPerCta;
     int blocks = sms * (per_sm > 0 ? per_sm : 1);
     if (blocks > n_tiles) blocks = n_tiles;
-    kernel<<<blocks, kWarps * 32, 0, stream>>>(x, w_in, w_hid, w_out, out, n, n_out);
+    kernel<<<blocks, kWarps * 32, 0, stream>>>(x, w_in, w_hid, w_out, out, n, n_in, n_out);
     return (int)cudaGetLastError();
 }
 
-template <int IN_KT, int N_HIDDEN>
+template <int IN_KT, int N_HIDDEN, bool WHOLE>
 int launch_out(const float* x, const float* w_in, const float* w_hid, const float* w_out, float* out, int n,
-               int n_out, cudaStream_t stream) {
-    if (n_out <= 8) return launch<IN_KT, N_HIDDEN, 1>(x, w_in, w_hid, w_out, out, n, n_out, stream);
-    return launch<IN_KT, N_HIDDEN, 2>(x, w_in, w_hid, w_out, out, n, n_out, stream);
+               int n_in, int n_out, cudaStream_t stream) {
+    if (n_out <= 8) return launch<IN_KT, N_HIDDEN, 1, WHOLE>(x, w_in, w_hid, w_out, out, n, n_in, n_out, stream);
+    return launch<IN_KT, N_HIDDEN, 2, WHOLE>(x, w_in, w_hid, w_out, out, n, n_in, n_out, stream);
+}
+
+template <int IN_KT, bool WHOLE>
+int launch_hidden(const float* x, const float* w_in, const float* w_hid, const float* w_out, float* out, int n,
+                  int n_in, int n_hidden, int n_out, cudaStream_t stream) {
+    if (n_hidden == 1) return launch_out<IN_KT, 1, WHOLE>(x, w_in, w_hid, w_out, out, n, n_in, n_out, stream);
+    return launch_out<IN_KT, 2, WHOLE>(x, w_in, w_hid, w_out, out, n, n_in, n_out, stream);
 }
 
 template <int IN_KT>
-int launch_hidden(const float* x, const float* w_in, const float* w_hid, const float* w_out, float* out, int n,
-                  int n_hidden, int n_out, cudaStream_t stream) {
-    if (n_hidden == 1) return launch_out<IN_KT, 1>(x, w_in, w_hid, w_out, out, n, n_out, stream);
-    return launch_out<IN_KT, 2>(x, w_in, w_hid, w_out, out, n, n_out, stream);
+int launch_in(const float* x, const float* w_in, const float* w_hid, const float* w_out, float* out, int n,
+              int n_in, int n_hidden, int n_out, cudaStream_t stream) {
+    if (n_in == IN_KT * 16) return launch_hidden<IN_KT, true>(x, w_in, w_hid, w_out, out, n, n_in, n_hidden, n_out, stream);
+    return launch_hidden<IN_KT, false>(x, w_in, w_hid, w_out, out, n, n_in, n_hidden, n_out, stream);
 }
 
 }  // namespace
 
 // x [n, n_in] f32, w_in [n_in, 64], w_hid [64, 64] (n_hidden == 2, else
-// unused), w_out [64, n_out], out [n, n_out] f32. n_in in {16, 32, 48, 64},
+// unused), w_out [64, n_out], out [n, n_out] f32. 1 <= n_in <= 64,
 // n_hidden in {1, 2}, 1 <= n_out <= 16; anything else returns
 // cudaErrorInvalidValue without launching.
 extern "C" int nst_fused_mlp(const void* x, const void* w_in, const void* w_hid, const void* w_out, void* out, int n,
                              int n_in, int n_hidden, int n_out, void* stream) {
-    if (n_in % 16 != 0 || n_in < 16 || n_in > 64 || n_hidden < 1 || n_hidden > 2 || n_out < 1 || n_out > 16 || n < 0) {
+    if (n_in < 1 || n_in > 64 || n_hidden < 1 || n_hidden > 2 || n_out < 1 || n_out > 16 || n < 0) {
         return (int)cudaErrorInvalidValue;
     }
     if (n == 0) return (int)cudaGetLastError();
     const float *px = (const float*)x, *pi = (const float*)w_in, *ph = (const float*)w_hid, *po = (const float*)w_out;
     float* py = (float*)out;
     cudaStream_t s = (cudaStream_t)stream;
-    switch (n_in / 16) {
-        case 1: return launch_hidden<1>(px, pi, ph, po, py, n, n_hidden, n_out, s);
-        case 2: return launch_hidden<2>(px, pi, ph, po, py, n, n_hidden, n_out, s);
-        case 3: return launch_hidden<3>(px, pi, ph, po, py, n, n_hidden, n_out, s);
-        default: return launch_hidden<4>(px, pi, ph, po, py, n, n_hidden, n_out, s);
+    switch ((n_in + 15) / 16) {
+        case 1: return launch_in<1>(px, pi, ph, po, py, n, n_in, n_hidden, n_out, s);
+        case 2: return launch_in<2>(px, pi, ph, po, py, n, n_in, n_hidden, n_out, s);
+        case 3: return launch_in<3>(px, pi, ph, po, py, n, n_in, n_hidden, n_out, s);
+        default: return launch_in<4>(px, pi, ph, po, py, n, n_in, n_hidden, n_out, s);
     }
 }

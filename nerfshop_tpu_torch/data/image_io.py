@@ -2,10 +2,16 @@
 
 Covers the reference's stb/tinyexr surface (src/tinyexr_wrapper.cu,
 common_device.cuh srgb helpers, scripts/common.py:read_image/write_image):
-PNG through the package's own codec (:func:`read_png`, :func:`write_png`:
-``zlib`` and the native row unfiltering of ``csrc/image_ops.cpp``; no PIL),
-HDR via the bundled minimal EXR codec. JPEG and interlaced PNGs raise
-``NotImplementedError``.
+PNG and baseline JPEG through the package's own codecs (no PIL):
+:func:`read_png` / :func:`write_png` (``zlib`` and the native row
+unfiltering of ``csrc/image_ops.cpp``) and :func:`read_jpeg` /
+:func:`write_jpeg` (``csrc/jpeg.cpp``: libjpeg's default decode, and a
+baseline encoder with libjpeg's quality scaling), HDR via the bundled
+minimal EXR codec. LDR files are told apart by their first bytes, as PIL
+tells them. Interlaced PNGs and progressive, arithmetic-coded, lossless,
+12-bit and CMYK JPEGs raise ``NotImplementedError``. A JPEG keeps no
+alpha: :func:`write_image` drops it where PIL (the JAX package's writer)
+raises.
 
 Convention (matches scripts/common.py): ``read_image`` returns float32
 linear-light RGB(A) in [0,1]-ish; LDR files are sRGB-decoded, and alpha is
@@ -23,6 +29,8 @@ import numpy as np
 from nerfshop_tpu_torch.data import exr
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
+JPEG_SUFFIXES = (".jpg", ".jpeg")
 #: PNG colour type → channels: gray, RGB, gray + alpha, RGBA (palette not taken)
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _CHANNELS_PNG = {c: t for t, c in _PNG_CHANNELS.items()}
@@ -38,8 +46,6 @@ def read_png(path: str | Path) -> np.ndarray:
     from nerfshop_tpu_torch import native
 
     data = Path(path).read_bytes()
-    if data[:3] == b"\xff\xd8\xff":
-        raise NotImplementedError(f"{path}: JPEG decoding is not supported (PNG, EXR and .bin only)")
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat = 8, None, []
@@ -76,6 +82,32 @@ def read_png(path: str | Path) -> np.ndarray:
             if channels == 2:
                 img = img[..., [0, 0, 0, 1]]
     return img[..., 0] if channels == 1 else img
+
+
+def read_jpeg(path: str | Path) -> np.ndarray:
+    """Decode a baseline JPEG → the array PIL's ``np.asarray(Image.open(path))``
+    gives: uint8 [H, W, 3], or [H, W] for grayscale
+    (:func:`nerfshop_tpu_torch.native.jpeg_decode`)."""
+    from nerfshop_tpu_torch import native
+
+    return native.jpeg_decode(Path(path).read_bytes(), str(path))
+
+
+def write_jpeg(path: str | Path, data: np.ndarray, quality: int = 75, subsampling: str = "4:2:0") -> None:
+    """Write a baseline JPEG of uint8 ``data`` [H, W] or [H, W, 3] at
+    ``quality`` with the chroma ``subsampling`` "4:4:4", "4:2:2" or "4:2:0"
+    (PIL's defaults: 75, 4:2:0)."""
+    from nerfshop_tpu_torch import native
+
+    Path(path).write_bytes(native.jpeg_encode(data, quality, subsampling))
+
+
+def read_ldr(path: str | Path) -> np.ndarray:
+    """A PNG or a JPEG, told apart by its first bytes → :func:`read_png`'s or
+    :func:`read_jpeg`'s array."""
+    with open(path, "rb") as f:
+        head = f.read(3)
+    return read_jpeg(path) if head == JPEG_SIGNATURE else read_png(path)
 
 
 def encode_png(data: np.ndarray) -> bytes:
@@ -127,9 +159,7 @@ def read_image(path: str | Path, linear: bool = True) -> np.ndarray:
             h, w = np.frombuffer(f.read(8), np.int32)
             data = np.frombuffer(f.read(), np.float16).reshape(h, w, 4)
         return data.astype(np.float32)
-    if path.suffix.lower() in (".jpg", ".jpeg"):
-        raise NotImplementedError(f"{path}: JPEG decoding is not supported (PNG, EXR and .bin only)")
-    img = read_png(path).astype(np.float32) / 255.0
+    img = read_ldr(path).astype(np.float32) / 255.0
     if img.ndim == 2:
         img = img[..., None]
     if linear:
@@ -141,19 +171,24 @@ def read_image(path: str | Path, linear: bool = True) -> np.ndarray:
 
 
 def write_image(path: str | Path, img: np.ndarray, linear_input: bool = True) -> None:
-    """EXR: stored as-is (linear). LDR: sRGB-encoded + quantized."""
+    """EXR: stored as-is (linear). LDR (PNG, JPEG at PIL's defaults, without
+    alpha): sRGB-encoded + quantized."""
     path = Path(path)
     img = np.asarray(img, np.float32)
-    if path.suffix.lower() == ".exr":
+    suffix = path.suffix.lower()
+    if suffix == ".exr":
         names = "RGBA"[: img.shape[-1]] if img.ndim == 3 else "Y"
         chans = {n: img[..., i] for i, n in enumerate(names)} if img.ndim == 3 else {"Y": img}
         exr.write_exr(str(path), chans)
         return
-    if path.suffix.lower() != ".png":
-        raise NotImplementedError(f"{path}: {path.suffix or 'no suffix'} images are not written (PNG and EXR only)")
+    if suffix != ".png" and suffix not in JPEG_SUFFIXES:
+        raise NotImplementedError(f"{path}: {path.suffix or 'no suffix'} images are not written (PNG, JPEG and EXR only)")
     if linear_input and img.shape[-1] >= 3:
         img = np.concatenate([linear_to_srgb(img[..., :3]), img[..., 3:]], axis=-1)
     data = (np.clip(img, 0, 1) * 255.0 + 0.5).astype(np.uint8)
     if data.shape[-1] == 1:
         data = data[..., 0]
-    write_png(path, data)
+    if suffix in JPEG_SUFFIXES:
+        write_jpeg(path, data[..., :3] if data.ndim == 3 else data)
+    else:
+        write_png(path, data)

@@ -6,6 +6,14 @@ Counterpart of ``nerfshop_tpu/models/nerf_network.py``::
   dir warped ──SH(deg 4)──┐                 │
                           └──[feats ∥ SH]──► rgb MLP ──► 3 raw rgb
 
+With ``n_extra_dims`` E (a scene's light directions, E = 3), the dir
+encoding is built for 3 + E inputs and reads [dir ∥ extra]. The shipped
+default's ``Composite`` (SH on the direction, Identity on the rest) passes
+the extras to the rgb MLP (16 + 16 + 3 inputs); a plain
+``SphericalHarmonics`` dir encoding is built at 3 dims whatever it is
+given, so there, as in JAX, the extras reach no input (``ROADMAP.md``
+Queue 3, F17).
+
 Parameter names follow the JAX pytree paths (``pos_encoding.table``,
 ``density_mlp.weights.0``, ``rgb_mlp.weights.2``), see
 :mod:`nerfshop_tpu_torch.weights`.
@@ -63,6 +71,7 @@ class NerfNetwork(nn.Module):
         rgb_mlp: mlp_lib.MLP,
         density_activation: str = "exponential",
         rgb_activation: str = "logistic",
+        n_extra_dims: int = 0,
     ):
         super().__init__()
         self.pos_encoding = pos_encoding
@@ -71,6 +80,7 @@ class NerfNetwork(nn.Module):
         self.rgb_mlp = rgb_mlp
         self.density_activation = density_activation
         self.rgb_activation = rgb_activation
+        self.n_extra_dims = n_extra_dims
 
     def density_features(self, pos: torch.Tensor) -> torch.Tensor:
         """pos warped [N, 3] → [N, 16] density features (feats[:, 0] = raw σ)."""
@@ -80,21 +90,26 @@ class NerfNetwork(nn.Module):
         raw = self.density_features(pos)[..., 0]
         return density_activation_fn(raw, self.density_activation) if activated else raw
 
-    def raw_forward(self, pos: torch.Tensor, direction: Optional[torch.Tensor] = None):
-        """Unactivated (raw_rgb [N, 3], raw_sigma [N])."""
+    def raw_forward(self, pos: torch.Tensor, direction: Optional[torch.Tensor] = None,
+                    extra: Optional[torch.Tensor] = None):
+        """Unactivated (raw_rgb [N, 3], raw_sigma [N]); ``extra`` [N, E] is
+        appended to the direction before the dir encoding."""
         feats = self.density_features(pos)
         raw_sigma = feats[..., 0]
         if self.dir_encoding is not None:
-            d = self.dir_encoding(direction).float()
+            d_in = direction if extra is None else torch.cat([direction, extra], dim=-1)
+            d = self.dir_encoding(d_in).float()
             rgb_in = torch.cat([feats.float(), d], dim=-1)
         else:
             rgb_in = feats.float()
         raw_rgb = self.rgb_mlp(rgb_in)[..., :3]
         return raw_rgb, raw_sigma
 
-    def forward(self, pos: torch.Tensor, direction: Optional[torch.Tensor] = None):
-        """pos warped [N, 3], direction warped [N, 3] → activated (rgb [N, 3], sigma [N])."""
-        raw_rgb, raw_sigma = self.raw_forward(pos, direction)
+    def forward(self, pos: torch.Tensor, direction: Optional[torch.Tensor] = None,
+                extra: Optional[torch.Tensor] = None):
+        """pos warped [N, 3], direction warped [N, 3] (and ``extra`` [N, E])
+        → activated (rgb [N, 3], sigma [N])."""
+        raw_rgb, raw_sigma = self.raw_forward(pos, direction, extra)
         return (
             rgb_activation_fn(raw_rgb, self.rgb_activation),
             density_activation_fn(raw_sigma, self.density_activation),
@@ -134,12 +149,13 @@ def density_features_with(model: NerfNetwork, params: Optional[dict], pos: torch
     return _call_with(_Density(model, features=True), params, pos)
 
 
-def forward_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor, direction: torch.Tensor):
-    """Activated (rgb, σ) at warped ``pos`` and ``direction`` with ``params``
-    in place of the model's own (the model's own when None)."""
+def forward_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor, direction: torch.Tensor,
+                 extra: Optional[torch.Tensor] = None):
+    """Activated (rgb, σ) at warped ``pos`` and ``direction`` (and ``extra``)
+    with ``params`` in place of the model's own (the model's own when None)."""
     if params is None:
-        return model(pos, direction)
-    return torch.func.functional_call(model, params, (pos, direction))
+        return model(pos, direction, extra)
+    return torch.func.functional_call(model, params, (pos, direction, extra))
 
 
 #: testbed mode → (n_input_dims of its grid, output width of its MLP) for
@@ -148,7 +164,7 @@ def forward_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor, 
 FIELD_SHAPES = {"sdf": (3, 1), "image": (2, 3), "volume": (3, 4)}
 
 
-def check_kernel_range(config: dict, device, mode="nerf") -> None:
+def check_kernel_range(config: dict, device, mode="nerf", n_extra_dims: int = 0) -> None:
     """Raise ``ValueError`` when ``config`` builds a network that the CUDA
     kernels do not compute on ``device`` in testbed ``mode`` (a
     ``TestbedMode`` or its value): a grid level set other than (D, F) =
@@ -157,7 +173,8 @@ def check_kernel_range(config: dict, device, mode="nerf") -> None:
     (:func:`~nerfshop_tpu_torch.ops.fused_mlp.check_supported`): NeRF's
     density and rgb MLPs, or the other modes' one MLP from L·F inputs to 1
     (SDF), 3 (Image) or 4 (Volume) outputs. An encoding the port lacks
-    raises ``NotImplementedError`` naming it. Reads the config only and
+    raises ``NotImplementedError`` naming it. The dir encoding takes 3 +
+    ``n_extra_dims`` inputs, as :func:`build_nerf_network` builds it. Reads the config only and
     allocates nothing; the CPU's plain paths take every config, so a CPU
     device passes."""
     if torch.device(device).type != "cuda":
@@ -175,7 +192,7 @@ def check_kernel_range(config: dict, device, mode="nerf") -> None:
         mlps = (("MLP", "network", pos_width, n_out),)
     else:
         dir_cfg = config.get("dir_encoding")
-        dir_width = enc.encoding_shape(dict(dir_cfg), 3)[0] if dir_cfg else 0
+        dir_width = enc.encoding_shape(dict(dir_cfg), 3 + n_extra_dims)[0] if dir_cfg else 0
         mlps = (
             ("density MLP", "network", pos_width, DENSITY_FEATURES),
             ("rgb MLP", "rgb_network", DENSITY_FEATURES + dir_width, 3),
@@ -198,13 +215,15 @@ def build_nerf_network(
     desired_resolution: float = 2048.0,
     device=None,
     generator: Optional[torch.Generator] = None,
+    n_extra_dims: int = 0,
 ) -> NerfNetwork:
     """Construct from the JSON config tree, with the hash grid's automatic
-    per_level_scale = exp(ln(desired_res · aabb_scale / base_res) / (L − 1)).
-    On a CUDA device a config outside the kernels' range raises
+    per_level_scale = exp(ln(desired_res · aabb_scale / base_res) / (L − 1))
+    and the dir encoding built for 3 + ``n_extra_dims`` inputs. On a CUDA
+    device a config outside the kernels' range raises
     (:func:`check_kernel_range`) before anything is allocated."""
     if device is not None:
-        check_kernel_range(config, device)
+        check_kernel_range(config, device, n_extra_dims=n_extra_dims)
     enc_cfg = dict(config.get("encoding", {}))
     n_levels = enc_cfg.get("n_levels", 16)
     base_res = enc_cfg.get("base_resolution", 16)
@@ -214,7 +233,7 @@ def build_nerf_network(
     pos_encoding = enc.build_encoding(enc_cfg, 3, per_level_scale, device, generator)
 
     dir_cfg = config.get("dir_encoding")
-    dir_encoding = enc.build_encoding(dict(dir_cfg), 3, device=device) if dir_cfg else None
+    dir_encoding = enc.build_encoding(dict(dir_cfg), 3 + n_extra_dims, device=device) if dir_cfg else None
 
     density_mlp = mlp_lib.build_network(
         dict(config.get("network", {})), pos_encoding.n_output_dims, DENSITY_FEATURES, device, generator
@@ -230,4 +249,5 @@ def build_nerf_network(
         rgb_mlp=rgb_mlp,
         density_activation="exponential",
         rgb_activation="exponential" if is_hdr else "logistic",
+        n_extra_dims=n_extra_dims,
     )

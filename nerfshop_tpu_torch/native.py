@@ -1,6 +1,7 @@
 """Build and bind the port's native host libraries: ``csrc/host_ops.cpp``
-(the edit's host stages) and ``csrc/image_ops.cpp`` (the PNG reader's row
-unfiltering).
+(the edit's host stages), ``csrc/image_ops.cpp`` (the PNG reader's row
+unfiltering) and ``csrc/jpeg.cpp`` (the baseline JPEG decoder and
+encoder).
 
 Each source is compiled with ``g++`` on first use into
 ``build/nerfshop_tpu_torch/`` at the root of the checkout, keyed by a hash
@@ -28,6 +29,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "host_ops.cpp"
 IMAGE_SOURCE = SOURCE.with_name("image_ops.cpp")
+JPEG_SOURCE = SOURCE.with_name("jpeg.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "nerfshop_tpu_torch"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
@@ -73,7 +75,15 @@ _SIGNATURES = {
         "clear_cells_in_tets": (None, [_F32P, _I32P, _I64, _I32, _F32, _F32, _F32P]),
     },
     IMAGE_SOURCE: {"png_unfilter": (_I64, [_U8P, _U8P, _I64, _I64, _I32])},
+    JPEG_SOURCE: {
+        "jpeg_info": (_I32, [_U8P, _I64, _I32P, ctypes.c_char_p, _I32]),
+        "jpeg_decode": (_I32, [_U8P, _I64, _U8P, ctypes.c_char_p, _I32]),
+        "jpeg_encode": (_I64, [_U8P, _I32, _I32, _I32, _I32, _I32, _U8P, _I64]),
+    },
 }
+
+#: the chroma subsamplings of :func:`jpeg_encode`, as PIL names them
+JPEG_SUBSAMPLING = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2}
 
 
 def get_lib(source: Path = SOURCE) -> ctypes.CDLL:
@@ -101,6 +111,60 @@ def png_unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndar
     if bad:
         raise ValueError(f"PNG row {bad - 1} has filter type {raw[(bad - 1) * (stride + 1)]} (0-4 only)")
     return out
+
+
+def _jpeg_check(code: int, err, name: str) -> None:
+    if code == 1:
+        raise ValueError(f"{name}: corrupt JPEG: {err.value.decode()}")
+    if code == 2:
+        raise NotImplementedError(f"{name}: {err.value.decode()} is not supported (baseline JPEG only)")
+
+
+def jpeg_decode(data: bytes, name: str = "JPEG") -> np.ndarray:
+    """Decode a baseline JPEG → uint8 [H, W, 3], or [H, W] for grayscale:
+    the array PIL's ``np.asarray(Image.open(...))`` gives (libjpeg's
+    default decode). Unsupported files (progressive, arithmetic-coded,
+    lossless, 12-bit, CMYK, other chroma samplings) raise
+    ``NotImplementedError`` naming ``name`` and the mode; a truncated or
+    corrupt stream raises ``ValueError``."""
+    lib = get_lib(JPEG_SOURCE)
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(3, np.int32)
+    err = ctypes.create_string_buffer(256)
+    _jpeg_check(lib.jpeg_info(buf, buf.size, info, err, len(err)), err, name)
+    width, height, channels = (int(v) for v in info)
+    out = np.empty((height, width, channels), np.uint8)
+    _jpeg_check(lib.jpeg_decode(buf, buf.size, out, err, len(err)), err, name)
+    return out[..., 0] if channels == 1 else out
+
+
+def jpeg_encode(data: np.ndarray, quality: int = 75, subsampling: str = "4:2:0") -> bytes:
+    """uint8 [H, W] or [H, W, 1 or 3] → the bytes of a baseline JPEG at
+    ``quality`` (1-100, libjpeg's scaling of the Annex K tables) with
+    ``subsampling`` "4:4:4", "4:2:2" or "4:2:0" of the chroma (PIL's
+    defaults: 75 and 4:2:0)."""
+    data = np.asarray(data)
+    if data.dtype != np.uint8:
+        raise ValueError(f"jpeg_encode takes uint8, got {data.dtype}")
+    if data.ndim == 3 and data.shape[-1] == 1:
+        data = data[..., 0]
+    if data.ndim not in (2, 3) or (data.ndim == 3 and data.shape[-1] != 3):
+        raise ValueError(f"jpeg_encode takes [H, W] or [H, W, 3], got shape {data.shape}")
+    if subsampling not in JPEG_SUBSAMPLING:
+        raise ValueError(f"subsampling must be one of {list(JPEG_SUBSAMPLING)}, got {subsampling!r}")
+    height, width = data.shape[:2]
+    if not (0 < width < 65536 and 0 < height < 65536):
+        raise ValueError(f"a JPEG is 1-65535 pixels a side, got {width}x{height}")
+    channels = 1 if data.ndim == 2 else 3
+    pixels = np.ascontiguousarray(data)
+    # at most 27 bits a coefficient, doubled by byte stuffing, over the padded planes
+    cap = 8 * channels * (-(-width // 16) * 16) * (-(-height // 16) * 16) + 4096
+    out = np.empty(cap, np.uint8)
+    n = get_lib(JPEG_SOURCE).jpeg_encode(pixels, width, height, channels, int(quality), JPEG_SUBSAMPLING[subsampling],
+                                         out, cap)
+    if n < 0:
+        raise RuntimeError(f"jpeg_encode: {-n} bytes exceed the buffer of {cap}")
+    return out[:n].tobytes()
 
 
 def voxelize_tets(verts: np.ndarray, tets: np.ndarray, res: int, bbox_lo: np.ndarray, inv_cell: np.ndarray,

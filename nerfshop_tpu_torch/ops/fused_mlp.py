@@ -19,8 +19,9 @@ from nerfshop_tpu_torch import kernels
 
 #: the only hidden width kernel C takes
 HIDDEN = 64
-#: input widths kernel C takes
-INPUT_WIDTHS = (16, 32, 48, 64)
+#: the widest input kernel C takes (it pads an input to whole 16-column
+#: k-tiles with zeros)
+MAX_INPUT = 64
 #: largest output width kernel C takes (the last layer is padded to 8 or 16)
 MAX_OUTPUT = 16
 
@@ -67,8 +68,8 @@ def check_supported(
         problems.append(f"activation {activation!r} (ReLU only)")
     if (output_activation or "None").lower() != "none":
         problems.append(f"output activation {output_activation!r} (None only)")
-    if n_input_dims not in INPUT_WIDTHS:
-        problems.append(f"input width {n_input_dims} (one of {INPUT_WIDTHS})")
+    if not 1 <= n_input_dims <= MAX_INPUT:
+        problems.append(f"input width {n_input_dims} (1..{MAX_INPUT})")
     if n_neurons != HIDDEN:
         problems.append(f"hidden width {n_neurons} ({HIDDEN} only)")
     if n_hidden_layers not in (1, 2):

@@ -30,6 +30,8 @@ from nerfshop_tpu_torch.ops.gather import take_along
 COARSE_STRIDE = 8
 #: per-cascade coarse occupancy resolution
 COARSE_RES = 16
+#: the training spread's largest stride, in occupied candidates a sample
+SPREAD_STRIDE_CAP = 4.0
 
 
 class SampleBatch(NamedTuple):
@@ -154,7 +156,7 @@ def march_rays(
     grid_stop_tau: float = 8.0,
     selection: str = "first",
     spread_rng: Optional[torch.Tensor] = None,  # [R, K] in [0, 1)
-    spread_stride_cap: float = 4.0,
+    spread_stride_cap: float = SPREAD_STRIDE_CAP,
     coarse_field: Optional[torch.Tensor] = None,  # flat build_coarse_occupancy
     fine_field: Optional[torch.Tensor] = None,  # flat masked_density_field
 ) -> SampleBatch:

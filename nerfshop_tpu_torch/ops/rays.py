@@ -8,9 +8,11 @@ field, ``latlong_to_dir``/``dir_to_latlong``, ``latlong_ray``,
 the uniform branch of ``sample_training_pixels`` and its error-map branch
 from given draws (:func:`pixels_from_error_map`), and
 ``rays_from_pixels`` with the learnable camera parameters (pose deltas and
-the screen-space distortion map), without rolling shutter. Random draws
-are inputs (:func:`pixels_from_uniform`, :func:`pixels_from_error_map`,
-``subpixel_jitter``, ``dof_uv``) or come from an explicit generator.
+the screen-space distortion map) and with rolling shutter and motion blur
+(:func:`pose_lerp`, :func:`shutter_times`). Random draws are inputs
+(:func:`pixels_from_uniform`, :func:`pixels_from_error_map`,
+``subpixel_jitter``, ``dof_uv``, the shutter's ``shutter_xi``) or come from
+an explicit generator.
 """
 
 from __future__ import annotations
@@ -284,6 +286,26 @@ def distortion_map_offset(dm: torch.Tensor, pix: torch.Tensor, resolution: torch
     )
 
 
+def pose_lerp(xf_start: torch.Tensor, xf_end: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Per-element lerp of [..., 3, 4] camera matrices at times ``t`` [...]
+    in [0, 1]: the matrix itself is lerped, not slerped, as the reference's
+    rolling-shutter camera does."""
+    t = t[..., None, None]
+    return xf_start * (1.0 - t) + xf_end * t
+
+
+def shutter_times(
+    xi: torch.Tensor,  # [N] uniforms in [0, 1): the motion-blur draws
+    pix: torch.Tensor,  # [N, 2] pixel coords
+    resolution: torch.Tensor,  # [2] (W, H)
+    rolling_shutter: torch.Tensor,  # [4] (offset, du, dv, motion-blur jitter)
+) -> torch.Tensor:
+    """Each ray's normalized exposure time rs.x + rs.y·u + rs.z·v + rs.w·ξ."""
+    uv = pix / resolution
+    rs = rolling_shutter
+    return rs[0] + rs[1] * uv[..., 0] + rs[2] * uv[..., 1] + rs[3] * xi
+
+
 def rays_from_pixels(
     img_idx: torch.Tensor,
     pix: torch.Tensor,
@@ -293,17 +315,32 @@ def rays_from_pixels(
     resolution: torch.Tensor,  # [2] (W, H)
     distortions: Optional[torch.Tensor] = None,  # [N, 4]
     camera_params: Optional[Dict[str, torch.Tensor]] = None,
+    xforms_end: Optional[torch.Tensor] = None,  # [N, 3, 4] end-of-exposure poses
+    rolling_shutter: Optional[torch.Tensor] = None,  # [4]
+    shutter_xi: Optional[torch.Tensor] = None,  # [R] motion-blur uniforms
 ) -> RayBundle:
     """Rays through the given pixels of the given images, differentiable in
     ``camera_params``: per-image pose deltas ``rot`` and ``trans`` [N, 3]
     (applied per image, then gathered per ray) and, where it has one, the
     shared ``distortion_map`` [Hd, Wd, 2], whose offset moves the pixel
-    before the ray is made."""
+    before the ray is made. With ``xforms_end`` and ``rolling_shutter``,
+    each ray's pose is lerped between its image's start and end poses at
+    its :func:`shutter_times` (of the pixel before the distortion map's
+    offset, and of ``shutter_xi``); the pose deltas, which act linearly on
+    the matrix, move both ends alike."""
     i = img_idx.long()
-    xf = xforms
+    xf, xf_end = xforms, xforms_end
+    shutter = xforms_end is not None and rolling_shutter is not None
+    if shutter:
+        if shutter_xi is None:
+            raise ValueError("rolling shutter: rays_from_pixels needs the motion-blur draws shutter_xi")
+        t = shutter_times(shutter_xi, pix, resolution, rolling_shutter)
     if camera_params is not None:
         xf = apply_pose_delta(xforms, camera_params["rot"], camera_params["trans"])
+        if shutter:
+            xf_end = apply_pose_delta(xforms_end, camera_params["rot"], camera_params["trans"])
         if "distortion_map" in camera_params:
             pix = pix + distortion_map_offset(camera_params["distortion_map"], pix, resolution) * resolution
+    xf_ray = pose_lerp(xf[i], xf_end[i], t) if shutter else xf[i]
     dist = distortions[i] if distortions is not None else None
-    return pixel_to_ray(pix, xf[i], focals[i], principals[i], resolution, dist)
+    return pixel_to_ray(pix, xf_ray, focals[i], principals[i], resolution, dist)

@@ -28,8 +28,9 @@ no table gradient is formed; as in JAX it evaluates every slot.
 
 With an ``envmap`` (the trainable lat-long background) the shaded modes
 composite it behind transparent pixels, as JAX's per-ray renderer does.
-Not ported, raising ``NotImplementedError``: extra network dims. The tiled
-render paths stay with the JAX package.
+``extra_dims`` [E] (a warped light direction) goes to every sample of a
+network with extra dims and is ignored by one without, as in JAX. The
+tiled render paths stay with the JAX package.
 """
 
 from __future__ import annotations
@@ -84,10 +85,13 @@ class FrameOutput(NamedTuple):
     depth: torch.Tensor  # [H, W]
 
 
-def _field(model, params: Optional[Dict[str, torch.Tensor]]):
+def _field(model, params: Optional[Dict[str, torch.Tensor]], extra: Optional[torch.Tensor] = None):
     """(warped pos [N, 3], warped dir [N, 3]) → activated (rgb [N, 3], σ [N])
-    with ``params`` (a state dict, e.g. the EMA copy) or the model's own."""
-    return lambda p, d: forward_with(model, params, p, d)
+    with ``params`` (a state dict, e.g. the EMA copy) or the model's own, and
+    ``extra`` [E] appended to every direction."""
+    if extra is None:
+        return lambda p, d: forward_with(model, params, p, d)
+    return lambda p, d: forward_with(model, params, p, d, extra.expand(p.shape[0], -1))
 
 
 def compact_budget(n_slots: int, compact_frac: float) -> int:
@@ -271,11 +275,14 @@ def render_frame(
     a state dict of ``model`` (e.g. the EMA copy) or None for the model's
     own parameters. ``lens`` is 'pinhole', 'ftheta' or 'latlong'. ``envmap``
     [h, w, 4] (the trainable lat-long background) replaces the background
-    colour behind transparent pixels."""
+    colour behind transparent pixels. ``extra_dims`` [E] goes to every
+    sample of a model with ``n_extra_dims``."""
     if envmap is not None and (envmap.dim() != 3 or envmap.shape[-1] < 3):
         raise ValueError(f"envmap: expected a lat-long map [h, w, 4], got shape {tuple(envmap.shape)}")
-    if extra_dims is not None:
-        raise NotImplementedError("extra network dims are not ported")
+    if extra_dims is not None and extra_dims.dim() != 1:
+        raise ValueError(f"extra_dims: expected one vector [E], got shape {tuple(extra_dims.shape)}")
+    if not getattr(model, "n_extra_dims", 0):
+        extra_dims = None
     W, H = resolution
     dev = grid.occupancy.device
     principal = torch.tensor([0.5, 0.5], device=dev) if principal is None else principal
@@ -294,7 +301,7 @@ def render_frame(
     if opts.mode == RenderMode.Normals:
         # the gradient is taken with respect to positions only
         params = dict(model.state_dict()) if params is None else {k: v.detach() for k, v in params.items()}
-    field = _field(model, params)
+    field = _field(model, params, extra_dims)
     fields = march_fields(grid)
     rgba, depth = [], []
     for i in range(0, n + n_pad, chunk):

@@ -7,15 +7,23 @@ with an in-memory ``NerfDataset``), ``train`` (chunks of up to 16 steps
 through ``train/nerf.py::make_train_loop``, one captured CUDA graph per
 chunk length on a CUDA device; a grid refresh every 16 steps, full during
 the first 256, the degenerate-training guards and the adaptive (rays, K)
-bucket; the ``nerf.training`` knobs ``optimize_extrinsics``,
-``optimize_distortion`` (through the extrinsics path), ``optimize_exposure``,
+bucket, set after every chunk, whose first K at more than one cascade
+spreads over the whole march ladder; the ``nerf.training`` knobs
+``optimize_extrinsics``, ``optimize_distortion`` (through the extrinsics
+path), ``optimize_exposure``,
 ``use_error_map`` and ``train_envmap``, and a scene's envmap, which the
-renders composite behind transparent pixels), the camera API, ``render`` / ``render_dynamic``
+renders composite behind transparent pixels; a captured scene's rolling
+shutter, motion blur and light dirs, with ``nerf.light_dir`` for the
+renders), the camera API with the training views' extrinsics
+(``get_camera_extrinsics`` / ``set_camera_extrinsics``), ``training_step``,
+``n_params``, ``level_stats``, ``reload_network_from_file`` /
+``reload_network_from_json``, a ``torch.profiler`` trace
+(``start_profiler`` / ``stop_profiler``), ``render`` / ``render_dynamic``
 / ``frame`` through the exact renderer, ``save_snapshot`` /
 ``load_snapshot`` in the native format, and the edit API (``begin_cage_edit``
 → a ``GrowingSelection``; ``add_edit_operator`` and its siblings, which
 refresh the density grid through the operator stack; ``save_edits`` /
-``load_edits``), and the outputs: ``screenshot`` (PNG or EXR),
+``load_edits``), and the outputs: ``screenshot`` (PNG, JPEG or EXR),
 ``load_camera_path``, the density grid, the marching-tets mesh with
 vertex colours, its refinement and export, and density slices. ``render``
 always takes the exact path, through the edit stack: the tiled path is not
@@ -44,6 +52,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import tempfile
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -58,6 +67,7 @@ from nerfshop_tpu_torch.config import (
     load_network_config,
 )
 from nerfshop_tpu_torch.device import default_device
+from nerfshop_tpu_torch.models.encodings import encoding_shape
 from nerfshop_tpu_torch.models.nerf_network import check_kernel_range
 
 
@@ -151,8 +161,15 @@ class Testbed:
             ),
             render_min_transmittance=1e-2,
             cone_angle_constant=0.0,
+            #: the light direction renders give a network built with a
+            #: scene's light dirs (its extra dims)
+            light_dir=np.array([0.0, 0.0, 1.0], np.float32),
         )
         self.stats = TrainingStats()
+        #: the newest ``torch.profiler`` trace of :meth:`start_profiler` /
+        #: :meth:`stop_profiler`, and where it goes
+        self.profiler = None
+        self._profiler_dir: Optional[str] = None
         self.loss_history: list = []
         self._network_config: ConfigDict = DEFAULT_CONFIGS[self.mode]()
         self._dataset = None
@@ -238,6 +255,46 @@ class Testbed:
 
     # ----------------------------------------------------------------- network
 
+    def reload_network_from_file(self, path: str = "") -> None:
+        """A fresh network (and optimizer, grid and step) from the config at
+        ``path``, or from the current config when ``path`` is empty (the
+        reference's distillation resets the network so)."""
+        if path:
+            cfg = load_network_config(path)
+            check_kernel_range(cfg, self.device, self.mode)
+            self._network_config = cfg
+        self._reset_network()
+
+    def reload_network_from_json(self, cfg: dict) -> None:
+        """A fresh network (and optimizer, grid and step) from the config ``cfg``."""
+        cfg = ConfigDict(cfg)
+        check_kernel_range(cfg, self.device, self.mode)
+        self._network_config = cfg
+        self._reset_network()
+
+    def _n_extra_dims(self) -> int:
+        """The network's extra input dims for the loaded scene: 3 with light
+        dirs, else its ``n_extra_learnable_dims``. The JAX package feeds the
+        learnable dims nothing (``ROADMAP.md`` Queue 3, F17): they reach no
+        network input under a plain SH dir encoding, and where the dir
+        encoding would read them (the default ``Composite``) JAX's step
+        fails on the rgb MLP's width, so the port raises ``ValueError``
+        naming F17."""
+        ds = self._dataset
+        if ds is None:
+            return 0
+        if getattr(ds, "has_light_dirs", False):
+            return 3
+        n = int(getattr(ds, "n_extra_learnable_dims", 0) or 0)
+        dir_cfg = self._network_config.get("dir_encoding")
+        if n and dir_cfg and encoding_shape(dict(dir_cfg), 3 + n)[0] != encoding_shape(dict(dir_cfg), 3)[0]:
+            raise ValueError(
+                f"n_extra_learnable_dims {n}: the dir encoding would read {n} extra inputs that training feeds "
+                "nothing (F17: the JAX package builds them into the network but never feeds them, and its step "
+                "fails on the rgb MLP's width); use a plain SphericalHarmonics dir encoding, which reads the direction only"
+            )
+        return n
+
     def _reset_network(self) -> None:
         if self.mode != TestbedMode.Nerf:
             self._reset_field()
@@ -252,7 +309,7 @@ class Testbed:
         aabb_scale = ds.aabb_scale if ds is not None else 1
         self._model = build_nerf_network(
             cfg, aabb_scale=aabb_scale, is_hdr=bool(ds is not None and ds.is_hdr),
-            device=self.device, generator=self.generator,
+            device=self.device, generator=self.generator, n_extra_dims=self._n_extra_dims(),
         )
         t = self.nerf.training
         # the trainable envmap: the scene's envmap image, or a fresh one when
@@ -342,6 +399,66 @@ class Testbed:
         return self._train_cfg
 
     @property
+    def training_step(self) -> int:
+        """Training steps taken since the network was (re)built or loaded."""
+        return self.stats.step
+
+    def n_params(self) -> int:
+        """Trainable parameters: the network's and the training leaves'
+        (``camera.*``, ``envmap``), as JAX counts its ``params`` tree."""
+        return sum(p.numel() for p in self._state.params)
+
+    def level_stats(self) -> list:
+        """Per-level magnitudes of the hash table (the live parameters):
+        level, resolution, size, hashed, mean and max |entry|, and the share
+        of entries with |entry| > 1e-6."""
+        self._require_nerf("level_stats")
+        enc = self._model.pos_encoding
+        table = enc.table.detach()
+        out = []
+        for level in range(enc.n_levels):
+            seg = table[enc.level_offsets[level]: enc.level_offsets[level + 1]].abs()
+            out.append({
+                "level": level,
+                "resolution": enc.level_res[level],
+                "size": enc.level_sizes[level],
+                "hashed": not enc.level_dense[level],
+                "mean_abs": float(seg.mean()),
+                "max_abs": float(seg.max()),
+                "frac_nonzero": float((seg > 1e-6).float().mean()),
+            })
+        return out
+
+    def start_profiler(self, logdir: Optional[str] = None) -> None:
+        """Start a ``torch.profiler`` trace of the host and, on a CUDA
+        device, the card, to be written under ``logdir`` (default
+        ``nerfshop_trace`` in the temporary directory) by :meth:`stop_profiler`."""
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.profiler is not None and self._profiler_dir is not None:
+            raise RuntimeError("a profiler trace is already running: stop_profiler first")
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        self._profiler_dir = logdir or str(Path(tempfile.gettempdir()) / "nerfshop_trace")
+        self.profiler = profile(activities=activities)
+        self.profiler.start()
+
+    def stop_profiler(self) -> str:
+        """Stop the trace, write it as a Chrome trace (JSON) under the
+        directory :meth:`start_profiler` took → its path. ``self.profiler``
+        keeps the profile (``key_averages()``)."""
+        if self.profiler is None or self._profiler_dir is None:
+            raise RuntimeError("no profiler trace is running: start_profiler first")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.profiler.stop()
+        out = Path(self._profiler_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{time.perf_counter_ns()}.json"
+        self.profiler.export_chrome_trace(str(path))
+        self._profiler_dir = None
+        return str(path)
+
+    @property
     def trained_mask(self) -> Optional[torch.Tensor]:
         """[C, R, R, R] bool cells seen by some training camera, or None."""
         return self._trained_mask
@@ -359,8 +476,7 @@ class Testbed:
         t_start = time.perf_counter()
         if not self._step_ready:
             self._batch_slots = max(1 << 13, batch_size)
-            self._k_bucket = self._train_cfg.k_samples
-            self._build_step_fn(self._batch_slots // self._k_bucket, self._k_bucket)
+            self._build_step_fn(self._first_bucket())
             if self._train_cfg.use_error_map:
                 self._error_map = nerf_train.create_error_map(
                     self._dataset.n_images, self._train_cfg.error_map_resolution, device=self.device
@@ -368,7 +484,6 @@ class Testbed:
 
         loss = float(self.stats.loss)
         remaining = n_steps
-        overflow_sum, n_chunks = 0.0, 0
         while remaining > 0:
             step = self.stats.step
             if step % 16 == 0:
@@ -392,10 +507,15 @@ class Testbed:
             loss = float(ys[-1, 0])
             measured = int(ys[-1, 1])
             self.stats.measured_samples_total += int(ys[:, 1].sum())
-            overflow_sum += float(ys[:, 2].mean())
-            n_chunks += 1
             for i, lv in enumerate(ys[:, 0]):
                 self.loss_history.append((self.stats.step - chunk + 1 + i, float(lv)))
+            # adaptive (rays, K) bucket after every chunk: most rays filling K
+            # → fewer, longer rays; few → more, shorter ones
+            overflow = float(ys[:, 2].mean())
+            if overflow > 0.6 and self._k_bucket < 1024:
+                self._set_bucket(self._k_bucket * 2)
+            elif overflow < 0.08 and self._k_bucket > 32:
+                self._set_bucket(self._k_bucket // 2)
             if measured == 0:
                 self.shall_train = False
                 raise RuntimeError(
@@ -410,14 +530,6 @@ class Testbed:
         del self.loss_history[:-512]
         self._params_version = next(self._versions)
         self._grid_version = next(self._versions)
-        # adaptive (rays, K) bucket: most rays filling K → fewer, longer rays
-        overflow = overflow_sum / max(n_chunks, 1)
-        if n_chunks and overflow > 0.6 and self._k_bucket < 1024:
-            self._k_bucket *= 2
-            self._build_step_fn(max(64, self._batch_slots // self._k_bucket), self._k_bucket)
-        elif n_chunks and overflow < 0.08 and self._k_bucket > 32:
-            self._k_bucket //= 2
-            self._build_step_fn(max(64, self._batch_slots // self._k_bucket), self._k_bucket)
         self.stats.training_ms = (time.perf_counter() - t_start) * 1e3
         return loss
 
@@ -460,7 +572,7 @@ class Testbed:
         (``train/nerf.py::make_train_loop``: captured on a CUDA device,
         eager on the CPU), made at first use. The cache goes with the
         network (``_reset_network``, so also ``set_training_data`` and
-        ``load_snapshot``) and with the bucket (``_build_step_fn``)."""
+        ``load_snapshot``) and with the bucket (``_set_bucket``)."""
         from nerfshop_tpu_torch.train import nerf as nerf_train
 
         key = (self._train_cfg.n_rays_per_batch, self._train_cfg.k_samples, chunk)
@@ -472,15 +584,37 @@ class Testbed:
             self._loops[key] = loop
         return loop
 
-    def _build_step_fn(self, n_rays: int, k_samples: Optional[int] = None) -> None:
-        """Set the (rays, K) bucket and the untrained-cell mask; drops the
-        training loops of the previous bucket."""
-        from nerfshop_tpu_torch.ops import grid as grid_lib
+    def _first_bucket(self) -> int:
+        """K of the first bucket, whose chunk marches the untrained grid with
+        every cell occupied. One cascade: the config's K. More: the least K
+        whose spread, at most ``march.SPREAD_STRIDE_CAP`` candidates a
+        sample, covers the whole candidate ladder; a shorter K reaches only
+        its first half (at ``aabb_scale`` 4, 1.3 units from the camera) and
+        training fits each view with fog in front of its camera."""
+        from nerfshop_tpu_torch.ops import march
+
+        cfg = self._train_cfg
+        if cfg.n_cascades == 1:
+            return cfg.k_samples
+        return max(cfg.k_samples, int(cfg.n_candidates // march.SPREAD_STRIDE_CAP))
+
+    def _set_bucket(self, k_samples: int) -> None:
+        """Set the (rays, K) bucket, K samples a ray over the batch's slots;
+        drops the training loops of the previous bucket."""
         from nerfshop_tpu_torch.train import nerf as nerf_train
 
+        self._k_bucket = k_samples
         self._train_cfg = nerf_train.NerfTrainConfig(
-            **{**self._train_cfg.__dict__, "n_rays_per_batch": n_rays, "k_samples": k_samples or self._train_cfg.k_samples}
+            **{**self._train_cfg.__dict__, "n_rays_per_batch": max(64, self._batch_slots // k_samples),
+               "k_samples": k_samples}
         )
+        self._loops = {}
+
+    def _build_step_fn(self, k_samples: int) -> None:
+        """Set the first (rays, K) bucket and the untrained-cell mask."""
+        from nerfshop_tpu_torch.ops import grid as grid_lib
+
+        self._set_bucket(k_samples)
         ds = self._dataset
         usable = (
             ds is not None
@@ -490,7 +624,6 @@ class Testbed:
             and np.abs(np.asarray(ds.distortion_matrix())).max() <= 1e-8
         )
         self._trained_mask = None
-        self._loops = {}
         if usable:
             xf = np.asarray(ds.xforms, np.float32)
             res_hw = np.asarray([[im.shape[1], im.shape[0]] for im in ds.images], np.float32)
@@ -607,6 +740,41 @@ class Testbed:
     def first_training_view(self) -> None:
         self.set_camera_to_training_view(0)
 
+    def get_camera_extrinsics(self, i: int, convention: str = "nerf") -> np.ndarray:
+        """Training view ``i``'s pose [3, 4] with its optimized deltas (the
+        ``camera.rot`` / ``camera.trans`` leaves, where training has them),
+        in nerf (transforms.json) or ngp convention."""
+        from nerfshop_tpu_torch.data.nerf_loader import ngp_matrix_to_nerf
+        from nerfshop_tpu_torch.ops import rays as rays_lib
+
+        if self._dataset is None:
+            raise RuntimeError("no training data")
+        xf = np.asarray(self._dataset.xforms[i], np.float32)
+        extra = self._state.extra if self._state is not None else {}
+        if "camera.rot" in extra:
+            with torch.no_grad():
+                xf = rays_lib.apply_pose_delta(
+                    torch.as_tensor(xf, device=self.device), extra["camera.rot"][i], extra["camera.trans"][i]
+                ).cpu().numpy()
+        if convention == "ngp":
+            return xf
+        return ngp_matrix_to_nerf(xf, self._dataset.scale, self._dataset.offset)
+
+    def set_camera_extrinsics(self, i: int, mat: np.ndarray, convention: str = "nerf") -> None:
+        """Overwrite training view ``i``'s pose, given in nerf or ngp
+        convention, on the host and in the device data; the device copy is
+        written in place, so training loops captured before see it."""
+        from nerfshop_tpu_torch.data.nerf_loader import nerf_matrix_to_ngp
+
+        if self._dataset is None:
+            raise RuntimeError("no training data")
+        xf = np.asarray(mat, np.float32)
+        if convention == "nerf":
+            xf = nerf_matrix_to_ngp(xf, self._dataset.scale, self._dataset.offset)
+        self._dataset.xforms[i] = xf[:3, :4]
+        if self._device_data is not None:
+            self._device_data.xforms[i].copy_(torch.as_tensor(np.ascontiguousarray(xf[:3, :4]), device=self.device))
+
     def render(self, width: int, height: int, *args, **kw) -> np.ndarray:
         """→ [H, W, 4] float32 numpy frame: :meth:`_render_image` (which
         lists the options), copied to the host."""
@@ -683,6 +851,7 @@ class Testbed:
                 self._model, self.inference_params, self._grid, (width, height), t(cam), t(focal), t(principal),
                 distortion=dist, opts=opts, subpixel_jitter=jitter, lens=lens, ftheta_coeffs=ftheta, dof_uv=dof_uv,
                 operators=tuple(self._edit_operators), envmap=self._state.inference_extra.get("envmap"),
+                extra_dims=self._render_extra_dims(),
             )
             buf.accumulate(out.rgba, out.depth)
         self._last_depth = out.depth.cpu().numpy()
@@ -698,6 +867,17 @@ class Testbed:
             # the model predicts sRGB-space radiance; convert for linear output
             img = torch.cat([tm.srgb_to_linear(img[..., :3]), img[..., 3:]], dim=-1)
         return img
+
+    def _render_extra_dims(self) -> Optional[torch.Tensor]:
+        """The warped, normalized ``nerf.light_dir`` [3] as the renders' extra
+        dims, for a network built with extra dims; else None."""
+        if self._model is None or not self._model.n_extra_dims:
+            return None
+        from nerfshop_tpu_torch.ops import coords
+
+        ld = np.asarray(self.nerf.light_dir, np.float32)
+        ld = ld / max(float(np.linalg.norm(ld)), 1e-9)
+        return coords.warp_direction(torch.as_tensor(ld, device=self.device))
 
     def _render_field(self, width: int, height: int, linear: bool, camera_matrix, focal) -> torch.Tensor:
         """The Image mode's field at every pixel centre (alpha 1), the SDF
@@ -767,8 +947,13 @@ class Testbed:
 
         occ_frac = float(self._grid.occupancy.float().mean())
         # the sample budget follows the grid: a dense grid needs a deep
-        # first-K budget to reach content, a sparse one a short one
-        k_render = 64 if occ_frac < 0.15 else 256
+        # first-K budget to reach content, a sparse one a short one and the
+        # grid's early stop. Past one cascade the deep budget and no early
+        # stop: a ray from a camera inside the box crosses more occupied
+        # cells before its content, and a coarse cell's largest density
+        # overstates the optical depth of a ray that grazes its content
+        sparse = occ_frac < 0.15 and self._train_cfg.n_cascades == 1
+        k_render = 64 if sparse else 256
         crop = None
         if self.render_aabb is not None:
             lo, hi = self.render_aabb
@@ -779,7 +964,7 @@ class Testbed:
             k_samples=k_render,
             n_windows=2,
             chunk=chunk,
-            use_grid_early_stop=occ_frac < 0.15,
+            use_grid_early_stop=sparse,
             cone_angle=self._train_cfg.cone_angle,
             aabb_scale=self._train_cfg.aabb_scale,
             min_transmittance=min_transmittance or self.nerf.render_min_transmittance,

@@ -15,8 +15,11 @@ the differentiable rays; kernel F on the card), per-image exposure
 (``train_envmap``) and error-map importance sampling (``use_error_map``).
 The camera and envmap leaves are parameters of the ``TrainState`` beside
 the model's (``train/optim.py``), and the error map is state of the loop,
-updated in place after each step. Light directions and rolling shutter are
-not ported and raise ``NotImplementedError``.
+updated in place after each step. A captured scene's rolling shutter and
+motion blur (``transform_matrix_end`` and ``rolling_shutter``: each ray's
+pose lerped at its shutter time, from one more uniform draw a ray) and its
+per-image light directions (the warped ``light_dir`` appended to the dir
+encoding's input) train as in JAX.
 """
 
 from __future__ import annotations
@@ -49,15 +52,16 @@ class DeviceDataset(NamedTuple):
     distortions: torch.Tensor  # [N, 4]
     #: per-image sharpness normalized to mean 1 (weights the error-map deposit)
     sharpness: Optional[torch.Tensor] = None  # [N]
+    #: end-of-exposure poses and the shutter vector (offset, du, dv,
+    #: motion-blur jitter), when the scene has both and the vector is not 0
+    xforms_end: Optional[torch.Tensor] = None  # [N, 3, 4]
+    rolling_shutter: Optional[torch.Tensor] = None  # [4]
+    #: per-image light directions, when every frame has one
+    light_dirs: Optional[torch.Tensor] = None  # [N, 3]
 
     @staticmethod
     def from_dataset(ds, device) -> "DeviceDataset":
         """From a ``data.nerf_loader.NerfDataset``."""
-        rs = np.asarray(getattr(ds, "rolling_shutter", np.zeros(4)), np.float32)
-        if getattr(ds, "xforms_end", None) is not None and (rs != 0).any():
-            raise NotImplementedError("rolling-shutter / motion-blur training is not ported")
-        if getattr(ds, "has_light_dirs", False) or getattr(ds, "n_extra_learnable_dims", 0):
-            raise NotImplementedError("light dirs / extra network dims are not ported")
 
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -66,6 +70,10 @@ class DeviceDataset(NamedTuple):
         if getattr(ds, "sharpness", None) is not None:
             s = np.asarray(ds.sharpness, np.float32)
             sharp = t(s / max(float(s.mean()), 1e-9))
+        xf_end = getattr(ds, "xforms_end", None)
+        rs = np.asarray(getattr(ds, "rolling_shutter", np.zeros(4)), np.float32)
+        shutter = xf_end is not None and bool((rs != 0).any())
+        ld = getattr(ds, "light_dirs", None) if getattr(ds, "has_light_dirs", False) else None
         return DeviceDataset(
             images=t(ds.images),
             xforms=t(ds.xforms),
@@ -73,6 +81,9 @@ class DeviceDataset(NamedTuple):
             principals=t(ds.principal_matrix()),
             distortions=t(ds.distortion_matrix()),
             sharpness=sharp,
+            xforms_end=t(xf_end) if shutter else None,
+            rolling_shutter=t(rs) if shutter else None,
+            light_dirs=t(ld) if ld is not None else None,
         )
 
 
@@ -119,12 +130,17 @@ def nerf_loss_fn(
     min_transmittance: float,
     near_distance: float = 0.0,
     mean_grid_density: Optional[torch.Tensor] = None,
+    extra: Optional[torch.Tensor] = None,  # [R, E] per-ray extra dims
 ) -> Tuple[torch.Tensor, dict]:
     """Photometric loss over the composited rays plus the reference's output
-    regularizers (HDR colour, early density floor, near-distance penalty)."""
+    regularizers (HDR colour, early density floor, near-distance penalty).
+    ``extra`` goes to every sample of its ray."""
     R, K = samples.t.shape
     pos_w, dir_w = march.samples_to_network_inputs(samples, origins, directions, aabb)
-    raw_rgb, raw_sigma = model.raw_forward(pos_w.reshape(R * K, 3), dir_w.reshape(R * K, 3))
+    extra_flat = None
+    if extra is not None:
+        extra_flat = extra[:, None, :].expand(R, K, extra.shape[-1]).reshape(R * K, extra.shape[-1])
+    raw_rgb, raw_sigma = model.raw_forward(pos_w.reshape(R * K, 3), dir_w.reshape(R * K, 3), extra_flat)
     rgb = nn_lib.rgb_activation_fn(raw_rgb, model.rgb_activation).reshape(R, K, 3)
     sigma = nn_lib.density_activation_fn(raw_sigma, model.density_activation).reshape(R, K)
     raw_sigma = raw_sigma.reshape(R, K)
@@ -185,6 +201,7 @@ def grads_from_draws(
     spread: torch.Tensor,  # [R, K] in [0, 1)
     bg: torch.Tensor,  # [R, 3]
     extra: Optional[Dict[str, torch.Tensor]] = None,
+    shutter_xi: Optional[torch.Tensor] = None,  # [R] in [0, 1)
 ) -> Tuple[Dict[str, torch.Tensor], dict]:
     """Rays → training march → network → composite + loss → gradients of
     every model parameter and of every ``extra`` leaf (``camera.*``,
@@ -192,7 +209,10 @@ def grads_from_draws(
     no random draws. With ``cfg.optimize_extrinsics`` the march takes the
     rays with the gradient stopped and the network's positions come from
     the same rays built differentiably (JAX's ``bundle0`` and ``bundle``);
-    a leaf the loss does not reach gets a zero gradient, as in JAX."""
+    a leaf the loss does not reach gets a zero gradient, as in JAX. With
+    the data's rolling shutter, ``shutter_xi`` is each ray's motion-blur
+    draw; with its light dirs and a network of extra dims, each ray's
+    image's warped light dir is the network's extra input."""
     extra = extra or {}
     aabb = coords.BoundingBox.from_aabb_scale(cfg.aabb_scale, device=pix.device)
     N, H, W = data.images.shape[:3]
@@ -203,7 +223,8 @@ def grads_from_draws(
 
     def rays(camera_params=None):
         return rays_lib.rays_from_pixels(
-            img_idx, pix, data.xforms, data.focals, data.principals, res, data.distortions, camera_params
+            img_idx, pix, data.xforms, data.focals, data.principals, res, data.distortions, camera_params,
+            data.xforms_end, data.rolling_shutter, shutter_xi,
         )
 
     if cfg.optimize_extrinsics and cam:
@@ -222,10 +243,13 @@ def grads_from_draws(
     if cfg.optimize_exposure and cam:
         scale = torch.exp(cam["log_exposure"][img_idx.long()])[:, None]
         targets = torch.cat([targets[:, :3] * scale, targets[:, 3:]], dim=-1)
+    light = None
+    if data.light_dirs is not None and model.n_extra_dims:
+        light = coords.warp_direction(data.light_dirs[img_idx.long()])
     loss, aux = nerf_loss_fn(
         model, samples, bundle.origins, bundle.directions, targets, bg, aabb,
         loss_lib.LOSSES[cfg.loss_type], cfg.min_transmittance,
-        near_distance=cfg.near_distance, mean_grid_density=grid.mean_density,
+        near_distance=cfg.near_distance, mean_grid_density=grid.mean_density, extra=light,
     )
     names, params = zip(*model.named_parameters(), *extra.items())
     grads = torch.autograd.grad(loss, params, allow_unused=bool(extra))
@@ -255,10 +279,11 @@ def update_error_map(error_map, img_idx, pix, per_ray_loss, images_shape, decay:
 
 
 def draw_step(cfg: NerfTrainConfig, data: DeviceDataset, generator: torch.Generator):
-    """The draws of one training step → (img_idx, pix, t_jitter, spread, bg).
-    With the error map, ``pix`` is not a pixel yet but three uniforms a ray
-    [R, 3] (the cell's, then the jitter in the cell), which the step maps
-    through the map of its own time (:func:`pixels_of_step`)."""
+    """The draws of one training step → (img_idx, pix, t_jitter, spread, bg),
+    and with the data's rolling shutter a sixth, each ray's motion-blur
+    uniform [R]. With the error map, ``pix`` is not a pixel yet but three
+    uniforms a ray [R, 3] (the cell's, then the jitter in the cell), which
+    the step maps through the map of its own time (:func:`pixels_of_step`)."""
     dev = data.images.device
     R, K = cfg.n_rays_per_batch, cfg.k_samples
     img_idx = torch.randint(0, data.images.shape[0], (R,), generator=generator, device=dev)
@@ -272,6 +297,8 @@ def draw_step(cfg: NerfTrainConfig, data: DeviceDataset, generator: torch.Genera
         bg = torch.rand((R, 3), generator=generator, device=dev)
     else:
         bg = torch.zeros((R, 3), device=dev)
+    if data.xforms_end is not None:
+        return img_idx, pix, t_jitter, spread, bg, torch.rand((R,), generator=generator, device=dev)
     return img_idx, pix, t_jitter, spread, bg
 
 
@@ -317,9 +344,11 @@ class TrainLoop:
         def buf(*shape, dtype=torch.float32):
             return torch.zeros((n_steps, *shape), dtype=dtype, device=dev)
 
-        #: (img_idx, pix, t_jitter, spread, bg) of every step, stacked
-        #: (``pix`` [R, 3] with the error map: :func:`draw_step`)
+        #: (img_idx, pix, t_jitter, spread, bg[, shutter_xi]) of every step,
+        #: stacked (``pix`` [R, 3] with the error map: :func:`draw_step`)
         self.draws = (buf(R, dtype=torch.int64), buf(R, 3 if cfg.use_error_map else 2), buf(R), buf(R, K), buf(R, 3))
+        if data.xforms_end is not None:
+            self.draws += (buf(R),)
         # the steps read only the occupancy and the mean density
         self.grid = grid_lib.OccupancyGrid(None, grid.occupancy.clone(), grid.mean_density.clone())
         self.lr = buf()
@@ -368,10 +397,11 @@ class TrainLoop:
         return {name: out[:, j] for j, name in enumerate(LOOP_OUTPUTS)}
 
     def _step(self, i: int) -> None:
-        img_idx, pix_draw, *rest = (d[i] for d in self.draws)
+        img_idx, pix_draw, t_jitter, spread, bg, *shutter = (d[i] for d in self.draws)
         pix = pixels_of_step(self.cfg, self.data, img_idx, pix_draw, self.error_map)
         grads, aux = grads_from_draws(
-            self.state.model, self.grid, self.data, self.cfg, img_idx, pix, *rest, extra=self.state.extra
+            self.state.model, self.grid, self.data, self.cfg, img_idx, pix, t_jitter, spread, bg,
+            extra=self.state.extra, shutter_xi=shutter[0] if shutter else None,
         )
         self.state.update(grads, self.lr[i])
         if self.error_map is not None:

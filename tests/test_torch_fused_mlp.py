@@ -99,7 +99,9 @@ def test_needs_grad_rules():
         ((32, 64, 2, 3, "ReLU", "None"), True),
         ((16, 64, 2, 1, "relu", "none"), True),
         ((64, 64, 1, 16, "ReLU", "None"), True),
-        ((24, 64, 1, 16, "ReLU", "None"), False),  # input width not a multiple of 16
+        ((24, 64, 1, 16, "ReLU", "None"), True),  # zero-padded to two k-tiles in the kernel
+        ((35, 64, 2, 3, "ReLU", "None"), True),  # the rgb MLP of a scene with light dirs
+        ((0, 64, 1, 16, "ReLU", "None"), False),
         ((80, 64, 1, 16, "ReLU", "None"), False),
         ((32, 128, 1, 16, "ReLU", "None"), False),  # hidden width
         ((32, 64, 3, 16, "ReLU", "None"), False),  # depth

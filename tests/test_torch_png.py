@@ -130,8 +130,11 @@ def test_encode_png_is_what_write_png_writes(tmp_path, shape):
 
 
 def test_unsupported_files_raise(tmp_path):
-    # interlaced PNGs, palette PNGs and JPEG raise NotImplementedError naming
-    # the file and the format; a bad filter byte and a foreign file ValueError
+    # interlaced PNGs, palette PNGs and progressive JPEGs raise
+    # NotImplementedError naming the file and the format; a bad filter byte
+    # and a foreign file ValueError. A baseline JPEG decodes (the JPEG codec
+    # is tested in tests/test_torch_jpeg.py), whatever its suffix, as PIL
+    # tells the format by its first bytes
     a = np.zeros((4, 4, 3), np.uint8)
     path = tmp_path / "adam7.png"
     path.write_bytes(_encode(a, 2, 8, (0,), interlace=1))
@@ -140,12 +143,12 @@ def test_unsupported_files_raise(tmp_path):
     Image.fromarray(a).convert("P").save(tmp_path / "palette.png")
     with pytest.raises(NotImplementedError, match="palette.png.*colour type 3"):
         tio.read_image(tmp_path / "palette.png")
-    Image.fromarray(a).save(tmp_path / "photo.jpg")
-    with pytest.raises(NotImplementedError, match="photo.jpg.*JPEG"):
+    Image.fromarray(a).save(tmp_path / "photo.jpg", progressive=True)
+    with pytest.raises(NotImplementedError, match="photo.jpg.*progressive JPEG"):
         tio.read_image(tmp_path / "photo.jpg")
-    (tmp_path / "jpeg_named.png").write_bytes((tmp_path / "photo.jpg").read_bytes())
-    with pytest.raises(NotImplementedError, match="jpeg_named.png.*JPEG"):
-        tio.read_image(tmp_path / "jpeg_named.png")
+    Image.fromarray(a).save(tmp_path / "baseline.jpg")
+    (tmp_path / "jpeg_named.png").write_bytes((tmp_path / "baseline.jpg").read_bytes())
+    np.testing.assert_array_equal(tio.read_image(tmp_path / "jpeg_named.png"), jio.read_image(tmp_path / "jpeg_named.png"))
     (tmp_path / "text.png").write_text("not an image")
     with pytest.raises(ValueError, match="not a PNG"):
         tio.read_image(tmp_path / "text.png")

@@ -222,7 +222,10 @@ def test_unported_options_raise(scene, what):
         kw["envmap"] = torch.zeros(4, 8)
         error = ValueError
     else:
-        kw["extra_dims"] = torch.zeros(3)
+        # extra dims are ported (tests/test_torch_capture_options.py); a
+        # value that is not one vector [E] raises
+        kw["extra_dims"] = torch.zeros(2, 3)
+        error = ValueError
     xf = torch.from_numpy(look_at(CENTER + np.array([1.1, -0.9, 0.4], np.float32)))
     with pytest.raises(error):
         trender.render_frame(tm, None, tg, (8, 8), xf, torch.tensor([8.0, 8.0]), opts=opts, **kw)
