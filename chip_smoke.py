@@ -15,7 +15,16 @@ Phases, each printing one line of its own numbers:
   5. the encode backward (sort + kernel A + corner rolls) against autograd
      of the plain forward;
   6. kernel C (fused MLP forward) against its plain version at 2^20 rows,
-     for the density (32→64→16) and the rgb (32→64→64→3) MLP;
+     for the density (32→64→16), the rgb (32→64→64→3) and the Takikawa SDF
+     (80→64→64→1) MLP, and at input widths 7, 23, 72, 75, 80 and 128;
+  6a. [xor]: kernels K (the xor-hash corner encode) and L (its backward:
+     the table gradient by atomics and the position gradient) against
+     their plain versions: the plain grid layout at the default config's
+     grid (2^18 samples with the box's corners and points outside it, N = 1
+     and 257) and at the Image config's 2-D grid; the Takikawa encoding at
+     JAX's defaults over the [sdf] mesh's octree (F = 8, levels of 4920,
+     35944 and 274632 slots; F = 2 summed; F = 4), timed beside their
+     bounds and L's table half beside one ``index_add_``;
   7. the training path: the default tcnn-parity NeRF (16 levels × 2
      features, 2^19 table, 64-wide MLPs) trained through ``Testbed.train``
      with batch 2^18 on an analytic opaque-sphere scene, every chunk of 16
@@ -90,6 +99,14 @@ Phases, each printing one line of its own numbers:
      process on them from the snapshot: 64 steps, a snapshot, a mesh at
      128, the held-out score (``psnr_mean`` ≥ 14 dB), a 1080p screenshot and
      3 1080p frames of a camera path, each read back;
+ 11e. [ingp]: the trained network saved as .ingp (re-baked into the plain
+     layout through kernels B, K and L), loaded by ``run.main(
+     ["--load_snapshot", ...])`` into a fresh testbed, a 1080p exact frame
+     against the brick network's (mean |Δ| < 0.02; over the lit pixels
+     < 0.05, PSNR > 35 dB), K and L at the frame's middle chunk and a
+     training batch, 64 captured training steps on the plain table, the
+     same for .msgpack, and the re-bake at JAX's test config (mean |Δ|
+     < 0.025);
  12. kernel D (dynamic gathers) against its plain version and the library
      call, bit for bit, at the shapes of the TPU gather kernels and of the
      render march (run before the training phase);
@@ -147,6 +164,16 @@ Phases, each printing one line of its own numbers:
      ``load_training_data``, 1000 steps at batch 2^16 (the loss halves), a
      1920×1080 delta-tracked frame at spp 4 and a 64×64 one against the
      ground-truth tracker's;
+ 20a. [takikawa]: the [sdf] mesh through ``run.main(["--mode", "sdf",
+     "--network", ...])`` with a Takikawa encoding at JAX's defaults and
+     configs/sdf/base.json's network: the octree's build time, 1000 steps
+     at 2^16 (the loss falls), K and L against their plain versions on a
+     training batch, the IoU and the sign agreement within one finest cell
+     of the surface (printed, not gated), a 1080p frame with analytic
+     normals (hit share in (0.05, 0.95); K, L, C launched);
+ 20b. [encodings]: 200 SDF steps each with a Frequency (12), a
+     TriangleWave (12) and a OneBlob (16) position encoding: the loss
+     falls, kernel C launched at 72, 36 and 48 inputs;
  21. [captured]: the sphere inside an opaque checkered backdrop (radius 1.6,
      across the outer cascades) as a captured ``transforms.json`` scene: 32
      JPEG frames at 512×384 through the port's encoder (quality 90, 4:2:0)
@@ -659,7 +686,7 @@ def phase_mlp(dev, g):
 
     N = 1 << 20
     result = {}
-    for label, dims in (("density", (32, 64, 16)), ("rgb", (32, 64, 64, 3))):
+    for label, dims in (("density", (32, 64, 16)), ("rgb", (32, 64, 64, 3)), ("takikawa sdf", (80, 64, 64, 1))):
         x = torch.randn((N, dims[0]), generator=g, device=dev)
         ws = [
             (torch.rand((a, b), generator=g, device=dev) * 2 - 1) * (6.0 / a) ** 0.5
@@ -701,8 +728,9 @@ def phase_mlp(dev, g):
         result[label] = dict(max_abs_err=float(err.max()), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                              library_ms=lib_ms, library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
     # input widths that are not whole 16-column k-tiles: one k-tile with
-    # partial columns, and two (the 35-wide rgb input is held in [captured])
-    for n_in in (7, 23):
+    # partial columns, and two (the 35-wide rgb input is held in [captured]);
+    # past 64: Frequency's 72, a partial fifth k-tile, Takikawa's 80, the widest
+    for n_in in (7, 23, 72, 75, 80, 128):
         dims = (n_in, 64, 64, 3)
         x = torch.randn((1 << 16, n_in), generator=g, device=dev)
         ws = [(torch.rand((a, b), generator=g, device=dev) * 2 - 1) * (6.0 / a) ** 0.5 for a, b in zip(dims[:-1], dims[1:])]
@@ -723,7 +751,7 @@ def kernel_wrappers():
     """Kernel name → the wrapper that counts its launches."""
     from nerfshop_tpu_torch.editing import operators
     from nerfshop_tpu_torch.geometry import bvh
-    from nerfshop_tpu_torch.ops import fused_mlp, gather, segsum, table_ops
+    from nerfshop_tpu_torch.ops import fused_mlp, gather, segsum, table_ops, xor_encode
     from nerfshop_tpu_torch.render import baked
 
     return {
@@ -740,6 +768,8 @@ def kernel_wrappers():
         "bvh_signed_distance": bvh.bvh_signed_distance_cuda,
         "shear_warp_composite": baked.shear_warp_composite_cuda,
         "shear_warp_screen": baked.shear_warp_screen_cuda,
+        "xor_encode": xor_encode.xor_encode_cuda,
+        "xor_encode_bwd": xor_encode.xor_encode_bwd_cuda,
     }
 
 
@@ -3833,6 +3863,490 @@ def phase_captured(dev, train_steps_per_s, workdir: Path, config=None, views=CAP
     return launches
 
 
+# ------------------------------------------------------- kernels K and L
+
+
+#: K's output against its plain version, tables uniform in ±1: the same
+#: products, fused into FMAs and summed over the 2^D corners in another order
+XOR_TOL = 2e-6
+#: L's position gradient against autograd of the plain version, relative to
+#: its largest plain value: the terms fuse into FMAs and sum in another order
+XOR_BWD_TOL = 2e-5
+#: L's table gradient against the plain version's, relative to the sum of
+#: the |terms| each slot adds: both add by atomics in an order that changes
+#: every call, and a frame chunk (93% repeated positions) sends 10^5-10^6
+#: terms to one coarse slot
+XOR_SUM_TOL = 1e-4
+
+
+def xor_reads(enc, x):
+    """(distinct table rows, distinct mask cells) that kernel K reads on x:
+    every corner of a level whose cell the mask keeps, and (Takikawa) each
+    (sample, level)'s mask cell."""
+    from nerfshop_tpu_torch.ops import xor_encode
+
+    rows, cells = [], []
+    for lv in enc.xor_levels:
+        r, _, inside = xor_encode.level_corners(x, enc, lv, enc.takikawa)
+        rows.append((r if inside is None else r[inside]).reshape(-1))
+        if enc.takikawa:
+            p0 = torch.floor(x.clamp(0, 1) * lv.res).long().clamp(0, lv.res - 1)
+            mc = torch.clamp((p0 * lv.mask_res) // lv.res, 0, lv.mask_res - 1)
+            cells.append(lv.mask_off + (mc[:, 0] * lv.mask_res + mc[:, 1]) * lv.mask_res + mc[:, 2])
+    n_cells = int(torch.unique(torch.cat(cells)).numel()) if cells else 0
+    return int(torch.unique(torch.cat(rows)).numel()), n_cells
+
+
+def xor_index_pairs(enc, x, dout):
+    """(rows [P], values [P, F]) of L's table scatter on x: the library
+    call's ``index_add_`` inputs."""
+    from nerfshop_tpu_torch.ops import xor_encode
+
+    F = enc.n_features_per_level
+    rows, vals = [], []
+    for l, lv in enumerate(enc.xor_levels):
+        r, w, inside = xor_encode.level_corners(x, enc, lv, enc.takikawa)
+        if inside is not None:
+            w = w * inside[:, None]
+        g = dout if enc.sum_instead_of_concat else dout[:, l * F:(l + 1) * F]
+        rows.append(r.reshape(-1))
+        vals.append((w[:, :, None] * g[:, None, :]).reshape(-1, F))
+    return torch.cat(rows), torch.cat(vals)
+
+
+def xor_case(label, enc, table, x, g, tag="xor", timed=True):
+    """Kernels K and L against their plain versions on x (a seeded output
+    cotangent): K's out within ``XOR_TOL`` of max(1, max|plain|), L's table
+    gradient within ``XOR_SUM_TOL`` of each slot's sum of |terms| and its
+    position gradient within ``XOR_BWD_TOL`` of its largest plain value, L
+    asked for one gradient alone equal to the one it gives with both (the
+    position gradient bit for bit: it has no atomics). Timed: K
+    and L by events and queued, their plain versions, L's table half
+    beside one ``index_add_`` of the same pairs (K has no single library
+    call), each beside its bytes bound → (K's numbers, L's numbers)."""
+    from nerfshop_tpu_torch.ops import xor_encode as xe
+
+    N = x.shape[0]
+    out_k = xe.xor_encode_cuda(table, x, enc)
+    out_p = xe.xor_encode_plain(table, x, enc)
+    dout = torch.randn(tuple(out_k.shape), generator=g, device=x.device)
+    dt_k, dx_k = xe.xor_encode_bwd_cuda(table, x, dout, enc)
+    dt_p, dx_p = xe.xor_encode_bwd_plain(table, x, dout, enc)
+    dt_only, none_x = xe.xor_encode_bwd_cuda(table, x, dout, enc, True, False)
+    none_t, dx_only = xe.xor_encode_bwd_cuda(table, x, dout, enc, False, True)
+    torch.cuda.synchronize()
+    check(tuple(out_k.shape) == (N, enc.n_output_dims) and bool(torch.isfinite(out_k).all()), f"kernel K out bad ({label})")
+    out_err = float((out_k - out_p).abs().max()) if N else 0.0
+    out_max = float(out_p.abs().max()) if N else 0.0
+    rows, vals = xor_index_pairs(enc, x, dout)
+    dt_tol = torch.zeros_like(table).index_add_(0, rows, vals.abs()) * XOR_SUM_TOL + 1e-7
+    dt_err = float((dt_k - dt_p).abs().max())
+    dt_ratio = float(((dt_k - dt_p).abs() / dt_tol).max())
+    dt_max = float(dt_p.abs().max())
+    dx_err = float((dx_k - dx_p).abs().max()) if N else 0.0
+    dx_max = float(dx_p.abs().max()) if N else 0.0
+    check(out_err <= XOR_TOL * max(1.0, out_max), f"kernel K disagrees ({label}): {out_err:.3e} of {out_max:.3e}")
+    check(dt_ratio <= 1.0, f"kernel L's d table disagrees ({label}): {dt_err:.3e} of {dt_max:.3e}, {dt_ratio:.3f} of its bound")
+    check(dx_err <= XOR_BWD_TOL * dx_max + 1e-7, f"kernel L's d x disagrees ({label}): {dx_err:.3e} of {dx_max:.3e}")
+    check(none_x is None and none_t is None and torch.equal(dx_only, dx_k), f"kernel L alone on d x differs ({label})")
+    dt_alone = float((dt_only - dt_k).abs().max())
+    check(bool(((dt_only - dt_k).abs() <= dt_tol).all()), f"kernel L alone on d table differs ({label}): {dt_alone:.3e}")
+    kind = f"Takikawa F={enc.n_features_per_level}{' summed' if enc.sum_instead_of_concat else ''}" if enc.takikawa \
+        else f"plain D={enc.n_input_dims}"
+    line = (f"[{tag}] {label} ({kind}, L={enc.n_levels}, sizes {sorted(set(lv.m for lv in enc.xor_levels))[:4]}...) "
+            f"N={N}: K out err {out_err:.3e} of max {out_max:.3e} (bound {XOR_TOL:g} x max(1, max)); L d table err "
+            f"{dt_err:.3e} of max {dt_max:.3e} ({dt_ratio:.3f} of its bound {XOR_SUM_TOL:g} x the slot's sum of |terms|), "
+            f"d x err {dx_err:.3e} of max {dx_max:.3e} (bound {XOR_BWD_TOL:g} x max); "
+            f"L on one gradient alone: d x bit-equal, d table within {dt_alone:.3e}")
+    if not timed:
+        print(line, flush=True)
+        return None, None
+    del dt_tol
+    k_ms, k_dev = both_ms(lambda: xe.xor_encode_cuda(table, x, enc))
+    k_plain = median_ms(lambda: xe.xor_encode_plain(table, x, enc), runs=5)
+    l_ms, l_dev = both_ms(lambda: xe.xor_encode_bwd_cuda(table, x, dout, enc))
+    l_plain = median_ms(lambda: xe.xor_encode_bwd_plain(table, x, dout, enc), runs=5)
+    lt_ms, lt_dev = both_ms(lambda: xe.xor_encode_bwd_cuda(table, x, dout, enc, True, False))
+    lib = lambda: torch.zeros_like(table).index_add_(0, rows, vals)  # noqa: E731
+    lib_err = float((lib() - dt_p).abs().max())
+    lib_ms, lib_dev = both_ms(lib)
+    del rows, vals
+    n_rows, n_cells = xor_reads(enc, x)
+    F = enc.n_features_per_level
+    # K: x, the rows and mask cells it reads, out. L: x, dout, the cells,
+    # the rows d x reads, the table gradient written whole, d x
+    k_bytes = nbytes(x, out_k) + n_rows * F * 4 + n_cells
+    l_bytes = nbytes(x, dout, table, dx_k) + n_rows * F * 4 + n_cells
+    lt_bytes = nbytes(x, dout, table) + n_cells
+    k_b, k_by = bound(k_bytes)
+    l_b, l_by = bound(l_bytes)
+    lt_b, _ = bound(lt_bytes)
+    print(line + f"; K: events {k_ms:.4f} ms device {k_dev:.4f} ms plain {k_plain:.4f} ms bound {k_b:.4f} ms ({k_by}, "
+          f"{k_bytes / 1e6:.1f} MB, {n_rows} of {enc.table_size} rows, {n_cells} mask cells), device/bound "
+          f"{k_dev / k_b:.2f}; L (both gradients): events {l_ms:.4f} ms device {l_dev:.4f} ms plain {l_plain:.4f} ms "
+          f"bound {l_b:.4f} ms ({l_by}, {l_bytes / 1e6:.1f} MB), device/bound {l_dev / l_b:.2f}; L (table alone): "
+          f"events {lt_ms:.4f} ms device {lt_dev:.4f} ms, library index_add_ of the same {N * enc.n_levels * (1 << enc.n_input_dims)} "
+          f"(row, value) pairs events {lib_ms:.4f} ms device {lib_dev:.4f} ms (err {lib_err:.3e}), bound {lt_b:.4f} ms",
+          flush=True)
+    k_row = dict(max_abs_err=out_err, ms=k_ms, device_ms=k_dev, plain_ms=k_plain, library_ms=None,
+                 library_device_ms=None, bound_ms=k_b, bound_by=k_by)
+    l_row = dict(max_abs_err=max(dt_err, dx_err), ms=l_ms, device_ms=l_dev, plain_ms=l_plain, library_ms=lib_ms,
+                 library_device_ms=lib_dev, bound_ms=l_b, bound_by=l_by)
+    return k_row, l_row
+
+
+def unit_mesh(mesh):
+    """``mesh``'s vertices normalised into the unit cube as the SDF testbed
+    does it (0.9 of the side, centred) → (vertices, faces)."""
+    v = np.asarray(mesh.vertices, np.float32)
+    lo, hi = v.min(0), v.max(0)
+    return (v - (lo + hi) / 2) * (0.9 / float((hi - lo).max())) + 0.5, np.asarray(mesh.faces, np.int64)
+
+
+def near_surface(v, f, n, g, dev, spread):
+    """n points on the mesh's triangles moved by up to ``spread`` an axis."""
+    tri = torch.as_tensor(v[f], device=dev)
+    i = torch.randint(tri.shape[0], (n,), generator=g, device=dev)
+    b = torch.rand((n, 3), generator=g, device=dev)
+    b = b / b.sum(1, keepdim=True)
+    p = torch.einsum("nk,nkd->nd", b, tri[i])
+    return (p + (torch.rand((n, 3), generator=g, device=dev) * 2 - 1) * spread).contiguous()
+
+
+def phase_xor(dev, g):
+    """Kernels K and L against their plain versions: the plain layout at the
+    default config's grid (2^18 uniform samples with the box's corners and
+    points outside it, N = 1 and 257) and at configs/image/base.json's 2-D
+    grid (2^16); the Takikawa encoding at JAX's defaults (10 levels from
+    depth 4 of 8 features, 2^19, levels of 4920, 35944 and 274632 slots)
+    over the [sdf] mesh's octree, at 2^16 points half within a finest cell
+    of the surface, and at F = 2 summed and F = 4 → (K's, L's numbers at the
+    plain 2^18 batch)."""
+    from nerfshop_tpu_torch import kernels
+    from nerfshop_tpu_torch.config import default_image_config, default_nerf_config
+    from nerfshop_tpu_torch.geometry.triangle_octree import TriangleOctree
+    from nerfshop_tpu_torch.models.encodings import TakikawaEncoding, build_encoding
+    from nerfshop_tpu_torch.models.nerf_network import build_nerf_network
+
+    cfg = default_nerf_config()
+    cfg["encoding"] = {**cfg["encoding"], "layout": "plain"}
+    enc = build_nerf_network(cfg, device=dev, generator=g).pos_encoding
+    check(enc.layout == "plain" and enc.n_levels == 16 and max(enc.level_sizes) == 1 << 19, "not the default plain grid")
+    print(f"[xor] L's table scatter by {'float2/float4' if kernels.load().nst_xor_vector_atomics() else 'scalar'} "
+          "atomics", flush=True)
+    with torch.no_grad():
+        enc.table.uniform_(-1.0, 1.0, generator=g)
+    table = enc.table.detach()
+    x = torch.rand((1 << 18, 3), generator=g, device=dev)
+    x[:8] = torch.tensor([[(c >> d) & 1 for d in range(3)] for c in range(8)], dtype=torch.float32, device=dev)
+    x[8:1032] = torch.rand((1024, 3), generator=g, device=dev) * 1.4 - 0.2
+    rows = xor_case("2^18 samples, the box's corners, 1024 outside it", enc, table, x, g)
+    for n in (1, 257):
+        xor_case(f"N={n}", enc, table, x[:n].contiguous(), g, timed=False)
+    enc2 = build_encoding({**default_image_config()["encoding"], "layout": "plain"}, 2, device=dev, generator=g)
+    with torch.no_grad():
+        enc2.table.uniform_(-1.0, 1.0, generator=g)
+    x2 = torch.rand((1 << 16, 2), generator=g, device=dev)
+    x2[:4] = torch.tensor([[0, 0], [1, 1], [1, 0], [0, 1]], dtype=torch.float32, device=dev)
+    xor_case("2^16 samples, configs/image/base.json's grid", enc2, enc2.table.detach(), x2, g)
+    del enc2, x2
+
+    v, f = unit_mesh(bumpy_mesh())
+    t0 = time.perf_counter()
+    octree = TriangleOctree.build(v, f, 14)
+    build_s = time.perf_counter() - t0
+    xt = torch.cat([near_surface(v, f, 1 << 15, g, dev, 1.0 / (1 << 13)), torch.rand((1 << 15, 3), generator=g, device=dev)])
+    xt[:3] = torch.tensor([[0, 0, 0], [1, 1, 1], [0.5, 0.5, 1]], dtype=torch.float32, device=dev)
+    print(f"[xor] the [sdf] mesh's octree to depth 14 (dense to 8) in {build_s:.3f} s", flush=True)
+    for F, summed, timed in ((8, False, True), (2, True, False), (4, False, False)):
+        te = TakikawaEncoding(octree, n_features_per_level=F, sum_instead_of_concat=summed, device=dev, generator=g)
+        check(te.level_sizes[:3] == [4920, 35944, 274632], f"not JAX's default Takikawa sizes: {te.level_sizes}")
+        with torch.no_grad():
+            te.table.uniform_(-1.0, 1.0, generator=g)
+        xor_case("2^16 points, half within a finest cell of the surface", te, te.table.detach(), xt, g, timed=timed)
+        if not summed:
+            xor_case("N=129", te, te.table.detach(), xt[:129].contiguous(), g, timed=False)
+    return rows
+
+
+# ------------------------------------------------------------- .ingp
+
+
+#: JAX's bound on the re-baked field and on a frame after an .ingp round
+#: trip (tests/test_ingp.py:99, :138): mean |Δ|
+INGP_TOL = 0.02
+#: bounds on the same frame where the sphere is: mean |Δ| over the pixels
+#: either frame lights (read 0.0152 on an H100) and the PSNR (read 43.8 dB);
+#: the whole frame's mean divides an error there by ~16
+INGP_LIT_TOL = 0.05
+INGP_MIN_PSNR = 35.0
+#: bound on the re-bake at JAX's test configuration at its full size (read
+#: 0.02056 on an H100; JAX's own fit of its test's table reads 0.0197)
+REBAKE_TOL = 0.025
+INGP_STEPS = 64
+
+
+def frame_delta(a, b) -> dict:
+    """mean |Δ| over every pixel and over the pixels either frame lights
+    (α > 0.01), and the PSNR of a's rgb against b's."""
+    lit = (a[..., 3] > 0.01) | (b[..., 3] > 0.01)
+    d = np.abs(a - b)
+    return {"mean": float(d.mean()), "lit_mean": float(d[lit].mean()) if lit.any() else 0.0,
+            "lit_share": float(lit.mean()), "psnr": psnr(a[..., :3], b[..., :3])}
+
+
+def rebake_at_jax_test_config(dev, g):
+    """The re-bake at JAX's test configuration (tests/test_ingp.py:138: 4
+    levels of 2^9, base 4, scale 2, a table ~N(0, 0.1)) at its full size (300
+    Adam steps of 2^14 points) → (the mean |Δ| of the fitted field on 2^14
+    uniform points, the fit's MSE). Gated at ``REBAKE_TOL``, not at JAX's
+    0.02: the plain table's hash collisions floor the error near 0.02 (JAX's
+    own fit of its test's table reads 0.0197 on the CPU), and the table here
+    is another draw of the same distribution."""
+    from nerfshop_tpu_torch.io import ingp as ingp_lib
+    from nerfshop_tpu_torch.models.encodings import GridEncoding
+    from nerfshop_tpu_torch.ops import table_ops
+    from nerfshop_tpu_torch.ops import xor_encode as xe
+
+    enc = GridEncoding(n_levels=4, log2_hashmap_size=9, base_resolution=4, per_level_scale=2.0, device=dev)
+    table = torch.randn(tuple(enc.table.shape), generator=g, device=dev) * 0.1
+    enc_p, tp, mse = ingp_lib.rebake_plain_table(enc, table)
+    x = torch.rand((1 << 14, 3), generator=g, device=dev)
+    with torch.no_grad():
+        err = float((xe.xor_encode(tp.half().float(), x, enc_p) - table_ops.grid_encode(table, x, enc, False)[0]).abs().mean())
+    return err, mse
+
+
+def phase_ingp(tb, dev, g, scene: Path, workdir: Path, W=1920, H=1080):
+    """[ingp]: the trained default-config network saved as .ingp (re-baked
+    into the plain layout through kernels B, K and L: seconds, MSE), loaded
+    through ``run.main(["--load_snapshot", ...])`` into a fresh testbed with
+    the sphere scene, a 1080p exact frame against the brick network's (mean
+    |Δ| < 0.02, JAX's bound; over the lit pixels < 0.05, PSNR > 35 dB), kernels
+    K and L against their plain versions at the frame's middle chunk and a
+    training batch, 64 training steps on the plain table (captured, K and L
+    in the graph; finite, falling), then .msgpack (no compression) the same
+    way; and the re-bake at JAX's test config (mean |Δ| < 0.025) → ({path:
+    launches}, K's numbers at the frame chunk)."""
+    import warnings
+
+    eye = CENTER + np.array([0.9, -0.9, 0.5], np.float32)
+    tb.set_look_at(eye=eye)
+    brick = tb.render(W, H, spp=1, exact=True)
+    paths, results = {}, {}
+    k_row = None
+    for suffix in (".ingp", ".msgpack"):
+        path = workdir / f"model{suffix}"
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tb.save_snapshot(str(path))
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t0
+        save = read_launches()
+        mse_note = next((str(w.message).split("MSE ")[1].split(" ")[0] for w in caught if "MSE" in str(w.message)), "0")
+        check(save["xor_encode"] > 0 and save["xor_encode_bwd"] > 0 and save["grid_encode"] > 0,
+              f"the re-bake did not run through kernels B, K and L: {save}")
+        check((path.read_bytes()[:1] == b"\x78") == (suffix == ".ingp"), f"{path.name}: compression as the format says")
+        argv = ["--load_snapshot", str(path), "--scene", str(scene), "--n_steps", "0", "--device", "cuda"]
+        new, lines, t0, _ = stamped_main(argv)
+        load_s = time.perf_counter() - t0
+        check(new.model.pos_encoding.layout == "plain" and new.stats.step == tb.stats.step,
+              f"the {suffix} load: layout {new.model.pos_encoding.layout}, step {new.stats.step}")
+        new.set_look_at(eye=eye)
+        torch.cuda.synchronize()
+        reset_launches()
+        with encode_input_of_call(new.model.pos_encoding, middle_chunk(W, H)) as kept:
+            t1 = time.perf_counter()
+            img = new.render(W, H, spp=1, exact=True)
+            torch.cuda.synchronize()
+            frame_s = time.perf_counter() - t1
+        frame = read_launches()
+        check(img.shape == (H, W, 4) and bool(np.isfinite(img).all()), f"the {suffix} frame is bad")
+        check(frame["xor_encode"] > 0 and frame["grid_encode"] == 0 and frame["xor_encode_bwd"] == 0,
+              f"the {suffix} frame did not encode through kernel K alone: {frame}")
+        delta = frame_delta(img, brick)
+        check(delta["mean"] < INGP_TOL, f"the {suffix} frame: mean |d| {delta['mean']:.4f} >= {INGP_TOL}")
+        check(delta["lit_mean"] < INGP_LIT_TOL and delta["psnr"] > INGP_MIN_PSNR,
+              f"the {suffix} frame where lit: mean |d| {delta['lit_mean']:.4f} (bound {INGP_LIT_TOL}), "
+              f"PSNR {delta['psnr']:.2f} dB (bound {INGP_MIN_PSNR})")
+        results[suffix] = r = dict(save_s=save_s, mse=mse_note, size=path.stat().st_size, load_s=load_s,
+                                   frame_s=frame_s, **delta)
+        print(f"[ingp] {suffix}: save with the re-bake {r['save_s']:.3f} s (fit MSE {r['mse']}), {r['size'] / 2**20:.2f} "
+              f"MiB, run.main --load_snapshot {r['load_s']:.3f} s; {W}x{H} exact frame of the plain table "
+              f"{r['frame_s'] * 1e3:.1f} ms against the brick network's: mean |d| {r['mean']:.5f} (bound {INGP_TOL}), "
+              f"over the {r['lit_share']:.4f} of pixels either lights {r['lit_mean']:.5f} (bound {INGP_LIT_TOL}), PSNR "
+              f"{r['psnr']:.2f} dB (bound {INGP_MIN_PSNR})",
+              flush=True)
+        paths[f"{suffix[1:]}_save"], paths[f"{suffix[1:]}_frame"] = save, frame
+        if suffix == ".ingp":
+            enc = new.model.pos_encoding
+            table = new.inference_params["pos_encoding.table"]
+            check(len(kept) == 1, "the middle chunk's positions were not captured")
+            k_row, _ = xor_case("the 1080p frame's middle chunk", enc, table, kept[0], g, tag="ingp")
+            xb = torch.rand((BATCH, 3), generator=g, device=dev)
+            xor_case("2^18 uniform samples (a training batch's shape)", enc, table, xb, g, tag="ingp", timed=False)
+            torch.cuda.synchronize()
+            reset_launches()
+            t1 = time.perf_counter()
+            new.train(n_steps=INGP_STEPS, batch_size=BATCH)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t1
+            train = read_launches()
+            losses = [lv for _, lv in new.loss_history][-INGP_STEPS:]
+            first, last = float(np.mean(losses[:16])), float(np.mean(losses[-16:]))
+            check(len(losses) == INGP_STEPS and all(math.isfinite(v) for v in losses) and last < first,
+                  f"training the plain table: losses {losses}")
+            per_step = {k: v / 16 for k, v in new.stats.graph_launches.items()}
+            check(train["xor_encode"] > 0 and train["xor_encode_bwd"] > 0 and new.stats.captured_steps >= INGP_STEPS - 16
+                  and per_step.get("xor_encode_cuda.launches", 0) > 0 and per_step.get("xor_encode_bwd_cuda.launches", 0) > 0,
+                  f"training the plain table did not run K and L in the captured loop: {train}, {per_step}")
+            results[".ingp"].update(train_s=train_s, first16=first, last16=last, captured=new.stats.captured_steps)
+            paths["ingp_train"] = train
+        del new
+    err, mse = rebake_at_jax_test_config(dev, g)
+    check(math.isfinite(err) and err < REBAKE_TOL, f"the re-bake at JAX's test config: mean |d| {err:.5f} >= {REBAKE_TOL}")
+    r = results[".ingp"]
+    print(f"[ingp] {INGP_STEPS} steps batch {BATCH} on the plain table in {r['train_s']:.3f} s ({r['captured']} captured), "
+          f"loss first-16 mean {r['first16']:.4e} -> last-16 mean {r['last16']:.4e}; the re-bake at JAX's test config "
+          f"(4 levels of 2^9, 300 steps of 2^14 points): mean |d| {err:.5f} (bound {REBAKE_TOL}), fit MSE {mse:.3e}; "
+          f"launches {paths}", flush=True)
+    return paths, k_row
+
+
+# --------------------------------------------------- Takikawa and the rest
+
+
+def sdf_base_config() -> dict:
+    """configs/sdf/base.json: the network, loss and optimizer of the SDF
+    testbed's shipped config."""
+    return json.loads((Path(__file__).resolve().parent / "configs" / "sdf" / "base.json").read_text())
+
+
+def phase_takikawa(workdir: Path, obj: Path, W=1920, H=1080, steps=1000):
+    """[takikawa]: the [sdf] mesh through ``run.main(["--mode", "sdf",
+    "--network", cfg, ...])`` with a Takikawa encoding at JAX's defaults
+    (10 levels from depth 4, 8 features, 2^19) and configs/sdf/base.json's
+    network, loss and optimizer: 1000 steps at 2^16 (falling loss; the
+    octree's build time), a 1080p frame with analytic normals (kernel L's
+    position gradient; hit share in (0.05, 0.95)), the IoU and, on points
+    within one finest cell of the surface, the share where the network
+    gives exactly 0 and the sign agreement on the rest (printed, not gated:
+    the encoding is zero outside the octree), kernels K and L
+    against their plain versions on a training batch (F = 8, a level of
+    4920 slots) → {path: launches}."""
+    from nerfshop_tpu_torch.geometry import bvh as bvh_lib
+    from nerfshop_tpu_torch.geometry.triangle_octree import TriangleOctree
+
+    cfg = sdf_base_config()
+    cfg["encoding"] = {"otype": "Takikawa", "n_levels": 10, "starting_level": 4, "n_features_per_level": 8,
+                       "log2_hashmap_size": 19}
+    path = workdir / "takikawa.json"
+    path.write_text(json.dumps(cfg))
+    tb, lines, t0, train = stamped_main(["--mode", "sdf", "--network", str(path), "--scene", str(obj), "--n_steps",
+                                         str(steps), "--batch_size", str(1 << 16), "--device", "cuda"])
+    steps_s, losses, t_train = training_lines(lines, steps)
+    sdf = tb.sdf
+    enc = sdf.model.encoding
+    check(enc.takikawa and enc.level_sizes[:3] == [4920, 35944, 274632] and enc.n_output_dims == 80,
+          f"not JAX's default Takikawa encoding: {enc.level_sizes}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], f"the Takikawa SDF loss did not fall: {losses}")
+    check(train["xor_encode"] > 0 and train["xor_encode_bwd"] > 0 and train["bvh_signed_distance"] == steps,
+          f"Takikawa training did not run K, L and G: {train}")
+    g = sdf.generator
+    g.manual_seed(G_SEED)
+    pos, _ = sdf._sample_batch(1 << 16)
+    xor_case("a training batch (2^16)", enc, sdf.state.inference_params["encoding.table"], pos.contiguous(), g,
+             tag="takikawa", timed=False)
+    t1 = time.perf_counter()
+    octree = TriangleOctree.build(sdf.mesh_vertices, sdf.mesh_faces, enc.octree.depth)
+    octree_s = time.perf_counter() - t1
+    check(all(np.array_equal(a, b) for a, b in zip(octree.levels, enc.octree.levels)),
+          "a second octree build over the normalised mesh differs from the encoding's")
+    torch.cuda.synchronize()
+    reset_launches()
+    iou = tb.calculate_iou()
+    iou_launches = read_launches()
+    cell = 1.0 / (1 << (enc.starting_level + enc.n_levels - 1))
+    v, f = sdf.mesh_vertices, sdf.mesh_faces.astype(np.int64)
+    near = near_surface(v, f, 1 << 18, g, sdf.device, cell)
+    d_true = bvh_lib.signed_distance(sdf.packed_bvh, near)
+    with torch.no_grad():
+        d_net = sdf.model.apply(sdf.state.inference_params, near)
+    # a bias-free ReLU MLP gives exactly 0 where every hidden unit is off,
+    # which the 4/8 of each batch on the surface (target 0) teaches it:
+    # neither sign there, so the agreement is over the others
+    zero = d_net == 0
+    clear = (d_true.abs() > 1e-6) & ~zero
+    agree = float((torch.sign(d_net[clear]) == torch.sign(d_true[clear])).float().mean())
+    tb.render(64, 36)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    img = tb.render(W, H)
+    torch.cuda.synchronize()
+    render_ms = (time.perf_counter() - t1) * 1e3
+    frame = read_launches()
+    hit = float(img[..., 3].mean())
+    check(img.shape == (H, W, 4) and bool(np.isfinite(img).all()) and 0.05 < hit < 0.95,
+          f"the Takikawa SDF frame is bad: {img.shape}, hit share {hit}")
+    check(frame["xor_encode"] > 0 and frame["xor_encode_bwd"] > 0 and frame["fused_mlp"] > 0,
+          f"the Takikawa frame did not run K, L (analytic normals) and C: {frame}")
+    check(iou_launches["fused_mlp"] > 0 and iou_launches["xor_encode"] > 0, f"the IoU did not run K and C: {iou_launches}")
+    print(f"[takikawa] run.main --mode sdf --network (Takikawa at JAX's defaults, configs/sdf/base.json's network): "
+          f"octree to depth {enc.octree.depth} built in {octree_s:.3f} s ({int(enc.mask.numel())} "
+          f"mask cells on the card), load {t_train - t0:.3f} s, {steps} steps batch {1 << 16} at {steps_s:.3f} steps/s, "
+          f"loss by 100 steps {losses}; launches {train}", flush=True)
+    print(f"[takikawa] calculate_iou {iou:.5f} (not gated: zero features outside the octree); within one finest cell "
+          f"({cell:.3e}) of the surface the network gives exactly 0 at {float(zero.float().mean()):.5f} of "
+          f"{zero.numel()} points, and the sign agreement on the other {int(clear.sum())} is {agree:.5f}; {W}x{H} frame with "
+          f"analytic normals {render_ms:.1f} ms, hit share {hit:.4f}, launches K {frame['xor_encode']} L "
+          f"{frame['xor_encode_bwd']} C {frame['fused_mlp']} G {frame['bvh_signed_distance']}", flush=True)
+    return {"takikawa_train": train, "takikawa_iou": iou_launches, "takikawa_render": frame}
+
+
+#: [encodings]: otype, its option and C's input width at 3 input dims
+ELEMENTWISE = (("Frequency", {"n_frequencies": 12}, 72), ("TriangleWave", {"n_frequencies": 12}, 36),
+               ("OneBlob", {"n_bins": 16}, 48))
+
+
+def phase_encodings(workdir: Path, steps=200, W=480, H=270):
+    """[encodings]: a short SDF run each (200 steps at 2^16 on a 5120-face
+    bumpy icosphere) with a Frequency, a TriangleWave and a OneBlob position
+    encoding and configs/sdf/base.json's network: the loss falling, and
+    kernel C launched at the MLP's 72, 36 and 48 inputs by the IoU and a
+    frame → {path: launches}."""
+    from nerfshop_tpu_torch.geometry import mesh_io
+
+    obj = workdir / "bumpy_small.obj"
+    mesh_io.save_obj(obj, bumpy_mesh(4))
+    out = {}
+    for otype, opts, width in ELEMENTWISE:
+        cfg = sdf_base_config()
+        cfg["encoding"] = {"otype": otype, **opts}
+        path = workdir / f"{otype}.json"
+        path.write_text(json.dumps(cfg))
+        tb, lines, t0, train = stamped_main(["--mode", "sdf", "--network", str(path), "--scene", str(obj), "--n_steps",
+                                             str(steps), "--batch_size", str(1 << 16), "--device", "cuda"])
+        steps_s, losses, _ = training_lines(lines, steps)
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], f"the {otype} SDF loss did not fall: {losses}")
+        check(tb.model.network.weights[0].shape[0] == width, f"{otype}: the MLP takes {tb.model.network.weights[0].shape[0]} inputs")
+        torch.cuda.synchronize()
+        reset_launches()
+        iou = tb.calculate_iou()
+        img = tb.render(W, H)
+        torch.cuda.synchronize()
+        used = read_launches()
+        check(used["fused_mlp"] > 0 and bool(np.isfinite(img).all()),
+              f"{otype}: kernel C was not launched at {width} inputs: {used}")
+        print(f"[encodings] {otype} {opts}: {steps} steps at {steps_s:.3f} steps/s, loss by 100 steps {losses}; IoU "
+              f"{iou:.5f}, a {W}x{H} frame: kernel C launched {used['fused_mlp']} times at {width} inputs", flush=True)
+        out[f"encodings_{otype}"] = {k: train[k] + used[k] for k in train}
+    return out
+
+
 KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms")
 
 
@@ -3846,6 +4360,7 @@ def main() -> None:
     enc = phase_encode(dev, g)
     phase_backward(dev, g)
     mlp = phase_mlp(dev, g)
+    _, l_row = phase_xor(dev, g)
     gat = phase_gather(dev, g)
     tb, focal, principal, train_launches, train_steps_per_s = phase_main_path(dev)
     phase_train_loop(tb)
@@ -3862,6 +4377,7 @@ def main() -> None:
     normals_launches = phase_normals(tb)
     mesh_launches = phase_mesh(tb)
     cli_launches = phase_cli(dev, snapshot, workdir)
+    ingp_paths, k_row = phase_ingp(tb, dev, g, workdir / "scene", workdir)
     shutil.rmtree(workdir)
     torch.cuda.synchronize()
     reset_launches()
@@ -3873,7 +4389,7 @@ def main() -> None:
              "render": render_launches,
              "baked": {k: bake_launches[k] + baked_frame_launches[k] for k in bake_launches},
              "render_compact": compact_launches, "frame": frame_launches, "normals": normals_launches,
-             "mesh": mesh_launches, "cli": cli_launches, "edit": edit_launches}
+             "mesh": mesh_launches, "cli": cli_launches, "edit": edit_launches, **ingp_paths}
     check_launched(paths["baked"], ("grid_encode", "fused_mlp", "shear_warp_composite", "shear_warp_screen"),
                    "baked path")
     check_launched(normals_launches, ("grid_encode", "grid_encode_dx", "gather"), "Normals frame")
@@ -3903,8 +4419,9 @@ def main() -> None:
     sdf_paths, g_row = phase_sdf(workdir)
     image_paths, b2_row, a2_row = phase_image(dev, g, workdir)
     volume_paths = phase_volume(dev, workdir)
+    xor_paths = {**phase_takikawa(workdir, workdir / "bumpy.obj"), **phase_encodings(workdir)}
     shutil.rmtree(workdir)
-    other = {**sdf_paths, **image_paths, **volume_paths}
+    other = {**sdf_paths, **image_paths, **volume_paths, **xor_paths}
     print(f"[launches] the SDF, Image and Volume paths: {other}", flush=True)
     paths.update(other)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -3933,6 +4450,8 @@ def main() -> None:
         ("bvh_signed_distance", "bvh_signed_distance", "bvh.cu", "nerfshop_tpu/geometry/bvh.py:196", g_row),
         ("shear_warp_composite", "shear_warp_composite", "baked.cu", "nerfshop_tpu/render/baked.py:492", h_row),
         ("shear_warp_screen", "shear_warp_screen", "baked.cu", "nerfshop_tpu/render/baked.py:566", i_row),
+        ("xor_encode", "xor_encode", "xor_encode.cu", "nerfshop_tpu/models/encodings.py:385", k_row),
+        ("xor_encode_bwd", "xor_encode_bwd", "xor_encode.cu", "nerfshop_tpu/models/encodings.py:492", l_row),
     )
     kernels = [
         {"name": name, "route": "cuda", "source": f"nerfshop_tpu_torch/csrc/{src}", "replaces": repl,

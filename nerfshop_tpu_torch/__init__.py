@@ -18,6 +18,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from nerfshop_tpu_torch.common import TestbedMode  # noqa: E402
+from nerfshop_tpu_torch.version import __version__  # noqa: E402
 
 
 def __getattr__(name):
@@ -28,4 +29,4 @@ def __getattr__(name):
     raise AttributeError(f"module 'nerfshop_tpu_torch' has no attribute {name!r}")
 
 
-__all__ = ["Testbed", "TestbedMode"]
+__all__ = ["__version__", "Testbed", "TestbedMode"]

@@ -17,9 +17,10 @@ MessagePack map of
 The port writes no ``opt_state``: its Adam state (``torch.optim.Adam``)
 has another layout than optax's, and the JAX loader ignores ``opt_state``
 anyway, so a snapshot resumes with fresh moments in either package.
-Snapshots of schema v1 (the paired table layout, not ported) and the
-``.ingp``/``.msgpack`` formats of ``io/ingp.py`` raise
-``NotImplementedError``.
+Snapshots of schema v1 (the paired table layout, not ported) raise
+``NotImplementedError``. The ``.ingp``/``.msgpack`` formats are
+``io/ingp.py``'s; ``Testbed.save_snapshot`` and ``load_snapshot`` choose
+by the file's extension.
 """
 
 from __future__ import annotations
@@ -37,11 +38,6 @@ from nerfshop_tpu_torch.io import msgpack_codec
 from nerfshop_tpu_torch.ops import coords
 
 SNAPSHOT_VERSION = 2
-
-
-def _check_native(path) -> None:
-    if str(path).endswith((".ingp", ".msgpack")):
-        raise NotImplementedError(f"{path}: the .ingp/.msgpack formats (io/ingp.py) are not ported")
 
 
 def _pack_arrays(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -65,7 +61,6 @@ def save_snapshot(
     step: int = 0,
 ) -> None:
     """``params``/``ema_params`` are state dicts of the port's network."""
-    _check_native(path)
     snap: Dict[str, Any] = {
         "version": SNAPSHOT_VERSION,
         "generator": "nerfshop_tpu_torch",
@@ -96,7 +91,6 @@ def load_snapshot(path: str | Path) -> Dict[str, Any]:
     and ``density_grid`` as a dense float32 [C, R, R, R] array. Reads the
     uncompressed files that the JAX package writes with ``compress=False``
     too."""
-    _check_native(path)
     blob = Path(path).read_bytes()
     if blob[:4] == b"NSTZ":
         blob = zlib.decompress(blob[4:])

@@ -27,7 +27,9 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("segsum.cu", "grid_encode.cu", "fused_mlp.cu", "gather.cu", "tet_lookup.cu", "bvh.cu", "baked.cu")
+SOURCES = (
+    "segsum.cu", "grid_encode.cu", "fused_mlp.cu", "gather.cu", "tet_lookup.cu", "bvh.cu", "baked.cu", "xor_encode.cu",
+)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "nerfshop_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -94,6 +96,29 @@ class FrameArgs(ctypes.Structure):
         ("rows", ctypes.c_float * 9), ("scale", ctypes.c_float * 3), ("focal", ctypes.c_float * 2),
         ("principal_px", ctypes.c_float * 2), ("sky", ctypes.c_float * 4),
         *((name, ctypes.c_int) for name in ("B", "Bi", "W", "H", "flip", "with_depth")),
+    ]
+
+
+class XorLevel(ctypes.Structure):
+    """One level of kernels K and L, field for field ``struct XorLevel`` of
+    ``csrc/xor_encode.cu`` (filled by ``ops/xor_encode.py::xor_args``)."""
+
+    _fields_ = [
+        ("scale", ctypes.c_float), ("res", ctypes.c_int), ("m", ctypes.c_uint), ("offset", ctypes.c_int),
+        ("dense", ctypes.c_int), ("mask_off", ctypes.c_int), ("mask_res", ctypes.c_int), ("pow2", ctypes.c_int),
+    ]
+
+
+#: the most levels kernels K and L take (``kMaxLevels`` of ``csrc/xor_encode.cu``)
+XOR_MAX_LEVELS = 32
+
+
+class XorArgs(ctypes.Structure):
+    """The levels and shape of one launch of kernel K or L, field for field
+    ``struct XorArgs`` of ``csrc/xor_encode.cu``."""
+
+    _fields_ = [("lv", XorLevel * XOR_MAX_LEVELS)] + [
+        (name, ctypes.c_int) for name in ("n_levels", "D", "F", "takikawa", "sum")
     ]
 
 
@@ -176,6 +201,12 @@ def load() -> ctypes.CDLL:
         lib.nst_shear_composite_paths.restype = i
         lib.nst_shear_screen.argtypes = [ctypes.POINTER(FrameArgs), p, p, p, p]
         lib.nst_shear_screen.restype = i
+        lib.nst_xor_encode.argtypes = [ctypes.POINTER(XorArgs), p, p, p, p, i, p]
+        lib.nst_xor_encode.restype = i
+        lib.nst_xor_encode_bwd.argtypes = [ctypes.POINTER(XorArgs), p, p, p, p, p, p, i, p]
+        lib.nst_xor_encode_bwd.restype = i
+        lib.nst_xor_vector_atomics.argtypes = []
+        lib.nst_xor_vector_atomics.restype = i
         _lib = lib
     return _lib
 

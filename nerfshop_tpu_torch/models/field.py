@@ -28,8 +28,12 @@ class FieldModel(nn.Module):
         self.network = network
 
     @classmethod
-    def build(cls, config: dict, n_input_dims: int, n_output_dims: int, device=None, generator=None):
-        e = enc.build_encoding(dict(config.get("encoding", {})), n_input_dims, device=device, generator=generator)
+    def build(cls, config: dict, n_input_dims: int, n_output_dims: int, device=None, generator=None, octree=None):
+        """From the config's ``encoding`` and ``network`` blocks; ``octree``
+        feeds a Takikawa encoding."""
+        e = enc.build_encoding(
+            dict(config.get("encoding", {})), n_input_dims, device=device, generator=generator, octree=octree
+        )
         net = mlp_lib.build_network(dict(config.get("network", {})), e.n_output_dims, n_output_dims, device, generator)
         return cls(e, net)
 

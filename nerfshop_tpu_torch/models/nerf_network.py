@@ -29,7 +29,7 @@ from torch import nn
 
 from nerfshop_tpu_torch.models import encodings as enc
 from nerfshop_tpu_torch.models import mlp as mlp_lib
-from nerfshop_tpu_torch.ops import fused_mlp
+from nerfshop_tpu_torch.ops import fused_mlp, xor_encode
 
 DENSITY_FEATURES = 16
 EXP_CLAMP = 15.0
@@ -167,13 +167,17 @@ FIELD_SHAPES = {"sdf": (3, 1), "image": (2, 3), "volume": (3, 4)}
 def check_kernel_range(config: dict, device, mode="nerf", n_extra_dims: int = 0) -> None:
     """Raise ``ValueError`` when ``config`` builds a network that the CUDA
     kernels do not compute on ``device`` in testbed ``mode`` (a
-    ``TestbedMode`` or its value): a grid level set other than (D, F) =
-    (3, 2) or (2, 2) (kernels B and A; the Image mode's grid is 2-D, the
-    others' 3-D), or an MLP outside kernel C's range
+    ``TestbedMode`` or its value): a brick grid level set other than (D,
+    F) = (3, 2) or (2, 2) (kernels B and A; the Image mode's grid is 2-D,
+    the others' 3-D), a plain grid or a Takikawa encoding outside kernels K
+    and L (:func:`~nerfshop_tpu_torch.ops.xor_encode.check_supported`:
+    plain at (3, 2) and (2, 2), Takikawa at D = 3 with F 2, 4 or 8), or an
+    MLP outside kernel C's range
     (:func:`~nerfshop_tpu_torch.ops.fused_mlp.check_supported`): NeRF's
-    density and rgb MLPs, or the other modes' one MLP from L·F inputs to 1
-    (SDF), 3 (Image) or 4 (Volume) outputs. An encoding the port lacks
-    raises ``NotImplementedError`` naming it. The dir encoding takes 3 +
+    density and rgb MLPs, or the other modes' one MLP from the encoding's
+    width (the elementwise encodings' too) to 1 (SDF), 3 (Image) or 4
+    (Volume) outputs. A grid layout the port lacks raises
+    ``NotImplementedError`` naming it. The dir encoding takes 3 +
     ``n_extra_dims`` inputs, as :func:`build_nerf_network` builds it. Reads the config only and
     allocates nothing; the CPU's plain paths take every config, so a CPU
     device passes."""
@@ -181,9 +185,13 @@ def check_kernel_range(config: dict, device, mode="nerf", n_extra_dims: int = 0)
         return
     mode = getattr(mode, "value", mode)
     n_in, n_out = FIELD_SHAPES.get(mode, (3, None))
-    pos_width, grids = enc.encoding_shape(dict(config.get("encoding", {})), n_in)
-    for D, F in grids:
-        if (D, F) not in ((3, 2), (2, 2)):
+    pos_width, sets = enc.encoding_shape(dict(config.get("encoding", {})), n_in)
+    for kind, D, F, L in sets:
+        if kind in ("plain", "takikawa"):
+            xor_encode.check_supported(D, F, kind == "takikawa", L)
+        elif kind != "brick":
+            raise NotImplementedError(f"grid layout {kind!r} is not ported (brick and plain only)")
+        elif (D, F) not in ((3, 2), (2, 2)):
             raise ValueError(
                 "kernels B (grid_encode) and A (segsum) take n_input_dims 3 or 2 and n_features_per_level 2 only; "
                 f"the encoding has n_input_dims {D}, n_features_per_level {F}"

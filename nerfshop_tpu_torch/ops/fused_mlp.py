@@ -20,8 +20,9 @@ from nerfshop_tpu_torch import kernels
 #: the only hidden width kernel C takes
 HIDDEN = 64
 #: the widest input kernel C takes (it pads an input to whole 16-column
-#: k-tiles with zeros)
-MAX_INPUT = 64
+#: k-tiles with zeros): 80 for the Takikawa encoding at its defaults, 72
+#: for Frequency's, 48 for OneBlob's, 36 for TriangleWave's
+MAX_INPUT = 128
 #: largest output width kernel C takes (the last layer is padded to 8 or 16)
 MAX_OUTPUT = 16
 

@@ -365,8 +365,13 @@ class Testbed:
             self._state = optim.TrainState(self._image_model, optim.build_optimizer(dict(cfg.get("optimizer", {}))))
             self._image_dev = None
         elif self.mode == TestbedMode.Sdf:
-            self._sdf = sdf_train.SdfTestbed.create(cfg, self._sdf_mesh, dev, g)
-            self._state = self._sdf.state
+            if self._sdf_mesh is None and sdf_train.SdfModel.needs_mesh(cfg):
+                # the field waits for load_training_data, as it does on a
+                # testbed made without a config (JAX's create raises here)
+                self._sdf = self._state = None
+            else:
+                self._sdf = sdf_train.SdfTestbed.create(cfg, self._sdf_mesh, dev, g)
+                self._state = self._sdf.state
         else:
             self._volume = volume_train.VolumeTestbed.create(cfg, self._volume_grid, dev, g)
             self._state = self._volume.state
@@ -1380,14 +1385,29 @@ class Testbed:
 
     # --------------------------------------------------------------- snapshots
 
-    def save_snapshot(self, path: str) -> None:
+    def save_snapshot(self, path: str, interop: str = "convert") -> None:
         """Native snapshot (see :mod:`nerfshop_tpu_torch.io.snapshot`): params
         with the training state's ``camera.*`` and ``envmap`` leaves, their
-        EMA copy, density grid, dataset metadata and step."""
+        EMA copy, density grid, dataset metadata and step. A path ending in
+        ``.ingp`` or ``.msgpack`` writes the NeRF's inference parameters,
+        grid, step and loss in that format (:mod:`nerfshop_tpu_torch.io.ingp`),
+        a brick table re-baked into the plain layout unless ``interop`` is
+        ``"warn"`` (written as it is) or ``"strict"`` (refused)."""
         from nerfshop_tpu_torch.io import snapshot as snap_lib
 
         if self._state is None:
             raise RuntimeError("no network to save")
+        if str(path).endswith((".ingp", ".msgpack")):
+            from nerfshop_tpu_torch.io import ingp as ingp_lib
+
+            self._require_nerf(".ingp/.msgpack snapshots")
+            ingp_lib.export_ingp(
+                path, self._network_config, self._model, self._state.inference_params,
+                density_grid=self._grid.density if self._grid is not None else None,
+                aabb_scale=self._dataset.aabb_scale if self._dataset is not None else 1,
+                training_step=self.stats.step, loss=self.stats.loss, interop=interop,
+            )
+            return
         metadata = None
         ds = self._dataset
         if ds is not None:
@@ -1414,7 +1434,8 @@ class Testbed:
     def load_snapshot(self, path: str) -> None:
         """Load a native snapshot: network config, params, the EMA copy (the
         params where the snapshot has none), the density grid with its
-        bitfield recomputed, and the step. A snapshot without a dataset gets
+        bitfield recomputed, and the step (an ``.ingp`` / ``.msgpack`` path:
+        :meth:`_load_ingp`). A snapshot without a dataset gets
         a metadata-only dataset so that it renders. The training state's
         ``camera.*`` and ``envmap`` leaves, which the ``nerf.training`` knobs
         and the scene decide as for training, are restored with the network
@@ -1424,6 +1445,9 @@ class Testbed:
         from nerfshop_tpu_torch.io import snapshot as snap_lib
         from nerfshop_tpu_torch.ops import grid as grid_lib
 
+        if str(path).endswith((".ingp", ".msgpack")):
+            self._load_ingp(path)
+            return
         snap = snap_lib.load_snapshot(path)
         mode = TestbedMode(snap.get("mode", "nerf"))
         check_kernel_range(snap["network_config"], self.device, mode)  # before the testbed changes
@@ -1468,5 +1492,46 @@ class Testbed:
         for sub in (self._sdf, self._volume):
             if sub is not None:
                 sub.step = step
+        self._params_version = next(self._versions)
+        self._grid_version = next(self._versions)
+
+    def _load_ingp(self, path: str) -> None:
+        """An ``.ingp`` / ``.msgpack`` snapshot, as the JAX ``load_snapshot``
+        reads one: the config without its ``snapshot`` (a grid encoding's
+        layout ``plain`` unless the file names one), a dataset of metadata
+        alone when none is loaded, a fresh network with the file's
+        parameters (live and EMA), its density grid's cascades and their
+        bitfield, and its step."""
+        from nerfshop_tpu_torch.data.nerf_loader import NerfDataset
+        from nerfshop_tpu_torch.io import ingp as ingp_lib
+        from nerfshop_tpu_torch.models.encodings import GRID_OTYPES
+        from nerfshop_tpu_torch.ops import grid as grid_lib
+
+        self._require_nerf(".ingp/.msgpack snapshots")
+        cfg = ingp_lib.load_ingp(path)
+        snap = cfg.get("snapshot", {})
+        network_config = ConfigDict({k: v for k, v in cfg.items() if k != "snapshot"})
+        if network_config.get("encoding", {}).get("otype", "HashGrid") in GRID_OTYPES:
+            network_config["encoding"].setdefault("layout", "plain")
+        check_kernel_range(network_config, self.device, self.mode)  # before the testbed changes
+        self._network_config = network_config
+        if self._dataset is None and "aabb_scale" in snap.get("nerf", {}):
+            self._dataset = NerfDataset(
+                images=np.zeros((1, 2, 2, 4), np.float32), xforms=np.eye(4, dtype=np.float32)[None, :3],
+                intrinsics=[], paths=[], aabb_scale=int(snap["nerf"]["aabb_scale"]),
+            )
+        self._reset_network()
+        live = dict(self._model.named_parameters())
+        out = ingp_lib.import_ingp(path, live)
+        with torch.no_grad():
+            for name, p in live.items():
+                p.copy_(out["params"][name])
+            for name, e in (self._state.ema or {}).items():
+                e.copy_(out["params"][name])
+        dg = out["density_grid"]
+        if dg is not None and self._grid is not None and dg.shape[0] <= self._grid.n_cascades:
+            self._grid.density[: dg.shape[0]] = torch.as_tensor(dg, device=self.device)
+            grid_lib.update_bitfield(self._grid)
+        self._state.step = self.stats.step = out["training_step"]
         self._params_version = next(self._versions)
         self._grid_version = next(self._versions)

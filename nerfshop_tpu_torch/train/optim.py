@@ -1,6 +1,9 @@
 """Optimizer from the JSON config tree: ``Ema { ExponentialDecay { Adam } }``.
 
-Counterpart of ``nerfshop_tpu/train/optim.py``. ``torch.optim.Adam``'s
+Counterpart of ``nerfshop_tpu/train/optim.py``. As there, the first node
+under the Ema and ExponentialDecay wrappers is read as Adam's settings
+(``learning_rate``, ``beta1``, ``beta2``, ``epsilon``, ``l2_reg``) whatever
+its ``otype`` says; an otype other than Adam is named in a warning. ``torch.optim.Adam``'s
 ``weight_decay`` adds ``l2_reg · param`` to the gradient before the moment
 updates, which is the coupled L2 that ``optax.add_decayed_weights`` before
 ``scale_by_adam`` gives. The Adam is the fused, capturable one, with its
@@ -15,6 +18,7 @@ in one ``foreach`` lerp.
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -23,7 +27,9 @@ from torch import nn
 
 
 def _unwrap(cfg: dict):
-    """Peel Ema/ExponentialDecay wrappers → (adam_cfg, schedule_cfg, ema_decay)."""
+    """Peel Ema/ExponentialDecay wrappers → (adam_cfg, schedule_cfg, ema_decay).
+    Any other node is Adam's config, as in the JAX package (which builds
+    Adam for every otype); one that is not ``Adam`` is named in a warning."""
     ema_decay = None
     schedule_cfg = None
     node = dict(cfg)
@@ -35,10 +41,14 @@ def _unwrap(cfg: dict):
         elif otype == "ExponentialDecay":
             schedule_cfg = node
             node = dict(node.get("nested", {}))
-        elif otype == "Adam":
-            return node, schedule_cfg, ema_decay
         else:
-            raise NotImplementedError(f"optimizer otype {otype!r} is not ported")
+            if otype != "Adam":
+                warnings.warn(
+                    f"optimizer otype {otype!r} is read as Adam with its learning_rate, beta1, beta2, epsilon and "
+                    "l2_reg, as the JAX package reads it",
+                    stacklevel=3,
+                )
+            return node, schedule_cfg, ema_decay
 
 
 def make_schedule(adam_cfg: dict, schedule_cfg: Optional[dict]) -> Callable[[int], float]:

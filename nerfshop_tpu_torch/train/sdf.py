@@ -44,12 +44,27 @@ RENDER_CHUNK = 1 << 20
 
 
 class SdfModel(FieldModel):
+    @staticmethod
+    def needs_mesh(config: dict) -> bool:
+        """Whether the config's field is built over the mesh: a Takikawa
+        encoding's octree is."""
+        return dict(config.get("encoding", {})).get("otype") == "Takikawa"
+
     @classmethod
-    def from_config(cls, config: dict, device=None, generator=None) -> "SdfModel":
-        """A HashGrid (or other ported grid) field; the Takikawa encoding of
-        the JAX package (over a triangle octree) is not ported and raises
-        ``NotImplementedError`` naming it."""
-        return cls.build(config, 3, 1, device, generator)
+    def from_config(cls, config: dict, device=None, generator=None, mesh=None) -> "SdfModel":
+        """The config's field. A Takikawa encoding needs ``mesh`` ((vertices,
+        faces) in the unit cube): its octree is built over it at depth
+        ``starting_level + n_levels``."""
+        octree = None
+        if cls.needs_mesh(config):
+            from nerfshop_tpu_torch.geometry.triangle_octree import TriangleOctree
+
+            if mesh is None:
+                raise ValueError("Takikawa SDF config requires a mesh")
+            enc_cfg = dict(config["encoding"])
+            depth = enc_cfg.get("starting_level", 4) + enc_cfg.get("n_levels", 10)
+            octree = TriangleOctree.build(mesh[0], mesh[1], depth)
+        return cls.build(config, 3, 1, device, generator, octree=octree)
 
     def forward(self, pos: torch.Tensor) -> torch.Tensor:
         """pos in [0,1]³ → signed distance [N]."""
@@ -61,10 +76,11 @@ class SdfTestbed:
     surface_offset_scale = 1.0
     bounding_radius = math.sqrt(3.0) / 2
 
-    def __init__(self, model: SdfModel, spec: optim.OptimizerSpec, loss_fn, device, generator: torch.Generator):
-        self.model = model
+    def __init__(self, spec: optim.OptimizerSpec, loss_fn, device, generator: torch.Generator):
+        #: the field and its optimizer state (:meth:`create` builds them)
+        self.model: Optional[SdfModel] = None
+        self.state: Optional[optim.TrainState] = None
         self.spec = spec
-        self.state = optim.TrainState(model, spec)
         self.loss_fn = loss_fn
         self.device = torch.device(device)
         self.generator = generator
@@ -88,10 +104,13 @@ class SdfTestbed:
     def create(config: dict, mesh, device, generator: torch.Generator) -> "SdfTestbed":
         spec = optim.build_optimizer(dict(config.get("optimizer", {"otype": "Adam", "learning_rate": 1e-2})))
         loss_fn = loss_lib.build_loss(dict(config.get("loss", {"otype": "Mape"})))
-        model = SdfModel.from_config(config, device, generator)
-        tb = SdfTestbed(model, spec, loss_fn, device, generator)
+        tb = SdfTestbed(spec, loss_fn, device, generator)
         if mesh is not None:
-            tb.set_mesh(mesh)
+            tb.set_mesh(mesh)  # first: a Takikawa encoding's octree is built over the normalised mesh
+        tb.model = SdfModel.from_config(
+            config, device, generator, mesh=None if mesh is None else (tb.mesh_vertices, tb.mesh_faces)
+        )
+        tb.state = optim.TrainState(tb.model, spec)
         return tb
 
     def set_mesh(self, mesh) -> None:

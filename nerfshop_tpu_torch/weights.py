@@ -41,7 +41,9 @@ def params_from_jax(tree: dict, device=None) -> Dict[str, torch.Tensor]:
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
-    out = {"pos_encoding.table": t(tree["pos_encoding"]["table"])}
+    out = {}
+    if isinstance(tree.get("pos_encoding"), dict):  # an elementwise position encoding has no leaves
+        out["pos_encoding.table"] = t(tree["pos_encoding"]["table"])
     for mlp in _MLPS:
         for i, w in enumerate(tree[mlp]["weights"]):
             out[f"{mlp}.weights.{i}"] = t(w)
@@ -60,7 +62,7 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
     def np_of(t):
         return t.detach().cpu().numpy().astype(np.float32)
 
-    tree = {"pos_encoding": {"table": np_of(state["pos_encoding.table"])}}
+    tree = {"pos_encoding": {"table": np_of(state["pos_encoding.table"])} if "pos_encoding.table" in state else ()}
     for mlp in _MLPS:
         n = sum(1 for k in state if k.startswith(f"{mlp}.weights."))
         tree[mlp] = {"weights": [np_of(state[f"{mlp}.weights.{i}"]) for i in range(n)]}

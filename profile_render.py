@@ -11,6 +11,7 @@ Run from the root of a checkout:
   python3 profile_render.py --composite --parent FILE
   python3 profile_render.py --dx-bwd --parent FILE
   python3 profile_render.py --density [--out FILE]
+  python3 profile_render.py --xor [--root DIR]
 
 Trains the model of ``chip_smoke.py`` (default config, 256 steps on the
 analytic sphere), renders one warm-up frame, times 3 unprofiled frames on
@@ -133,6 +134,13 @@ new, new, old to compare two versions of kernel E and the warp around it.
   python3 profile_render.py --kernels --chunk build/chunk.pt [--root DIR]
   python3 profile_render.py --save-edit build/edit
   python3 profile_render.py --warp --edit build/edit [--root DIR]
+
+With ``--xor`` it trains nothing: it times kernels K and L (the xor-hash
+corner encode and its backward) of the package under ``--root`` at the
+default config's plain grid, at 2^18 uniform samples and at 2^20 samples
+of 2^16 distinct positions; run old, new, new, old to compare two versions.
+
+  python3 profile_render.py --xor [--root DIR]
 """
 
 from __future__ import annotations
@@ -775,6 +783,38 @@ def time_kernels(dev, root: str, chunk: Path) -> None:
         )
 
 
+def time_xor(dev, root: str) -> None:
+    """``--xor``: kernels K and L of the package under ``root`` at the
+    default config's plain grid (a table uniform in ±1, seeded): 2^18
+    uniform samples (a training batch) and 2^20 samples of 2^16 distinct
+    positions repeated 16 times in the middle of the box (a frame chunk's
+    repetition), each checked against its plain version, then timed by both
+    of ``chip_smoke.median_ms``'s methods."""
+    from nerfshop_tpu_torch.config import default_nerf_config
+    from nerfshop_tpu_torch.models.nerf_network import build_nerf_network
+    from nerfshop_tpu_torch.ops import xor_encode as xe
+
+    print(f"[xor] package {Path(xe.__file__).resolve().parent.parent} (root {root})", flush=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    cfg = default_nerf_config()
+    cfg["encoding"] = {**cfg["encoding"], "layout": "plain"}
+    enc = build_nerf_network(cfg, device=dev, generator=g).pos_encoding
+    with torch.no_grad():
+        enc.table.uniform_(-1.0, 1.0, generator=g)
+    table = enc.table.detach()
+    repeated = torch.rand((1 << 16, 3), generator=g, device=dev).repeat_interleave(16, 0) * 0.4 + 0.3
+    for label, x in (("2^18 uniform", torch.rand((1 << 18, 3), generator=g, device=dev)),
+                     ("2^20, 2^16 distinct x16", repeated.contiguous())):
+        dout = torch.randn((x.shape[0], enc.n_output_dims), generator=g, device=dev)
+        err = float((xe.xor_encode_cuda(table, x, enc) - xe.xor_encode_plain(table, x, enc)).abs().max())
+        chip_smoke.check(err <= chip_smoke.XOR_TOL, f"kernel K disagrees ({label}): {err:.3e}")
+        k_ms, k_dev = chip_smoke.both_ms(lambda: xe.xor_encode_cuda(table, x, enc))
+        l_ms, l_dev = chip_smoke.both_ms(lambda: xe.xor_encode_bwd_cuda(table, x, dout, enc))
+        print(f"[xor] {label}: K out err {err:.3e}; K events {k_ms:.4f} ms device {k_dev:.4f} ms; L (both gradients) "
+              f"events {l_ms:.4f} ms device {l_dev:.4f} ms", flush=True)
+
+
 def save_edit(dev, out: Path) -> None:
     """``--save-edit``: train the smoke's model, build its edit (the scribble
     cage moved +0.18 in x, an affine duplicate on top, seen from the side),
@@ -881,9 +921,10 @@ def main() -> None:
     mode.add_argument("--composite", action="store_true", help="time kernel H of --parent against this checkout's")
     mode.add_argument("--dx-bwd", action="store_true", help="time kernel J of --parent against this checkout's")
     mode.add_argument("--density", action="store_true", help="profile one eikonal step of [density]")
+    mode.add_argument("--xor", action="store_true", help="time kernels K and L alone (no training)")
     ap.add_argument("--compact", type=float, default=None,
                     help="in the frame mode: also profile the frame with this compact_frac")
-    ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")
+    ap.add_argument("--root", default=None, help="with --kernels, --warp or --xor: the checkout whose package is timed")
     ap.add_argument("--chunk", type=Path, default=None, help="with --kernels: the file --save-chunk wrote")
     ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
     ap.add_argument("--parent", type=Path, default=None,
@@ -893,19 +934,19 @@ def main() -> None:
         ap.error("--composite and --dx-bwd need --parent, and --parent goes with them")
     if args.compact is not None and (args.edited or args.normals or args.train or args.distill or args.kernels or args.warp
                                      or args.sdf or args.volume or args.baked or args.composite
-                                     or args.dx_bwd or args.density
+                                     or args.dx_bwd or args.density or args.xor
                                      or args.save_chunk is not None
                                      or args.save_edit is not None):
         ap.error("--compact goes with the frame mode only")
-    if args.root is not None and not (args.kernels or args.warp):
-        ap.error("--root goes with --kernels or --warp")
+    if args.root is not None and not (args.kernels or args.warp or args.xor):
+        ap.error("--root goes with --kernels, --warp or --xor")
     if (args.chunk is not None) != args.kernels:
         ap.error("--kernels needs --chunk (written by --save-chunk), and --chunk goes with --kernels")
     if (args.edit is not None) != args.warp:
         ap.error("--warp needs --edit (written by --save-edit), and --edit goes with --warp")
     if args.root is not None:
         sys.path.insert(0, str(Path(args.root).resolve()))  # before the package is first imported
-    if args.kernels or args.warp or args.save_chunk is not None or args.save_edit is not None:
+    if args.kernels or args.warp or args.xor or args.save_chunk is not None or args.save_edit is not None:
         smi = chip_smoke.phase_device()
         chip_smoke.phase_build()
         print(f"[profile] card: {smi}")
@@ -916,6 +957,8 @@ def main() -> None:
             save_edit(dev, args.save_edit)
         elif args.warp:
             time_warp(dev, args.root or ".", args.edit)
+        elif args.xor:
+            time_xor(dev, args.root or ".")
         else:
             time_kernels(dev, args.root or ".", args.chunk)
         return

@@ -223,7 +223,11 @@ def test_composite_matches():
 
 
 def test_unported_otypes_raise():
+    # the paired layout is left behind; a Takikawa encoding needs its octree,
+    # and an unknown otype is refused (the JAX factory's ValueErrors)
     with pytest.raises(NotImplementedError):
-        tenc.build_encoding({"otype": "Frequency"}, 3)
-    with pytest.raises(NotImplementedError):
-        tenc.build_encoding({"otype": "HashGrid", "layout": "plain"}, 3)
+        tenc.build_encoding({"otype": "HashGrid", "layout": "paired"}, 3)
+    with pytest.raises(ValueError, match="requires an octree"):
+        tenc.build_encoding({"otype": "Takikawa"}, 3)
+    with pytest.raises(ValueError, match="unknown encoding otype"):
+        tenc.build_encoding({"otype": "Spline"}, 3)

@@ -102,12 +102,14 @@ def test_needs_grad_rules():
         ((24, 64, 1, 16, "ReLU", "None"), True),  # zero-padded to two k-tiles in the kernel
         ((35, 64, 2, 3, "ReLU", "None"), True),  # the rgb MLP of a scene with light dirs
         ((0, 64, 1, 16, "ReLU", "None"), False),
-        ((80, 64, 1, 16, "ReLU", "None"), False),
+        ((129, 64, 1, 16, "ReLU", "None"), False),
         ((32, 128, 1, 16, "ReLU", "None"), False),  # hidden width
         ((32, 64, 3, 16, "ReLU", "None"), False),  # depth
         ((32, 64, 1, 17, "ReLU", "None"), False),  # output width
         ((32, 64, 1, 16, "Sigmoid", "None"), False),
         ((32, 64, 1, 16, "ReLU", "Exponential"), False),
+        ((80, 64, 2, 1, "ReLU", "None"), True),  # the Takikawa encoding at its defaults, five k-tiles
+        ((128, 64, 1, 16, "ReLU", "None"), True),
     ],
 )
 def test_check_supported(dims, ok):

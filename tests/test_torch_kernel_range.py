@@ -37,7 +37,7 @@ OUTSIDE = (
     ("128-wide rgb network", lambda: _with(rgb_network={"n_neurons": 128}), "rgb MLP.*kernel C.*hidden width 128"),
     ("3 hidden layers", lambda: _with(rgb_network={"n_hidden_layers": 3}), "kernel C.*3 hidden layers"),
     ("sigmoid output", lambda: _with(network={"output_activation": "Sigmoid"}), "kernel C.*output activation"),
-    ("80-wide encoding", lambda: _with(encoding={"n_levels": 40}), "kernel C.*input width 80"),
+    ("140-wide encoding", lambda: _with(encoding={"n_levels": 70}), "kernel C.*input width 140"),
     # a 2-D grid is in B's and A's range since they took D = 2 (the Image
     # testbed); F = 4 in one is not
     ("2-D grid", lambda: _with(encoding={"otype": "Composite", "nested": [
@@ -61,6 +61,20 @@ def test_cuda_build_raises_before_allocating(label, make, match):
     check_kernel_range(cfg, "cpu")
 
 
+@pytest.mark.parametrize("mode,encoding", [
+    ("nerf", {"layout": "plain"}),  # an .ingp load's table: kernels K and L
+    ("image", {"layout": "plain"}),
+    ("sdf", {"otype": "Takikawa"}),  # JAX's defaults: 10 levels of 8 features, C at 80 inputs
+    ("sdf", {"otype": "Takikawa", "n_features_per_level": 2, "sum_instead_of_concat": True}),
+    ("sdf", {"otype": "Frequency"}),
+    ("volume", {"otype": "OneBlob"}),
+])
+def test_kernel_range_takes_the_xor_and_elementwise_encodings(mode, encoding):
+    cfg = load_network_config(ROOT / "configs" / mode / "base.json")
+    cfg["encoding"] = {**cfg["encoding"], **encoding}
+    check_kernel_range(cfg, CUDA, mode)
+
+
 @pytest.mark.parametrize("config", [None, "base.json"])
 def test_kernel_range_takes_the_default_configs(config):
     cfg = default_nerf_config() if config is None else load_network_config(ROOT / "configs/nerf" / config)
@@ -79,14 +93,15 @@ def test_kernel_range_takes_the_mode_configs(mode):
 @pytest.mark.parametrize("mode,change,match", [
     ("image", {"encoding": {"n_features_per_level": 4}}, "n_input_dims 2, n_features_per_level 4"),
     ("sdf", {"network": {"n_hidden_layers": 3}}, "MLP.*kernel C.*3 hidden layers"),
-    ("volume", {"encoding": {"n_levels": 40}}, "MLP.*kernel C.*input width 80"),
-    ("sdf", {"encoding": {"otype": "Takikawa"}}, "Takikawa"),
+    ("volume", {"encoding": {"n_levels": 70}}, "MLP.*kernel C.*input width 140"),
+    ("sdf", {"encoding": {"otype": "Takikawa", "n_features_per_level": 3}}, "Takikawa.*n_features_per_level 3"),
+    ("sdf", {"encoding": {"layout": "paired"}}, "paired"),
 ])
 def test_mode_configs_outside_raise(mode, change, match):
     cfg = load_network_config(ROOT / "configs" / mode / "base.json")
     for key, block in change.items():
         cfg[key] = {**cfg[key], **block}
-    error = NotImplementedError if "Takikawa" in match else ValueError
+    error = NotImplementedError if "paired" in match else ValueError
     with pytest.raises(error, match=match):
         check_kernel_range(cfg, CUDA, mode)
     with pytest.raises(error, match=match):
@@ -106,7 +121,7 @@ def test_encoding_shape_matches_built_encoding(otype, cfg, n_in):
     built = encodings.build_encoding(cfg, n_in, 1.5, device="cpu")
     assert width == built.n_output_dims
     mods = [m for m in built.modules() if isinstance(m, encodings.GridEncoding)]
-    assert grids == [(m.n_input_dims, m.n_features_per_level) for m in mods]
+    assert grids == [(m.layout, m.n_input_dims, m.n_features_per_level, m.n_levels) for m in mods]
 
 
 def test_snapshot_of_an_unsupported_config_fails_at_load(tmp_path):

@@ -143,3 +143,12 @@ def test_require_rejects_bad_tensors():
         kernels.require(torch.zeros(4, 2), "x", torch.float32, (4, 3), dev)
     with pytest.raises(ValueError):
         kernels.require(torch.zeros(3, 4).t(), "x", torch.float32, (4, 3), dev)
+
+
+def test_version_is_the_jax_packages():
+    import nerfshop_tpu
+    import nerfshop_tpu_torch
+    from nerfshop_tpu_torch import version
+
+    assert nerfshop_tpu_torch.__version__ == version.__version__ == nerfshop_tpu.__version__ == "0.1.0"
+    assert "__version__" in nerfshop_tpu_torch.__all__

@@ -410,8 +410,8 @@ def test_kernel_range_by_mode_raises_early():
     cfg = {**CONFIG, "network": {"n_neurons": 128, "n_hidden_layers": 2}}
     with pytest.raises(ValueError, match="kernel C.*hidden width 128"):
         Testbed("sdf", config=cfg, device="cuda")
-    with pytest.raises(NotImplementedError, match="Takikawa"):
-        Testbed("sdf", config={**CONFIG, "encoding": {"otype": "Takikawa"}}, device="cuda")
+    with pytest.raises(ValueError, match="kernels K and L.*Takikawa.*n_features_per_level 3"):
+        Testbed("sdf", config={**CONFIG, "encoding": {"otype": "Takikawa", "n_features_per_level": 3}}, device="cuda")
 
 
 @pytest.mark.xfail(strict=True, reason=(

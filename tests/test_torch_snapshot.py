@@ -211,11 +211,17 @@ def test_jax_io_snapshot_reads_in_port(tmp_path, compress):
 
 @pytest.mark.parametrize("name", ["a.ingp", "a.msgpack"])
 def test_ingp_formats_raise(tmp_path, name):
+    # the formats are io/ingp.py's (tests/test_torch_ingp.py); what they
+    # refuse: a brick table under interop="strict", a mode other than NeRF
     tb = TTestbed(device="cpu", config=CFG)
-    with pytest.raises(NotImplementedError):
-        tb.save_snapshot(str(tmp_path / name))
-    with pytest.raises(NotImplementedError):
-        tb.load_snapshot(str(tmp_path / name))
+    with pytest.raises(ValueError, match="not readable by tcnn"):
+        tb.save_snapshot(str(tmp_path / name), interop="strict")
+    assert not (tmp_path / name).exists()
+    sdf = TTestbed("sdf", device="cpu", config={**CFG, "loss": {"otype": "Mape"}})
+    with pytest.raises(RuntimeError, match="NeRF mode"):
+        sdf.save_snapshot(str(tmp_path / name))
+    with pytest.raises(RuntimeError, match="NeRF mode"):
+        sdf.load_snapshot(str(tmp_path / name))
 
 
 def test_snapshot_without_ema_fills_ema_from_params(tmp_path):
