@@ -20,11 +20,15 @@ Phases, each printing one line of its own numbers:
   6a. [xor]: kernels K (the xor-hash corner encode) and L (its backward:
      the table gradient by atomics and the position gradient) against
      their plain versions: the plain grid layout at the default config's
-     grid (2^18 samples with the box's corners and points outside it, N = 1
-     and 257) and at the Image config's 2-D grid; the Takikawa encoding at
-     JAX's defaults over the [sdf] mesh's octree (F = 8, levels of 4920,
-     35944 and 274632 slots; F = 2 summed; F = 4), timed beside their
-     bounds and L's table half beside one ``index_add_``;
+     grid (2^18 samples with the box's corners and points outside it, N = 1,
+     129 and 257; the box's faces and, on every level, points at even and
+     odd p0.x and at the clamped p0.x = res − 1, a sample count that is no
+     whole number of warps; 2^16 identical positions; 2^16 positions
+     repeated in runs of 16 and repeated across the lanes of each warp) and
+     at the Image config's 2-D grid; the Takikawa encoding at JAX's defaults
+     over the [sdf] mesh's octree (F = 8, levels of 4920, 35944 and 274632
+     slots, with the box's faces; F = 2 summed; F = 4 and 2), timed beside
+     their bounds and L's table half beside one ``index_add_``;
   7. the training path: the default tcnn-parity NeRF (16 levels × 2
      features, 2^19 table, 64-wide MLPs) trained through ``Testbed.train``
      with batch 2^18 on an analytic opaque-sphere scene, every chunk of 16
@@ -4013,15 +4017,53 @@ def near_surface(v, f, n, g, dev, spread):
     return (p + (torch.rand((n, 3), generator=g, device=dev) * 2 - 1) * spread).contiguous()
 
 
+def xor_edge_points(enc, g, dev):
+    """Points at the edges of kernels K and L's x-neighbour pairs: 64 on
+    each face of the box (x_d = 0 and 1: the last cell and its clamped
+    corner), and on every level of a plain grid 32 each at p0.x = 2, 3,
+    res − 2 and res − 1 (pairs at even and odd p0.x, the last pair, the x
+    corners clamped onto one slot); 2431 in all on the default grid, no
+    whole number of warps."""
+    D = enc.n_input_dims
+    pts = []
+    for d in range(D):
+        for v in (0.0, 1.0):
+            p = torch.rand((64, D), generator=g, device=dev)
+            p[:, d] = v
+            pts.append(p)
+    for lv in [] if enc.takikawa else enc.xor_levels:
+        for px in (2, 3, lv.res - 2, lv.res - 1):
+            p = torch.rand((32, D), generator=g, device=dev)
+            p[:, 0] = (px + 0.05 + 0.9 * torch.rand((32,), generator=g, device=dev) - 0.5) / lv.scale
+            pts.append(p)
+    return torch.cat(pts)[:-1].contiguous()
+
+
+def repeated_points(g, dev, n: int = 1 << 16):
+    """n positions in the middle of the box: one position n times (every
+    lane of L's scatter on one slot), n / 16 positions repeated in runs of
+    16 (the groups of neighbouring lanes that a frame chunk's repeated
+    samples make), and n / 8 positions each on lanes i, i + 4, ... of a
+    warp (groups that are no runs)."""
+    one = (torch.rand((1, 3), generator=g, device=dev) * 0.4 + 0.3).expand(n, 3).contiguous()
+    runs = (torch.rand((n // 16, 3), generator=g, device=dev) * 0.4 + 0.3).repeat_interleave(16, 0).contiguous()
+    base = torch.rand((n // 8, 3), generator=g, device=dev) * 0.4 + 0.3
+    i = torch.arange(n, device=dev)
+    strided = base[(i // 32) * 4 + i % 4].contiguous()
+    return {"2^16 identical positions": one, "2^12 positions in runs of 16": runs,
+            "2^13 positions on every 4th lane of a warp": strided}
+
+
 def phase_xor(dev, g):
     """Kernels K and L against their plain versions: the plain layout at the
     default config's grid (2^18 uniform samples with the box's corners and
-    points outside it, N = 1 and 257) and at configs/image/base.json's 2-D
-    grid (2^16); the Takikawa encoding at JAX's defaults (10 levels from
-    depth 4 of 8 features, 2^19, levels of 4920, 35944 and 274632 slots)
-    over the [sdf] mesh's octree, at 2^16 points half within a finest cell
-    of the surface, and at F = 2 summed and F = 4 → (K's, L's numbers at the
-    plain 2^18 batch)."""
+    points outside it, N = 1, 129 and 257, ``xor_edge_points``,
+    ``repeated_points``) and at configs/image/base.json's 2-D grid (2^16);
+    the Takikawa encoding at JAX's defaults (10 levels from depth 4 of 8
+    features, 2^19, levels of 4920, 35944 and 274632 slots) over the [sdf]
+    mesh's octree, at 2^16 points half within a finest cell of the surface
+    (and at N = 129 and the box's faces), and at F = 2 summed, F = 4 and
+    F = 2 → (K's, L's numbers at the plain 2^18 batch)."""
     from nerfshop_tpu_torch import kernels
     from nerfshop_tpu_torch.config import default_image_config, default_nerf_config
     from nerfshop_tpu_torch.geometry.triangle_octree import TriangleOctree
@@ -4032,7 +4074,7 @@ def phase_xor(dev, g):
     cfg["encoding"] = {**cfg["encoding"], "layout": "plain"}
     enc = build_nerf_network(cfg, device=dev, generator=g).pos_encoding
     check(enc.layout == "plain" and enc.n_levels == 16 and max(enc.level_sizes) == 1 << 19, "not the default plain grid")
-    print(f"[xor] L's table scatter by {'float2/float4' if kernels.load().nst_xor_vector_atomics() else 'scalar'} "
+    print(f"[xor] L's table scatter by {'float4' if kernels.load().nst_xor_vector_atomics() else 'scalar'} "
           "atomics", flush=True)
     with torch.no_grad():
         enc.table.uniform_(-1.0, 1.0, generator=g)
@@ -4041,8 +4083,12 @@ def phase_xor(dev, g):
     x[:8] = torch.tensor([[(c >> d) & 1 for d in range(3)] for c in range(8)], dtype=torch.float32, device=dev)
     x[8:1032] = torch.rand((1024, 3), generator=g, device=dev) * 1.4 - 0.2
     rows = xor_case("2^18 samples, the box's corners, 1024 outside it", enc, table, x, g)
-    for n in (1, 257):
+    for n in (1, 129, 257):
         xor_case(f"N={n}", enc, table, x[:n].contiguous(), g, timed=False)
+    xor_case("the box's faces; p0.x even, odd, res - 2 and res - 1 on every level", enc, table,
+             xor_edge_points(enc, g, dev), g, timed=False)
+    for label, xr in repeated_points(g, dev).items():
+        xor_case(label, enc, table, xr, g, timed=False)
     enc2 = build_encoding({**default_image_config()["encoding"], "layout": "plain"}, 2, device=dev, generator=g)
     with torch.no_grad():
         enc2.table.uniform_(-1.0, 1.0, generator=g)
@@ -4058,7 +4104,7 @@ def phase_xor(dev, g):
     xt = torch.cat([near_surface(v, f, 1 << 15, g, dev, 1.0 / (1 << 13)), torch.rand((1 << 15, 3), generator=g, device=dev)])
     xt[:3] = torch.tensor([[0, 0, 0], [1, 1, 1], [0.5, 0.5, 1]], dtype=torch.float32, device=dev)
     print(f"[xor] the [sdf] mesh's octree to depth 14 (dense to 8) in {build_s:.3f} s", flush=True)
-    for F, summed, timed in ((8, False, True), (2, True, False), (4, False, False)):
+    for F, summed, timed in ((8, False, True), (2, True, False), (4, False, False), (2, False, False)):
         te = TakikawaEncoding(octree, n_features_per_level=F, sum_instead_of_concat=summed, device=dev, generator=g)
         check(te.level_sizes[:3] == [4920, 35944, 274632], f"not JAX's default Takikawa sizes: {te.level_sizes}")
         with torch.no_grad():
@@ -4066,6 +4112,7 @@ def phase_xor(dev, g):
         xor_case("2^16 points, half within a finest cell of the surface", te, te.table.detach(), xt, g, timed=timed)
         if not summed:
             xor_case("N=129", te, te.table.detach(), xt[:129].contiguous(), g, timed=False)
+            xor_case("the box's faces", te, te.table.detach(), xor_edge_points(te, g, dev), g, timed=False)
     return rows
 
 
@@ -4225,6 +4272,20 @@ def sdf_base_config() -> dict:
     return json.loads((Path(__file__).resolve().parent / "configs" / "sdf" / "base.json").read_text())
 
 
+def takikawa_main(workdir: Path, obj: Path, steps: int):
+    """``run.main`` in SDF mode on the mesh ``obj`` with a Takikawa encoding
+    at JAX's defaults (10 levels from depth 4, 8 features, 2^19) and
+    configs/sdf/base.json's network, loss and optimizer, ``steps`` steps at
+    2^16 → ``stamped_main``'s (testbed, lines, start time, launches)."""
+    cfg = sdf_base_config()
+    cfg["encoding"] = {"otype": "Takikawa", "n_levels": 10, "starting_level": 4, "n_features_per_level": 8,
+                       "log2_hashmap_size": 19}
+    path = workdir / "takikawa.json"
+    path.write_text(json.dumps(cfg))
+    return stamped_main(["--mode", "sdf", "--network", str(path), "--scene", str(obj), "--n_steps", str(steps),
+                         "--batch_size", str(1 << 16), "--device", "cuda"])
+
+
 def phase_takikawa(workdir: Path, obj: Path, W=1920, H=1080, steps=1000):
     """[takikawa]: the [sdf] mesh through ``run.main(["--mode", "sdf",
     "--network", cfg, ...])`` with a Takikawa encoding at JAX's defaults
@@ -4240,13 +4301,7 @@ def phase_takikawa(workdir: Path, obj: Path, W=1920, H=1080, steps=1000):
     from nerfshop_tpu_torch.geometry import bvh as bvh_lib
     from nerfshop_tpu_torch.geometry.triangle_octree import TriangleOctree
 
-    cfg = sdf_base_config()
-    cfg["encoding"] = {"otype": "Takikawa", "n_levels": 10, "starting_level": 4, "n_features_per_level": 8,
-                       "log2_hashmap_size": 19}
-    path = workdir / "takikawa.json"
-    path.write_text(json.dumps(cfg))
-    tb, lines, t0, train = stamped_main(["--mode", "sdf", "--network", str(path), "--scene", str(obj), "--n_steps",
-                                         str(steps), "--batch_size", str(1 << 16), "--device", "cuda"])
+    tb, lines, t0, train = takikawa_main(workdir, obj, steps)
     steps_s, losses, t_train = training_lines(lines, steps)
     sdf = tb.sdf
     enc = sdf.model.encoding

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:
   python3 profile_render.py [--out FILE] [--compact FRAC | --edited | --normals | --train | --distill | --sdf | --volume
-                             | --baked]
+                             | --takikawa | --baked]
   python3 profile_render.py --save-chunk FILE
   python3 profile_render.py --kernels --chunk FILE [--root DIR]
   python3 profile_render.py --save-edit DIR
@@ -11,7 +11,7 @@ Run from the root of a checkout:
   python3 profile_render.py --composite --parent FILE
   python3 profile_render.py --dx-bwd --parent FILE
   python3 profile_render.py --density [--out FILE]
-  python3 profile_render.py --xor [--root DIR]
+  python3 profile_render.py --xor --parent FILE
 
 Trains the model of ``chip_smoke.py`` (default config, 256 steps on the
 analytic sphere), renders one warm-up frame, times 3 unprofiled frames on
@@ -65,7 +65,10 @@ generator reseeded with ``chip_smoke.G_SEED``: per step, wall, device busy,
 idle share, launches, and kernel G's device time (``bvh`` in the
 kernel's name) and share; with ``--volume`` the
 Volume testbed of its [volume] phase (``synthetic_smoke(256)``, 1000 steps)
-and one 1920×1080 delta-tracked frame at spp 4.
+and one 1920×1080 delta-tracked frame at spp 4; with ``--takikawa`` the
+Takikawa SDF of its [takikawa] phase (the same mesh, JAX's default
+Takikawa encoding, 1000 steps) and one 1920×1080 sphere-traced frame
+(kernels K, C, and L for the analytic normals).
 
 With ``--baked`` it bakes that model for the interactive preview (256³)
 and profiles one 1920×1080 ``render_interactive`` frame the same way
@@ -135,12 +138,16 @@ new, new, old to compare two versions of kernel E and the warp around it.
   python3 profile_render.py --save-edit build/edit
   python3 profile_render.py --warp --edit build/edit [--root DIR]
 
-With ``--xor`` it trains nothing: it times kernels K and L (the xor-hash
-corner encode and its backward) of the package under ``--root`` at the
-default config's plain grid, at 2^18 uniform samples and at 2^20 samples
-of 2^16 distinct positions; run old, new, new, old to compare two versions.
+With ``--xor`` it trains nothing: it builds kernels K and L (the xor-hash
+corner encode and its backward) from ``--parent`` (an older
+``csrc/xor_encode.cu``, e.g. ``git show HEAD~:nerfshop_tpu_torch/csrc/
+xor_encode.cu > build/xor_parent.cu``) and from this checkout, prints their
+registers and spills, holds them to each other and to the plain versions
+and times them in turns at the default config's plain grid (2^18 uniform
+samples; 2^20 samples of 2^16 distinct positions; 2^18 along rays) and at
+Takikawa's defaults (2^16 points; K alone at 2^21).
 
-  python3 profile_render.py --xor [--root DIR]
+  python3 profile_render.py --xor --parent FILE
 """
 
 from __future__ import annotations
@@ -783,36 +790,170 @@ def time_kernels(dev, root: str, chunk: Path) -> None:
         )
 
 
-def time_xor(dev, root: str) -> None:
-    """``--xor``: kernels K and L of the package under ``root`` at the
-    default config's plain grid (a table uniform in ±1, seeded): 2^18
-    uniform samples (a training batch) and 2^20 samples of 2^16 distinct
-    positions repeated 16 times in the middle of the box (a frame chunk's
-    repetition), each checked against its plain version, then timed by both
-    of ``chip_smoke.median_ms``'s methods."""
-    from nerfshop_tpu_torch.config import default_nerf_config
-    from nerfshop_tpu_torch.models.nerf_network import build_nerf_network
-    from nerfshop_tpu_torch.ops import xor_encode as xe
+#: kernels K and L's versions in ``--xor``: the parent's and this checkout's
+XOR_V1, XOR_V2 = "v1 (parent)", "v2 (this checkout)"
 
-    print(f"[xor] package {Path(xe.__file__).resolve().parent.parent} (root {root})", flush=True)
+
+def xor_shapes(dev):
+    """{shape: (encoding, table, x, dout)}: the default config's plain grid
+    (a table uniform in ±1, seeded) at 2^18 uniform samples (a training
+    batch), at 2^20 samples of 2^16 distinct positions in the middle of
+    the box, each repeated 16 times in a row (a frame chunk's repetition),
+    and at 2^18 samples in order along 2^12 rays through the box, 64 a ray
+    1.4/64 apart (a training batch's order); the Takikawa encoding at JAX's
+    defaults (F = 8, 10 levels) over the [sdf] mesh's octree at 2^16
+    points, half within a finest cell of the surface (chip_smoke.py's [xor]
+    inputs), and at 2^21 such points (a 1080p frame's count, an output
+    larger than the L2; K alone)."""
+    from nerfshop_tpu_torch.config import default_nerf_config
+    from nerfshop_tpu_torch.geometry.triangle_octree import TriangleOctree
+    from nerfshop_tpu_torch.models.encodings import TakikawaEncoding
+    from nerfshop_tpu_torch.models.nerf_network import build_nerf_network
+
     g = torch.Generator(device=dev)
     g.manual_seed(7)
     cfg = default_nerf_config()
     cfg["encoding"] = {**cfg["encoding"], "layout": "plain"}
     enc = build_nerf_network(cfg, device=dev, generator=g).pos_encoding
+    v, f = chip_smoke.unit_mesh(chip_smoke.bumpy_mesh())
+    te = TakikawaEncoding(TriangleOctree.build(v, f, 14), n_features_per_level=8, device=dev, generator=g)
     with torch.no_grad():
         enc.table.uniform_(-1.0, 1.0, generator=g)
-    table = enc.table.detach()
-    repeated = torch.rand((1 << 16, 3), generator=g, device=dev).repeat_interleave(16, 0) * 0.4 + 0.3
-    for label, x in (("2^18 uniform", torch.rand((1 << 18, 3), generator=g, device=dev)),
-                     ("2^20, 2^16 distinct x16", repeated.contiguous())):
-        dout = torch.randn((x.shape[0], enc.n_output_dims), generator=g, device=dev)
-        err = float((xe.xor_encode_cuda(table, x, enc) - xe.xor_encode_plain(table, x, enc)).abs().max())
-        chip_smoke.check(err <= chip_smoke.XOR_TOL, f"kernel K disagrees ({label}): {err:.3e}")
-        k_ms, k_dev = chip_smoke.both_ms(lambda: xe.xor_encode_cuda(table, x, enc))
-        l_ms, l_dev = chip_smoke.both_ms(lambda: xe.xor_encode_bwd_cuda(table, x, dout, enc))
-        print(f"[xor] {label}: K out err {err:.3e}; K events {k_ms:.4f} ms device {k_dev:.4f} ms; L (both gradients) "
-              f"events {l_ms:.4f} ms device {l_dev:.4f} ms", flush=True)
+        te.table.uniform_(-1.0, 1.0, generator=g)
+    repeated = (torch.rand((1 << 16, 3), generator=g, device=dev) * 0.4 + 0.3).repeat_interleave(16, 0).contiguous()
+    xt = torch.cat([chip_smoke.near_surface(v, f, 1 << 15, g, dev, 1.0 / (1 << 13)),
+                    torch.rand((1 << 15, 3), generator=g, device=dev)])
+    u = torch.nn.functional.normalize(torch.randn((1 << 12, 3), generator=g, device=dev), dim=1)
+    d = -torch.nn.functional.normalize(u + 0.2 * torch.randn((1 << 12, 3), generator=g, device=dev), dim=1)
+    t = 0.05 + torch.arange(64, device=dev, dtype=torch.float32) * (1.4 / 64)
+    rays = (0.5 + 0.75 * u[:, None, :] + t[None, :, None] * d[:, None, :]).reshape(-1, 3).contiguous()
+    shapes = {"2^18 uniform": (enc, torch.rand((1 << 18, 3), generator=g, device=dev)),
+              "2^20: 2^16 distinct x16": (enc, repeated),
+              "2^18 along 2^12 rays x 64": (enc, rays),
+              "Takikawa F=8, 2^16": (te, xt)}
+    shapes["Takikawa F=8, 2^21, K alone"] = (te, torch.cat([
+        chip_smoke.near_surface(v, f, 1 << 20, g, dev, 1.0 / (1 << 13)), torch.rand((1 << 20, 3), generator=g, device=dev)]))
+    return {k: (e, e.table.detach(), x, torch.randn((x.shape[0], e.n_output_dims), generator=g, device=dev))
+            for k, (e, x) in shapes.items()}
+
+
+def xor_entry_lines(log: str) -> list:
+    """(kernel with its template arguments, ptxas's lines) for every entry
+    of kernels K and L in an ``-Xptxas -v`` log."""
+    out, lines = [], log.splitlines()
+    for k, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*?\d(xor_encode(?:_[a-z]+)?_kernel)I(\w+?)EEv", line)
+        if m:
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2) + "E"))
+            info = [t.replace("ptxas info    :", "").strip() for t in lines[k + 1:k + 4]
+                    if ("bytes" in t or "Used" in t) and "Compiling" not in t]
+            out.append((f"{m.group(1)}<{args}>", info))
+    return out
+
+
+def time_xor(dev, parent: Path) -> None:
+    """``--xor``: kernels K and L of ``parent`` (an older
+    ``csrc/xor_encode.cu``, v1) against this checkout's (v2), each built
+    alone with ``-Xptxas -v`` (their registers, spills and shared memory
+    printed), at :func:`xor_shapes`. K v2 is held bit-equal to v1, L's
+    position gradient bit-equal from call to call and within
+    ``chip_smoke.XOR_BWD_TOL`` of v1's, its table gradient within
+    ``chip_smoke.XOR_SUM_TOL`` of each slot's sum of |terms| of the plain
+    version's; then K, L with both gradients and L's table half alone are
+    timed by both of ``chip_smoke.both_ms``'s methods in the order v1, v2,
+    v2, v1, beside ``index_add_`` of the table half's (row, value) pairs and
+    the bytes bound (K alone at a shape named so)."""
+    import ctypes
+
+    import time_bvh
+    from nerfshop_tpu_torch import kernels
+    from nerfshop_tpu_torch.ops import xor_encode as xe
+
+    libs = time_bvh.build_versions({XOR_V1: parent, XOR_V2: kernels.CSRC / "xor_encode.cu"},
+                                   kernels.BUILD_DIR.parent / "xor_versions", "xor")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for label, (lib, log) in libs.items():
+        lib.nst_xor_encode.argtypes = [ctypes.POINTER(kernels.XorArgs), p, p, p, p, i, p]
+        lib.nst_xor_encode_bwd.argtypes = [ctypes.POINTER(kernels.XorArgs), p, p, p, p, p, p, i, p]
+        lib.nst_xor_encode.restype = lib.nst_xor_encode_bwd.restype = i
+        for name, info in xor_entry_lines(log):
+            print(f"[xor] ptxas {label}: {name}: {' | '.join(info)}", flush=True)
+    stream = kernels.stream_ptr(dev)
+
+    def k_run(label, enc, table, x):
+        out = torch.empty((x.shape[0], enc.n_output_dims), device=dev)
+        mask = enc.mask.data_ptr() if enc.takikawa else None
+        kernels.check(libs[label][0].nst_xor_encode(ctypes.byref(xe.xor_args(enc)), x.data_ptr(), table.data_ptr(),
+                                                     mask, out.data_ptr(), x.shape[0], stream), label)
+        return out
+
+    def l_run(label, enc, table, x, dout, want_dx=True):
+        dt = torch.zeros_like(table)
+        dx = torch.empty((x.shape[0], enc.n_input_dims), device=dev) if want_dx else None
+        mask = enc.mask.data_ptr() if enc.takikawa else None
+        kernels.check(libs[label][0].nst_xor_encode_bwd(
+            ctypes.byref(xe.xor_args(enc)), x.data_ptr(), table.data_ptr(), mask, dout.data_ptr(), dt.data_ptr(),
+            None if dx is None else dx.data_ptr(), x.shape[0], stream), label)
+        return dt, dx
+
+    order = (XOR_V1, XOR_V2, XOR_V2, XOR_V1)
+    for shape, (enc, table, x, dout) in xor_shapes(dev).items():
+        N = x.shape[0]
+        ref, out = k_run(XOR_V1, enc, table, x), k_run(XOR_V2, enc, table, x)
+        differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+        chip_smoke.check(differ == 0, f"K v2 is not bit-equal to v1 ({shape}): {differ} values differ, max |d| "
+                                      f"{float((out - ref).abs().max()):.3e}")
+        del ref, out
+        if shape.endswith("K alone"):
+            times = {XOR_V1: [], XOR_V2: []}
+            for label in order:
+                times[label].append(chip_smoke.both_ms(lambda: k_run(label, enc, table, x)))
+            print(f"[xor] {shape} N={N}: K v2 bit-equal to v1; "
+                  + "; ".join(f"{label}: K device {' / '.join(f'{t[1]:.4f}' for t in ts)} ms events "
+                              f"{' / '.join(f'{t[0]:.4f}' for t in ts)} ms" for label, ts in times.items()), flush=True)
+            continue
+        _, dx_p = xe.xor_encode_bwd_plain(table, x, dout, enc, False, True)
+        dt_p, _ = xe.xor_encode_bwd_plain(table, x, dout, enc, True, False)
+        rows, vals = chip_smoke.xor_index_pairs(enc, x, dout)
+        dt_tol = torch.zeros_like(table).index_add_(0, rows, vals.abs()) * chip_smoke.XOR_SUM_TOL + 1e-7
+        dx_v1 = None
+        notes = []
+        for label in libs:
+            dt, dx = l_run(label, enc, table, x, dout)
+            _, dx_again = l_run(label, enc, table, x, dout)
+            chip_smoke.check(torch.equal(dx, dx_again), f"L {label}: d x differs between two calls ({shape})")
+            ratio = float(((dt - dt_p).abs() / dt_tol).max())
+            chip_smoke.check(ratio <= 1.0, f"L {label}: d table at {ratio:.3f} of its bound ({shape})")
+            dx_v1 = dx if dx_v1 is None else dx_v1
+            dx_err = float((dx - dx_v1).abs().max()) / max(float(dx_p.abs().max()), 1e-30)
+            chip_smoke.check(dx_err <= chip_smoke.XOR_BWD_TOL, f"L {label}: d x {dx_err:.3e} of max from v1's ({shape})")
+            notes.append(f"{label}: d table {ratio:.4f} of its bound, d x {dx_err:.2e} of max |d x| from v1's")
+        del dt_tol, dt_p, dx_p
+        times = {label: {"K": [], "L": [], "L table": []} for label in libs}
+        for label in order:
+            times[label]["K"].append(chip_smoke.both_ms(lambda: k_run(label, enc, table, x)))
+            times[label]["L"].append(chip_smoke.both_ms(lambda: l_run(label, enc, table, x, dout)))
+            times[label]["L table"].append(chip_smoke.both_ms(lambda: l_run(label, enc, table, x, dout, False)))
+        lib_ms, lib_dev = chip_smoke.both_ms(lambda: torch.zeros_like(table).index_add_(0, rows, vals))
+        del rows, vals
+        n_rows, n_cells = chip_smoke.xor_reads(enc, x)
+        F = enc.n_features_per_level
+        out_bytes = N * enc.n_output_dims * 4
+        k_b, _ = chip_smoke.bound(chip_smoke.nbytes(x) + out_bytes + n_rows * F * 4 + n_cells)
+        l_b, _ = chip_smoke.bound(chip_smoke.nbytes(x, dout, table, x) + n_rows * F * 4 + n_cells)
+        lt_b, _ = chip_smoke.bound(chip_smoke.nbytes(x, dout, table) + n_cells)
+        print(f"[xor] {shape} N={N}: K v2 bit-equal to v1; {'; '.join(notes)}; d x bit-equal over two "
+              f"calls in each; bytes bound K {k_b:.4f} ms, L {l_b:.4f} ms, L table {lt_b:.4f} ms; index_add_ of the "
+              f"table half's pairs events {lib_ms:.4f} ms device {lib_dev:.4f} ms", flush=True)
+        for label, kinds in times.items():
+            parts = [f"{kind} device {' / '.join(f'{t[1]:.4f}' for t in ts)} ms events "
+                     f"{' / '.join(f'{t[0]:.4f}' for t in ts)} ms" for kind, ts in kinds.items()]
+            print(f"[xor] {shape}, {label}: {'; '.join(parts)} (forward / reversed pass)", flush=True)
+        med = {label: {kind: statistics.median(t[1] for t in ts) for kind, ts in kinds.items()}
+               for label, kinds in times.items()}
+        print(f"[xor] {shape}: v1/v2 device K {med[XOR_V1]['K'] / med[XOR_V2]['K']:.3f}x, L "
+              f"{med[XOR_V1]['L'] / med[XOR_V2]['L']:.3f}x, L table {med[XOR_V1]['L table'] / med[XOR_V2]['L table']:.3f}x; "
+              f"v2 device/bound K {med[XOR_V2]['K'] / k_b:.2f}, L {med[XOR_V2]['L'] / l_b:.2f}", flush=True)
 
 
 def save_edit(dev, out: Path) -> None:
@@ -880,14 +1021,22 @@ def time_warp(dev, root: str, edit: Path, N: int = 1 << 20) -> None:
 
 
 def field_testbed(dev, mode: str, steps: int = 1000):
-    """The SDF or Volume testbed of ``chip_smoke.py``'s [sdf] / [volume]
-    phase, trained ``steps`` steps at batch 2^16."""
+    """The SDF, Volume or Takikawa SDF testbed of ``chip_smoke.py``'s [sdf]
+    / [volume] / [takikawa] phase, trained ``steps`` steps at batch 2^16."""
     import tempfile
 
     from nerfshop_tpu_torch.geometry import mesh_io
     from nerfshop_tpu_torch.testbed import Testbed
     from nerfshop_tpu_torch.train import volume as volume_train
 
+    if mode == "takikawa":
+        with tempfile.TemporaryDirectory() as tmp:
+            obj = Path(tmp) / "bumpy.obj"
+            mesh_io.save_obj(obj, chip_smoke.bumpy_mesh())
+            t0 = time.perf_counter()
+            tb, *_ = chip_smoke.takikawa_main(Path(tmp), obj, steps)
+        print(f"[profile] takikawa testbed: load and {steps} steps in {time.perf_counter() - t0:.3f} s", flush=True)
+        return tb
     tb = Testbed(mode, device=dev, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
         if mode == "sdf":
@@ -917,29 +1066,32 @@ def main() -> None:
     mode.add_argument("--warp", action="store_true", help="time the cage warp of a saved edit (no training)")
     mode.add_argument("--sdf", action="store_true", help="profile a sphere-traced frame of the SDF testbed instead")
     mode.add_argument("--volume", action="store_true", help="profile a delta-tracked frame of the Volume testbed instead")
+    mode.add_argument("--takikawa", action="store_true",
+                      help="profile a sphere-traced frame of the Takikawa SDF testbed ([takikawa]) instead")
     mode.add_argument("--baked", action="store_true", help="profile a baked preview frame and an incremental rebake")
     mode.add_argument("--composite", action="store_true", help="time kernel H of --parent against this checkout's")
     mode.add_argument("--dx-bwd", action="store_true", help="time kernel J of --parent against this checkout's")
     mode.add_argument("--density", action="store_true", help="profile one eikonal step of [density]")
-    mode.add_argument("--xor", action="store_true", help="time kernels K and L alone (no training)")
+    mode.add_argument("--xor", action="store_true", help="time kernels K and L of --parent against this checkout's")
     ap.add_argument("--compact", type=float, default=None,
                     help="in the frame mode: also profile the frame with this compact_frac")
-    ap.add_argument("--root", default=None, help="with --kernels, --warp or --xor: the checkout whose package is timed")
+    ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")
     ap.add_argument("--chunk", type=Path, default=None, help="with --kernels: the file --save-chunk wrote")
     ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="with --composite: the older csrc/baked.cu; with --dx-bwd: the older csrc/grid_encode.cu")
+                    help="with --composite: the older csrc/baked.cu; with --dx-bwd: the older csrc/grid_encode.cu; "
+                         "with --xor: the older csrc/xor_encode.cu")
     args = ap.parse_args()
-    if (args.parent is not None) != (args.composite or args.dx_bwd):
-        ap.error("--composite and --dx-bwd need --parent, and --parent goes with them")
+    if (args.parent is not None) != (args.composite or args.dx_bwd or args.xor):
+        ap.error("--composite, --dx-bwd and --xor need --parent, and --parent goes with them")
     if args.compact is not None and (args.edited or args.normals or args.train or args.distill or args.kernels or args.warp
-                                     or args.sdf or args.volume or args.baked or args.composite
+                                     or args.sdf or args.volume or args.takikawa or args.baked or args.composite
                                      or args.dx_bwd or args.density or args.xor
                                      or args.save_chunk is not None
                                      or args.save_edit is not None):
         ap.error("--compact goes with the frame mode only")
-    if args.root is not None and not (args.kernels or args.warp or args.xor):
-        ap.error("--root goes with --kernels, --warp or --xor")
+    if args.root is not None and not (args.kernels or args.warp):
+        ap.error("--root goes with --kernels or --warp")
     if (args.chunk is not None) != args.kernels:
         ap.error("--kernels needs --chunk (written by --save-chunk), and --chunk goes with --kernels")
     if (args.edit is not None) != args.warp:
@@ -958,7 +1110,7 @@ def main() -> None:
         elif args.warp:
             time_warp(dev, args.root or ".", args.edit)
         elif args.xor:
-            time_xor(dev, args.root or ".")
+            time_xor(dev, args.parent.resolve())
         else:
             time_kernels(dev, args.root or ".", args.chunk)
         return
@@ -968,15 +1120,16 @@ def main() -> None:
     smi = chip_smoke.phase_device()
     dev = torch.device("cuda", 0)
     chip_smoke.phase_build()
-    if args.sdf or args.volume:
+    if args.sdf or args.volume or args.takikawa:
         print(f"[profile] card: {smi}")
-        mode = "sdf" if args.sdf else "volume"
+        mode = "sdf" if args.sdf else "volume" if args.volume else "takikawa"
         tb = field_testbed(dev, mode)
         if args.sdf:
             print(f"[profile] sdf testbed: calculate_iou {tb.calculate_iou():.5f}", flush=True)
         torch.cuda.reset_peak_memory_stats()
-        profile_frame(tb, "SDF, sphere-traced" if args.sdf else "Volume, delta-tracked spp 4", args.out,
-                      render=lambda: (tb.render(W, H), torch.cuda.synchronize()))
+        label = {"sdf": "SDF, sphere-traced", "volume": "Volume, delta-tracked spp 4",
+                 "takikawa": "Takikawa SDF, sphere-traced"}[mode]
+        profile_frame(tb, label, args.out, render=lambda: (tb.render(W, H), torch.cuda.synchronize()))
         print(f"[profile] {mode} frame: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
               flush=True)
         if args.sdf:

@@ -97,6 +97,34 @@ def test_time_bvh_reads_the_walks_ptxas_lines():
     ]
 
 
+def test_profile_render_reads_the_xor_kernels_ptxas_lines():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import profile_render
+    finally:
+        sys.path.remove(str(ROOT))
+    # the anonymous namespace's name holds the file's name: the kernel is the
+    # name after its length, and the template arguments follow it
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN44_INTERNAL_xor_encode_cu_280f1ca621xor_encode_bwd_kernelILi3ELi8ELb1EEEv"
+        "7XorArgsPKfS3_PKhS3_PfS6_x' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN44_INTERNAL_xor_encode_cu_280f1ca621xor_encode_bwd_kernel",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123xor_encode_level_kernelILi8EEEv7XorArgsPKfS3_PKhPfx' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_123xor_encode_level_kernelILi8EEEv7XorArgsPKfS3_PKhPfx",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 47 registers, used 0 barriers",
+    ])
+    assert profile_render.xor_entry_lines(log) == [
+        ("xor_encode_bwd_kernel<3,8,1>",
+         ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", "Used 64 registers, used 0 barriers"]),
+        ("xor_encode_level_kernel<8>",
+         ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads", "Used 47 registers, used 0 barriers"]),
+    ]
+
+
 @pytest.mark.parametrize("log2_t", [12, 14])
 def test_params_round_trip(log2_t):
     cfg = default_nerf_config()
