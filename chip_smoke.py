@@ -111,6 +111,16 @@ Phases, each printing one line of its own numbers:
      training batch, 64 captured training steps on the plain table, the
      same for .msgpack, and the re-bake at JAX's test config (mean |Δ|
      < 0.025);
+ 11e'. [density-ingp]: the density module over the network [ingp] loaded
+     from its .ingp file (the plain layout, a dense level first), with
+     [density]'s inputs and calls: kernel M (the second order through the
+     xor-hashed table) once per second-order backward, J never, every
+     output finite and, on every 8th position, within 5e-3 relative L2 of
+     the plain route on the CPU; M alone against its plain version on the
+     module's inputs and at its edges (N = 1, 129, 12345, the box's faces,
+     0 and exactly 1, every level's top cell, cell faces, the first 15
+     levels), each twice and bit-equal, timed beside its bound with its
+     registers and shared memory;
  12. kernel D (dynamic gathers) against its plain version and the library
      call, bit for bit, at the shapes of the TPU gather kernels and of the
      render march (run before the training phase);
@@ -174,7 +184,11 @@ Phases, each printing one line of its own numbers:
      at 2^16 (the loss falls), K and L against their plain versions on a
      training batch, the IoU and the sign agreement within one finest cell
      of the surface (printed, not gated), a 1080p frame with analytic
-     normals (hit share in (0.05, 0.95); K, L, C launched);
+     normals (hit share in (0.05, 0.95); K, L, C launched), one
+     second-order gradient (an eikonal step) at the batch's 2^16 points
+     through kernel M once, M alone against its plain version there and at
+     its edges (N = 1, 129, 12345, the box's faces, 0 and exactly 1; empty
+     octree cells among the points), timed beside its bound;
  20b. [encodings]: 200 SDF steps each with a Frequency (12), a
      TriangleWave (12) and a OneBlob (16) position encoding: the loss
      falls, kernel C launched at 72, 36 and 48 inputs;
@@ -193,7 +207,22 @@ Phases, each printing one line of its own numbers:
      version at that width; the extrinsics' round trip in both conventions and with pose deltas,
      ``n_params``, ``level_stats``, ``training_step``; a ``torch.profiler``
      trace of 16 steps and its five largest device ops; and
-     ``reload_network_from_json`` (step 0, the loss back near the first).
+     ``reload_network_from_json`` (step 0, the loss back near the first);
+ 22. [parallel]: ``parallel/mesh.py`` over ``torch.distributed``. A 1-rank
+     NCCL group in this process: two steps of [train]'s setup through the
+     data-parallel step bit-equal to the plain eager step. Then 2 ranks as
+     processes of this script on cuda:0 over gloo (NCCL refuses two ranks
+     on one card; a ``FileStore`` rendezvous, a time limit a rank), each
+     with [train]'s testbed (the default config, the sphere) replicated from
+     rank 0, a global batch of 2^18 samples (4096 rays × 32 a rank): the
+     first step's reduced gradients against one process's over the union
+     of both ranks' draws (a stated relative L2 a leaf), 16 eager steps
+     with one full grid refresh from draws alike on both ranks (the loss
+     falls and is finite; parameters, Adam moments, EMA and grid bit-equal
+     on both ranks), the all-reduce of one step's bucket timed (ms and
+     bytes), and the 2-rank sharded 1080p frame of the trained field
+     against the single-process one; A, B, C and D launched on every rank.
+     With two cards or more, the 2 ranks again over NCCL on cuda:0 and :1.
 A [launches] line gives each path's launches by kernel, and kernel B's
 split into launches with fracs (training forwards only) and without
 (render, grid refresh, edited frames); the edited frame runs the cage warp
@@ -203,9 +232,12 @@ other instance of E; a distillation step launches kernel B with fracs for
 the student's two forwards only. Then a JSON line with every
 kernel's launches on the main paths (training, counted by graph replays,
 the density module, training with the options on, render, compacted render, frame, Normals frame, mesh, CLI, edit, membrane
-frame, distillation, the baked preview, the viewer and the captured scene; kernels H and I
+frame, distillation, the baked preview, the viewer, the captured scene,
+the density module over the .ingp table, the Takikawa second order and
+[parallel]'s ranks; kernels H and I
 as ``shear_warp_composite`` and ``shear_warp_screen``, their numbers the
-median over the six views, the error the largest),
+median over the six views, the error the largest; kernel M as
+``xor_encode_dx_bwd``, its numbers [density-ingp]'s),
 error, times, bound and library-call time, the
 ``nvidia-smi`` name/power-limit line, and as the last line ``{"ok": true,
 "device": {...}}``. Any failed check raises, so the script exits non-zero;
@@ -226,6 +258,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -774,6 +807,7 @@ def kernel_wrappers():
         "shear_warp_screen": baked.shear_warp_screen_cuda,
         "xor_encode": xor_encode.xor_encode_cuda,
         "xor_encode_bwd": xor_encode.xor_encode_bwd_cuda,
+        "xor_encode_dx_bwd": xor_encode.xor_encode_dx_bwd_cuda,
     }
 
 
@@ -1495,6 +1529,74 @@ def rel_l2(a, b) -> float:
     return float(torch.linalg.vector_norm((a - b).double()) / torch.clamp_min(torch.linalg.vector_norm(b.double()), 1e-30))
 
 
+def drive_density(mod, x, d_out, d_dpos):
+    """The density module's calls at x: ``fwd_density``, ``bwd_density``,
+    ``bwd_bwd_input_density``, then :func:`eikonal_step`, each timed →
+    (outputs by name, eikonal loss, ms by call, launches after the first
+    three calls, launches after all four); the counts are reset first."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t = [time.perf_counter()]
+    feats = mod.fns.fwd_density(x)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    g1 = mod.fns.bwd_density(x, d_out)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    d_pos2, d_dout = mod.fns.bwd_bwd_input_density(x, d_out, d_dpos)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    api = read_launches()
+    eik, g_eik = eikonal_step(mod, x)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    launches = read_launches()
+    outs = {"fwd": feats, "bwd": g1, "d_pos2": d_pos2, "d_dout": d_dout, "eikonal grad": g_eik}
+    N = x.shape[0]
+    check(all(bool(torch.isfinite(v).all()) for v in outs.values()) and math.isfinite(float(eik.detach())),
+          "the density module: a non-finite output")
+    check(feats.shape == d_dout.shape == (N, mod.n_density_output_dims) and g1.shape == d_pos2.shape == (N, 3),
+          "the density module: an output of the wrong shape")
+    check(float(g_eik.abs().max()) > 0 and float(d_pos2.abs().max()) > 0, "the density module: a second-order gradient is 0")
+    ms = dict(zip(("fwd_density", "bwd_density", "bwd_bwd_input_density", "eikonal step"),
+                  ((b - a) * 1e3 for a, b in zip(t, t[1:]))))
+    return outs, eik, ms, api, launches
+
+
+def density_cpu_errors(tb, x, d_out, d_dpos, outs) -> dict:
+    """Relative L2 of the module's outputs against its plain route (the
+    model and weights copied to the CPU) at every 8th position; fails above
+    :data:`DENSITY_TOL`."""
+    import copy
+
+    from nerfshop_tpu_torch.torch_interop import NerfDensityModule
+
+    sub = slice(None, None, DENSITY_CPU_STRIDE)
+    cpu_mod = NerfDensityModule(copy.deepcopy(tb.model).cpu(), {k: v.cpu() for k, v in tb.inference_params.items()})
+    xc, doc, ddc = (t[sub].cpu() for t in (x, d_out, d_dpos))
+    ref = {"fwd": cpu_mod.fns.fwd_density(xc), "bwd": cpu_mod.fns.bwd_density(xc, doc)}
+    ref["d_pos2"], ref["d_dout"] = cpu_mod.fns.bwd_bwd_input_density(xc, doc, ddc)
+    errs = {k: rel_l2(outs[k][sub].cpu(), ref[k]) for k in ref}
+    check(all(e <= DENSITY_TOL for e in errs.values()),
+          f"the density module disagrees with its plain route: {errs} (bound {DENSITY_TOL})")
+    return errs
+
+
+def density_line(tag, N, lo, hi, ms, eik, g_eik, errs, launches) -> None:
+    print(
+        f"[{tag}] NerfDensityModule over the trained model's EMA weights at {N} positions ({1 << 18} uniform in "
+        f"the occupied box {[round(float(a), 4) for a in lo]}-{[round(float(a), 4) for a in hi]}, {1 << 16} within "
+        f"one cell of the surface): {', '.join(f'{k} {v:.2f} ms' for k, v in ms.items())} (loss "
+        f"{float(eik.detach()):.4e}, max |grad| {float(g_eik.abs().max()):.3e}); launches {launches}",
+        flush=True,
+    )
+    print(
+        f"[{tag}] against the plain route on the CPU at every {DENSITY_CPU_STRIDE}th position (relative L2, bound "
+        f"{DENSITY_TOL}): {', '.join(f'{k} {e:.3e}' for k, e in errs.items())}",
+        flush=True,
+    )
+
+
 def phase_density(tb):
     """[density]: the torch density module (``torch_interop.py``) over the
     trained model's EMA weights at :func:`density_positions`:
@@ -1506,50 +1608,15 @@ def phase_density(tb):
     (:func:`j_case`) on the inputs the module's double backward gave it and
     at its edges, timed beside its bound → (J's kernels-line numbers, the
     path's launches)."""
-    import copy
-
     from nerfshop_tpu_torch.ops import table_ops
-    from nerfshop_tpu_torch.torch_interop import NerfDensityModule
 
     x, lo, hi, mod, d_out, d_dpos = density_inputs(tb)
-    N = x.shape[0]
     enc = tb.model.pos_encoding
-    torch.cuda.synchronize()
-    reset_launches()
     with j_spy() as j_inputs:
-        t0 = time.perf_counter()
-        feats = mod.fns.fwd_density(x)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        g1 = mod.fns.bwd_density(x, d_out)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        d_pos2, d_dout = mod.fns.bwd_bwd_input_density(x, d_out, d_dpos)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        api = read_launches()
-        eik, g_eik = eikonal_step(mod, x)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-    launches = read_launches()
-    outs = {"fwd": feats, "bwd": g1, "d_pos2": d_pos2, "d_dout": d_dout, "eikonal grad": g_eik}
-    check(all(bool(torch.isfinite(t).all()) for t in outs.values()) and math.isfinite(float(eik.detach())),
-          "[density]: a non-finite output")
-    check(feats.shape == d_dout.shape == (N, mod.n_density_output_dims) and g1.shape == d_pos2.shape == (N, 3),
-          "[density]: an output of the wrong shape")
+        outs, eik, call_ms, api, launches = drive_density(mod, x, d_out, d_dpos)
     check(api["grid_encode_dx_bwd"] == 1 and launches["grid_encode_dx_bwd"] == 2 and len(j_inputs) == 2,
           f"kernel J was not launched once per second-order backward: {launches}")
-    check(float(g_eik.abs().max()) > 0 and float(d_pos2.abs().max()) > 0, "[density]: a second-order gradient is 0")
-
-    # the plain route: the model and weights copied to the CPU, every 8th position
-    sub = slice(None, None, DENSITY_CPU_STRIDE)
-    cpu_mod = NerfDensityModule(copy.deepcopy(tb.model).cpu(), {k: v.cpu() for k, v in tb.inference_params.items()})
-    xc, doc, ddc = (t[sub].cpu() for t in (x, d_out, d_dpos))
-    ref = {"fwd": cpu_mod.fns.fwd_density(xc), "bwd": cpu_mod.fns.bwd_density(xc, doc)}
-    ref["d_pos2"], ref["d_dout"] = cpu_mod.fns.bwd_bwd_input_density(xc, doc, ddc)
-    errs = {k: rel_l2(outs[k][sub].cpu(), ref[k]) for k in ref}
-    check(all(e <= DENSITY_TOL for e in errs.values()),
-          f"[density] the module disagrees with its plain route: {errs} (bound {DENSITY_TOL})")
+    errs = density_cpu_errors(tb, x, d_out, d_dpos, outs)
 
     # kernel J alone on the inputs of the module's double backward, then at
     # its edges
@@ -1568,19 +1635,7 @@ def phase_density(tb):
     touched = touched_rows(enc, enc.brick_fracs(xx)[0])
     n_bytes = nbytes(xx, g, v, got_h, got_x) + touched * 2 * 4
     b_ms, b_by = bound(n_bytes)
-    print(
-        f"[density] NerfDensityModule over the trained model's EMA weights at {N} positions ({1 << 18} uniform in "
-        f"the occupied box {[round(float(a), 4) for a in lo]}-{[round(float(a), 4) for a in hi]}, {1 << 16} within "
-        f"one cell of the surface): fwd_density {(t1 - t0) * 1e3:.2f} ms, bwd_density {(t2 - t1) * 1e3:.2f} ms, "
-        f"bwd_bwd_input_density {(t3 - t2) * 1e3:.2f} ms, eikonal step {(t4 - t3) * 1e3:.2f} ms (loss {float(eik.detach()):.4e}, "
-        f"max |grad| {float(g_eik.abs().max()):.3e}); launches {launches}",
-        flush=True,
-    )
-    print(
-        f"[density] against the plain route on the CPU at every {DENSITY_CPU_STRIDE}th position (relative L2, bound "
-        f"{DENSITY_TOL}): {', '.join(f'{k} {e:.3e}' for k, e in errs.items())}",
-        flush=True,
-    )
+    density_line("density", x.shape[0], lo, hi, call_ms, eik, outs["eikonal grad"], errs, launches)
     print(
         f"[density] kernel J N={xx.shape[0]} L={enc.n_levels}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain "
         f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table "
@@ -4174,7 +4229,8 @@ def phase_ingp(tb, dev, g, scene: Path, workdir: Path, W=1920, H=1080):
     training batch, 64 training steps on the plain table (captured, K and L
     in the graph; finite, falling), then .msgpack (no compression) the same
     way; and the re-bake at JAX's test config (mean |Δ| < 0.025) → ({path:
-    launches}, K's numbers at the frame chunk)."""
+    launches}, K's numbers at the frame chunk, the testbed loaded from the
+    .ingp file and trained)."""
     import warnings
 
     eye = CENTER + np.array([0.9, -0.9, 0.5], np.float32)
@@ -4252,6 +4308,7 @@ def phase_ingp(tb, dev, g, scene: Path, workdir: Path, W=1920, H=1080):
                   f"training the plain table did not run K and L in the captured loop: {train}, {per_step}")
             results[".ingp"].update(train_s=train_s, first16=first, last16=last, captured=new.stats.captured_steps)
             paths["ingp_train"] = train
+            ingp_tb = new
         del new
     err, mse = rebake_at_jax_test_config(dev, g)
     check(math.isfinite(err) and err < REBAKE_TOL, f"the re-bake at JAX's test config: mean |d| {err:.5f} >= {REBAKE_TOL}")
@@ -4260,7 +4317,187 @@ def phase_ingp(tb, dev, g, scene: Path, workdir: Path, W=1920, H=1080):
           f"loss first-16 mean {r['first16']:.4e} -> last-16 mean {r['last16']:.4e}; the re-bake at JAX's test config "
           f"(4 levels of 2^9, 300 steps of 2^14 points): mean |d| {err:.5f} (bound {REBAKE_TOL}), fit MSE {mse:.3e}; "
           f"launches {paths}", flush=True)
-    return paths, k_row
+    return paths, k_row, ingp_tb
+
+
+# -------------------------------------------------------------- kernel M
+
+#: kernel M within this share of max |dh| and of max |d_x2| of its plain
+#: version (J's bound: the same float32 terms in another order); held on
+#: the whole table and on each level alone, since d_x2 grows with the
+#: square of a level's scale and the finest level's would hide a coarse
+#: one's error (:func:`m_levels`)
+M_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def m_spy():
+    """Within it, every call of ``xor_encode.xor_encode_dx_bwd`` (kernel M's
+    dispatch) records its (table, x, g, v) in the list it yields."""
+    from nerfshop_tpu_torch.ops import xor_encode
+
+    calls, dispatch = [], xor_encode.xor_encode_dx_bwd
+
+    def spy(table, xx, g, v, enc_):
+        calls.append((table.detach(), xx.detach().contiguous(), g.detach().float().contiguous(),
+                      v.detach().float().contiguous()))
+        return dispatch(table, xx, g, v, enc_)
+
+    xor_encode.xor_encode_dx_bwd = spy
+    try:
+        yield calls
+    finally:
+        xor_encode.xor_encode_dx_bwd = dispatch
+
+
+def xor_level_pick(enc, levels):
+    """``enc`` cut to its levels ``levels`` (indices, in order) over the same
+    table (a shallow copy with caches of its own)."""
+    import copy
+
+    sub = copy.copy(enc)
+    sub.n_levels, sub.xor_levels, sub._meta = len(levels), [enc.xor_levels[l] for l in levels], {}
+    return sub
+
+
+def g_of_levels(enc, g, levels):
+    """The columns of the output cotangent ``g`` that :func:`xor_level_pick`
+    of ``levels`` reads (all of them with ``sum_instead_of_concat``)."""
+    F = enc.n_features_per_level
+    return g.contiguous() if enc.sum_instead_of_concat else torch.cat([g[:, l * F:(l + 1) * F] for l in levels], 1)
+
+
+def m_edge_points(enc, g, dev):
+    """Kernel M's edges: ``xor_edge_points`` (the box's faces, p0.x even,
+    odd, res − 2 and res − 1: every level's top cell, whose clamped corners
+    read one row) and, on a plain grid, 32 points a level with x exactly on
+    one of its cell faces (p = x·scale + 0.5 an integer)."""
+    pts = [xor_edge_points(enc, g, dev)]
+    for lv in [] if enc.takikawa else enc.xor_levels:
+        p = torch.rand((32, 3), generator=g, device=dev)
+        k = torch.randint(1, lv.res, (32,), generator=g, device=dev)
+        p[:, 0] = (k.float() - 0.5) / lv.scale
+        pts.append(p)
+    return torch.cat(pts).contiguous()
+
+
+def m_case(tag, label, enc, table, x, g, v, shares=None):
+    """Kernel M against its plain version on (x, g, v): dh and d_x2 within
+    :data:`M_TOL` of their max, finite, and two runs bit-equal → (max
+    |Δdh|, max |Δd_x2|). Prints its line, or with a list ``shares``
+    appends (the two errors over their max) to it instead."""
+    from nerfshop_tpu_torch.ops import xor_encode as xe
+
+    N = x.shape[0]
+    got_h, got_x = xe.xor_encode_dx_bwd_cuda(table, x, g, v, enc)
+    again_h, again_x = xe.xor_encode_dx_bwd_cuda(table, x, g, v, enc)
+    ref_h, ref_x = xe.xor_encode_dx_bwd_plain(table, x, g, v, enc)
+    torch.cuda.synchronize()
+    check(got_h.shape == g.shape and got_x.shape == (N, 3) and bool(torch.isfinite(got_h).all())
+          and bool(torch.isfinite(got_x).all()), f"kernel M ({label}): an output of the wrong shape or not finite")
+    check(torch.equal(got_h, again_h) and torch.equal(got_x, again_x), f"kernel M ({label}): two runs differ")
+    err_h, err_x = float((got_h - ref_h).abs().max()), float((got_x - ref_x).abs().max())
+    scale_h, scale_x = max(float(ref_h.abs().max()), 1e-30), max(float(ref_x.abs().max()), 1e-30)
+    check(err_h <= M_TOL * scale_h and err_x <= M_TOL * scale_x,
+          f"kernel M disagrees ({label}): dh {err_h:.3e} of {scale_h:.3e}, d_x2 {err_x:.3e} of {scale_x:.3e} "
+          f"(bound {M_TOL})")
+    if shares is not None:
+        shares.append((err_h / scale_h, err_x / scale_x))
+        return err_h, err_x
+    print(f"[{tag}] kernel M, {label}, N={N} L={enc.n_levels}: max |delta| dh {err_h:.3e} = {err_h / scale_h:.3e} of "
+          f"max |dh|, d_x2 {err_x:.3e} = {err_x / scale_x:.3e} of max |d_x2| (bound {M_TOL}); two runs bit-equal",
+          flush=True)
+    return err_h, err_x
+
+
+def m_levels(tag, enc, table, x, g, v) -> list:
+    """Kernel M on each level of ``enc`` alone (:data:`M_TOL` of that
+    level's own max |dh| and max |d_x2|) and one line with the worst →
+    the errors."""
+    errs, shares = [], []
+    for l in range(enc.n_levels):
+        errs += m_case(tag, f"level {l} alone", xor_level_pick(enc, [l]), table, x, g_of_levels(enc, g, [l]), v,
+                       shares)
+    (lh, sh), (lx, sx) = (max(enumerate(s[i] for s in shares), key=lambda t: t[1]) for i in (0, 1))
+    dense = [l for l, lv in enumerate(enc.xor_levels) if lv.dense]
+    print(f"[{tag}] kernel M, each of the {enc.n_levels} levels alone (dense: {dense or 'none'}), N={x.shape[0]}: "
+          f"worst max |delta| dh {sh:.3e} of that level's max |dh| (level {lh}), d_x2 {sx:.3e} of that level's "
+          f"max |d_x2| (level {lx}) (bound {M_TOL}); two runs bit-equal", flush=True)
+    return errs
+
+
+def m_edges(tag, enc, table, x, g, v, gen) -> float:
+    """Kernel M at its edges beside the inputs the path gave it: N = 1, 129
+    and 12345 (plain), :func:`m_edge_points` (with the path's g and v rows),
+    on the plain layout the table's first 15 levels, and each level alone
+    on the first 12345 positions and the edge points (:func:`m_levels`) →
+    the largest error."""
+    errs = []
+    n = x.shape[0]
+    for label, k in (("the first position", 1), ("the first 129", 129), ("the first 12345", 12345)):
+        if k <= n:
+            errs += m_case(tag, label, enc, table, x[:k].contiguous(), g[:k].contiguous(), v[:k].contiguous())
+    xe = m_edge_points(enc, gen, x.device)
+    k = min(xe.shape[0], n)
+    errs += m_case(tag, "the box's faces, 0 and exactly 1, every level's top cell and cell faces", enc, table,
+                   xe[:k].contiguous(), g[:k].contiguous(), v[:k].contiguous())
+    if not enc.takikawa:
+        first = list(range(15))
+        errs += m_case(tag, "L = 15 (the table's first 15 levels)", xor_level_pick(enc, first), table, x,
+                       g_of_levels(enc, g, first), v)
+    n1 = min(12345, n)
+    errs += m_levels(tag, enc, table, torch.cat([x[:n1], xe[:k]]), torch.cat([g[:n1], g[:k]]),
+                     torch.cat([v[:n1], v[:k]]))
+    return max(errs)
+
+
+def m_timed(tag, label, enc, table, x, g, v, err: float) -> dict:
+    """Kernel M timed by events and queued beside its plain version and its
+    bound (bytes: x, g, v, dh and d_x2, the table rows and mask cells it
+    reads once) → its kernels-line numbers."""
+    from nerfshop_tpu_torch.ops import xor_encode as xe
+
+    ms, dev_ms = both_ms(lambda: xe.xor_encode_dx_bwd_cuda(table, x, g, v, enc))
+    plain_ms = median_ms(lambda: xe.xor_encode_dx_bwd_plain(table, x, g, v, enc), runs=5)
+    n_rows, n_cells = xor_reads(enc, x)
+    F = enc.n_features_per_level
+    n_bytes = 2 * nbytes(x, g) + nbytes(v) + n_rows * F * 4 + n_cells
+    b_ms, b_by = bound(n_bytes)
+    a = xe.xor_encode_dx_bwd_attrs(enc)
+    print(f"[{tag}] kernel M, {label}, N={x.shape[0]} L={enc.n_levels} F={F}: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB: x, g, v, dh, "
+          f"d_x2 and {n_rows} of {enc.table_size} table rows, {n_cells} mask cells), device/bound {dev_ms / b_ms:.2f}; "
+          f"{a['registers']} registers, {a['local_bytes']} B local, {a['dynamic_smem']} B dynamic shared memory a "
+          f"block of {a['threads']} threads, {a['blocks_per_sm']} blocks an SM; no library call computes it",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None, library_device_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_density_ingp(tb, gen):
+    """[density-ingp]: the density module over the NeRF that [ingp] loaded
+    from its .ingp file (the plain layout), with [density]'s inputs:
+    ``fwd_density``, ``bwd_density``, ``bwd_bwd_input_density`` and an
+    eikonal step; kernel M once per second-order backward, J never; every
+    output finite and, on every 8th position, held to the plain route on the
+    CPU within :data:`DENSITY_TOL`; M alone against its plain version on the
+    module's inputs and at its edges (:func:`m_edges`), timed beside its
+    bound → (M's kernels-line numbers, the path's launches)."""
+    enc = tb.model.pos_encoding
+    check(enc.layout == "plain" and any(enc.level_dense), f"not a plain table with a dense level: {enc.layout}")
+    x, lo, hi, mod, d_out, d_dpos = density_inputs(tb)
+    with m_spy() as m_inputs:
+        outs, eik, call_ms, api, launches = drive_density(mod, x, d_out, d_dpos)
+    check(api["xor_encode_dx_bwd"] == 1 and launches["xor_encode_dx_bwd"] == 2 and len(m_inputs) == 2
+          and launches["grid_encode_dx_bwd"] == 0 and launches["grid_encode"] == 0,
+          f"kernel M was not launched once per second-order backward (J never): {launches}")
+    errs = density_cpu_errors(tb, x, d_out, d_dpos, outs)
+    density_line("density-ingp", x.shape[0], lo, hi, call_ms, eik, outs["eikonal grad"], errs, launches)
+    table, xx, g, v = m_inputs[0]
+    err = max(m_case("density-ingp", "module inputs", enc, table, xx, g, v), default=0.0)
+    err = max(err, m_edges("density-ingp", enc, table, xx, g, v, gen))
+    row = m_timed("density-ingp", "the module's double backward", enc, table, xx, g, v, err)
+    return row, launches
 
 
 # --------------------------------------------------- Takikawa and the rest
@@ -4297,7 +4534,9 @@ def phase_takikawa(workdir: Path, obj: Path, W=1920, H=1080, steps=1000):
     gives exactly 0 and the sign agreement on the rest (printed, not gated:
     the encoding is zero outside the octree), kernels K and L
     against their plain versions on a training batch (F = 8, a level of
-    4920 slots) → {path: launches}."""
+    4920 slots); one second-order gradient (an eikonal step) at the batch's
+    2^16 points, kernel M once, and M alone against its plain version there
+    and at its edges, timed → ({path: launches}, M's numbers there)."""
     from nerfshop_tpu_torch.geometry import bvh as bvh_lib
     from nerfshop_tpu_torch.geometry.triangle_octree import TriangleOctree
 
@@ -4315,6 +4554,26 @@ def phase_takikawa(workdir: Path, obj: Path, W=1920, H=1080, steps=1000):
     pos, _ = sdf._sample_batch(1 << 16)
     xor_case("a training batch (2^16)", enc, sdf.state.inference_params["encoding.table"], pos.contiguous(), g,
              tag="takikawa", timed=False)
+    # one second-order gradient of the trained field at the batch's points
+    # (an eikonal step): kernel M once, then alone at its edges and timed
+    p = pos.detach().clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    reset_launches()
+    with m_spy() as m_inputs:
+        d = sdf.model.apply(sdf.state.inference_params, p)
+        (grad,) = torch.autograd.grad(d.sum(), p, create_graph=True)
+        eik = ((grad.norm(dim=-1) - 1.0) ** 2).mean()
+        (g_eik,) = torch.autograd.grad(eik, p)
+    torch.cuda.synchronize()
+    second = read_launches()
+    check(second["xor_encode_dx_bwd"] == 1 and len(m_inputs) == 1 and bool(torch.isfinite(g_eik).all())
+          and float(g_eik.abs().max()) > 0, f"the Takikawa second order did not run through kernel M once: {second}")
+    table, xm, gm, vm = m_inputs[0]
+    m_err = max(m_case("takikawa", "the eikonal step's inputs", enc, table, xm, gm, vm))
+    m_err = max(m_err, m_edges("takikawa", enc, table, xm, gm, vm, g))
+    m_row = m_timed("takikawa", "the eikonal step's double backward", enc, table, xm, gm, vm, m_err)
+    print(f"[takikawa] eikonal step at {p.shape[0]} points: loss {float(eik):.4e}, max |grad| "
+          f"{float(g_eik.abs().max()):.3e}, launches {second}", flush=True)
     t1 = time.perf_counter()
     octree = TriangleOctree.build(sdf.mesh_vertices, sdf.mesh_faces, enc.octree.depth)
     octree_s = time.perf_counter() - t1
@@ -4359,7 +4618,8 @@ def phase_takikawa(workdir: Path, obj: Path, W=1920, H=1080, steps=1000):
           f"{zero.numel()} points, and the sign agreement on the other {int(clear.sum())} is {agree:.5f}; {W}x{H} frame with "
           f"analytic normals {render_ms:.1f} ms, hit share {hit:.4f}, launches K {frame['xor_encode']} L "
           f"{frame['xor_encode_bwd']} C {frame['fused_mlp']} G {frame['bvh_signed_distance']}", flush=True)
-    return {"takikawa_train": train, "takikawa_iou": iou_launches, "takikawa_render": frame}
+    return {"takikawa_train": train, "takikawa_iou": iou_launches, "takikawa_render": frame,
+            "takikawa_second_order": second}, m_row
 
 
 #: [encodings]: otype, its option and C's input width at 3 input dims
@@ -4402,6 +4662,300 @@ def phase_encodings(workdir: Path, steps=200, W=480, H=270):
     return out
 
 
+# ------------------------------------------------------------ [parallel]
+
+#: [parallel]: the ranks' steps, the step before which the grid is
+#: refreshed (full, the same draws on every rank), the seed of the ranks'
+#: draws (by rank) and of the refresh, and each rank's time limit (s)
+PAR_STEPS = 16
+PAR_REFRESH_AT = 8
+PAR_SEED = 2024
+PAR_TIMEOUT = 420.0
+#: the two-rank first step's reduced gradients against one process's over
+#: the union of both ranks' draws (relative L2 a leaf): the table's sums
+#: (kernel A over sorted runs) split in two, in float32; an MLP weight's
+#: gradient is rounded to bf16 after its sum over the rays (the backward of
+#: its bf16 cast), on each rank before the mean and once over the union
+#: (read 1.4-2.8e-3 on the CPU, tests/test_torch_parallel.py)
+PAR_TABLE_TOL = 1e-4
+PAR_MLP_TOL = 2.0**-7
+#: the 2-rank 1080p frame against the single-process one, where not
+#: bit-equal: JAX's bound (tests/test_parallel.py:109-110)
+PAR_FRAME_TOL = 1e-5
+PAR_FRAME = (1920, 1080)
+PAR_EYE = CENTER + np.array([0.9, -0.9, 0.5], np.float32)
+
+
+def parallel_testbed(dev):
+    """[train]'s setup on ``dev``: the default config on the sphere, seed 0,
+    its first (rays, K) bucket at batch 2^18 → (testbed, step config)."""
+    from nerfshop_tpu_torch.common import TestbedMode
+    from nerfshop_tpu_torch.config import default_nerf_config
+    from nerfshop_tpu_torch.testbed import Testbed
+
+    ds, _, _ = sphere_dataset(dev)
+    tb = Testbed(TestbedMode.Nerf, config=default_nerf_config(), device=dev, seed=0)
+    tb.set_training_data(ds)
+    tb._batch_slots = BATCH
+    tb._build_step_fn(tb._first_bucket())
+    return tb, tb._train_cfg
+
+
+def replicated_tensors(state, grid) -> list:
+    """(name, tensor) of everything a rank keeps replicated: parameters,
+    Adam's moments and step, the EMA, the learning rate, the grid."""
+    out = [("lr", state.lr)]
+    for name, p in state.named:
+        out.append((f"param.{name}", p.data))
+        out += [(f"adam.{k}.{name}", v) for k, v in state.optimizer.state[p].items()]
+    out += [(f"ema.{k}", v) for k, v in (state.ema or {}).items()]
+    return out + [("grid.density", grid.density), ("grid.occupancy", grid.occupancy.view(torch.uint8)),
+                  ("grid.mean_density", grid.mean_density)]
+
+
+def unequal_to_rank0(mesh, named) -> list:
+    """The names of the tensors that differ from rank 0's, bit for bit (each
+    broadcast from rank 0 and compared on every rank), summed over ranks."""
+    import torch.distributed as dist
+
+    bad = []
+    for name, t in named:
+        ref = t.clone()
+        dist.broadcast(ref, 0, group=mesh.group)
+        if not torch.equal(ref, t):
+            bad.append(name)
+    count = torch.tensor([len(bad)], dtype=torch.float32, device=mesh.device)
+    dist.all_reduce(count, group=mesh.group)
+    return bad if bad or not int(count) else [f"{int(count)} on another rank"]
+
+
+def frame_camera():
+    """[parallel]'s 1080p camera: [ingp]'s eye, focal 1.1 × 1080 px."""
+    return torch.as_tensor(look_at(PAR_EYE)), torch.tensor([1188.0, 1188.0]), torch.tensor([0.5, 0.5])
+
+
+def add_launches(*counts) -> dict:
+    """The sum of :func:`read_launches` counts, kernel by kernel."""
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def parallel_job(mesh, _payload=None) -> dict:
+    """One rank of [parallel] (a ``tests/torch_ranks.py`` job): [train]'s
+    testbed (replicated from rank 0), the first step's reduced gradients
+    against one process's over the union of every rank's draws (rank 0: any
+    rank can remake another's draws), 16 steps with a full grid refresh
+    before step 8 from draws alike on every rank, the all-reduce of one
+    step's bucket timed, the sharded 1080p frame of the trained field,
+    every replicated tensor and the frame against rank 0's, and the frame
+    against the single-process one (rank 0) → the rank's record. Its
+    launches count the parallel path alone: not the union's gradients nor
+    the serial frame, which are references."""
+    from nerfshop_tpu_torch import kernels
+    from nerfshop_tpu_torch.parallel import mesh as mesh_lib
+    from nerfshop_tpu_torch.render import renderer
+    from nerfshop_tpu_torch.train import nerf as nerf_train
+
+    import torch.distributed as dist
+
+    kernels.load()
+    dev = mesh.device
+    tb, cfg = parallel_testbed(dev)
+    state, grid, data = tb._state, tb._grid, tb._device_data
+    mesh_lib.replicate(mesh, state)
+    step = mesh_lib.make_parallel_train_step(tb.model, state.spec, cfg, mesh)
+    gen = mesh_lib.rank_generator(mesh, PAR_SEED)
+    out = {"rank": mesh.rank, "device": str(dev), "rays_per_rank": step.local_cfg.n_rays_per_batch,
+           "k_samples": cfg.k_samples}
+    torch.cuda.synchronize()
+    reset_launches()
+    draws = step.draw(data, gen)
+    grads, aux, _ = step.grads(state, grid, data, draws)
+    torch.cuda.synchronize()
+    first_step = read_launches()
+    if mesh.rank == 0:
+        others = [step.draw(data, mesh_lib.rank_generator(mesh, PAR_SEED, r)) for r in range(1, mesh.world)]
+        union = tuple(torch.cat(parts) for parts in zip(draws, *others))
+        ugrads, uaux = nerf_train.grads_from_draws(tb.model, grid, data, cfg, *union, extra=state.extra)
+        errs = {k: rel_l2(grads[k], ugrads[k]) for k in grads}
+        out["union_errors"], out["union_loss"] = errs, [float(aux["loss"]), float(uaux["loss"])]
+        for k, e in errs.items():
+            bound_k = PAR_MLP_TOL if "mlp" in k else PAR_TABLE_TOL
+            check(e <= bound_k, f"[parallel] the reduced gradient of {k} is {e:.3e} from one process's over the union "
+                                f"(bound {bound_k:g})")
+        del ugrads
+    torch.cuda.synchronize()
+    reset_launches()
+    state.apply_gradients(grads)
+    losses = [aux["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, PAR_STEPS):
+        if i == PAR_REFRESH_AT:
+            shared = torch.Generator(device=dev)
+            shared.manual_seed(PAR_SEED + 1)
+            nerf_train.update_grid(tb.model, grid, cfg, shared, full_refresh=True, trained_mask=tb._trained_mask)
+        losses.append(step(state, grid, data, generator=gen)["loss"])
+    torch.cuda.synchronize()
+    out["steps_per_s"] = (PAR_STEPS - 1) / (time.perf_counter() - t0)
+    out["losses"] = [float(v) for v in losses]
+    out["occupancy"] = float(grid.occupancy.float().mean())
+
+    n = sum(p.numel() for p in state.params) + 4  # the gradients and the float aux
+    bucket = torch.zeros(n, device=dev)
+    for _ in range(2):
+        dist.all_reduce(bucket, group=mesh.group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        dist.all_reduce(bucket, group=mesh.group)
+    torch.cuda.synchronize()
+    out["allreduce_ms"], out["allreduce_bytes"] = (time.perf_counter() - t0) / 10 * 1e3, 4 * n
+
+    xf, focal, principal = (t.to(dev) for t in frame_camera())
+    opts = renderer.RenderOptions()
+    params = state.inference_params
+    frames = []
+    for _ in range(2):  # a warm-up, then the timed frame
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames.append(mesh_lib.render_frame_sharded(tb.model, params, grid, mesh, PAR_FRAME, xf, focal, principal,
+                                                    opts))
+        torch.cuda.synchronize()
+    out["frame_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = add_launches(first_step, read_launches())
+    rgba, depth = frames[-1]
+    out["frames_equal"] = bool(torch.equal(frames[0][0], rgba) and torch.equal(frames[0][1], depth))
+    out["unequal"] = unequal_to_rank0(mesh, replicated_tensors(state, grid) + [("frame.rgba", rgba),
+                                                                               ("frame.depth", depth)])
+    if mesh.rank == 0:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial = renderer.render_frame(tb.model, params, grid, PAR_FRAME, xf, focal, principal, opts=opts)
+        torch.cuda.synchronize()
+        out["serial_frame_ms"] = (time.perf_counter() - t0) * 1e3
+        out["frame_bit_equal"] = bool(torch.equal(rgba, serial.rgba) and torch.equal(depth, serial.depth))
+        out["frame_max_diff"] = max(float((rgba - serial.rgba).abs().max()), float((depth - serial.depth).abs().max()))
+        out["lit_share"] = float((serial.rgba[..., 3] > 0.01).float().mean())
+    return out
+
+
+def spawn_ranks(world: int, backend: str, n_cards: int, tmp: Path) -> list:
+    """[parallel]'s ranks as :func:`parallel_job` in processes of their own,
+    through ``tests/torch_ranks.py``'s launcher (a ``FileStore`` in ``tmp``,
+    :data:`PAR_TIMEOUT` from the start, the others killed when one fails)
+    → their records."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    try:
+        from torch_ranks import run_ranks
+    finally:
+        sys.path.pop(0)
+    env = {k: os.environ.get(k, "lo") for k in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME")}
+    return run_ranks("chip_smoke:parallel_job", world, None, tmp / backend, backend=backend, n_cards=n_cards,
+                     timeout=PAR_TIMEOUT, env=env)
+
+
+def check_ranks(tag: str, ranks: list) -> None:
+    """[parallel]'s checks on the ranks' records, and their lines."""
+    for r in ranks:
+        check(not r["unequal"], f"{tag} rank {r['rank']}: replicated tensors differ from rank 0's: {r['unequal'][:8]}")
+        check(all(math.isfinite(v) for v in r["losses"]), f"{tag} rank {r['rank']}: a non-finite loss {r['losses']}")
+        first, last = np.mean(r["losses"][:4]), np.mean(r["losses"][-4:])
+        check(last < first, f"{tag} rank {r['rank']}: the loss did not fall: {r['losses']}")
+        check_launched(r["launches"], ("segsum", "grid_encode", "fused_mlp", "gather"), f"{tag} rank {r['rank']}")
+        check(r["frames_equal"], f"{tag} rank {r['rank']}: two sharded frames differ")
+        print(f"{tag} rank {r['rank']} on {r['device']}: {r['rays_per_rank']} rays x {r['k_samples']} a step, "
+              f"{PAR_STEPS} steps (eager; one full grid refresh before step {PAR_REFRESH_AT}), steps 2-{PAR_STEPS} at "
+              f"{r['steps_per_s']:.3f} steps/s, loss {r['losses'][0]:.4e} -> {r['losses'][-1]:.4e} (first-4 mean "
+              f"{np.mean(r['losses'][:4]):.4e}, last-4 {np.mean(r['losses'][-4:]):.4e}), occupancy "
+              f"{r['occupancy']:.4f}; parameters, Adam moments and steps, EMA, learning rate, grid and the "
+              f"sharded frame bit-equal to rank 0's; the all-reduce of one step's bucket ({r['allreduce_bytes']} bytes) {r['allreduce_ms']:.3f} "
+              f"ms; the sharded {PAR_FRAME[0]}x{PAR_FRAME[1]} frame {r['frame_ms']:.1f} ms; launches {r['launches']}", flush=True)
+    r0 = ranks[0]
+    check(r0["frame_bit_equal"] or r0["frame_max_diff"] <= PAR_FRAME_TOL,
+          f"{tag} the sharded frame differs from the single-process one by {r0['frame_max_diff']:.3e}")
+    check(r0["lit_share"] > 0.01, f"{tag} the trained field's frame is empty: {r0['lit_share']}")
+    worst = max(r0["union_errors"].items(), key=lambda kv: kv[1])
+    print(f"{tag} the first step's reduced gradients against one process's over the union of the {len(ranks)} ranks' "
+          f"draws (relative L2 a leaf; bounds: table {PAR_TABLE_TOL:g}, MLP weights {PAR_MLP_TOL:g}): "
+          f"{ {k: float(f'{e:.3e}') for k, e in r0['union_errors'].items()} }, loss {r0['union_loss'][0]:.6e} against "
+          f"{r0['union_loss'][1]:.6e} (largest {worst[0]}); the sharded frame against the single-process one "
+          f"({r0['serial_frame_ms']:.1f} ms): {'bit-equal' if r0['frame_bit_equal'] else 'max |diff| %.3e' % r0['frame_max_diff']}, "
+          f"lit share {r0['lit_share']:.4f}", flush=True)
+
+
+def nccl_one_rank(tmp: Path) -> dict:
+    """A 1-rank NCCL group in this process: two copies of [train]'s testbed,
+    two steps from the same draws, one through the plain eager step
+    (``grads_from_draws`` + ``apply_gradients``) and one through the
+    parallel step (NCCL's all-reduce of one rank) → the parallel step's
+    launches; fails unless every replicated tensor is bit-equal."""
+    import torch.distributed as dist
+
+    from nerfshop_tpu_torch.parallel import mesh as mesh_lib
+    from nerfshop_tpu_torch.train import nerf as nerf_train
+
+    dev = torch.device("cuda", 0)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "store_nccl1"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_mesh(dev)
+        plain, cfg = parallel_testbed(dev)
+        par, _ = parallel_testbed(dev)
+        par.model.load_state_dict(plain.model.state_dict())
+        for k, v in par._state.ema.items():
+            v.copy_(plain._state.ema[k])
+        step = mesh_lib.make_parallel_train_step(par.model, par._state.spec, cfg, mesh)
+        gen = mesh_lib.rank_generator(mesh, PAR_SEED)
+        counts = []
+        for _ in range(2):
+            draws = step.draw(plain._device_data, gen)
+            grads, _ = nerf_train.grads_from_draws(plain.model, plain._grid, plain._device_data, cfg, *draws,
+                                                   extra=plain._state.extra)
+            plain._state.apply_gradients(grads)
+            torch.cuda.synchronize()
+            reset_launches()  # the plain step is the reference: only the parallel one counts
+            step(par._state, par._grid, par._device_data, draws=draws)
+            torch.cuda.synchronize()
+            counts.append(read_launches())
+        launches = add_launches(*counts)
+        a, b = (replicated_tensors(t._state, t._grid) for t in (plain, par))
+        bad = [n for (n, x), (_, y) in zip(a, b) if not torch.equal(x, y)]
+        check(not bad, f"[parallel] the 1-rank NCCL step differs from the plain eager step: {bad[:8]}")
+        print(f"[parallel] a 1-rank NCCL group: two steps of {cfg.n_rays_per_batch} rays x {cfg.k_samples} through the "
+              f"parallel step bit-equal to the plain eager step in all {len(a)} replicated tensors; launches {launches}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def phase_parallel() -> dict:
+    """[parallel]: a 1-rank NCCL group against the plain eager step in this
+    process; 2 ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    card) through ``parallel/mesh.py`` (:func:`parallel_job`), checked by
+    :func:`check_ranks`; and where the machine has two cards, the 2 ranks
+    over NCCL on cuda:0 and cuda:1 → {path: launches}."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    try:
+        paths = {"parallel_nccl1": nccl_one_rank(tmp)}
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(2, "gloo", 1, tmp)
+        print(f"[parallel] 2 gloo ranks on cuda:0 ran in {time.perf_counter() - t0:.1f} s (processes included)",
+              flush=True)
+        check_ranks("[parallel] gloo", ranks)
+        paths.update({f"parallel_gloo_rank{r['rank']}": r["launches"] for r in ranks})
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            ranks = spawn_ranks(2, "nccl", n_cards, tmp)
+            check_ranks("[parallel] nccl", ranks)
+            paths.update({f"parallel_nccl_rank{r['rank']}": r["launches"] for r in ranks})
+        else:
+            print(f"[parallel] 2 NCCL ranks across two cards: not run ({n_cards} card)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms")
 
 
@@ -4432,7 +4986,9 @@ def main() -> None:
     normals_launches = phase_normals(tb)
     mesh_launches = phase_mesh(tb)
     cli_launches = phase_cli(dev, snapshot, workdir)
-    ingp_paths, k_row = phase_ingp(tb, dev, g, workdir / "scene", workdir)
+    ingp_paths, k_row, ingp_tb = phase_ingp(tb, dev, g, workdir / "scene", workdir)
+    m_row, ingp_paths["density_ingp"] = phase_density_ingp(ingp_tb, g)
+    del ingp_tb
     shutil.rmtree(workdir)
     torch.cuda.synchronize()
     reset_launches()
@@ -4450,6 +5006,8 @@ def main() -> None:
     check_launched(normals_launches, ("grid_encode", "grid_encode_dx", "gather"), "Normals frame")
     check_launched(density_launches, ("grid_encode", "fused_mlp", "grid_encode_dx", "grid_encode_dx_bwd"),
                    "density module")
+    check_launched(paths["density_ingp"], ("xor_encode", "fused_mlp", "xor_encode_bwd", "xor_encode_dx_bwd"),
+                   "density module over the .ingp table")
     for name in ("render", "baked", "render_compact", "frame", "normals", "mesh", "edit"):
         check(paths[name]["grid_encode_fracs"] == 0, f"kernel B wrote fracs on the {name} path: {paths[name]}")
     check(edited_frame_launches["grid_encode_fracs"] == 0, "kernel B wrote fracs in the edited frame")
@@ -4474,7 +5032,8 @@ def main() -> None:
     sdf_paths, g_row = phase_sdf(workdir)
     image_paths, b2_row, a2_row = phase_image(dev, g, workdir)
     volume_paths = phase_volume(dev, workdir)
-    xor_paths = {**phase_takikawa(workdir, workdir / "bumpy.obj"), **phase_encodings(workdir)}
+    taki_paths, _ = phase_takikawa(workdir, workdir / "bumpy.obj")
+    xor_paths = {**taki_paths, **phase_encodings(workdir)}
     shutil.rmtree(workdir)
     other = {**sdf_paths, **image_paths, **volume_paths, **xor_paths}
     print(f"[launches] the SDF, Image and Volume paths: {other}", flush=True)
@@ -4483,6 +5042,7 @@ def main() -> None:
     paths["captured"] = phase_captured(dev, train_steps_per_s, workdir)
     shutil.rmtree(workdir)
     print(f"[launches] the captured scene's path: {paths['captured']}", flush=True)
+    paths.update(phase_parallel())
     launches = {k: sum(p[k] for p in paths.values()) for k in train_launches}
     for k in ("segsum", "grid_encode"):
         launches[f"{k}_d3"] = launches[k] - launches[f"{k}_d2"]
@@ -4507,6 +5067,7 @@ def main() -> None:
         ("shear_warp_screen", "shear_warp_screen", "baked.cu", "nerfshop_tpu/render/baked.py:566", i_row),
         ("xor_encode", "xor_encode", "xor_encode.cu", "nerfshop_tpu/models/encodings.py:385", k_row),
         ("xor_encode_bwd", "xor_encode_bwd", "xor_encode.cu", "nerfshop_tpu/models/encodings.py:492", l_row),
+        ("xor_encode_dx_bwd", "xor_encode_dx_bwd", "xor_encode.cu", "nerfshop_tpu/torch_interop.py:55", m_row),
     )
     kernels = [
         {"name": name, "route": "cuda", "source": f"nerfshop_tpu_torch/csrc/{src}", "replaces": repl,

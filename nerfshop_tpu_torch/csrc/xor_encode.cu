@@ -77,6 +77,26 @@
 // (Takikawa only); out [N, L*F] or [N, F] f32; dout like out; dtable like
 // table (zeroed by the caller); dx [N, D] f32. D = 3 or 2 (plain), D = 3
 // (Takikawa); F = 2 (plain), 2, 4 or 8 (Takikawa); at most 32 levels.
+//
+// Kernel M is the backward of L's position gradient d_x = J_enc(x)^T g, for
+// a cotangent v [N, 3] on d_x: dh = d<d_x, v>/dg (shaped as g) and d_x2 =
+// d<d_x, v>/dx [N, 3]. It replaces JAX's autodiff of the same VJP, which
+// nerfshop_tpu/torch_interop.py:55-65 (DensityFns.bwd_bwd_input) takes by
+// jax.grad at any grid layout (through encodings.py:385); XLA fused it, no
+// Pallas kernel computed it. Per level, with w_k = prod_d f_d(k) and s_d =
+// d frac_d / d x_d (the plain layout's scale at every level, corners clamped
+// and the fraction unfolded, so that at the top cell the two clamped corners
+// read one row and their terms cancel; Takikawa's res times clip'(x_d)):
+//   dh_l   = sum_k row_k * sum_d v_d s_d dw_k/df_d,
+//   d_x2_j = sum_{i != j} s_i s_j v_i sum_k d2w_k/df_i df_j <g_l, row_k>
+// (the interpolation is linear in each fraction, so only mixed second
+// derivatives remain; rows and s_d are constant within a cell), zero where
+// Takikawa's mask is empty. M takes L's plain route: a thread a sample over
+// the levels (one level record a warp), x-neighbour pairs in one 16-byte
+// load; every output belongs to one sample, so M has no atomics and gives
+// the same bits on every call; dh rows are staged in shared memory and
+// stored as whole lines (levels summed: added in registers, one row). It is
+// bound like L's position half by the scattered corner rows it reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +115,14 @@ constexpr int kThreadsK = 128;         // K
 // K's staged kernel's blocks an SM: a register budget of 64 (without it
 // ptxas trades a few spilled bytes for a 32-register occupancy step)
 constexpr int kBlocksK = 8;
+constexpr int kThreadsM = 128;         // M, at most
+// M's blocks an SM, the same kind of register budget: 64 at F = 2, 128 at
+// F = 4 and 8 (a corner's row and the level's g row are F floats each)
+constexpr int kBlocksM2 = 8;
+constexpr int kBlocksM8 = 4;
+// M's staged dh rows a block, at most (the default dynamic shared memory
+// limit: a block takes fewer samples where L * F is wide)
+constexpr int kStageMaxM = 48 * 1024;
 constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
 constexpr uint32_t kNoKey = 0xffffffffu;  // a lane that adds nothing
@@ -590,6 +618,106 @@ xor_encode_bwd_kernel(const __grid_constant__ XorArgs a, const float* __restrict
     }
 }
 
+// One corner k of M: its weight's first derivatives contracted with
+// s_d v_d go to the level's dh (times the row), its mixed second
+// derivatives times <g, row> to the pair sums h01, h02, h12
+template <int F, bool TAKI>
+__device__ __forceinline__ void m_corner(const Cell<3, TAKI>& c, int k, const float (&sv)[3], const float (&g)[F],
+                                         const float (&row)[F], float (&hl)[F], float& h01, float& h02, float& h12) {
+    float f[3], sg[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+        f[d] = (k >> d) & 1 ? c.frac[d] : 1.f - c.frac[d];
+        sg[d] = (k >> d) & 1 ? 1.f : -1.f;
+    }
+    const float jv = sg[0] * f[1] * f[2] * sv[0] + sg[1] * f[0] * f[2] * sv[1] + sg[2] * f[0] * f[1] * sv[2];
+    float dot = 0.f;
+#pragma unroll
+    for (int q = 0; q < F; ++q) {
+        hl[q] += jv * row[q];
+        dot += g[q] * row[q];
+    }
+    h01 += sg[0] * sg[1] * f[2] * dot;
+    h02 += sg[0] * sg[2] * f[1] * dot;
+    h12 += sg[1] * sg[2] * f[0] * dot;
+}
+
+// M (D = 3): a thread a sample over its levels; dh staged in shared memory
+// at K's pitch and stored as whole lines, or with the levels summed added
+// in registers and stored as one row; d_x2 summed in registers
+template <int F, bool TAKI>
+__global__ void __launch_bounds__(kThreadsM, F == 2 ? kBlocksM2 : kBlocksM8)
+xor_encode_dx_bwd_kernel(const __grid_constant__ XorArgs a, const float* __restrict__ x, const float* __restrict__ table,
+                         const uint8_t* __restrict__ mask, const float* __restrict__ g, const float* __restrict__ v,
+                         float* __restrict__ dh, float* __restrict__ dx2, long long n) {
+    extern __shared__ float4 stage_raw[];
+    float* stage = reinterpret_cast<float*>(stage_raw);
+    const int L = a.n_levels;
+    const bool sum = a.sum;
+    const long long base = (long long)blockIdx.x * blockDim.x;
+    const long long s = base + threadIdx.x;
+    if (s < n) {
+        float xv[3], vv[3], gl[F], tot[F];
+        load_x<3>(x, s, xv);
+        load_x<3>(v, s, vv);
+#pragma unroll
+        for (int q = 0; q < F; ++q) tot[q] = 0.f;
+        if (sum) load_row<F>(g + s * F, gl);
+        float gx[3] = {0.f, 0.f, 0.f};
+        float* mine = stage + threadIdx.x * stage_pitch<F>(L);
+        for (int l = 0; l < L; ++l) {
+            const XorLevel& lv = a.lv[l];
+            const Cell<3, TAKI> c = cell_of<3, TAKI>(lv, xv, mask);
+            float hl[F];
+#pragma unroll
+            for (int q = 0; q < F; ++q) hl[q] = 0.f;
+            if (c.inside) {
+                if (!sum) load_row<F>(g + s * L * F + l * F, gl);
+                uint32_t r0[4], r1[4];
+                corner_rows<3, TAKI>(lv, c, r0, r1);
+                float sv[3];
+#pragma unroll
+                for (int d = 0; d < 3; ++d) sv[d] = c.ds[d] * vv[d];
+                float h01 = 0.f, h02 = 0.f, h12 = 0.f;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    float ra[F], rb[F];
+                    load_pair<F>(table, r0[j], r1[j], ra, rb);
+                    m_corner<F, TAKI>(c, 2 * j, sv, gl, ra, hl, h01, h02, h12);
+                    m_corner<F, TAKI>(c, 2 * j + 1, sv, gl, rb, hl, h01, h02, h12);
+                }
+                const float s01 = c.ds[0] * c.ds[1], s02 = c.ds[0] * c.ds[2], s12 = c.ds[1] * c.ds[2];
+                gx[0] += s01 * vv[1] * h01 + s02 * vv[2] * h02;
+                gx[1] += s01 * vv[0] * h01 + s12 * vv[2] * h12;
+                gx[2] += s02 * vv[0] * h02 + s12 * vv[1] * h12;
+            }
+            if (sum) {
+#pragma unroll
+                for (int q = 0; q < F; ++q) tot[q] += hl[q];
+            } else {
+                store_row<F>(mine + l * F, hl);
+            }
+        }
+        if (sum) store_row<F>(dh + s * F, tot);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) dx2[s * 3 + d] = gx[d];
+    }
+    if (!sum) {
+        __syncthreads();
+        store_staged<F>(stage, L, dh, base, (int)(n - base < (long long)blockDim.x ? n - base : (long long)blockDim.x));
+    }
+}
+
+// M's block size for a launch and its staged bytes a block: 128 samples,
+// fewer where the staged rows would pass kStageMaxM
+template <int F>
+void m_block(const XorArgs& a, int& threads, int& smem) {
+    const int row_bytes = a.sum ? 0 : stage_pitch<F>(a.n_levels) * (int)sizeof(float);
+    threads = kThreadsM;
+    while (threads > 32 && threads * row_bytes > kStageMaxM) threads -= 32;
+    smem = threads * row_bytes;
+}
+
 int blocks_for(long long work, int threads) {
     long long b = (work + threads - 1) / threads;
     return (int)(b < 1 ? 1 : (b > (1LL << 30) ? (1LL << 30) : b));
@@ -618,6 +746,34 @@ int launch_bwd(const XorArgs& a, const float* x, const float* table, const uint8
     xor_encode_bwd_kernel<D, F, TAKI><<<blocks_for(n, kThreads), kThreads, 0, stream>>>(a, x, table, mask, dout, dtable,
                                                                                       dx, n);
     return (int)cudaGetLastError();
+}
+
+template <int F, bool TAKI>
+int launch_dx_bwd(const XorArgs& a, const float* x, const float* table, const uint8_t* mask, const float* g,
+                  const float* v, float* dh, float* dx2, long long n, cudaStream_t stream) {
+    int threads, smem;
+    m_block<F>(a, threads, smem);
+    xor_encode_dx_bwd_kernel<F, TAKI><<<blocks_for(n, threads), threads, smem, stream>>>(a, x, table, mask, g, v, dh,
+                                                                                      dx2, n);
+    return (int)cudaGetLastError();
+}
+
+template <int F, bool TAKI>
+int dx_bwd_attrs(const XorArgs& a, int* out) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, xor_encode_dx_bwd_kernel<F, TAKI>);
+    if (e != cudaSuccess) return (int)e;
+    int threads, smem, blocks = 0;
+    m_block<F>(a, threads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, xor_encode_dx_bwd_kernel<F, TAKI>, threads, smem);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = fa.numRegs;
+    out[1] = (int)fa.sharedSizeBytes;
+    out[2] = (int)fa.localSizeBytes;
+    out[3] = smem;
+    out[4] = blocks;
+    out[5] = threads;
+    return 0;
 }
 
 bool args_ok(const XorArgs* a, int n) {
@@ -671,6 +827,42 @@ extern "C" int nst_xor_encode_bwd(const XorArgs* a, const void* x, const void* t
         case 2: return launch_bwd<3, 2, true>(*a, px, pt, pm, pg, pdt, pdx, n, s);
         case 4: return launch_bwd<3, 4, true>(*a, px, pt, pm, pg, pdt, pdx, n, s);
         default: return launch_bwd<3, 8, true>(*a, px, pt, pm, pg, pdt, pdx, n, s);
+    }
+}
+
+// Kernel M: dh (shaped as g: [n, L*F], or [n, F] with a->sum) and d_x2
+// [n, 3] from x, the table, the mask, L's output cotangent g and the
+// cotangent v [n, 3] on L's d x. D = 3 only.
+extern "C" int nst_xor_encode_dx_bwd(const XorArgs* a, const void* x, const void* table, const void* mask,
+                                     const void* g, const void* v, void* dh, void* dx2, int n, void* stream) {
+    if (!args_ok(a, n) || a->D != 3) return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaGetLastError();
+    const float* px = (const float*)x;
+    const float* pt = (const float*)table;
+    const uint8_t* pm = (const uint8_t*)mask;
+    const float* pg = (const float*)g;
+    const float* pv = (const float*)v;
+    float* ph = (float*)dh;
+    float* p2 = (float*)dx2;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (!a->takikawa) return launch_dx_bwd<2, false>(*a, px, pt, pm, pg, pv, ph, p2, n, s);
+    switch (a->F) {
+        case 2: return launch_dx_bwd<2, true>(*a, px, pt, pm, pg, pv, ph, p2, n, s);
+        case 4: return launch_dx_bwd<4, true>(*a, px, pt, pm, pg, pv, ph, p2, n, s);
+        default: return launch_dx_bwd<8, true>(*a, px, pt, pm, pg, pv, ph, p2, n, s);
+    }
+}
+
+// Kernel M as built for a launch with *a: registers a thread, static shared
+// memory, local memory a thread (bytes), dynamic shared memory a block
+// (bytes), blocks an SM and threads a block, into out[0..5]
+extern "C" int nst_xor_encode_dx_bwd_attrs(const XorArgs* a, int* out) {
+    if (!args_ok(a, 0) || a->D != 3) return (int)cudaErrorInvalidValue;
+    if (!a->takikawa) return dx_bwd_attrs<2, false>(*a, out);
+    switch (a->F) {
+        case 2: return dx_bwd_attrs<2, true>(*a, out);
+        case 4: return dx_bwd_attrs<4, true>(*a, out);
+        default: return dx_bwd_attrs<8, true>(*a, out);
     }
 }
 

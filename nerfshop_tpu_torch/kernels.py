@@ -100,7 +100,7 @@ class FrameArgs(ctypes.Structure):
 
 
 class XorLevel(ctypes.Structure):
-    """One level of kernels K and L, field for field ``struct XorLevel`` of
+    """One level of kernels K, L and M, field for field ``struct XorLevel`` of
     ``csrc/xor_encode.cu`` (filled by ``ops/xor_encode.py::xor_args``)."""
 
     _fields_ = [
@@ -109,12 +109,12 @@ class XorLevel(ctypes.Structure):
     ]
 
 
-#: the most levels kernels K and L take (``kMaxLevels`` of ``csrc/xor_encode.cu``)
+#: the most levels kernels K, L and M take (``kMaxLevels`` of ``csrc/xor_encode.cu``)
 XOR_MAX_LEVELS = 32
 
 
 class XorArgs(ctypes.Structure):
-    """The levels and shape of one launch of kernel K or L, field for field
+    """The levels and shape of one launch of kernel K, L or M, field for field
     ``struct XorArgs`` of ``csrc/xor_encode.cu``."""
 
     _fields_ = [("lv", XorLevel * XOR_MAX_LEVELS)] + [
@@ -205,6 +205,10 @@ def load() -> ctypes.CDLL:
         lib.nst_xor_encode.restype = i
         lib.nst_xor_encode_bwd.argtypes = [ctypes.POINTER(XorArgs), p, p, p, p, p, p, i, p]
         lib.nst_xor_encode_bwd.restype = i
+        lib.nst_xor_encode_dx_bwd.argtypes = [ctypes.POINTER(XorArgs), p, p, p, p, p, p, p, i, p]
+        lib.nst_xor_encode_dx_bwd.restype = i
+        lib.nst_xor_encode_dx_bwd_attrs.argtypes = [ctypes.POINTER(XorArgs), p]
+        lib.nst_xor_encode_dx_bwd_attrs.restype = i
         lib.nst_xor_vector_atomics.argtypes = []
         lib.nst_xor_vector_atomics.restype = i
         _lib = lib

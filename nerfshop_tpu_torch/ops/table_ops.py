@@ -153,7 +153,7 @@ def grid_encode_dx(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor, enc
     return grid_encode_dx_cuda(table.detach().contiguous(), x.detach().contiguous(), dout.float().contiguous(), enc)
 
 
-def _check_table_second_order(table_needs_grad: bool) -> None:
+def check_table_second_order(table_needs_grad: bool) -> None:
     """Raise when a gradient of d_x would have to reach the table."""
     if table_needs_grad:
         raise NotImplementedError(
@@ -276,7 +276,7 @@ class GridEncodeDxFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, v):
-        _check_table_second_order(ctx.needs_input_grad[0])
+        check_table_second_order(ctx.needs_input_grad[0])
         table, x, dout = ctx.saved_tensors
         dh, dx2 = grid_encode_dx_bwd(table, x, dout, v, ctx.enc)
         return None, dx2 if ctx.needs_input_grad[1] else None, dh.view_as(dout) if ctx.needs_input_grad[2] else None, None
@@ -336,7 +336,7 @@ class GridEncodeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        _check_table_second_order(ctx.needs_input_grad[0] and torch.is_grad_enabled())
+        check_table_second_order(ctx.needs_input_grad[0] and torch.is_grad_enabled())
         idx, w1, *table_x = ctx.saved_tensors
         d_table = table_grad(idx, w1, dout, ctx.enc) if ctx.needs_input_grad[0] else None
         d_x = GridEncodeDxFunction.apply(*table_x, dout, ctx.enc) if ctx.needs_input_grad[1] else None

@@ -20,9 +20,15 @@ dict. On a CUDA tensor :func:`xor_encode` launches kernel K and
 :func:`xor_encode_bwd` kernel L (``csrc/xor_encode.cu``), or raise; on a
 CPU tensor they run the plain versions: the gather and sum of
 :func:`xor_encode_plain`, and autograd of it (an ``index_add`` into the
-table). :class:`XorEncodeFunction` is the differentiable forward; its
-backward is first order only, so a ``create_graph`` gradient through it
-raises ``NotImplementedError``.
+table). :class:`XorEncodeFunction` is the differentiable forward. Under
+``create_graph`` its position gradient is recorded
+(:class:`XorEncodeDxFunction`), whose backward is kernel M on the card
+(:func:`xor_encode_dx_bwd`, D = 3: the counterpart of kernel J of
+``ops/table_ops.py`` for these tables, what
+``nerfshop_tpu/torch_interop.py:55`` takes by ``jax.grad`` of the VJP), so
+the density module takes an eikonal gradient over a plain or a Takikawa
+table as over the brick one. A second-order gradient into the table is
+not computed and raises ``NotImplementedError``, as under J.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from nerfshop_tpu_torch import kernels
+from nerfshop_tpu_torch.ops.table_ops import check_table_second_order
 
 P1, P2 = 2654435761, 805459861
 U32 = 0xFFFFFFFF
@@ -59,8 +66,8 @@ def corner_bits(D: int) -> List[List[int]]:
     return [[(c >> d) & 1 for d in range(D)] for c in range(1 << D)]
 
 
-def level_corners(x: torch.Tensor, enc, lv: Level, takikawa: bool):
-    """x [N, D] → (table rows [N, 2^D] int64, weights [N, 2^D] differentiable
+def level_cells(x: torch.Tensor, enc, lv: Level, takikawa: bool):
+    """x [N, D] → (table rows [N, 2^D] int64, fractions [N, D] differentiable
     in x, inside [N] bool or None). Takikawa's clip is ``minimum(maximum())``,
     whose gradient splits a tie as JAX's ``clip`` does."""
     D = x.shape[1]
@@ -85,17 +92,35 @@ def level_corners(x: torch.Tensor, enc, lv: Level, takikawa: bool):
         for d, prime in zip(range(1, D), (P1, P2)):
             h = h ^ ((corner[..., d] * prime) & U32)
     rows = (h & U32) % lv.m + lv.offset
-    on = bits.to(torch.bool)[None]  # [1, C, D]
-    f = torch.where(on, frac[:, None, :], 1.0 - frac[:, None, :])
-    w = f[..., 0]
-    for d in range(1, D):
-        w = w * f[..., d]
     inside = None
     if takikawa:
         mr = lv.mask_res
         mc = torch.clamp((p0 * mr) // lv.res, 0, mr - 1)
         inside = enc.mask[lv.mask_off + (mc[:, 0] * mr + mc[:, 1]) * mr + mc[:, 2]].to(torch.bool)
+    return rows, frac, inside
+
+
+def level_corners(x: torch.Tensor, enc, lv: Level, takikawa: bool):
+    """x [N, D] → (table rows [N, 2^D] int64, weights [N, 2^D] differentiable
+    in x, inside [N] bool or None): :func:`level_cells` with the corners'
+    products of fractions."""
+    rows, frac, inside = level_cells(x, enc, lv, takikawa)
+    on = torch.tensor(corner_bits(x.shape[1]), dtype=torch.bool, device=x.device)[None]  # [1, C, D]
+    f = torch.where(on, frac[:, None, :], 1.0 - frac[:, None, :])
+    w = f[..., 0]
+    for d in range(1, x.shape[1]):
+        w = w * f[..., d]
     return rows, w, inside
+
+
+def frac_slopes(x: torch.Tensor, lv: Level, takikawa: bool) -> torch.Tensor:
+    """d frac / d x [N, D] of :func:`level_cells`: the level's scale on the
+    plain layout; on Takikawa's, the scale times JAX's derivative of
+    ``clip``: 1 inside (0, 1), ½ at exactly 0 or 1, 0 outside."""
+    if not takikawa:
+        return torch.full_like(x, lv.scale)
+    inner = torch.where((x > 0) & (x < 1), 1.0, torch.where((x == 0) | (x == 1), 0.5, 0.0))
+    return inner.to(x.dtype) * lv.scale
 
 
 def xor_encode_plain(table: torch.Tensor, x: torch.Tensor, enc) -> torch.Tensor:
@@ -243,11 +268,141 @@ def xor_encode_bwd(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor, enc
     )
 
 
+def xor_encode_dx_bwd_plain(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, v: torch.Tensor, enc):
+    """Plain version of kernel M, in closed form → (dh shaped as g, d_x2
+    [N, D]): the backward of L's position gradient d_x = J_enc(x)ᵀ g with
+    respect to g and x, for the cotangent v [N, D] on d_x, in x's dtype.
+    Per level, with w_c = Π_d f_d(c) of :func:`level_cells`' fractions and
+    s_d their slopes (:func:`frac_slopes`): dh = Σ_d s_d v_d Σ_c ∂w_c/∂f_d ·
+    row_c, and d_x2_j = Σ_{i≠j} s_i s_j v_i Σ_c ∂²w_c/∂f_i∂f_j ⟨g, row_c⟩
+    (the interpolation is linear in each fraction; the rows and slopes are
+    constant within a cell); zero where Takikawa's mask is empty."""
+    dtype = x.dtype
+    x, g, v, table = (t.detach().to(dtype) for t in (x, g, v, table))
+    D, F = x.shape[1], enc.n_features_per_level
+    bits = torch.tensor(corner_bits(D), dtype=torch.bool, device=x.device)
+    sign = torch.where(bits, 1.0, -1.0).to(dtype)  # [C, D]: the sign of ∂w_c/∂f_d
+    pairs = [(i, j) for i in range(D) for j in range(i + 1, D)]
+    dh = []
+    dx2 = torch.zeros_like(x)
+    for l, lv in enumerate(enc.xor_levels):
+        rows, frac, inside = level_cells(x, enc, lv, enc.takikawa)
+        sl = frac_slopes(x, lv, enc.takikawa)
+        if inside is not None:
+            sl = sl * inside[:, None]  # an empty cell: no feature, no derivative
+        r = table[rows]  # [N, C, F]
+        f = torch.where(bits[None], frac[:, None, :], 1.0 - frac[:, None, :])  # [N, C, D]
+
+        def prod_except(*axes):
+            out = torch.ones_like(f[..., 0])
+            for e in range(D):
+                if e not in axes:
+                    out = out * f[..., e]
+            return out
+
+        dw = torch.stack([sign[:, d] * prod_except(d) for d in range(D)], dim=-1)  # [N, C, D]
+        jv = (dw * (sl * v)[:, None, :]).sum(-1)  # [N, C]
+        dh.append((jv[..., None] * r).sum(1))
+        gl = g if enc.sum_instead_of_concat else g[:, l * F:(l + 1) * F]
+        gc = (r * gl[:, None, :]).sum(-1)  # [N, C]: ⟨g, row_c⟩
+        for i, j in pairs:
+            h = (sign[:, i] * sign[:, j] * prod_except(i, j) * gc).sum(1) * sl[:, i] * sl[:, j]
+            dx2[:, i] = dx2[:, i] + v[:, j] * h
+            dx2[:, j] = dx2[:, j] + v[:, i] * h
+    if enc.sum_instead_of_concat:
+        total = dh[0]
+        for h in dh[1:]:
+            total = total + h
+        return total, dx2
+    return torch.cat(dh, dim=1), dx2
+
+
+def check_dx_bwd_supported(enc) -> None:
+    """Raise ``ValueError`` unless kernel M takes ``enc``: kernels K and L's
+    range at D = 3."""
+    check_supported(enc.n_input_dims, enc.n_features_per_level, enc.takikawa, enc.n_levels)
+    if enc.n_input_dims != 3:
+        raise ValueError(f"kernel M (xor_encode_dx_bwd) takes n_input_dims 3 only; the encoding has {enc.n_input_dims}")
+
+
+@kernels.counted("launches")
+def xor_encode_dx_bwd_cuda(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, v: torch.Tensor, enc):
+    """Kernel M → (dh shaped as g, d_x2 [N, 3]) f32 from x [N, 3], the table,
+    L's output cotangent g (shaped as K's output) and the cotangent v
+    [N, 3] on L's d x. Every output belongs to one sample (no atomics): the
+    same bits on every call. Raises on a table it does not take
+    (:func:`check_dx_bwd_supported`)."""
+    check_dx_bwd_supported(enc)
+    table, mask = _device_inputs(table, x, enc, "xor_encode_dx_bwd")
+    dev, N = x.device, x.shape[0]
+    kernels.require(g, "g", torch.float32, (N, enc.n_output_dims), dev)
+    kernels.require(v, "v", torch.float32, (N, 3), dev)
+    if not kernels.aligned16(g):
+        g = g.clone()  # read as float2 / float4
+    dh = torch.empty_like(g)
+    dx2 = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    err = kernels.load().nst_xor_encode_dx_bwd(
+        ctypes.byref(xor_args(enc)), x.data_ptr(), table.data_ptr(), None if mask is None else mask.data_ptr(),
+        g.data_ptr(), v.data_ptr(), dh.data_ptr(), dx2.data_ptr(), N, kernels.stream_ptr(dev),
+    )
+    kernels.check(err, "xor_encode_dx_bwd")
+    xor_encode_dx_bwd_cuda.launches += 1
+    return dh, dx2
+
+
+def xor_encode_dx_bwd_attrs(enc) -> dict:
+    """Kernel M as built for ``enc``: registers a thread, static shared
+    memory, local memory a thread (bytes), dynamic shared memory a block
+    (bytes), blocks an SM and threads a block. Builds the kernels and needs
+    a CUDA device."""
+    check_dx_bwd_supported(enc)
+    out = (ctypes.c_int * 6)()
+    kernels.check(kernels.load().nst_xor_encode_dx_bwd_attrs(ctypes.byref(xor_args(enc)), ctypes.addressof(out)),
+                  "xor_encode_dx_bwd")
+    return dict(zip(("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm", "threads"), out))
+
+
+def xor_encode_dx_bwd(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, v: torch.Tensor, enc):
+    """(dh, d_x2) of ⟨d_x, v⟩, d_x = L's position gradient for the output
+    cotangent g, with respect to g and x. CPU tensors take the plain
+    version; CUDA tensors launch kernel M or raise."""
+    if x.device.type == "cpu":
+        return xor_encode_dx_bwd_plain(table, x, g, v, enc)
+    if x.device.type != "cuda":
+        raise ValueError(f"xor_encode_dx_bwd: unsupported device {x.device}")
+    return xor_encode_dx_bwd_cuda(
+        table.detach().contiguous(), x.detach().contiguous(), g.detach().float().contiguous(),
+        v.detach().float().contiguous(), enc,
+    )
+
+
+class XorEncodeDxFunction(torch.autograd.Function):
+    """(table, x, dout) → d_x [N, D] = J_enc(x)ᵀ dout (kernel L with the
+    table gradient off on the card), differentiable in x and dout through
+    :func:`xor_encode_dx_bwd` (kernel M on the card). A gradient into the
+    table raises."""
+
+    @staticmethod
+    def forward(ctx, table, x, dout, enc):
+        ctx.save_for_backward(table, x, dout)
+        ctx.enc = enc
+        return xor_encode_bwd(table, x, dout, enc, want_table=False)[1]
+
+    @staticmethod
+    def backward(ctx, v):
+        check_table_second_order(ctx.needs_input_grad[0])
+        table, x, dout = ctx.saved_tensors
+        dh, dx2 = xor_encode_dx_bwd(table, x, dout, v, ctx.enc)
+        return None, dx2 if ctx.needs_input_grad[1] else None, dh.view_as(dout) if ctx.needs_input_grad[2] else None, None
+
+
 class XorEncodeFunction(torch.autograd.Function):
     """table [Σm, F], x [N, D] → K's output, differentiable in both through
     kernel L (one launch for whichever of the two gradients autograd asks
-    for). The backward is not itself differentiable: a ``create_graph``
-    gradient through it raises."""
+    for). Under ``create_graph`` the position gradient is recorded
+    (:class:`XorEncodeDxFunction`, kernel M in its backward), unless the
+    table needs a gradient too: a second-order gradient into the table is
+    not computed, so that raises ``NotImplementedError``."""
 
     @staticmethod
     def forward(ctx, table, x, enc):
@@ -257,12 +412,10 @@ class XorEncodeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "a second-order gradient through the xor-hash encode (the plain grid layout, the Takikawa encoding) "
-                "is not ported: kernel L is first order"
-            )
         table, x = ctx.saved_tensors
         want_table, want_dx = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        if torch.is_grad_enabled():
+            check_table_second_order(want_table)
+            return None, XorEncodeDxFunction.apply(table, x, dout, ctx.enc), None
         dt, dx = xor_encode_bwd(table, x, dout, ctx.enc, want_table, want_dx)
         return dt, dx, None

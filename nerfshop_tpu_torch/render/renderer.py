@@ -286,18 +286,40 @@ def render_frame(
     W, H = resolution
     dev = grid.occupancy.device
     principal = torch.tensor([0.5, 0.5], device=dev) if principal is None else principal
-    bg = torch.tensor(opts.background, dtype=torch.float32, device=dev)
-    n = W * H
-    chunk = min(opts.chunk, n)
-    n_pad = (-n) % chunk
-
     bundle = rays_lib.rays_for_image(
         (W, H), xform, focal, principal, distortion, subpixel_jitter, lens=lens, ftheta_coeffs=ftheta_coeffs,
         aperture=opts.aperture, focus_z=opts.focus_z, dof_uv=dof_uv,
     )
-    origins = torch.cat([bundle.origins, torch.zeros((n_pad, 3), device=dev)])
-    dirs = torch.cat([bundle.directions, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(n_pad, 3)])
+    bg = torch.tensor(opts.background, dtype=torch.float32, device=dev)
+    rgba, depth = render_rays(model, params, grid, bundle.origins, bundle.directions, opts, bg, operators, envmap,
+                              extra_dims)
+    return FrameOutput(rgba.reshape(H, W, 4), depth.reshape(H, W))
 
+
+@torch.no_grad()
+def render_rays(
+    model,
+    params: Optional[Dict[str, torch.Tensor]],
+    grid,
+    origins: torch.Tensor,  # [n, 3]
+    directions: torch.Tensor,  # [n, 3]
+    opts: RenderOptions,
+    bg: torch.Tensor,  # [4]
+    operators: tuple = (),
+    envmap: Optional[torch.Tensor] = None,
+    extra_dims: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rays → (rgba [n, 4], depth [n]) through :func:`_render_chunk` in
+    chunks of ``opts.chunk`` rays, the last padded to a whole chunk (rays
+    from the origin along +z); :func:`render_frame`'s loop, also called on
+    a slice of a frame's rays (``parallel/mesh.py``). ``extra_dims`` as in
+    :func:`render_frame`, for a model with extra dims."""
+    dev = grid.occupancy.device
+    n = origins.shape[0]
+    chunk = min(opts.chunk, n)
+    n_pad = (-n) % chunk
+    origins = torch.cat([origins, torch.zeros((n_pad, 3), device=dev)])
+    dirs = torch.cat([directions, torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(n_pad, 3)])
     if opts.mode == RenderMode.Normals:
         # the gradient is taken with respect to positions only
         params = dict(model.state_dict()) if params is None else {k: v.detach() for k, v in params.items()}
@@ -311,4 +333,4 @@ def render_frame(
         )
         rgba.append(rgba_c)
         depth.append(depth_c)
-    return FrameOutput(torch.cat(rgba)[:n].reshape(H, W, 4), torch.cat(depth)[:n].reshape(H, W))
+    return torch.cat(rgba)[:n], torch.cat(depth)[:n]

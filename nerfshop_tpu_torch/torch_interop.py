@@ -8,12 +8,15 @@ surface as the reference's ``NerfNetworkModule`` (src/python_api.cu:
 network is a torch module already, so tensors go in and come out on the
 model's device, and the gradients are ordinary autograd:
 
-* forward = hash encode → density MLP (kernels B and C on the card);
-* backward = the encode's position gradient (kernel F) under the MLP's;
+* forward = hash encode → density MLP (kernels B and C on the card; an
+  ``.ingp`` table's plain layout encodes through kernel K);
+* backward = the encode's position gradient (kernel F; L on the plain
+  layout) under the MLP's;
 * double backward with respect to the input = the backward of that
-  (kernel J, ``ops/table_ops.py::GridEncodeDxFunction``) and of the MLP's
-  backward (plain autograd: kernel C is forward-only, and the ReLU's second
-  derivative is zero, as JAX's).
+  (kernel J, ``ops/table_ops.py::GridEncodeDxFunction``; kernel M on the
+  plain layout, ``ops/xor_encode.py::XorEncodeDxFunction``) and of the
+  MLP's backward (plain autograd: kernel C is forward-only, and the ReLU's
+  second derivative is zero, as JAX's).
 
 The parameters are constants, as in the JAX closure: the positions and the
 output cotangent are differentiated, never the weights. ``params`` is a

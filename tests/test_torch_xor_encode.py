@@ -172,12 +172,22 @@ def test_bwd_plain_asks_for_what_it_is_asked(octrees):
 
 
 def test_second_order_raises(octrees):
+    # a create_graph gradient into the table raises (the table is the
+    # encoding's parameter here); with the table detached, one into x is
+    # recorded and its backward is kernel M's plain version
     _, to = octrees
     te = tenc.TakikawaEncoding(to, n_levels=2, starting_level=2, n_features_per_level=2, log2_hashmap_size=9, device="cpu")
     x = torch.rand((8, 3), generator=torch.Generator().manual_seed(0)).requires_grad_(True)
     out = te(x).sum()
-    with pytest.raises(NotImplementedError, match="second-order"):
+    with pytest.raises(NotImplementedError, match="second-order gradient into the hash table"):
         torch.autograd.grad(out, x, create_graph=True)
+    out = xor_encode.XorEncodeFunction.apply(te.table.detach(), x, te)
+    (dx,) = torch.autograd.grad(out.sum(), x, create_graph=True)
+    assert dx.requires_grad
+    (dx2,) = torch.autograd.grad((dx * dx).sum(), x)
+    _, ref = xor_encode.xor_encode_dx_bwd_plain(te.table, x, torch.ones_like(out), 2 * dx.detach(), te)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(dx2, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("D,F,takikawa,L,ok", [
