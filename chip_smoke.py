@@ -1563,6 +1563,33 @@ def drive_density(mod, x, d_out, d_dpos):
     return outs, eik, ms, api, launches
 
 
+#: calls of each of the density module's calls a warm median takes (after
+#: one warm-up call)
+DENSITY_WARM_RUNS = 5
+
+
+def density_warm_ms(mod, x, d_out, d_dpos, runs: int = DENSITY_WARM_RUNS) -> dict:
+    """The median wall-clock ms of each of :func:`drive_density`'s four calls
+    over ``runs`` calls after one warm-up call, each call ending in a
+    synchronize. The launch counts move: read them before."""
+    calls = {"fwd_density": lambda: mod.fns.fwd_density(x),
+             "bwd_density": lambda: mod.fns.bwd_density(x, d_out),
+             "bwd_bwd_input_density": lambda: mod.fns.bwd_bwd_input_density(x, d_out, d_dpos),
+             "eikonal step": lambda: eikonal_step(mod, x)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    return out
+
+
 def density_cpu_errors(tb, x, d_out, d_dpos, outs) -> dict:
     """Relative L2 of the module's outputs against its plain route (the
     model and weights copied to the CPU) at every 8th position; fails above
@@ -1582,11 +1609,12 @@ def density_cpu_errors(tb, x, d_out, d_dpos, outs) -> dict:
     return errs
 
 
-def density_line(tag, N, lo, hi, ms, eik, g_eik, errs, launches) -> None:
+def density_line(tag, N, lo, hi, ms, warm, eik, g_eik, errs, launches) -> None:
     print(
         f"[{tag}] NerfDensityModule over the trained model's EMA weights at {N} positions ({1 << 18} uniform in "
         f"the occupied box {[round(float(a), 4) for a in lo]}-{[round(float(a), 4) for a in hi]}, {1 << 16} within "
-        f"one cell of the surface): {', '.join(f'{k} {v:.2f} ms' for k, v in ms.items())} (loss "
+        f"one cell of the surface), wall ms of the first call and the median of {DENSITY_WARM_RUNS} warm ones: "
+        f"{', '.join(f'{k} {v:.2f} / {warm[k]:.3f}' for k, v in ms.items())} (loss "
         f"{float(eik.detach()):.4e}, max |grad| {float(g_eik.abs().max()):.3e}); launches {launches}",
         flush=True,
     )
@@ -1616,6 +1644,7 @@ def phase_density(tb):
         outs, eik, call_ms, api, launches = drive_density(mod, x, d_out, d_dpos)
     check(api["grid_encode_dx_bwd"] == 1 and launches["grid_encode_dx_bwd"] == 2 and len(j_inputs) == 2,
           f"kernel J was not launched once per second-order backward: {launches}")
+    warm = density_warm_ms(mod, x, d_out, d_dpos)
     errs = density_cpu_errors(tb, x, d_out, d_dpos, outs)
 
     # kernel J alone on the inputs of the module's double backward, then at
@@ -1635,7 +1664,7 @@ def phase_density(tb):
     touched = touched_rows(enc, enc.brick_fracs(xx)[0])
     n_bytes = nbytes(xx, g, v, got_h, got_x) + touched * 2 * 4
     b_ms, b_by = bound(n_bytes)
-    density_line("density", x.shape[0], lo, hi, call_ms, eik, outs["eikonal grad"], errs, launches)
+    density_line("density", x.shape[0], lo, hi, call_ms, warm, eik, outs["eikonal grad"], errs, launches)
     print(
         f"[density] kernel J N={xx.shape[0]} L={enc.n_levels}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain "
         f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table "
@@ -4118,7 +4147,8 @@ def phase_xor(dev, g):
     features, 2^19, levels of 4920, 35944 and 274632 slots) over the [sdf]
     mesh's octree, at 2^16 points half within a finest cell of the surface
     (and at N = 129 and the box's faces), and at F = 2 summed, F = 4 and
-    F = 2 → (K's, L's numbers at the plain 2^18 batch)."""
+    F = 2, with kernel M at those three (:func:`m_takikawa_cases`) → (K's,
+    L's numbers at the plain 2^18 batch)."""
     from nerfshop_tpu_torch import kernels
     from nerfshop_tpu_torch.config import default_image_config, default_nerf_config
     from nerfshop_tpu_torch.geometry.triangle_octree import TriangleOctree
@@ -4168,7 +4198,27 @@ def phase_xor(dev, g):
         if not summed:
             xor_case("N=129", te, te.table.detach(), xt[:129].contiguous(), g, timed=False)
             xor_case("the box's faces", te, te.table.detach(), xor_edge_points(te, g, dev), g, timed=False)
+        if F != 8:  # [takikawa] holds kernel M at F = 8
+            m_takikawa_cases(te, xt, g)
     return rows
+
+
+def m_takikawa_cases(te, xt, g) -> None:
+    """Kernel M on the Takikawa encoding ``te`` of [xor] against its plain
+    version (:func:`m_case`) with a seeded output cotangent and v: at the
+    2^16 points ``xt``, N = 129 and the box's faces, and unless the levels
+    are summed each level alone (:func:`m_levels`)."""
+    dev, table = xt.device, te.table.detach()
+    kind = f"Takikawa F={te.n_features_per_level}{' summed' if te.sum_instead_of_concat else ''}"
+    gm = torch.randn((xt.shape[0], te.n_output_dims), generator=g, device=dev)
+    vm = torch.randn((xt.shape[0], 3), generator=g, device=dev)
+    m_case("xor", f"{kind}, 2^16 points, half within a finest cell of the surface", te, table, xt, gm, vm)
+    m_case("xor", f"{kind}, the first 129 points", te, table, xt[:129].contiguous(), gm[:129].contiguous(), vm[:129].contiguous())
+    xe = m_edge_points(te, g, dev)
+    k = xe.shape[0]
+    m_case("xor", f"{kind}, the box's faces", te, table, xe, gm[:k].contiguous(), vm[:k].contiguous())
+    if not te.sum_instead_of_concat:
+        m_levels("xor", te, table, xt, gm, vm)
 
 
 # ------------------------------------------------------------- .ingp
@@ -4451,18 +4501,25 @@ def m_edges(tag, enc, table, x, g, v, gen) -> float:
     return max(errs)
 
 
+def m_bound(enc, x, g, v):
+    """Kernel M's bound on (x, g, v) → (ms, "bytes" or "operations", bytes,
+    table rows read, mask cells read): x, g and v read once, dh (shaped as
+    g) and d_x2 (as x) written once, and the table rows and mask cells the
+    points touch read once."""
+    n_rows, n_cells = xor_reads(enc, x)
+    n_bytes = 2 * nbytes(x, g) + nbytes(v) + n_rows * enc.n_features_per_level * 4 + n_cells
+    return (*bound(n_bytes), n_bytes, n_rows, n_cells)
+
+
 def m_timed(tag, label, enc, table, x, g, v, err: float) -> dict:
     """Kernel M timed by events and queued beside its plain version and its
-    bound (bytes: x, g, v, dh and d_x2, the table rows and mask cells it
-    reads once) → its kernels-line numbers."""
+    bound (:func:`m_bound`) → its kernels-line numbers."""
     from nerfshop_tpu_torch.ops import xor_encode as xe
 
     ms, dev_ms = both_ms(lambda: xe.xor_encode_dx_bwd_cuda(table, x, g, v, enc))
     plain_ms = median_ms(lambda: xe.xor_encode_dx_bwd_plain(table, x, g, v, enc), runs=5)
-    n_rows, n_cells = xor_reads(enc, x)
     F = enc.n_features_per_level
-    n_bytes = 2 * nbytes(x, g) + nbytes(v) + n_rows * F * 4 + n_cells
-    b_ms, b_by = bound(n_bytes)
+    b_ms, b_by, n_bytes, n_rows, n_cells = m_bound(enc, x, g, v)
     a = xe.xor_encode_dx_bwd_attrs(enc)
     print(f"[{tag}] kernel M, {label}, N={x.shape[0]} L={enc.n_levels} F={F}: kernel {ms:.4f} ms (device "
           f"{dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB: x, g, v, dh, "
@@ -4491,8 +4548,9 @@ def phase_density_ingp(tb, gen):
     check(api["xor_encode_dx_bwd"] == 1 and launches["xor_encode_dx_bwd"] == 2 and len(m_inputs) == 2
           and launches["grid_encode_dx_bwd"] == 0 and launches["grid_encode"] == 0,
           f"kernel M was not launched once per second-order backward (J never): {launches}")
+    warm = density_warm_ms(mod, x, d_out, d_dpos)
     errs = density_cpu_errors(tb, x, d_out, d_dpos, outs)
-    density_line("density-ingp", x.shape[0], lo, hi, call_ms, eik, outs["eikonal grad"], errs, launches)
+    density_line("density-ingp", x.shape[0], lo, hi, call_ms, warm, eik, outs["eikonal grad"], errs, launches)
     table, xx, g, v = m_inputs[0]
     err = max(m_case("density-ingp", "module inputs", enc, table, xx, g, v), default=0.0)
     err = max(err, m_edges("density-ingp", enc, table, xx, g, v, gen))

@@ -91,13 +91,51 @@
 //   d_x2_j = sum_{i != j} s_i s_j v_i sum_k d2w_k/df_i df_j <g_l, row_k>
 // (the interpolation is linear in each fraction, so only mixed second
 // derivatives remain; rows and s_d are constant within a cell), zero where
-// Takikawa's mask is empty. M takes L's plain route: a thread a sample over
-// the levels (one level record a warp), x-neighbour pairs in one 16-byte
-// load; every output belongs to one sample, so M has no atomics and gives
-// the same bits on every call; dh rows are staged in shared memory and
-// stored as whole lines (levels summed: added in registers, one row). It is
-// bound like L's position half by the scattered corner rows it reads.
+// Takikawa's mask is empty. Every output belongs to one sample, so M has no
+// atomics and gives the same bits on every call. What bounds it on the
+// H100: bytes, as J. Per sample x, v and d_x2 12 B each, g and dh 4 L F B
+// each (128 B at the plain 16 levels of 2), and each table row the corners
+// touch once; at random positions the corner reads are scattered sectors.
+//
+// The first version took L's plain route everywhere: a thread a sample
+// over the levels (one level record a warp), x-neighbour pairs in
+// one 16-byte load, eight corner dot products a level, the level's g row
+// read from global memory, the dh rows staged and stored as whole lines.
+// 64 registers plain, 124 at Takikawa's F = 8, no spills. On the plain
+// layout it lost as J's first version did: each level's 8-byte g pair was
+// read at a stride of L F 4 = 128 B, a warp instruction touching 32 sectors
+// and using a quarter of each: 0.3131-0.3155 ms device at 327,680
+// positions x 16 levels, 8.0x its bound (profile_render.py --xor, NVIDIA
+// H100 80GB HBM3 at 700 W; PERF.md's Findings give every variant's
+// numbers).
+//
+// This design:
+//   1. The plain layout (xor_encode_dx_bwd_plain_kernel) is J's second
+//      version on the xor-hashed rows: two lanes a sample on levels j,
+//      j + 2, ...; the tile's g rows staged by 16-byte cp.async copies
+//      issued before the first level's corner loads and waited for once;
+//      each level's dh pair written over its g pair in the stage (padded so
+//      that a half-warp's 8-byte accesses fall on distinct banks), the tile
+//      stored as whole lines; each feature's 7-coefficient trilinear form
+//      in place of eight corner dot products; the lanes' d_x2 sums combined
+//      by one xor shuffle. The x-neighbour pairs and the plain layout's s_d
+//      stay: at the top cell the clamped corners read one row, so the
+//      form's differences there are exactly 0. 62 registers, no spills,
+//      18,432 B a block at 16 levels, 4 blocks an SM: 0.2619-0.2635 ms,
+//      6.7x its bound, 1.20x v1.
+//   2. Takikawa's levels (xor_encode_dx_bwd_taki_kernel) keep v1's route
+//      as it was: no candidate beat it by more than 3%, at F = 8 only, and
+//      each lost at F = 2 or 4. Measured and not kept: a block of 32
+//      samples with warp l on level l and g staged (K's Takikawa route:
+//      0.76-0.91x v1; one block an SM at F = 8, a reduction through shared
+//      memory), v1's route with g staged (1.01-1.03x at F = 8, even at
+//      F = 4, 0.87-0.89x at F = 2), two lanes a sample on half the
+//      features each (1.02-1.04x at F = 8, 0.90-0.91x at F = 4), two lanes
+//      on the corners at z = 0 and 1 (1.00x at F = 8, 0.88-0.99x below).
+//      M there sits at 2.8-7.5x its bound: every level's mask load and
+//      hashes count beside the bytes.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -115,13 +153,22 @@ constexpr int kThreadsK = 128;         // K
 // K's staged kernel's blocks an SM: a register budget of 64 (without it
 // ptxas trades a few spilled bytes for a 32-register occupancy step)
 constexpr int kBlocksK = 8;
-constexpr int kThreadsM = 128;         // M, at most
-// M's blocks an SM, the same kind of register budget: 64 at F = 2, 128 at
-// F = 4 and 8 (a corner's row and the level's g row are F floats each)
-constexpr int kBlocksM2 = 8;
-constexpr int kBlocksM8 = 4;
-// M's staged dh rows a block, at most (the default dynamic shared memory
-// limit: a block takes fewer samples where L * F is wide)
+// M's plain route: lanes a sample, threads and samples a block, and blocks
+// an SM in its launch bounds (a register budget of 64)
+constexpr int kLanesM = 2;
+// the route is written for two lanes: one xor shuffle combines them, and
+// m_stride's bank padding reckons a half-warp as 8 samples × 2 levels
+static_assert(kLanesM == 2, "kernel M's plain route runs two lanes a sample");
+constexpr int kThreadsM = 256;
+constexpr int kTileM = kThreadsM / kLanesM;
+constexpr int kBlocksM = 4;
+// M's Takikawa route: samples a block, at most (fewer where the staged
+// rows would pass kStageMaxM, the default dynamic shared memory limit), and
+// blocks an SM: a register budget of 64 at F = 2, 128 at F = 4 and 8 (a
+// corner's row and the level's g row are F floats each)
+constexpr int kThreadsMT = 128;
+constexpr int kBlocksMT2 = 8;
+constexpr int kBlocksMT8 = 4;
 constexpr int kStageMaxM = 48 * 1024;
 constexpr uint32_t kPrime1 = 2654435761u;
 constexpr uint32_t kPrime2 = 805459861u;
@@ -618,11 +665,11 @@ xor_encode_bwd_kernel(const __grid_constant__ XorArgs a, const float* __restrict
     }
 }
 
-// One corner k of M: its weight's first derivatives contracted with
-// s_d v_d go to the level's dh (times the row), its mixed second
-// derivatives times <g, row> to the pair sums h01, h02, h12
-template <int F, bool TAKI>
-__device__ __forceinline__ void m_corner(const Cell<3, TAKI>& c, int k, const float (&sv)[3], const float (&g)[F],
+// One corner k of M on Takikawa's levels: its weight's first derivatives
+// contracted with s_d v_d go to the level's dh (times the row), its mixed
+// second derivatives times <g, row> to the pair sums h01, h02, h12
+template <int F>
+__device__ __forceinline__ void m_corner(const Cell<3, true>& c, int k, const float (&sv)[3], const float (&g)[F],
                                          const float (&row)[F], float (&hl)[F], float& h01, float& h02, float& h12) {
     float f[3], sg[3];
 #pragma unroll
@@ -642,14 +689,161 @@ __device__ __forceinline__ void m_corner(const Cell<3, TAKI>& c, int k, const fl
     h12 += sg[1] * sg[2] * f[0] * dot;
 }
 
-// M (D = 3): a thread a sample over its levels; dh staged in shared memory
-// at K's pitch and stored as whole lines, or with the levels summed added
-// in registers and stored as one row; d_x2 summed in registers
-template <int F, bool TAKI>
-__global__ void __launch_bounds__(kThreadsM, F == 2 ? kBlocksM2 : kBlocksM8)
-xor_encode_dx_bwd_kernel(const __grid_constant__ XorArgs a, const float* __restrict__ x, const float* __restrict__ table,
-                         const uint8_t* __restrict__ mask, const float* __restrict__ g, const float* __restrict__ v,
-                         float* __restrict__ dh, float* __restrict__ dx2, long long n) {
+// one feature's corner values a0..a7 (bit 0 x, bit 1 y, bit 2 z) at the
+// fractions w → its first derivatives along x, y, z (t) and its mixed second
+// derivatives xy, xz, yz (h): the trilinear form a0 + wx ex + wy ey + wz ez
+// + wx wy exy + wx wz exz + wy wz eyz + wx wy wz exyz differentiated (kernel
+// J's form, grid_encode.cu)
+__device__ __forceinline__ void m_feature(float a0, float a1, float a2, float a3, float a4, float a5, float a6,
+                                          float a7, const float (&w)[3], float (&t)[3], float (&h)[3]) {
+    const float ex = a1 - a0, ey = a2 - a0, ez = a4 - a0;
+    const float d54 = a5 - a4;
+    const float exy = (a3 - a2) - ex, exz = d54 - ex, eyz = (a6 - a4) - ey;
+    const float exyz = ((a7 - a6) - d54) - exy;
+    h[0] = fmaf(w[2], exyz, exy);
+    h[1] = fmaf(w[1], exyz, exz);
+    h[2] = fmaf(w[0], exyz, eyz);
+    t[0] = fmaf(w[2], exz, fmaf(w[1], h[0], ex));
+    t[1] = fmaf(w[2], eyz, fmaf(w[0], h[0], ey));
+    t[2] = fmaf(w[1], eyz, fmaf(w[0], h[1], ez));
+}
+
+// the plain route's stage row stride in float2 for L levels: at least L and
+// = kLanesM mod 16, so that a half-warp's 16 lanes (8 samples, 2 levels
+// each) read and write 16 distinct 8-byte bank pairs
+__host__ __device__ __forceinline__ int m_stride(int n_levels) { return n_levels + ((kLanesM - n_levels) & 15); }
+
+// M on the plain layout (D = 3, F = 2): a block takes kTileM samples, two
+// lanes a sample on levels j, j + 2, ...; the tile's g rows staged in
+// shared memory by cp.async and each level's dh pair written over its g
+// pair there, then stored as whole lines; d_x2 from each feature's
+// 7-coefficient form, the lanes' sums combined by one xor shuffle
+__global__ void __launch_bounds__(kThreadsM, kBlocksM)
+xor_encode_dx_bwd_plain_kernel(const __grid_constant__ XorArgs a, const float* __restrict__ x,
+                               const float* __restrict__ table, const float2* __restrict__ g,
+                               const float* __restrict__ v, float2* __restrict__ dh, float* __restrict__ dx2,
+                               long long n) {
+    extern __shared__ float4 stage_raw[];
+    float2* s_g = reinterpret_cast<float2*>(stage_raw);  // [tile, m_stride]: g, then dh over it
+    const int L = a.n_levels;
+    const long long n0 = (long long)blockIdx.x * kTileM;
+    const int rows = (int)(n - n0 < (long long)kTileM ? n - n0 : (long long)kTileM);
+    const int s = threadIdx.x / kLanesM, j = threadIdx.x % kLanesM;
+    const bool live = s < rows;
+    const long long sg = n0 + s;
+    const int stride = m_stride(L);
+    const int pieces = rows * L;  // float2 pieces of the tile's g (and dh) rows
+    const bool pairs = L % 2 == 0;  // 16-byte pieces where the rows hold whole pairs
+    const float2* src = g + n0 * L;
+    if (pairs) {
+        const int half = L / 2;
+#pragma unroll 1
+        for (int k = threadIdx.x; k < pieces / 2; k += kThreadsM) {
+            const int row = k / half, col = 2 * (k - row * half);
+            __pipeline_memcpy_async(s_g + row * stride + col, src + (size_t)row * L + col, 16);
+        }
+    } else {
+#pragma unroll 1
+        for (int k = threadIdx.x; k < pieces; k += kThreadsM) {
+            const int row = k / L, col = k - row * L;
+            __pipeline_memcpy_async(s_g + row * stride + col, src + (size_t)row * L + col, 8);
+        }
+    }
+    __pipeline_commit();
+    float xs[3] = {0.f, 0.f, 0.f}, vs[3] = {0.f, 0.f, 0.f};
+    if (live) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            xs[d] = __ldcs(x + 3 * sg + d);
+            vs[d] = __ldcs(v + 3 * sg + d);
+        }
+    }
+    float2* srow = s_g + s * stride;
+    float acc[3] = {0.f, 0.f, 0.f};
+    // a level a lane at a time, its corner loads first; every thread runs
+    // every round, so that the block's one wait for the staged copies comes
+    // after the first round's loads are in flight
+#pragma unroll 1
+    for (int l0 = 0; l0 < L; l0 += kLanesM) {
+        const int l = l0 + j;
+        const bool work = live && l < L;
+        float2 r[8];
+        float w[3];
+        float sc = 0.f;
+        if (work) {
+            const XorLevel& lv = a.lv[l];
+            const Cell<3, false> c = cell_of<3, false>(lv, xs, nullptr);
+            uint32_t r0[4], r1[4];
+            corner_rows<3, false>(lv, c, r0, r1);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                float ra[2], rb[2];
+                load_pair<2>(table, r0[q], r1[q], ra, rb);
+                r[2 * q] = make_float2(ra[0], ra[1]);
+                r[2 * q + 1] = make_float2(rb[0], rb[1]);
+            }
+#pragma unroll
+            for (int d = 0; d < 3; ++d) w[d] = c.frac[d];
+            sc = lv.scale;
+        }
+        if (l0 == 0) {
+            __pipeline_wait_prior(0);
+            __syncthreads();
+        }
+        if (work) {
+            const float2 gc = srow[l];
+            float tx[3], hx[3], ty[3], hy[3];
+            m_feature(r[0].x, r[1].x, r[2].x, r[3].x, r[4].x, r[5].x, r[6].x, r[7].x, w, tx, hx);
+            m_feature(r[0].y, r[1].y, r[2].y, r[3].y, r[4].y, r[5].y, r[6].y, r[7].y, w, ty, hy);
+            const float sv[3] = {sc * vs[0], sc * vs[1], sc * vs[2]};
+            srow[l] = make_float2(fmaf(sv[2], tx[2], fmaf(sv[1], tx[1], sv[0] * tx[0])),
+                                  fmaf(sv[2], ty[2], fmaf(sv[1], ty[1], sv[0] * ty[0])));
+            const float h01 = fmaf(gc.x, hx[0], gc.y * hy[0]);
+            const float h02 = fmaf(gc.x, hx[1], gc.y * hy[1]);
+            const float h12 = fmaf(gc.x, hx[2], gc.y * hy[2]);
+            acc[0] = fmaf(sc, fmaf(sv[1], h01, sv[2] * h02), acc[0]);
+            acc[1] = fmaf(sc, fmaf(sv[0], h01, sv[2] * h12), acc[1]);
+            acc[2] = fmaf(sc, fmaf(sv[0], h02, sv[1] * h12), acc[2]);
+        }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) acc[d] += __shfl_xor_sync(kFull, acc[d], 1);
+    if (live) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            if (d % kLanesM == j) dx2[3 * sg + d] = acc[d];
+        }
+    }
+    // the tile's dh rows from the stage: contiguous streaming stores
+    __syncthreads();
+    float2* dst = dh + n0 * L;
+    if (pairs) {
+        const int half = L / 2;
+#pragma unroll 1
+        for (int k = threadIdx.x; k < pieces / 2; k += kThreadsM) {
+            const int row = k / half, col = 2 * (k - row * half);
+            __stcs(reinterpret_cast<float4*>(dst + (size_t)row * L + col),
+                   *reinterpret_cast<const float4*>(s_g + row * stride + col));
+        }
+    } else {
+#pragma unroll 1
+        for (int k = threadIdx.x; k < pieces; k += kThreadsM) {
+            const int row = k / L, col = k - row * L;
+            __stcs(dst + (size_t)row * L + col, s_g[row * stride + col]);
+        }
+    }
+}
+
+// M on Takikawa's levels: a thread a sample over its levels (one level
+// record a warp), the corners one at a time; dh staged in shared memory at
+// K's pitch and stored as whole lines, or with the levels summed added in
+// registers and stored as one row; d_x2 summed in registers
+template <int F>
+__global__ void __launch_bounds__(kThreadsMT, F == 2 ? kBlocksMT2 : kBlocksMT8)
+xor_encode_dx_bwd_taki_kernel(const __grid_constant__ XorArgs a, const float* __restrict__ x,
+                              const float* __restrict__ table, const uint8_t* __restrict__ mask,
+                              const float* __restrict__ g, const float* __restrict__ v, float* __restrict__ dh,
+                              float* __restrict__ dx2, long long n) {
     extern __shared__ float4 stage_raw[];
     float* stage = reinterpret_cast<float*>(stage_raw);
     const int L = a.n_levels;
@@ -667,14 +861,14 @@ xor_encode_dx_bwd_kernel(const __grid_constant__ XorArgs a, const float* __restr
         float* mine = stage + threadIdx.x * stage_pitch<F>(L);
         for (int l = 0; l < L; ++l) {
             const XorLevel& lv = a.lv[l];
-            const Cell<3, TAKI> c = cell_of<3, TAKI>(lv, xv, mask);
+            const Cell<3, true> c = cell_of<3, true>(lv, xv, mask);
             float hl[F];
 #pragma unroll
             for (int q = 0; q < F; ++q) hl[q] = 0.f;
             if (c.inside) {
                 if (!sum) load_row<F>(g + s * L * F + l * F, gl);
                 uint32_t r0[4], r1[4];
-                corner_rows<3, TAKI>(lv, c, r0, r1);
+                corner_rows<3, true>(lv, c, r0, r1);
                 float sv[3];
 #pragma unroll
                 for (int d = 0; d < 3; ++d) sv[d] = c.ds[d] * vv[d];
@@ -683,8 +877,8 @@ xor_encode_dx_bwd_kernel(const __grid_constant__ XorArgs a, const float* __restr
                 for (int j = 0; j < 4; ++j) {
                     float ra[F], rb[F];
                     load_pair<F>(table, r0[j], r1[j], ra, rb);
-                    m_corner<F, TAKI>(c, 2 * j, sv, gl, ra, hl, h01, h02, h12);
-                    m_corner<F, TAKI>(c, 2 * j + 1, sv, gl, rb, hl, h01, h02, h12);
+                    m_corner<F>(c, 2 * j, sv, gl, ra, hl, h01, h02, h12);
+                    m_corner<F>(c, 2 * j + 1, sv, gl, rb, hl, h01, h02, h12);
                 }
                 const float s01 = c.ds[0] * c.ds[1], s02 = c.ds[0] * c.ds[2], s12 = c.ds[1] * c.ds[2];
                 gx[0] += s01 * vv[1] * h01 + s02 * vv[2] * h02;
@@ -708,14 +902,19 @@ xor_encode_dx_bwd_kernel(const __grid_constant__ XorArgs a, const float* __restr
     }
 }
 
-// M's block size for a launch and its staged bytes a block: 128 samples,
-// fewer where the staged rows would pass kStageMaxM
-template <int F>
+// M's launch at *a: the kernel's threads a block and dynamic shared memory
+template <int F, bool TAKI>
 void m_block(const XorArgs& a, int& threads, int& smem) {
-    const int row_bytes = a.sum ? 0 : stage_pitch<F>(a.n_levels) * (int)sizeof(float);
-    threads = kThreadsM;
-    while (threads > 32 && threads * row_bytes > kStageMaxM) threads -= 32;
-    smem = threads * row_bytes;
+    if constexpr (TAKI) {
+        // 128 samples, fewer where the staged dh rows would pass kStageMaxM
+        const int row_bytes = a.sum ? 0 : stage_pitch<F>(a.n_levels) * (int)sizeof(float);
+        threads = kThreadsMT;
+        while (threads > 32 && threads * row_bytes > kStageMaxM) threads -= 32;
+        smem = threads * row_bytes;
+    } else {
+        threads = kThreadsM;
+        smem = kTileM * m_stride(a.n_levels) * (int)sizeof(float2);
+    }
 }
 
 int blocks_for(long long work, int threads) {
@@ -752,20 +951,26 @@ template <int F, bool TAKI>
 int launch_dx_bwd(const XorArgs& a, const float* x, const float* table, const uint8_t* mask, const float* g,
                   const float* v, float* dh, float* dx2, long long n, cudaStream_t stream) {
     int threads, smem;
-    m_block<F>(a, threads, smem);
-    xor_encode_dx_bwd_kernel<F, TAKI><<<blocks_for(n, threads), threads, smem, stream>>>(a, x, table, mask, g, v, dh,
-                                                                                      dx2, n);
+    m_block<F, TAKI>(a, threads, smem);
+    if constexpr (TAKI) {
+        xor_encode_dx_bwd_taki_kernel<F><<<blocks_for(n, threads), threads, smem, stream>>>(a, x, table, mask, g, v, dh,
+                                                                                          dx2, n);
+    } else {
+        xor_encode_dx_bwd_plain_kernel<<<blocks_for(n, kTileM), threads, smem, stream>>>(
+            a, x, table, reinterpret_cast<const float2*>(g), v, reinterpret_cast<float2*>(dh), dx2, n);
+    }
     return (int)cudaGetLastError();
 }
 
 template <int F, bool TAKI>
 int dx_bwd_attrs(const XorArgs& a, int* out) {
+    const void* fn = TAKI ? (const void*)xor_encode_dx_bwd_taki_kernel<F> : (const void*)xor_encode_dx_bwd_plain_kernel;
     cudaFuncAttributes fa;
-    cudaError_t e = cudaFuncGetAttributes(&fa, xor_encode_dx_bwd_kernel<F, TAKI>);
+    cudaError_t e = cudaFuncGetAttributes(&fa, fn);
     if (e != cudaSuccess) return (int)e;
     int threads, smem, blocks = 0;
-    m_block<F>(a, threads, smem);
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, xor_encode_dx_bwd_kernel<F, TAKI>, threads, smem);
+    m_block<F, TAKI>(a, threads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
     if (e != cudaSuccess) return (int)e;
     out[0] = fa.numRegs;
     out[1] = (int)fa.sharedSizeBytes;

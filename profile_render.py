@@ -535,38 +535,58 @@ def time_dx_bwd(tb, parent: Path) -> None:
               "v1; both bit-equal over two runs", flush=True)
 
 
+def plain_table_module(tb):
+    """The density module over ``tb``'s EMA network with its table re-baked
+    into the plain layout (16 fitting steps: [density-ingp]'s layout, shapes
+    and kernels, not its field)."""
+    import copy
+
+    from nerfshop_tpu_torch.io import ingp as ingp_lib
+    from nerfshop_tpu_torch.torch_interop import NerfDensityModule
+
+    enc_p, tp, _ = ingp_lib.rebake_plain_table(tb.model.pos_encoding, tb.inference_params["pos_encoding.table"],
+                                               n_steps=16)
+    model = copy.deepcopy(tb.model)
+    model.pos_encoding = enc_p
+    params = {k: tb.inference_params.get(k, v) for k, v in model.state_dict().items()}
+    params["pos_encoding.table"] = tp
+    return NerfDensityModule(model, params)
+
+
 def profile_density(tb, out: Path | None = None) -> None:
     """One eikonal step of [density] (its double backward) under the
-    profiler after a warm-up step: wall, busy, idle share, launches, device
-    ms by kernel name, and the host operators with the most self time."""
+    profiler after a warm-up step, over ``tb``'s network (the brick table,
+    kernel J) and over it with the plain table (:func:`plain_table_module`,
+    kernel M): wall, busy, idle share, launches, device ms by kernel name,
+    and the host operators with the most self time."""
     from torch.profiler import ProfilerActivity, profile
 
-    x, _, _, mod, _, _ = chip_smoke.density_inputs(tb)
+    x, _, _, brick, _, _ = chip_smoke.density_inputs(tb)
+    for label, mod in (("brick table", brick), ("plain table", plain_table_module(tb))):
+        def step():
+            chip_smoke.eikonal_step(mod, x)
+            torch.cuda.synchronize()
 
-    def step():
-        chip_smoke.eikonal_step(mod, x)
-        torch.cuda.synchronize()
-
-    step()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
         step()
-        times.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        wall = (time.perf_counter() - t0) * 1e3
-    events, busy, by_name = device_events(prof)
-    print(f"[density-profile] eikonal step at {x.shape[0]} positions: unprofiled {[round(t, 2) for t in times]} ms; "
-          f"profiled wall {wall:.2f} ms, {len(events)} device events, device busy {busy:.2f} ms, idle share "
-          f"{1.0 - busy / wall:.3f}", flush=True)
-    write_table(by_name, out)
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
-    print("[density-profile] host operators by self time (ms, calls):", flush=True)
-    for e in host:
-        print(f"    {e.self_cpu_time_total / 1e3:10.3f} ms {e.count:6d}  {e.key[:110]}", flush=True)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            wall = (time.perf_counter() - t0) * 1e3
+        events, busy, by_name = device_events(prof)
+        print(f"[density-profile] {label}: eikonal step at {x.shape[0]} positions: unprofiled "
+              f"{[round(t, 3) for t in times]} ms (median {statistics.median(times):.3f}); profiled wall {wall:.2f} ms, "
+              f"{len(events)} device events, device busy {busy:.2f} ms, idle share {1.0 - busy / wall:.3f}", flush=True)
+        write_table(by_name, out if label == "brick table" else None)
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
+        print(f"[density-profile] {label}: host operators by self time (ms, calls):", flush=True)
+        for e in host:
+            print(f"    {e.self_cpu_time_total / 1e3:10.3f} ms {e.count:6d}  {e.key[:110]}", flush=True)
 
 
 def profile_distill(tb, out: Path | None = None, steps: int = 8) -> None:
@@ -837,14 +857,43 @@ def xor_shapes(dev):
             for k, (e, x) in shapes.items()}
 
 
+def m_shapes(dev, shapes):
+    """{shape: (encoding, table, x, g, v)} for kernel M, g and v seeded: the
+    default plain grid of :func:`xor_shapes` at 327,680 positions, 2^18
+    uniform in the box around chip_smoke.py's sphere and 2^16 within 1/128
+    of its surface (the kinds of [density]'s inputs); the Takikawa encoding
+    of :func:`xor_shapes` (F = 8) and, over the same octree with seeded
+    tables, at F = 2 summed, F = 4 and F = 2, at its 2^16 points."""
+    from nerfshop_tpu_torch.models.encodings import TakikawaEncoding
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    enc = shapes["2^18 uniform"][0]
+    te, _, xt, _ = shapes["Takikawa F=8, 2^16"]
+    c = torch.as_tensor(chip_smoke.CENTER, device=dev)
+    r = chip_smoke.RADIUS + 1.0 / 128
+    d = torch.nn.functional.normalize(torch.randn((1 << 16, 3), generator=g, device=dev), dim=1)
+    near = c + (chip_smoke.RADIUS + (2.0 * torch.rand((1 << 16, 1), generator=g, device=dev) - 1.0) / 128) * d
+    x = torch.cat([c - r + 2 * r * torch.rand((1 << 18, 3), generator=g, device=dev), near]).contiguous()
+    out = {f"plain, {x.shape[0]} positions (2^18 uniform + 2^16 near a surface)": (enc, x),
+           "Takikawa F=8, 2^16": (te, xt)}
+    for F, summed in ((2, True), (4, False), (2, False)):
+        e = TakikawaEncoding(te.octree, n_features_per_level=F, sum_instead_of_concat=summed, device=dev, generator=g)
+        with torch.no_grad():
+            e.table.uniform_(-1.0, 1.0, generator=g)
+        out[f"Takikawa F={F}{' summed' if summed else ''}, 2^16"] = (e, xt)
+    return {k: (e, e.table.detach(), xx, torch.randn((xx.shape[0], e.n_output_dims), generator=g, device=dev),
+                torch.randn((xx.shape[0], 3), generator=g, device=dev)) for k, (e, xx) in out.items()}
+
+
 def xor_entry_lines(log: str) -> list:
     """(kernel with its template arguments, ptxas's lines) for every entry
-    of kernels K and L in an ``-Xptxas -v`` log."""
+    of kernels K, L and M in an ``-Xptxas -v`` log."""
     out, lines = [], log.splitlines()
     for k, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\w*?\d(xor_encode(?:_[a-z]+)?_kernel)I(\w+?)EEv", line)
+        m = re.search(r"Compiling entry function '\w*?\d(xor_encode(?:_[a-z]+)*_kernel)(?:I(\w+?)EEv|E)", line)
         if m:
-            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2) + "E"))
+            args = ",".join(re.findall(r"L[ib](\d+)E", (m.group(2) or "") + "E"))
             info = [t.replace("ptxas info    :", "").strip() for t in lines[k + 1:k + 4]
                     if ("bytes" in t or "Used" in t) and "Compiling" not in t]
             out.append((f"{m.group(1)}<{args}>", info))
@@ -852,17 +901,18 @@ def xor_entry_lines(log: str) -> list:
 
 
 def time_xor(dev, parent: Path) -> None:
-    """``--xor``: kernels K and L of ``parent`` (an older
+    """``--xor``: kernels K, L and M of ``parent`` (an older
     ``csrc/xor_encode.cu``, v1) against this checkout's (v2), each built
     alone with ``-Xptxas -v`` (their registers, spills and shared memory
-    printed), at :func:`xor_shapes`. K v2 is held bit-equal to v1, L's
+    printed), K and L at :func:`xor_shapes`. K v2 is held bit-equal to v1, L's
     position gradient bit-equal from call to call and within
     ``chip_smoke.XOR_BWD_TOL`` of v1's, its table gradient within
     ``chip_smoke.XOR_SUM_TOL`` of each slot's sum of |terms| of the plain
     version's; then K, L with both gradients and L's table half alone are
     timed by both of ``chip_smoke.both_ms``'s methods in the order v1, v2,
     v2, v1, beside ``index_add_`` of the table half's (row, value) pairs and
-    the bytes bound (K alone at a shape named so)."""
+    the bytes bound (K alone at a shape named so). Then M (:func:`time_m`)
+    of v1 and v2 at :func:`m_shapes`."""
     import ctypes
 
     import time_bvh
@@ -875,7 +925,8 @@ def time_xor(dev, parent: Path) -> None:
     for label, (lib, log) in libs.items():
         lib.nst_xor_encode.argtypes = [ctypes.POINTER(kernels.XorArgs), p, p, p, p, i, p]
         lib.nst_xor_encode_bwd.argtypes = [ctypes.POINTER(kernels.XorArgs), p, p, p, p, p, p, i, p]
-        lib.nst_xor_encode.restype = lib.nst_xor_encode_bwd.restype = i
+        lib.nst_xor_encode_dx_bwd.argtypes = [ctypes.POINTER(kernels.XorArgs), p, p, p, p, p, p, p, i, p]
+        lib.nst_xor_encode.restype = lib.nst_xor_encode_bwd.restype = lib.nst_xor_encode_dx_bwd.restype = i
         for name, info in xor_entry_lines(log):
             print(f"[xor] ptxas {label}: {name}: {' | '.join(info)}", flush=True)
     stream = kernels.stream_ptr(dev)
@@ -897,7 +948,8 @@ def time_xor(dev, parent: Path) -> None:
         return dt, dx
 
     order = (XOR_V1, XOR_V2, XOR_V2, XOR_V1)
-    for shape, (enc, table, x, dout) in xor_shapes(dev).items():
+    shapes = xor_shapes(dev)
+    for shape, (enc, table, x, dout) in shapes.items():
         N = x.shape[0]
         ref, out = k_run(XOR_V1, enc, table, x), k_run(XOR_V2, enc, table, x)
         differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
@@ -954,6 +1006,60 @@ def time_xor(dev, parent: Path) -> None:
         print(f"[xor] {shape}: v1/v2 device K {med[XOR_V1]['K'] / med[XOR_V2]['K']:.3f}x, L "
               f"{med[XOR_V1]['L'] / med[XOR_V2]['L']:.3f}x, L table {med[XOR_V1]['L table'] / med[XOR_V2]['L table']:.3f}x; "
               f"v2 device/bound K {med[XOR_V2]['K'] / k_b:.2f}, L {med[XOR_V2]['L'] / l_b:.2f}", flush=True)
+    del shapes["Takikawa F=8, 2^21, K alone"]
+    time_m({label: lib for label, (lib, _) in libs.items()}, m_shapes(dev, shapes), kernels.stream_ptr(dev))
+
+
+def time_m(libs: dict, shapes: dict, stream) -> None:
+    """Kernel M of each library of ``libs`` ({label: library}, v1 first) at
+    each of ``shapes`` (:func:`m_shapes`): held within
+    ``chip_smoke.M_TOL`` of max |·| of the plain version and of v1, and
+    bit-equal over two calls; then timed by both of ``chip_smoke.both_ms``'s
+    methods in the order of ``libs`` and back, beside
+    ``chip_smoke.m_bound``."""
+    import ctypes
+
+    from nerfshop_tpu_torch import kernels
+    from nerfshop_tpu_torch.ops import xor_encode as xe
+
+    def run(label, enc, table, x, g, v):
+        dh, dx2 = torch.empty_like(g), torch.empty((x.shape[0], 3), device=x.device)
+        mask = enc.mask.data_ptr() if enc.takikawa else None
+        kernels.check(libs[label].nst_xor_encode_dx_bwd(
+            ctypes.byref(xe.xor_args(enc)), x.data_ptr(), table.data_ptr(), mask, g.data_ptr(), v.data_ptr(),
+            dh.data_ptr(), dx2.data_ptr(), x.shape[0], stream), label)
+        return dh, dx2
+
+    v1 = next(iter(libs))
+    for shape, (enc, table, x, g, v) in shapes.items():
+        ref = xe.xor_encode_dx_bwd_plain(table, x, g, v, enc)
+        scale = [max(float(t.abs().max()), 1e-30) for t in ref]
+        outs, notes = {}, []
+        for label in libs:
+            first, again = run(label, enc, table, x, g, v), run(label, enc, table, x, g, v)
+            torch.cuda.synchronize()
+            chip_smoke.check(all(torch.equal(a, b) for a, b in zip(first, again)), f"M {label}: two calls differ ({shape})")
+            errs = [float((a - b).abs().max()) / s for a, b, s in zip(first, ref, scale)]
+            from_v1 = [float((a - b).abs().max()) / s for a, b, s in zip(first, outs.get(v1, first), scale)]
+            chip_smoke.check(max(errs + from_v1) <= chip_smoke.M_TOL,
+                             f"M {label} ({shape}): dh, d_x2 {errs} of max from the plain version's, {from_v1} from "
+                             f"v1's (bound {chip_smoke.M_TOL})")
+            outs[label] = first
+            notes.append(f"{label}: dh {errs[0]:.2e}, d_x2 {errs[1]:.2e} of max from plain, {from_v1[0]:.2e}, "
+                         f"{from_v1[1]:.2e} from v1's")
+        del outs, ref
+        times = {label: [] for label in libs}
+        for label in (*libs, *reversed(libs)):
+            times[label].append(chip_smoke.both_ms(lambda: run(label, enc, table, x, g, v)))
+        b_ms, b_by, n_bytes, n_rows, n_cells = chip_smoke.m_bound(enc, x, g, v)
+        med = {label: statistics.median(t[1] for t in ts) for label, ts in times.items()}
+        print(f"[xor-m] {shape} N={x.shape[0]} L={enc.n_levels} F={enc.n_features_per_level}: {'; '.join(notes)}; "
+              f"each bit-equal over two calls; bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {n_rows} table "
+              f"rows, {n_cells} mask cells)", flush=True)
+        for label, ts in times.items():
+            print(f"[xor-m] {shape}, {label}: device {' / '.join(f'{t[1]:.4f}' for t in ts)} ms, events "
+                  f"{' / '.join(f'{t[0]:.4f}' for t in ts)} ms (forward / reversed pass); device/bound "
+                  f"{med[label] / b_ms:.2f}, v1/this {med[v1] / med[label]:.3f}x", flush=True)
 
 
 def save_edit(dev, out: Path) -> None:
@@ -1071,8 +1177,9 @@ def main() -> None:
     mode.add_argument("--baked", action="store_true", help="profile a baked preview frame and an incremental rebake")
     mode.add_argument("--composite", action="store_true", help="time kernel H of --parent against this checkout's")
     mode.add_argument("--dx-bwd", action="store_true", help="time kernel J of --parent against this checkout's")
-    mode.add_argument("--density", action="store_true", help="profile one eikonal step of [density]")
-    mode.add_argument("--xor", action="store_true", help="time kernels K and L of --parent against this checkout's")
+    mode.add_argument("--density", action="store_true",
+                      help="profile one eikonal step of [density] over the brick and the plain table")
+    mode.add_argument("--xor", action="store_true", help="time kernels K, L and M of --parent against this checkout's")
     ap.add_argument("--compact", type=float, default=None,
                     help="in the frame mode: also profile the frame with this compact_frac")
     ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")

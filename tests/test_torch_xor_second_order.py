@@ -149,8 +149,8 @@ def test_takikawa_second_order_matches_jax(octrees, F, summed):  # noqa: F811
     assert (d_x2.numpy()[empty] == 0).all()
 
 
-def _plain_encoding():
-    enc = tenc.GridEncoding(layout="plain", device="cpu", **GRID)
+def _plain_encoding(n_levels=GRID["n_levels"]):
+    enc = tenc.GridEncoding(layout="plain", device="cpu", **{**GRID, "n_levels": n_levels})
     with torch.no_grad():
         enc.table.uniform_(-1.0, 1.0, generator=torch.Generator().manual_seed(0))
     return enc
@@ -172,18 +172,25 @@ def _closed_form_against_autograd(enc, x, dtype, tol):
     return dh, dx2
 
 
+@pytest.mark.parametrize("n_levels", [4, 15])
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 1e-5)])
-def test_kernel_m_plain_layout_closed_form_at_the_edges(dtype, tol):
-    enc = _plain_encoding()
+def test_kernel_m_plain_layout_closed_form_at_the_edges(dtype, tol, n_levels):
+    # 15 levels: dense and hashed levels, and on the card the second lane of
+    # a sample runs one level fewer than the first
+    enc = _plain_encoding(n_levels)
     x = torch.from_numpy(np.concatenate([_points(3, enc.level_scales, seed=4), _top_cells(enc)]))
     dh, dx2 = _closed_form_against_autograd(enc, x, dtype, tol)
-    # at exactly 1 every axis sits in its level's top cell: the two clamped
-    # corners read one row, so that axis's terms cancel
+    # at exactly 1 every axis sits in the top cell of each level whose
+    # position floor(scale + 1/2) reaches res - 1: the two clamped corners
+    # read one row, so that level's terms cancel
     top = (x == 1.0).all(dim=1)
-    assert top.any() and float(dh[top].abs().max()) <= 1e-6 * float(dh.abs().max())
+    levels = [l for l, lv in enumerate(enc.xor_levels) if np.floor(np.float32(lv.scale) + np.float32(0.5)) >= lv.res - 1]
+    cols = [2 * l + q for l in levels for q in (0, 1)]
+    assert top.any() and len(levels) >= n_levels // 2
+    assert float(dh[top][:, cols].abs().max()) <= 1e-6 * float(dh.abs().max())
 
 
-@pytest.mark.parametrize("F,summed", [(2, False), (8, True)])
+@pytest.mark.parametrize("F,summed", [(2, False), (8, True), (4, False), (2, True)])
 def test_kernel_m_takikawa_closed_form_at_the_edges(octrees, F, summed):  # noqa: F811
     _, to = octrees
     te = tenc.TakikawaEncoding(to, n_levels=4, starting_level=2, n_features_per_level=F, log2_hashmap_size=13,
