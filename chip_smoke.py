@@ -473,11 +473,13 @@ def segsum_case(tag, label, key, w1, dout, m):
     """Kernel A on one sorted case against its plain version → its numbers.
     Tolerance: |kernel − plain| ≤ 1e-5 · Σ|terms| of the row (fp32, other
     summation order); rows no sample hits are 0.0; two calls are bit-equal.
-    D (2 or 3) is w1's width; the rows are 2^D · 2 floats wide."""
+    D (2 or 3) is w1's width, F (2 or 4) dout's; the rows are 2^D · F
+    floats wide."""
     from nerfshop_tpu_torch.ops import segsum
 
     N, D = w1.shape
-    W = (1 << D) * 2
+    F = dout.shape[1]
+    W = (1 << D) * F
     ker = segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
     again = segsum.sorted_segment_rowsum_cuda(key, w1, dout, m)
     plain = segsum.sorted_segment_rowsum_plain(key, w1, dout, m)
@@ -500,11 +502,11 @@ def segsum_case(tag, label, key, w1, dout, m):
     us = host_us(lambda: segsum.sorted_segment_rowsum_cuda(key, w1, dout, m))
     lib_us = host_us(lib)
     # bytes: key, w1, dout in, [m, W] out; ops: the 2^D corner weights
-    # ((D − 1) multiplies each), the 2^D × 2 outer product and its sums, per
-    # sample (48 at D = 3, 20 at D = 2)
-    b_ms, b_by = bound(nbytes(key, w1, dout) + m * W * 4, N * float((1 << D) * (D - 1) + 4 * (1 << D)))
+    # ((D − 1) multiplies each), the 2^D × F outer product and its sums, per
+    # sample (48 at D = 3, F = 2; 20 at D = 2, F = 2)
+    b_ms, b_by = bound(nbytes(key, w1, dout) + m * W * 4, N * float((1 << D) * (D - 1) + 2 * F * (1 << D)))
     print(
-        f"[{tag}] {label} m={m} N={N} D={D}: max_abs_err {max_err:.3e} (bound 1e-5*row sum|terms|), two calls "
+        f"[{tag}] {label} m={m} N={N} D={D} F={F}: max_abs_err {max_err:.3e} (bound 1e-5*row sum|terms|), two calls "
         f"bit-equal; events: kernel {ms:.4f} ms plain {plain_ms:.4f} ms index_add_ {lib_ms:.4f} ms, "
         f"kernel/index_add_ {ms / lib_ms:.3f}; device (queued): kernel {dev_ms:.4f} ms index_add_ "
         f"{lib_dev_ms:.4f} ms, kernel/index_add_ {dev_ms / lib_dev_ms:.3f}; bound {b_ms:.4f} ms ({b_by}), "
@@ -516,21 +518,21 @@ def segsum_case(tag, label, key, w1, dout, m):
                 library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_segsum(dev, g):
+def phase_segsum(dev, g, F=2, tag="segsum"):
     """Kernel A against its plain version in every case of SEGSUM_CASES
-    (:func:`segsum_case`)."""
+    (:func:`segsum_case`), at D = 3 and ``F`` features a level."""
     result = {}
     for label, m, N in SEGSUM_CASES:
         key = segsum_keys(label, m, N if N is not None else 0, g, dev)
         N = key.shape[0]
         w1 = torch.rand((N, 3), generator=g, device=dev)
-        dout = torch.randn((N, 2), generator=g, device=dev)
+        dout = torch.randn((N, F), generator=g, device=dev)
         if label == "4-byte-aligned views":  # contiguous views at a 4-byte storage offset: the scalar loads
             key = torch.cat([key[:1], key])[1:]
             w1 = torch.cat([w1.reshape(-1)[:1], w1.reshape(-1)])[1:].view(N, 3)
-            dout = torch.cat([dout.reshape(-1)[:1], dout.reshape(-1)])[1:].view(N, 2)
+            dout = torch.cat([dout.reshape(-1)[:1], dout.reshape(-1)])[1:].view(N, F)
             check(key.data_ptr() % 16 == 4 and w1.data_ptr() % 16 == 4, "the views are not 4-byte aligned")
-        result[label] = segsum_case("segsum", label, key, w1, dout, m)
+        result[label] = segsum_case(tag, label, key, w1, dout, m)
     return {**result["hash"], "max_abs_err": max(r["max_abs_err"] for r in result.values())}
 
 
@@ -565,10 +567,12 @@ def encode_case(label, enc, table, x, with_fracs: bool, note: str = "", tag: str
     from nerfshop_tpu_torch.ops import table_ops
 
     out_k, idx_k, w1_k = table_ops.grid_encode_cuda(table, x, enc, with_fracs)
+    again = table_ops.grid_encode_cuda(table, x, enc, with_fracs)[0]
     out_p, idx_p, w1_p = table_ops.grid_encode_plain(table, x, enc, True)
     torch.cuda.synchronize()
-    N, L = x.shape[0], enc.n_levels
-    check(out_k.shape == (N, 2 * L) and bool(torch.isfinite(out_k).all()), f"kernel B out bad ({label})")
+    N, L, F = x.shape[0], enc.n_levels, enc.n_features_per_level
+    check(out_k.shape == (N, F * L) and bool(torch.isfinite(out_k).all()), f"kernel B out bad ({label})")
+    check(torch.equal(out_k, again), f"kernel B: two calls differ ({label})")
     if with_fracs:
         check(w1_k.shape == (L, N, enc.n_input_dims), f"kernel B fracs of shape {tuple(w1_k.shape)} ({label})")
     out_err = float((out_k - out_p).abs().max())
@@ -588,13 +592,14 @@ def encode_case(label, enc, table, x, with_fracs: bool, note: str = "", tag: str
     ms, dev_ms = both_ms(fn)
     plain_ms = median_ms(lambda: table_ops.grid_encode_plain(table, x, enc, with_fracs))
     us = host_us(fn)
-    # bytes: x, the distinct table rows the 8 corners touch, out (and with
-    # fracs the slots and fractions); ops: ~65 fp32 per (sample, level)
+    # bytes: x, the distinct table rows the 2^D corners touch, out (and with
+    # fracs the slots and fractions); ops: ~33 + 16 F fp32 per (sample,
+    # level), 65 at F = 2
     touched = touched_rows(enc, idx_p)
-    n_bytes = nbytes(x, out_k) + touched * 2 * 4 + (nbytes(idx_k, w1_k) if with_fracs else 0)
-    b_ms, b_by = bound(n_bytes, N * L * 65.0)
+    n_bytes = nbytes(x, out_k) + touched * F * 4 + (nbytes(idx_k, w1_k) if with_fracs else 0)
+    b_ms, b_by = bound(n_bytes, N * L * (33.0 + 16 * F))
     print(
-        f"[{tag}] {label} N={N} L={L} D={enc.n_input_dims} {'with' if with_fracs else 'without'} fracs: {what}, "
+        f"[{tag}] {label} N={N} L={L} D={enc.n_input_dims} F={F} {'with' if with_fracs else 'without'} fracs: {what}, two calls bit-equal, "
         f"out err {out_err:.3e} "
         f"(bound 1e-6); kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
         f"({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table rows touched), device/bound "
@@ -618,7 +623,7 @@ def phase_encode(dev, g):
     enc, x = _encoding(dev, g)
     table = enc.table.detach()
     result = {m: encode_case("training shape", enc, table, x, m) for m in (True, False)}
-    tile = kernels.load().nst_grid_encode_tile(enc.n_levels)
+    tile = kernels.load().nst_grid_encode_tile(enc.n_levels, 2)
     for label, n in (("training inputs", 1), (f"training inputs, one tile ({tile}) plus one", tile + 1)):
         for m in (True, False):
             encode_case(label, enc, table, x[-n:].contiguous(), m)
@@ -626,7 +631,7 @@ def phase_encode(dev, g):
         enc_l = GridEncoding(n_levels=L, log2_hashmap_size=log2_size, per_level_scale=level_scale, device=dev, generator=g)
         with torch.no_grad():
             enc_l.table.uniform_(-1.0, 1.0, generator=g)
-        tile = kernels.load().nst_grid_encode_tile(L)
+        tile = kernels.load().nst_grid_encode_tile(L, 2)
         n_dense = sum(enc_l.level_dense)
         for label, n in ((f"{n_dense} dense + {L - n_dense} hash levels", 1 << 16), (f"one tile ({tile}) plus one", tile + 1)):
             for m in (True, False):
@@ -797,6 +802,7 @@ def kernel_wrappers():
         "grid_encode_dx": table_ops.grid_encode_dx_cuda,
         "grid_encode_dx_bwd": table_ops.grid_encode_dx_bwd_cuda,
         "fused_mlp": fused_mlp.fused_mlp_cuda,
+        "gemm_mlp": fused_mlp.gemm_mlp,
         "gather": gather.gather_cuda,
         "tet_lookup": operators.tet_lookup_cuda,
         "cage_warp_samples": operators.cage_warp_samples_cuda,
@@ -935,21 +941,29 @@ def phase_gather(dev, g):
     return gather_case("march fine-sort payload", "axis1", t_f, perm)
 
 
+#: the kernels with an F = 4 instance (its launches counted apart, within the total)
+F4_KERNELS = ("segsum", "grid_encode", "grid_encode_dx", "grid_encode_dx_bwd")
+
+
 def reset_launches():
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     wrappers["grid_encode"].fracs_launches = wrappers["grid_encode"].d2_launches = 0
     wrappers["segsum"].d2_launches = 0
+    for k in F4_KERNELS:
+        wrappers[k].f4_launches = 0
 
 
 def read_launches():
     """Launches by kernel, kernel B's launches with fracs as
-    ``grid_encode_fracs``, and kernels B's and A's D = 2 instances' as
-    ``grid_encode_d2`` and ``segsum_d2`` (within their totals)."""
+    ``grid_encode_fracs``, kernels B's and A's D = 2 instances' as
+    ``grid_encode_d2`` and ``segsum_d2``, and the F = 4 instances of A, B, F
+    and J as ``<kernel>_f4`` (each within its total)."""
     wrappers = kernel_wrappers()
     return {**{k: fn.launches for k, fn in wrappers.items()}, "grid_encode_fracs": wrappers["grid_encode"].fracs_launches,
-            "grid_encode_d2": wrappers["grid_encode"].d2_launches, "segsum_d2": wrappers["segsum"].d2_launches}
+            "grid_encode_d2": wrappers["grid_encode"].d2_launches, "segsum_d2": wrappers["segsum"].d2_launches,
+            **{f"{k}_f4": wrappers[k].f4_launches for k in F4_KERNELS}}
 
 
 def middle_chunk(W=1920, H=1080) -> int:
@@ -962,8 +976,9 @@ def middle_chunk(W=1920, H=1080) -> int:
 
 @contextlib.contextmanager
 def encode_input_of_call(enc, index: int):
-    """While open, keep a copy of the positions of ``enc``'s ``index``-th
-    forward (counting from 0) in the yielded list."""
+    """While open, keep a copy of the input of the module ``enc``'s
+    ``index``-th forward (counting from 0: an encoding's positions, an
+    MLP's features) in the yielded list."""
     kept, calls = [], [0]
 
     def hook(module, args):
@@ -1009,7 +1024,18 @@ def psnr(img, gt):
     return -10 * math.log10(float(np.mean((img - gt) ** 2)) + 1e-12)
 
 
-def phase_main_path(dev):
+#: the kernels of [train]'s path, and those of its captured step's graph
+TRAIN_KERNELS = ("segsum", "grid_encode", "fused_mlp", "gather")
+GRAPH_KERNELS = ("sorted_segment_rowsum_cuda", "grid_encode_cuda", "gather_cuda")
+
+
+def phase_main_path(dev, config=None, tag="train", path_kernels=TRAIN_KERNELS, graph_kernels=GRAPH_KERNELS):
+    """[train]: ``Testbed.train(STEPS, BATCH)`` on the sphere through the
+    captured loop with ``config`` (the default NeRF config when None), gated
+    on the loss (last-10 mean < 0.35 × the first), then one full grid
+    refresh timed on a copy of the grid; ``path_kernels`` must launch on
+    the path and ``graph_kernels`` be in the captured step's graph → (the
+    testbed, focal, principal, the path's launches, steps/s)."""
     from nerfshop_tpu_torch.common import TestbedMode
     from nerfshop_tpu_torch.config import default_nerf_config
     from nerfshop_tpu_torch.ops import grid as grid_lib
@@ -1017,10 +1043,11 @@ def phase_main_path(dev):
     from nerfshop_tpu_torch.train import nerf as nerf_train
 
     ds, focal, principal = sphere_dataset(dev)
-    tb = Testbed(TestbedMode.Nerf, config=default_nerf_config(), device=dev, seed=0)
+    tb = Testbed(TestbedMode.Nerf, config=default_nerf_config() if config is None else config, device=dev, seed=0)
     tb.set_training_data(ds)
-    enc = tb.model.pos_encoding
-    check(max(enc.level_sizes) == 1 << 19 and enc.n_levels == 16, "not the default full-width config")
+    if config is None:
+        enc = tb.model.pos_encoding
+        check(max(enc.level_sizes) == 1 << 19 and enc.n_levels == 16, "not the default full-width config")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1033,19 +1060,18 @@ def phase_main_path(dev):
     peak = torch.cuda.max_memory_allocated()
 
     losses = [lv for _, lv in tb.loss_history]
-    check(len(losses) == STEPS and all(math.isfinite(v) for v in losses), "non-finite or missing losses")
+    check(len(losses) == STEPS and all(math.isfinite(v) for v in losses), f"[{tag}] non-finite or missing losses")
     tail = float(np.mean(losses[-10:]))
-    check(tail < 0.35 * losses[0], f"loss did not fall enough: first {losses[0]:.4e} last-10 mean {tail:.4e}")
-    check(tb.stats.measured_samples_total > 0, "no samples measured")
-    check_launched(launches, ("segsum", "grid_encode", "fused_mlp", "gather"), "training path")
+    check(tail < 0.35 * losses[0], f"[{tag}] loss did not fall enough: first {losses[0]:.4e} last-10 mean {tail:.4e}")
+    check(tb.stats.measured_samples_total > 0, f"[{tag}] no samples measured")
+    check_launched(launches, path_kernels, f"[{tag}] training path")
     # every step a replayed step of a captured graph: no eager training step ran
     check(tb.stats.captured_steps == STEPS == tb.stats.step and tb.stats.graph_replays == STEPS // 16,
-          f"training did not run through the captured loop only: {tb.stats.captured_steps} captured steps of "
+          f"[{tag}] training did not run through the captured loop only: {tb.stats.captured_steps} captured steps of "
           f"{tb.stats.step}, {tb.stats.graph_replays} replays")
     per_step = {k: v / 16 for k, v in tb.stats.graph_launches.items()}
-    check(all(per_step.get(f"{fn}.launches", 0) > 0
-              for fn in ("sorted_segment_rowsum_cuda", "grid_encode_cuda", "gather_cuda")),
-          f"a kernel of the captured step was not in its graph: {per_step}")
+    check(all(per_step.get(f"{fn}.launches", 0) > 0 for fn in graph_kernels),
+          f"[{tag}] a kernel of the captured step was not in its graph: {per_step}")
 
     # one full grid refresh, timed on a copy of the grid
     g = tb.grid
@@ -1057,17 +1083,18 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     refresh_s = time.perf_counter() - t0
     refresh = read_launches()
-    check(refresh["grid_encode"] > 0 and refresh["grid_encode_fracs"] == 0,
-          f"the grid refresh did not encode without fracs only: {refresh}")
-    check(launches["grid_encode_fracs"] > 0, f"the training path never encoded with fracs: {launches}")
+    if "grid_encode" in path_kernels:
+        check(refresh["grid_encode"] > 0 and refresh["grid_encode_fracs"] == 0,
+              f"[{tag}] the grid refresh did not encode without fracs only: {refresh}")
+        check(launches["grid_encode_fracs"] > 0, f"[{tag}] the training path never encoded with fracs: {launches}")
 
     print(
-        f"[train] captured loop: {tb.stats.graph_replays} replays of 16 steps, {tb.stats.captured_steps} captured "
+        f"[{tag}] captured loop: {tb.stats.graph_replays} replays of 16 steps, {tb.stats.captured_steps} captured "
         f"steps of {tb.stats.step}, hand-kernel launches per step inside the graph {per_step}",
         flush=True,
     )
     print(
-        f"[train] {STEPS} steps batch {BATCH} in {train_s:.3f} s (the graph's capture included): "
+        f"[{tag}] {STEPS} steps batch {BATCH} in {train_s:.3f} s (the graph's capture included): "
         f"{STEPS / train_s:.3f} steps/s, "
         f"{tb.stats.measured_samples_total / train_s:.6g} real samples/s "
         f"({tb.stats.measured_samples_total} samples), loss {losses[0]:.4e} -> last-10 {tail:.4e} "
@@ -1076,8 +1103,8 @@ def phase_main_path(dev):
         flush=True,
     )
     print(
-        f"[train] grid full refresh {refresh_s:.4f} s (kernel B {refresh['grid_encode']} launches, "
-        f"{refresh['grid_encode_fracs']} with fracs), peak memory {peak / 2**30:.3f} GiB, launches {launches}",
+        f"[{tag}] grid full refresh {refresh_s:.4f} s (launches {refresh}), peak memory {peak / 2**30:.3f} GiB, "
+        f"launches {launches}",
         flush=True,
     )
     return tb, focal, principal, launches, STEPS / train_s
@@ -1215,7 +1242,7 @@ def phase_render_compact(tb, W=1920, H=1080):
     return launches
 
 
-def phase_render(tb, W=1920, H=1080):
+def phase_render(tb, W=1920, H=1080, tag="render", path_kernels=("grid_encode", "fused_mlp", "gather")):
     """The render path: ``Testbed.render(W, H, exact=True)`` of the trained
     model → (the launch counts of the warm-up frame, the positions its middle
     chunk encoded)."""
@@ -1229,9 +1256,9 @@ def phase_render(tb, W=1920, H=1080):
         img = tb.render(W, H, spp=1, exact=True)
         first_s = time.perf_counter() - t0
     launches = read_launches()
-    check(img.shape == (H, W, 4) and np.isfinite(img).all(), "1080p frame is not finite / of the expected shape")
-    check_launched(launches, ("grid_encode", "fused_mlp", "gather"), "1080p frame")
-    check(float(img[..., 3].max()) > 0.5, "1080p frame shows no content")
+    check(img.shape == (H, W, 4) and np.isfinite(img).all(), f"[{tag}] 1080p frame is not finite / of the expected shape")
+    check_launched(launches, path_kernels, f"[{tag}] 1080p frame")
+    check(float(img[..., 3].max()) > 0.5, f"[{tag}] 1080p frame shows no content")
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(3):
@@ -1242,7 +1269,7 @@ def phase_render(tb, W=1920, H=1080):
     frame_s = statistics.median(times)
     samples = tb.stats.render_samples
     print(
-        f"[render] {W}x{H} exact spp=1: first frame {first_s * 1e3:.1f} ms, median of 3 {frame_s * 1e3:.1f} ms "
+        f"[{tag}] {W}x{H} exact spp=1: first frame {first_s * 1e3:.1f} ms, median of 3 {frame_s * 1e3:.1f} ms "
         f"({[round(t * 1e3, 1) for t in times]}), {W * H / frame_s:.6g} rays/s, {samples} sample slots evaluated "
         f"({samples / frame_s:.6g} /s), peak memory {peak / 2**30:.3f} GiB, launches in one frame {launches}",
         flush=True,
@@ -1250,8 +1277,8 @@ def phase_render(tb, W=1920, H=1080):
     for mode in (RenderMode.Depth, RenderMode.Cost):
         tb.render_mode = mode
         small = tb.render(256, 256, exact=True)
-        check(small.shape == (256, 256, 4) and np.isfinite(small).all(), f"{mode.value} frame bad")
-        print(f"[render] 256x256 {mode.value}: min {float(small[..., 0].min()):.4f} max {float(small[..., 0].max()):.4f}", flush=True)
+        check(small.shape == (256, 256, 4) and np.isfinite(small).all(), f"[{tag}] {mode.value} frame bad")
+        print(f"[{tag}] 256x256 {mode.value}: min {float(small[..., 0].min()):.4f} max {float(small[..., 0].max()):.4f}", flush=True)
     tb.render_mode = RenderMode.Shade
     check(len(kept) == 1, "the middle chunk's positions were not captured")
     return launches, kept[0]
@@ -1278,27 +1305,28 @@ def phase_frame(tb, W=1920, H=1080):
     return launches
 
 
-def phase_held_out(tb, focal, principal):
+def phase_held_out(tb, focal, principal, tag="held-out"):
     """Held-out PSNR through ``Testbed.render`` with the view's own camera."""
     xf = look_at(CENTER + np.array([0.9, 0.9, 0.5], np.float32))
     b = view_rays(xf, focal, principal, tb.device)
     gt = sphere_rgba(b.origins.cpu().numpy(), b.directions.cpu().numpy()).reshape(RES, RES, 4)
     img = tb.render(RES, RES, spp=1, camera_matrix=xf, focal=focal, principal=principal, exact=True)
-    check(img.shape == (RES, RES, 4) and np.isfinite(img).all(), "held-out render is not finite / of the expected shape")
+    check(img.shape == (RES, RES, 4) and np.isfinite(img).all(), f"[{tag}] held-out render is not finite / of the expected shape")
     value = psnr(img[..., :3], gt[..., :3] * gt[..., 3:])
-    check(value >= 14.0, f"held-out PSNR {value:.2f} dB < 14")
-    print(f"[held-out] {RES}x{RES} PSNR {value:.2f} dB through Testbed.render (bound 14)", flush=True)
+    check(value >= 14.0, f"[{tag}] held-out PSNR {value:.2f} dB < 14")
+    print(f"[{tag}] {RES}x{RES} held-out PSNR {value:.2f} dB through Testbed.render (bound 14)", flush=True)
     return xf
 
 
-def phase_snapshot(tb, xf, focal, principal, workdir: Path) -> Path:
-    """save_snapshot → fresh Testbed → load_snapshot → the same view: max |Δ| ≤ 1e-6
-    → the snapshot's path (in ``workdir``, read again by [cli])."""
+def phase_snapshot(tb, xf, focal, principal, workdir: Path, tag="snapshot", bound_delta=1e-6) -> Path:
+    """save_snapshot → fresh Testbed → load_snapshot → the same view: max |Δ|
+    ≤ ``bound_delta`` (0: bit-equal) → the snapshot's path (in ``workdir``,
+    read again by [cli])."""
     from nerfshop_tpu_torch.testbed import Testbed
 
     kw = dict(camera_matrix=xf, focal=focal, principal=principal, exact=True)
     before = tb.render(RES, RES, **kw)
-    path = workdir / "model.snap"
+    path = workdir / f"{tag}.snap"
     t0 = time.perf_counter()
     tb.save_snapshot(str(path))
     save_s = time.perf_counter() - t0
@@ -1310,10 +1338,10 @@ def phase_snapshot(tb, xf, focal, principal, workdir: Path) -> Path:
     load_s = time.perf_counter() - t0
     after = fresh.render(RES, RES, **kw)
     delta = float(np.abs(after - before).max())
-    check(delta <= 1e-6, f"snapshot round trip changed the frame: max |delta| {delta:.3e}")
+    check(delta <= bound_delta, f"[{tag}] snapshot round trip changed the frame: max |delta| {delta:.3e}")
     print(
-        f"[snapshot] {size / 2**20:.1f} MiB, save {save_s:.2f} s, load {load_s:.2f} s, "
-        f"{RES}x{RES} frame max |delta| {delta:.3e} (bound 1e-6)",
+        f"[{tag}] snapshot {size / 2**20:.1f} MiB, save {save_s:.2f} s, load {load_s:.2f} s, "
+        f"{RES}x{RES} frame max |delta| {delta:.3e} (bound {bound_delta:g})",
         flush=True,
     )
     return path
@@ -1338,17 +1366,20 @@ F_MESH_SEED = 1618
 F_BLOCK = 128
 
 
-def encode_dx_case(label, enc, table, x, g):
+def encode_dx_case(label, enc, table, x, g, tag="encode-dx"):
     """Kernel F against its plain version (autograd of the plain forward) on
-    x with a seeded dout → its numbers: max |Δ| within 1e-5 of max |d_x|."""
+    x with a seeded dout → its numbers: max |Δ| within 1e-5 of max |d_x|,
+    two calls bit-equal."""
     from nerfshop_tpu_torch.ops import table_ops
 
-    N, L = x.shape[0], enc.n_levels
-    dout = torch.randn((N, 2 * L), generator=g, device=x.device)
+    N, L, F = x.shape[0], enc.n_levels, enc.n_features_per_level
+    dout = torch.randn((N, F * L), generator=g, device=x.device)
     got = table_ops.grid_encode_dx_cuda(table, x, dout, enc)
+    again = table_ops.grid_encode_dx_cuda(table, x, dout, enc)
     ref = table_ops.grid_encode_dx_plain(table, x, dout, enc)
     torch.cuda.synchronize()
     check(got.shape == (N, 3) and bool(torch.isfinite(got).all()), f"kernel F out bad ({label})")
+    check(torch.equal(got, again), f"kernel F: two calls differ ({label})")
     scale = float(ref.abs().max())
     err = float((got - ref).abs().max())
     check(err <= 1e-5 * max(scale, 1e-30), f"kernel F disagrees ({label}): {err:.3e} vs max |d_x| {scale:.3e}")
@@ -1357,11 +1388,11 @@ def encode_dx_case(label, enc, table, x, g):
     plain_ms = median_ms(lambda: table_ops.grid_encode_dx_plain(table, x, dout, enc))
     # bytes: x, dout and d_x once, and each table row the 8 corners touch
     touched = touched_rows(enc, enc.brick_fracs(x)[0])
-    n_bytes = nbytes(x, dout, got) + touched * 2 * 4
+    n_bytes = nbytes(x, dout, got) + touched * F * 4
     b_ms, b_by = bound(n_bytes)
     print(
-        f"[encode-dx] {label} N={N} L={L}: max |delta| {err:.3e} = {err / max(scale, 1e-30):.3e} of max |d_x| "
-        f"{scale:.3e} (bound 1e-5); kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound "
+        f"[{tag}] {label} N={N} L={L} F={F}: max |delta| {err:.3e} = {err / max(scale, 1e-30):.3e} of max |d_x| "
+        f"{scale:.3e} (bound 1e-5), two calls bit-equal; kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound "
         f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table rows touched), "
         f"device/bound {dev_ms / b_ms:.2f}; no library call computes d_x",
         flush=True,
@@ -1500,18 +1531,18 @@ def face_points(enc, x) -> torch.Tensor:
     return torch.cat([boundary_points(enc, x.device), x]).contiguous()
 
 
-def j_case(label, enc, table, x, g, v):
+def j_case(label, enc, table, x, g, v, tag="density"):
     """Kernel J against its plain version on (x, g, v): dh and d_x2 within
     :data:`J_TOL` of their max, finite, and two runs bit-equal → (max |Δdh|,
     max |Δd_x2|, dh, d_x2)."""
     from nerfshop_tpu_torch.ops import table_ops
 
-    N, L = x.shape[0], enc.n_levels
+    N, L, F = x.shape[0], enc.n_levels, enc.n_features_per_level
     got_h, got_x = table_ops.grid_encode_dx_bwd_cuda(table, x, g, v, enc)
     again_h, again_x = table_ops.grid_encode_dx_bwd_cuda(table, x, g, v, enc)
     ref_h, ref_x = table_ops.grid_encode_dx_bwd_plain(table, x, g, v, enc)
     torch.cuda.synchronize()
-    check(got_h.shape == (N, 2 * L) and got_x.shape == (N, 3) and bool(torch.isfinite(got_h).all())
+    check(got_h.shape == (N, F * L) and got_x.shape == (N, 3) and bool(torch.isfinite(got_h).all())
           and bool(torch.isfinite(got_x).all()), f"kernel J ({label}): an output of the wrong shape or not finite")
     check(torch.equal(got_h, again_h) and torch.equal(got_x, again_x), f"kernel J ({label}): two runs differ")
     err_h, err_x = float((got_h - ref_h).abs().max()), float((got_x - ref_x).abs().max())
@@ -1519,7 +1550,7 @@ def j_case(label, enc, table, x, g, v):
     check(err_h <= J_TOL * scale_h and err_x <= J_TOL * scale_x,
           f"kernel J disagrees ({label}): dh {err_h:.3e} of {scale_h:.3e}, d_x2 {err_x:.3e} of {scale_x:.3e} "
           f"(bound {J_TOL})")
-    print(f"[density] kernel J, {label}, N={N} L={L}: max |delta| dh {err_h:.3e} = {err_h / scale_h:.3e} of max "
+    print(f"[{tag}] kernel J, {label}, N={N} L={L} F={F}: max |delta| dh {err_h:.3e} = {err_h / scale_h:.3e} of max "
           f"|dh|, d_x2 {err_x:.3e} = {err_x / scale_x:.3e} of max |d_x2| (bound {J_TOL}); two runs bit-equal",
           flush=True)
     return err_h, err_x, got_h, got_x
@@ -1625,7 +1656,46 @@ def density_line(tag, N, lo, hi, ms, warm, eik, g_eik, errs, launches) -> None:
     )
 
 
-def phase_density(tb):
+def j_holds(tag, enc, inputs, launches) -> dict:
+    """Kernel J alone on ``inputs`` (the (table, x, g, v) of a density
+    module's double backward), then at its edges: N = 1, 129, 12345, the
+    table's first L − 1 levels (:func:`level_prefix`), positions on the
+    box's faces (:func:`face_points`), each against its plain version
+    (:func:`j_case`); timed beside its bound, with its registers, shared
+    memory and blocks an SM → its kernels-line numbers."""
+    from nerfshop_tpu_torch.ops import table_ops
+
+    table, xx, g, v = inputs
+    F, L = enc.n_features_per_level, enc.n_levels
+    err_h, err_x, got_h, got_x = j_case("module inputs", enc, table, xx, g, v, tag)
+    for label, n in (("the first position", 1), ("the first 129 (not a multiple of a block's samples)", 129),
+                     ("the first 12345", 12345)):
+        j_case(label, enc, table, xx[:n].contiguous(), g[:n].contiguous(), v[:n].contiguous(), tag)
+    j_case(f"L = {L - 1} (the table's first {L - 1} levels)", level_prefix(enc, L - 1), table, xx,
+           g[:, : (L - 1) * F].contiguous(), v, tag)
+    xf = face_points(enc, xx[: 1 << 14])
+    j_case("positions on the box's faces, at 0 and exactly 1, and on every level's last cell", enc, table, xf,
+           g[: xf.shape[0]].contiguous(), v[: xf.shape[0]].contiguous(), tag)
+    attrs = table_ops.grid_encode_dx_bwd_attrs(L, F)
+    ms, dev_ms = both_ms(lambda: table_ops.grid_encode_dx_bwd_cuda(table, xx, g, v, enc))
+    plain_ms = median_ms(lambda: table_ops.grid_encode_dx_bwd_plain(table, xx, g, v, enc))
+    touched = touched_rows(enc, enc.brick_fracs(xx)[0])
+    n_bytes = nbytes(xx, g, v, got_h, got_x) + touched * F * 4
+    b_ms, b_by = bound(n_bytes)
+    print(
+        f"[{tag}] kernel J N={xx.shape[0]} L={L} F={F}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain "
+        f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table "
+        f"rows touched), device/bound {dev_ms / b_ms:.2f}; {attrs['registers']} registers, "
+        f"{attrs['local_bytes']} B local, {attrs['static_smem']} B static and {attrs['dynamic_smem']} B dynamic "
+        f"shared memory a block, {attrs['blocks_per_sm']} blocks of 256 threads an SM; launches on the path "
+        f"{launches['grid_encode_dx_bwd']} (one per second-order backward); no library call computes it",
+        flush=True,
+    )
+    return dict(max_abs_err=max(err_h, err_x), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_density(tb, tag="density"):
     """[density]: the torch density module (``torch_interop.py``) over the
     trained model's EMA weights at :func:`density_positions`:
     ``fwd_density``, ``bwd_density`` and ``bwd_bwd_input_density``, then an
@@ -1634,49 +1704,18 @@ def phase_density(tb):
     finite and, on every 8th position, held to the plain route (the model
     copied to the CPU); kernel J alone against its plain version
     (:func:`j_case`) on the inputs the module's double backward gave it and
-    at its edges, timed beside its bound → (J's kernels-line numbers, the
-    path's launches)."""
-    from nerfshop_tpu_torch.ops import table_ops
-
+    at its edges (:func:`j_holds`), timed beside its bound → (J's
+    kernels-line numbers, the path's launches). ``tag`` names the phase in
+    its lines."""
     x, lo, hi, mod, d_out, d_dpos = density_inputs(tb)
-    enc = tb.model.pos_encoding
     with j_spy() as j_inputs:
         outs, eik, call_ms, api, launches = drive_density(mod, x, d_out, d_dpos)
     check(api["grid_encode_dx_bwd"] == 1 and launches["grid_encode_dx_bwd"] == 2 and len(j_inputs) == 2,
-          f"kernel J was not launched once per second-order backward: {launches}")
+          f"[{tag}] kernel J was not launched once per second-order backward: {launches}")
     warm = density_warm_ms(mod, x, d_out, d_dpos)
     errs = density_cpu_errors(tb, x, d_out, d_dpos, outs)
-
-    # kernel J alone on the inputs of the module's double backward, then at
-    # its edges
-    table, xx, g, v = j_inputs[0]
-    err_h, err_x, got_h, got_x = j_case("module inputs", enc, table, xx, g, v)
-    for label, n in (("the first position", 1), ("the first 129 (not a multiple of a block's samples)", 129),
-                     ("the first 12345", 12345)):
-        j_case(label, enc, table, xx[:n].contiguous(), g[:n].contiguous(), v[:n].contiguous())
-    j_case("L = 15 (the table's first 15 levels)", level_prefix(enc, 15), table, xx, g[:, :30].contiguous(), v)
-    xf = face_points(enc, xx[: 1 << 14])
-    j_case("positions on the box's faces, at 0 and exactly 1, and on every level's last cell", enc, table, xf,
-           g[: xf.shape[0]].contiguous(), v[: xf.shape[0]].contiguous())
-    attrs = table_ops.grid_encode_dx_bwd_attrs(enc.n_levels)
-    ms, dev_ms = both_ms(lambda: table_ops.grid_encode_dx_bwd_cuda(table, xx, g, v, enc))
-    plain_ms = median_ms(lambda: table_ops.grid_encode_dx_bwd_plain(table, xx, g, v, enc))
-    touched = touched_rows(enc, enc.brick_fracs(xx)[0])
-    n_bytes = nbytes(xx, g, v, got_h, got_x) + touched * 2 * 4
-    b_ms, b_by = bound(n_bytes)
-    density_line("density", x.shape[0], lo, hi, call_ms, warm, eik, outs["eikonal grad"], errs, launches)
-    print(
-        f"[density] kernel J N={xx.shape[0]} L={enc.n_levels}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms) plain "
-        f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.1f} MB, {touched} of {enc.table_size} table "
-        f"rows touched), device/bound {dev_ms / b_ms:.2f}; {attrs['registers']} registers, "
-        f"{attrs['local_bytes']} B local, {attrs['static_smem']} B static and {attrs['dynamic_smem']} B dynamic "
-        f"shared memory a block, {attrs['blocks_per_sm']} blocks of 256 threads an SM; launches on the path "
-        f"{launches['grid_encode_dx_bwd']} (one per second-order backward); no library call computes it",
-        flush=True,
-    )
-    row = dict(max_abs_err=max(err_h, err_x), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
-               library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
-    return row, launches
+    density_line(tag, x.shape[0], lo, hi, call_ms, warm, eik, outs["eikonal grad"], errs, launches)
+    return j_holds(tag, tb.model.pos_encoding, j_inputs[0], launches), launches
 
 
 #: the seed of [train-extras]' pose perturbation
@@ -1865,7 +1904,7 @@ def phase_train_extras(dev, train_steps_per_s, W=1920, H=1080):
     return launches
 
 
-def phase_normals(tb, W=1920, H=1080):
+def phase_normals(tb, W=1920, H=1080, tag="normals"):
     """[normals]: ``Testbed.render`` of the trained model in
     ``RenderMode.Normals``: kernel F once a chunk, kernel A never, kernel B
     without fracs only; the middle chunk's normals and σ against the plain
@@ -1891,13 +1930,13 @@ def phase_normals(tb, W=1920, H=1080):
     tb.render_mode = RenderMode.Shade
     opts = tb._render_options()
     n_chunks = -(-W * H // opts.chunk)
-    check(img.shape == (H, W, 4) and np.isfinite(img).all(), "Normals frame is not finite / of the expected shape")
+    check(img.shape == (H, W, 4) and np.isfinite(img).all(), f"[{tag}] Normals frame is not finite / of the expected shape")
     check(float(img[..., 3].max()) > 0.5 and float(np.ptp(img[..., :3][img[..., 3] > 0.5])) > 0.2,
-          "Normals frame shows no shaded content")
-    check(launches["grid_encode_dx"] == n_chunks, f"kernel F not launched once a chunk ({n_chunks}): {launches}")
+          f"[{tag}] Normals frame shows no shaded content")
+    check(launches["grid_encode_dx"] == n_chunks, f"[{tag}] kernel F not launched once a chunk ({n_chunks}): {launches}")
     check(launches["segsum"] == 0 and launches["grid_encode_fracs"] == 0,
-          f"a Normals frame formed a table gradient or wrote fracs: {launches}")
-    check(len(kept) == 1, "the middle chunk's positions were not captured")
+          f"[{tag}] a Normals frame formed a table gradient or wrote fracs: {launches}")
+    check(len(kept) == 1, f"[{tag}] the middle chunk's positions were not captured")
 
     # the middle chunk's slots: the kernels' path (B, F) against the plain
     # encode under autograd, both with the plain MLP and the EMA weights
@@ -1932,10 +1971,10 @@ def phase_normals(tb, W=1920, H=1080):
     n_share, s_share = float((n_d <= 1e-4).float().mean()), float((s_d <= 1e-5).float().mean())
     n_err, s_err = float(n_d.max()), float(s_d.max())
     check(n_share >= 0.999 and s_share >= 0.999 and n_err <= 0.05 and s_err <= 0.05,
-          f"Normals chunk disagrees with the plain versions: normals within 1e-4 on {n_share:.5f} (max {n_err:.3e}), "
+          f"[{tag}] Normals chunk disagrees with the plain versions: normals within 1e-4 on {n_share:.5f} (max {n_err:.3e}), "
           f"sigma within 1e-5 relative on {s_share:.5f} (max {s_err:.3e})")
     print(
-        f"[normals] {W}x{H} exact spp=1: first frame {first_s * 1e3:.1f} ms, second {frame_s * 1e3:.1f} ms, peak "
+        f"[{tag}] {W}x{H} Normals frame, exact spp=1: first frame {first_s * 1e3:.1f} ms, second {frame_s * 1e3:.1f} ms, peak "
         f"memory {peak / 2**30:.3f} GiB ({opts.chunk} rays x {opts.k_samples * opts.n_windows} slots a chunk under "
         f"autograd); launches in one frame {launches} ({n_chunks} chunks); middle chunk ({x.shape[0]} slots, "
         f"{int(well.sum())} with |grad sigma| > 1e-3 of its max) against the plain encode: normals within 1e-4 on "
@@ -5014,6 +5053,229 @@ def phase_parallel() -> dict:
     return paths
 
 
+# ------------------------------------------------ the two shipped NeRF configs
+
+CONFIGS = Path(__file__).resolve().parent / "configs" / "nerf"
+#: 8 levels × F = 4, 2^19 rows a hashed level: kernels A, B, F and J at F = 4
+HASH_FAST = CONFIGS / "tpu_hash_fast.json"
+#: Frequency(10), a 256-wide density MLP of 4 hidden layers: the GEMM route
+FLAGSHIP = CONFIGS / "tpu_flagship.json"
+#: the GEMM route against its plain version: the same bf16 roundings in
+#: another summation order, so a hidden value on a rounding boundary can
+#: round the other way and move its row's outputs by ~2^-8 of its share; a
+#: row of the flagship's density MLP has 1024 hidden roundings. Bounds: the
+#: relative L2 (as the port's bf16 tests), the share of outputs within
+#: 1e-6 + 1e-5 |plain|, and max |Δ| within 1e-2 of max |plain| (kernel C's)
+GEMM_REL_TOL = 2e-3
+GEMM_WITHIN = 0.99
+
+
+def f4_encoding(dev, g, D=3):
+    """``tpu_hash_fast.json``'s grid (D = 3: 8 levels × F = 4, 2^19 rows a
+    hashed level), or ``configs/image/base.json``'s 2-D grid at F = 4
+    (D = 2), its table uniform in ±1."""
+    from nerfshop_tpu_torch.config import default_image_config, load_network_config
+    from nerfshop_tpu_torch.models.encodings import build_encoding
+    from nerfshop_tpu_torch.models.nerf_network import build_nerf_network
+
+    if D == 3:
+        enc = build_nerf_network(load_network_config(HASH_FAST), device=dev, generator=g).pos_encoding
+    else:
+        enc = build_encoding({**default_image_config()["encoding"], "n_features_per_level": 4}, 2, device=dev,
+                             generator=g)
+    check(enc.n_features_per_level == 4 and enc.layout == "brick", "not a brick grid at F = 4")
+    with torch.no_grad():
+        enc.table.uniform_(-1.0, 1.0, generator=g)
+    return enc
+
+
+def f4_holds(dev, g, tb, chunk_x):
+    """The F = 4 instances of kernels B, A and F against their plain
+    versions, at the tolerances and bit-equality their F = 2 instances are
+    held to: B at D = 3 on tpu_hash_fast's grid at the training shape (2^18
+    uniform samples) with and without fracs, N = 1 and one tile plus one,
+    and at the frame shape (the trained model's middle 1080p chunk); A at
+    D = 3 in every case of SEGSUM_CASES; F at the training shape with every
+    level's boundary points, N = 1, one block plus one and the frame shape;
+    then B at D = 2 with fracs (and without) on the Image config's 2-D grid at
+    F = 4 and A at D = 2 on those points' sorted keys at a dense and a
+    hashed level → (B's, A's and F's kernels-line numbers)."""
+    from nerfshop_tpu_torch import kernels
+    from nerfshop_tpu_torch.ops import table_ops
+
+    tag = "hash-fast"
+    enc = f4_encoding(dev, g)
+    table = enc.table.detach()
+    N = 1 << 18
+    x = torch.rand((N, 3), generator=g, device=dev)
+    x[:6] = torch.tensor([[0, 0, 0], [1, 1, 1], [1, 0, 0.5], [0.5, 1, 0], [0, 1, 1], [1, 1, 0]], device=dev)
+    b = {m: encode_case("training shape", enc, table, x, m, tag=tag) for m in (True, False)}
+    tile = kernels.load().nst_grid_encode_tile(enc.n_levels, 4)
+    for label, n in (("training inputs", 1), (f"training inputs, one tile ({tile}) plus one", tile + 1)):
+        for m in (True, False):
+            encode_case(label, enc, table, x[-n:].contiguous(), m, tag=tag)
+    frame_enc = tb.model.pos_encoding
+    distinct, same = repeat_shares(frame_enc, chunk_x)
+    for m in (False, True):
+        encode_case("1080p march chunk", frame_enc, frame_enc.table.detach(), chunk_x, m,
+                    f"; distinct positions {distinct:.4f} of N, (sample, level) pairs in the previous sample's cell "
+                    f"{same:.4f}", tag=tag)
+    a = phase_segsum(dev, g, F=4, tag=tag)
+    xb = torch.cat([boundary_points(enc, dev), x[: N - 3 * enc.n_levels]])
+    f = encode_dx_case("training shape (boundary points included)", enc, table, xb, g, tag=tag)
+    for label, n in (("training inputs", 1), (f"training inputs, one block ({F_BLOCK}) plus one", F_BLOCK + 1)):
+        encode_dx_case(label, enc, table, xb[:n].contiguous(), g, tag=tag)
+    encode_dx_case("1080p march chunk", frame_enc, frame_enc.table.detach(), chunk_x, g, tag=tag)
+    del enc, table
+
+    enc2 = f4_encoding(dev, g, D=2)
+    table2 = enc2.table.detach()
+    x2 = torch.rand((N, 2), generator=g, device=dev)
+    x2[:4] = torch.tensor([[0, 0], [1, 1], [1, 0], [0, 1]], device=dev)
+    for m in (True, False):
+        encode_case("2^18 uniform xy, configs/image/base.json's grid at F = 4", enc2, table2, x2, m, tag=tag)
+    _, idx, w1 = table_ops.grid_encode_cuda(table2, x2, enc2, True)
+    dout = torch.randn((N, 4), generator=g, device=dev)
+    for l in (0, enc2.n_levels - 1):
+        key, perm = torch.sort(idx[l], stable=True)
+        kind = "dense" if enc2.level_dense[l] else "hash"
+        segsum_case(tag, f"D = 2, one step's sorted keys, level {l} ({kind})", key.contiguous(),
+                    w1[l][perm].contiguous(), dout[perm].contiguous(), enc2.level_sizes[l])
+    del enc2, table2, idx, w1
+    torch.cuda.empty_cache()
+    return b[True], a, f
+
+
+def phase_hash_fast(dev, g, workdir: Path):
+    """[hash-fast]: ``tpu_hash_fast.json`` at its full 2^19 table through the
+    port's entry points, on [train]'s sphere: 256 captured steps at batch
+    2^18 gated as [train], held-out PSNR ≥ 14 dB, a 1080p exact frame, the
+    1080p Normals frame (kernel F at F = 4), [density]'s module calls and
+    eikonal step (F and J at F = 4) within its 5e-3 of the CPU route, and a
+    snapshot saved and loaded whose frame is bit-equal to the first; every
+    launch of A, B, F and J on those paths is an F = 4 one; then the F = 4
+    instances held to their plain versions (:func:`f4_holds`, J in
+    :func:`phase_density`) → ({path: launches}, {kernel: numbers})."""
+    from nerfshop_tpu_torch.config import load_network_config
+
+    tag = "hash-fast"
+    tb, focal, principal, train_launches, _ = phase_main_path(dev, load_network_config(HASH_FAST), tag)
+    enc = tb.model.pos_encoding
+    check(enc.n_levels == 8 and enc.n_features_per_level == 4 and max(enc.level_sizes) == 1 << 19
+          and enc.layout == "brick", f"[{tag}] not tpu_hash_fast.json's grid")
+    check(tb.model.density_mlp.route == tb.model.rgb_mlp.route == "fused", f"[{tag}] an MLP left kernel C")
+    xf = phase_held_out(tb, focal, principal, tag)
+    render_launches, chunk_x = phase_render(tb, tag=tag)
+    normals_launches = phase_normals(tb, tag=tag)
+    j_row, density_launches = phase_density(tb, tag)
+    phase_snapshot(tb, xf, focal, principal, workdir, tag=tag, bound_delta=0.0)
+    paths = {"hash_fast_train": train_launches, "hash_fast_render": render_launches,
+             "hash_fast_normals": normals_launches, "hash_fast_density": density_launches}
+    for name, counts in paths.items():
+        for k in F4_KERNELS:
+            check(counts[f"{k}_f4"] == counts[k], f"[{tag}] an F = 2 launch of {k} on the {name} path: {counts}")
+        check(counts["gemm_mlp"] == 0, f"[{tag}] the GEMM route ran on the {name} path: {counts}")
+    check(train_launches["segsum_f4"] > 0 and train_launches["grid_encode_f4"] > 0
+          and render_launches["grid_encode_f4"] > 0 and normals_launches["grid_encode_dx_f4"] > 0
+          and density_launches["grid_encode_dx_f4"] > 0 and density_launches["grid_encode_dx_bwd_f4"] > 0,
+          f"[{tag}] an F = 4 instance did not launch: {paths}")
+    print(f"[{tag}] launches by path (every A, B, F and J launch an F = 4 one): {paths}", flush=True)
+    b_row, a_row, f_row = f4_holds(dev, g, tb, chunk_x)
+    del tb
+    torch.cuda.empty_cache()
+    return paths, {"b": b_row, "a": a_row, "f": f_row, "j": j_row}
+
+
+def gemm_case(label, x, ws, tag="flagship") -> dict:
+    """The GEMM route against its plain version on (x, ws): the bounds of
+    :data:`GEMM_REL_TOL` and :data:`GEMM_WITHIN`, max |Δ| within 1e-2 of max
+    |plain|; timed beside its bound (the products' operations at the bf16
+    peak, or the bytes of x, the weights and the output) → its numbers."""
+    from nerfshop_tpu_torch.ops import fused_mlp
+
+    got = fused_mlp.gemm_mlp(x, ws)
+    again = fused_mlp.gemm_mlp(x, ws)
+    ref = fused_mlp.fused_mlp_plain(x, ws)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          f"[{tag}] the GEMM route's output is bad ({label})")
+    err = (got - ref).abs()
+    within = float((err <= 1e-6 + 1e-5 * ref.abs()).float().mean())
+    rel, ref_max = rel_l2(got, ref), float(ref.abs().max())
+    check(rel <= GEMM_REL_TOL and within >= GEMM_WITHIN and float(err.max()) <= 1e-2 * ref_max,
+          f"[{tag}] the GEMM route disagrees with its plain version ({label}): relative L2 {rel:.3e}, {within:.5f} "
+          f"within 1e-6+1e-5*|plain|, max |delta| {float(err.max()):.3e} of {ref_max:.3e}")
+    ms, dev_ms = both_ms(lambda: fused_mlp.gemm_mlp(x, ws))
+    plain_ms = median_ms(lambda: fused_mlp.fused_mlp_plain(x, ws))
+    N = x.numel() // x.shape[-1]
+    flops = 2.0 * N * sum(w.shape[0] * w.shape[1] for w in ws)
+    b_ms, b_by = bound(nbytes(x, got, *ws), flops, BF16_FLOPS)
+    dims = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+    print(
+        f"[{tag}] GEMM route, {label}, {'->'.join(map(str, dims))} N={N}: relative L2 {rel:.3e} (bound "
+        f"{GEMM_REL_TOL:g}), {within:.6f} of outputs within 1e-6+1e-5*|plain| (bound {GEMM_WITHIN}), max_abs_err "
+        f"{float(err.max()):.3e} of max|out| {ref_max:.3e} (bound 1e-2*max), two calls "
+        f"{'bit-equal' if torch.equal(got, again) else 'differ'}; route {ms:.4f} ms (device {dev_ms:.4f} ms) plain "
+        f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, {flops / 1e9:.1f} GFLOP at the bf16 peak), device/bound "
+        f"{dev_ms / b_ms:.2f}; no single library call computes the chain",
+        flush=True,
+    )
+    return dict(max_abs_err=float(err.max()), ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+                library_device_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_flagship(dev, g):
+    """[flagship]: ``tpu_flagship.json`` through the port's entry points on
+    [train]'s sphere: ``STEPS`` captured steps at batch 2^18 gated as [train]
+    (its MLPs under autograd in the plain fp32 chain), held-out PSNR ≥ 14
+    dB, a 1080p exact frame whose density MLP runs the GEMM route and whose
+    rgb MLP runs kernel C; the GEMM route held to its plain version on the
+    frame's middle chunk (its density MLP's input and the EMA weights) and
+    timed beside its FLOP bound; the training step's MLP work (the plain
+    chain's forward and backward at the batch's samples) timed → ({path:
+    launches}, the GEMM route's numbers)."""
+    from nerfshop_tpu_torch.config import load_network_config
+    from nerfshop_tpu_torch.ops import fused_mlp
+
+    tag = "flagship"
+    tb, focal, principal, train_launches, _ = phase_main_path(
+        dev, load_network_config(FLAGSHIP), tag, path_kernels=("gather", "gemm_mlp"),
+        graph_kernels=("gather_cuda",))
+    mlp = tb.model.density_mlp
+    check(mlp.route == "gemm" and tb.model.rgb_mlp.route == "fused",
+          f"[{tag}] the routes are {mlp.route}, {tb.model.rgb_mlp.route}: expected gemm (density), fused (rgb)")
+    check(train_launches["segsum"] == train_launches["grid_encode"] == 0, f"[{tag}] a grid kernel ran: {train_launches}")
+    phase_held_out(tb, focal, principal, tag)
+    with encode_input_of_call(mlp, middle_chunk()) as kept:
+        render_launches, _ = phase_render(tb, tag=tag, path_kernels=("fused_mlp", "gemm_mlp", "gather"))
+    check(len(kept) == 1, f"[{tag}] the middle chunk's density MLP input was not captured")
+    params = tb.inference_params
+    ws = [params[f"density_mlp.weights.{i}"].detach() for i in range(len(mlp.weights))]
+    row = gemm_case("the 1080p frame's middle chunk, EMA weights", kept[0], ws)
+    # the training step's MLP work: the plain fp32 chain under autograd at
+    # the batch's samples (forward and backward), with its FLOP bound
+    N = BATCH
+    xt = torch.randn((N, ws[0].shape[0]), generator=g, device=dev)
+    wt = [w.clone().requires_grad_(True) for w in ws]
+    ct = torch.randn((N, ws[-1].shape[1]), generator=g, device=dev)
+
+    def step():
+        out = fused_mlp.fused_mlp_plain(xt.requires_grad_(True), wt)
+        torch.autograd.grad(out, [xt, *wt], ct)
+
+    step_ms, step_dev_ms = both_ms(step)
+    flops = 3 * 2.0 * N * sum(w.shape[0] * w.shape[1] for w in ws)
+    s_ms, s_by = bound(0.0, flops, FP32_FLOPS)
+    print(f"[{tag}] the training step's density MLP (the plain fp32 chain, forward and backward, N={N}): "
+          f"{step_ms:.4f} ms (device {step_dev_ms:.4f} ms), bound {s_ms:.4f} ms ({s_by}, {flops / 1e9:.1f} GFLOP at "
+          f"the fp32 peak)", flush=True)
+    paths = {"flagship_train": train_launches, "flagship_render": render_launches}
+    print(f"[{tag}] launches by path: {paths}", flush=True)
+    del tb
+    torch.cuda.empty_cache()
+    return paths, row
+
+
 KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "library_device_ms")
 
 
@@ -5101,14 +5363,25 @@ def main() -> None:
     shutil.rmtree(workdir)
     print(f"[launches] the captured scene's path: {paths['captured']}", flush=True)
     paths.update(phase_parallel())
+    # every MLP of the default configs takes kernel C, every grid F = 2
+    stray = {k: v for k, v in paths.items() if v["gemm_mlp"] or any(v[f"{f}_f4"] for f in F4_KERNELS)}
+    check(not stray, f"the GEMM route or an F = 4 instance ran on a path of the default configs: {stray}")
+    print(f"[launches] the GEMM route and the F = 4 instances: 0 on all {len(paths)} earlier paths", flush=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    hf_paths, hf = phase_hash_fast(dev, g, workdir)
+    shutil.rmtree(workdir)
+    fl_paths, gemm_row = phase_flagship(dev, g)
+    paths.update({**hf_paths, **fl_paths})
     launches = {k: sum(p[k] for p in paths.values()) for k in train_launches}
-    for k in ("segsum", "grid_encode"):
-        launches[f"{k}_d3"] = launches[k] - launches[f"{k}_d2"]
+    for k in ("segsum", "grid_encode"):  # the F = 2 instances at D = 3 (no path runs D = 2 at F = 4)
+        launches[f"{k}_d3"] = launches[k] - launches[f"{k}_d2"] - launches[f"{k}_f4"]
+    for k in ("grid_encode_dx", "grid_encode_dx_bwd"):
+        launches[f"{k}_f2"] = launches[k] - launches[f"{k}_f4"]
     rows = (
         ("sorted_segment_rowsum", "segsum_d3", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", seg),
         ("grid_encode", "grid_encode_d3", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", enc),
-        ("grid_encode_dx", "grid_encode_dx", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:263", fdx),
-        ("grid_encode_dx_bwd", "grid_encode_dx_bwd", "grid_encode.cu", "nerfshop_tpu/torch_interop.py:55", j_row),
+        ("grid_encode_dx", "grid_encode_dx_f2", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:263", fdx),
+        ("grid_encode_dx_bwd", "grid_encode_dx_bwd_f2", "grid_encode.cu", "nerfshop_tpu/torch_interop.py:55", j_row),
         ("fused_mlp", "fused_mlp", "fused_mlp.cu", "scratch/probe_arch.py:56", mlp),
         ("gather", "gather", "gather.cu", "scratch/probe_arch.py:32", gat),
         ("tet_lookup", "tet_lookup", "tet_lookup.cu", "nerfshop_tpu/editing/operators.py:74", tet["tet_lookup"]),
@@ -5126,10 +5399,17 @@ def main() -> None:
         ("xor_encode", "xor_encode", "xor_encode.cu", "nerfshop_tpu/models/encodings.py:385", k_row),
         ("xor_encode_bwd", "xor_encode_bwd", "xor_encode.cu", "nerfshop_tpu/models/encodings.py:492", l_row),
         ("xor_encode_dx_bwd", "xor_encode_dx_bwd", "xor_encode.cu", "nerfshop_tpu/torch_interop.py:55", m_row),
+        ("sorted_segment_rowsum_f4", "segsum_f4", "segsum.cu", "nerfshop_tpu/ops/pallas_segsum.py:126", hf["a"]),
+        ("grid_encode_f4", "grid_encode_f4", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:239", hf["b"]),
+        ("grid_encode_dx_f4", "grid_encode_dx_f4", "grid_encode.cu", "nerfshop_tpu/ops/table_ops.py:263", hf["f"]),
+        ("grid_encode_dx_bwd_f4", "grid_encode_dx_bwd_f4", "grid_encode.cu", "nerfshop_tpu/torch_interop.py:55",
+         hf["j"]),
+        # cuBLAS GEMMs, as JAX leaves this MLP to XLA's dot_generals
+        ("gemm_mlp", "gemm_mlp", "../ops/fused_mlp.py", "nerfshop_tpu/models/mlp.py:61", gemm_row),
     )
     kernels = [
-        {"name": name, "route": "cuda", "source": f"nerfshop_tpu_torch/csrc/{src}", "replaces": repl,
-         "launches": launches[key], **{k: r[k] for k in KERNEL_KEYS}}
+        {"name": name, "route": "cuda", "source": os.path.normpath(f"nerfshop_tpu_torch/csrc/{src}"),
+         "replaces": repl, "launches": launches[key], **{k: r[k] for k in KERNEL_KEYS}}
         for name, key, src, repl, r in rows
     ]
     print(json.dumps({"kernels": kernels}))

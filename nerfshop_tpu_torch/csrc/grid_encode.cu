@@ -2,7 +2,12 @@
 // kernel F, its gradient with respect to the positions (after B below), and
 // kernel J, F's own backward (after F).
 // B takes D = 3 (NeRF, SDF and Volume positions) and D = 2 (the Image
-// testbed's pixel coordinates) as a template parameter; F takes D = 3.
+// testbed's pixel coordinates) as a template parameter; F and J take D = 3.
+// All three take the features a level, F = 2 (the default configs) or 4
+// (configs/nerf/tpu_hash_fast.json), as a template parameter: a table row is
+// one float2 or one aligned 16-byte float4, read in one access; the same
+// arithmetic over F features (JAX's make_brick_encode is F-generic,
+// nerfshop_tpu/ops/table_ops.py:169). The numbers below are F = 2's.
 //
 // Replaces the XLA-fused op GridEncoding._brick_fracs + make_brick_encode's
 // _reference (nerfshop_tpu/models/encodings.py:270-300,
@@ -91,22 +96,71 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLevelsPerThread = 4;
 constexpr int kGroup = 16;  // levels a block covers (the note above)
 constexpr int kMetaInts = 12;  // per level: res, m, offset, dense, 8 corner shifts
 
-// Threads per sample for a block of `group` levels: each takes at most
-// kLevelsPerThread of them.
-__host__ __device__ inline int threads_per_sample(int group) {
-    return group > 2 * kLevelsPerThread ? 4 : (group > kLevelsPerThread ? 2 : 1);
+// a table row of F features: one 8- or 16-byte access
+template <int F>
+struct RowOf;
+template <>
+struct RowOf<2> {
+    using T = float2;
+};
+template <>
+struct RowOf<4> {
+    using T = float4;
+};
+template <int F>
+using Row = typename RowOf<F>::T;
+
+// feature f of a row (f a constant once the loops are unrolled)
+__device__ __forceinline__ float at(const float2& v, int f) { return f == 0 ? v.x : v.y; }
+__device__ __forceinline__ float at(const float4& v, int f) {
+    return f == 0 ? v.x : (f == 1 ? v.y : (f == 2 ? v.z : v.w));
 }
+// a row from F floats
+template <typename R>
+__device__ __forceinline__ R make_row(const float* a);
+template <>
+__device__ __forceinline__ float2 make_row<float2>(const float* a) { return make_float2(a[0], a[1]); }
+template <>
+__device__ __forceinline__ float4 make_row<float4>(const float* a) { return make_float4(a[0], a[1], a[2], a[3]); }
+
+// the dot of F features, summed from the last feature down (at F = 2:
+// fmaf(a.x, b.x, a.y * b.y))
+template <int F, typename R>
+__device__ __forceinline__ float dot_row(const R& a, const R& b) {
+    float d = at(a, F - 1) * at(b, F - 1);
+#pragma unroll
+    for (int f = F - 2; f >= 0; --f) d = fmaf(at(a, f), at(b, f), d);
+    return d;
+}
+
+// B's levels a thread: its corner loads in flight at once are the same
+// bytes at either F (4 levels of 8-byte rows, 2 of 16-byte rows)
+__host__ __device__ constexpr int levels_per_thread(int f) { return 8 / f; }
+
+// Threads per sample for a block of `group` levels: each takes at most
+// levels_per_thread(f) of them (a power of two, so that the tile divides
+// the block).
+__host__ __device__ inline int threads_per_sample(int group, int f) {
+    int spt = 1;
+    while (spt * levels_per_thread(f) < group) spt *= 2;
+    return spt;
+}
+
+// the stage's row stride in rows of F features for `group` levels: odd
+// where rows are 16 bytes, so that 8 lanes' 16-byte accesses fall on
+// distinct banks
+__host__ __device__ inline int stage_stride(int group, int f) { return f == 4 ? (group | 1) : group + 1; }
 
 // row `slot` of a level's table (tl, 64-bit) in one mad.wide.u32: the
 // compiler would otherwise widen offset + slot in four instructions
-__device__ __forceinline__ float2 load_row(const float2* tl, uint32_t slot) {
+template <typename R>
+__device__ __forceinline__ R load_row(const R* tl, uint32_t slot) {
     uint64_t a;
-    asm("mad.wide.u32 %0, %1, 8, %2;" : "=l"(a) : "r"(slot), "l"(reinterpret_cast<uint64_t>(tl)));
-    return __ldg(reinterpret_cast<const float2*>(a));
+    asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(a) : "r"(slot), "n"((int)sizeof(R)), "l"(reinterpret_cast<uint64_t>(tl)));
+    return __ldg(reinterpret_cast<const R*>(a));
 }
 
 // (base + shift) mod m for base, shift < m < 2^31: one of the two is below m
@@ -123,21 +177,24 @@ __device__ __forceinline__ float lerp2(float e00, float e10, float e01, float e1
     return lerp(lerp(e00, e10, u), lerp(e01, e11, u), v);
 }
 
-template <int D, bool kFracs>
+template <int D, int F, bool kFracs>
 __global__ void __launch_bounds__(kThreads)
 grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
-                   const float* __restrict__ meta_f, const float2* __restrict__ table,
-                   float2* __restrict__ out, int* __restrict__ idx_out, float* __restrict__ w1_out,
+                   const float* __restrict__ meta_f, const Row<F>* __restrict__ table,
+                   Row<F>* __restrict__ out, int* __restrict__ idx_out, float* __restrict__ w1_out,
                    int n, int n_levels, int group) {
+    using R = Row<F>;
     constexpr int C = 1 << D;  // cell corners
+    constexpr int kLevelsPerThread = levels_per_thread(F);
     extern __shared__ int4 smem[];
-    const int spt = threads_per_sample(group);
+    const int spt = threads_per_sample(group, F);
     const int tile = kThreads / spt;
-    const int stride = group + 1;  // padded stage row, in float2
+    const int stride = stage_stride(group, F);  // padded stage row, in rows of F
     int4* s_mi = smem;  // [group, 3] int4: res, m, offset, dense | shifts 0-3 | shifts 4-7
     float* s_scale = reinterpret_cast<float*>(s_mi + 3 * group);  // [group]
     float* s_x = s_scale + group;  // [tile, D]
-    float2* s_out = reinterpret_cast<float2*>(s_x + D * tile + (group & 1));  // [tile, group + 1]
+    // [tile, stride]: aligned to a row after the pad (the launcher's smem)
+    R* s_out = reinterpret_cast<R*>(s_x + D * tile + ((-(group + D * tile)) & (F - 1)));
 
     const int n0 = blockIdx.x * tile;
     const int l0 = blockIdx.y * group;
@@ -160,7 +217,7 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
         for (int d = 0; d < D; ++d) xs[d] = s_x[D * s + d];
         float w1[kLevelsPerThread][D];
         uint32_t base[kLevelsPerThread];
-        float2 v[kLevelsPerThread][C];
+        R v[kLevelsPerThread][C];
 #pragma unroll
         for (int k = 0; k < kLevelsPerThread; ++k) {
             const int ll = j + k * spt;
@@ -189,7 +246,7 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
                 } else {
                     base[k] = hdr.w ? cu[0] + (uint32_t)res * cu[1] : (cu[0] + cu[1] * 2654435761u) & (m - 1u);
                 }
-                const float2* tl = table + hdr.z;
+                const R* tl = table + hdr.z;
                 const uint32_t sh[8] = {(uint32_t)sa.x, (uint32_t)sa.y, (uint32_t)sa.z, (uint32_t)sa.w,
                                         (uint32_t)sb.x, (uint32_t)sb.y, (uint32_t)sb.z, (uint32_t)sb.w};
 #pragma unroll
@@ -200,16 +257,18 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
         for (int k = 0; k < kLevelsPerThread; ++k) {
             const int ll = j + k * spt;
             if (ll < gl) {
-                float acc0 = 0.f, acc1 = 0.f;
+                float acc[F];
+#pragma unroll
+                for (int f = 0; f < F; ++f) acc[f] = 0.f;
 #pragma unroll
                 for (int c = 0; c < C; ++c) {
                     float w = ((c & 1) ? w1[k][0] : 1.f - w1[k][0]);
 #pragma unroll
                     for (int d = 1; d < D; ++d) w = __fmul_rn(w, ((c >> d) & 1) ? w1[k][d] : 1.f - w1[k][d]);
-                    acc0 = fmaf(w, v[k][c].x, acc0);
-                    acc1 = fmaf(w, v[k][c].y, acc1);
+#pragma unroll
+                    for (int f = 0; f < F; ++f) acc[f] = fmaf(w, at(v[k][c], f), acc[f]);
                 }
-                s_out[s * stride + ll] = make_float2(acc0, acc1);
+                s_out[s * stride + ll] = make_row<R>(acc);
                 if (kFracs) {
                     const size_t li = (size_t)(l0 + ll) * n + n0 + s;
                     __stcs(idx_out + li, (int)base[k]);
@@ -223,19 +282,22 @@ grid_encode_kernel(const float* __restrict__ x, const int* __restrict__ meta_i,
     __syncthreads();
 
     // the tile's out rows for this group: 16-byte streaming stores where the
-    // row pieces allow (always for even L), neighbouring threads on
-    // neighbouring addresses; one contiguous stretch when gl == n_levels
+    // row pieces allow (always for even L at F = 2, always at F = 4),
+    // neighbouring threads on neighbouring addresses; one contiguous stretch
+    // when gl == n_levels
     // (row r, piece c) of q advance by kThreads pieces a step, without a division
-    const int vec = (gl | l0 | n_levels) % 2 == 0 ? 2 : 1;
+    const int vec = F == 4 ? 1 : ((gl | l0 | n_levels) % 2 == 0 ? 2 : 1);  // rows a piece
     const int per = gl / vec;
     int r = threadIdx.x / per, c = threadIdx.x - r * per;
     const int dr = kThreads / per, dc = kThreads - dr * per;
     for (; r < rows; r += dr, c += dc) {
         if (c >= per) c -= per, ++r;
         if (r >= rows) break;
-        float2* dst = out + (size_t)(n0 + r) * n_levels + l0 + vec * c;
-        const float2* src = s_out + r * stride + vec * c;
-        if (vec == 2) {
+        R* dst = out + (size_t)(n0 + r) * n_levels + l0 + vec * c;
+        const R* src = s_out + r * stride + vec * c;
+        if constexpr (F == 4) {
+            __stcs(dst, src[0]);
+        } else if (vec == 2) {
             __stcs(reinterpret_cast<float4*>(dst), make_float4(src[0].x, src[0].y, src[1].x, src[1].y));
         } else {
             __stcs(dst, src[0]);
@@ -311,10 +373,12 @@ struct DxLevels {
     int4 r[4 * kDxMaxLevels];
 };
 
+template <int F>
 __global__ void __launch_bounds__(kThreads)
 grid_encode_dx_kernel(const float* __restrict__ x, const __grid_constant__ DxLevels lv,
-                      const float2* __restrict__ table, const float2* __restrict__ dout,
+                      const Row<F>* __restrict__ table, const Row<F>* __restrict__ dout,
                       float* __restrict__ dx, int n, int n_levels) {
+    using R = Row<F>;
     const long long s = ((long long)blockIdx.x * kThreads + threadIdx.x) / kDxLanes;
     const int j = threadIdx.x % kDxLanes;
     float xs[3] = {0.f, 0.f, 0.f};
@@ -325,11 +389,11 @@ grid_encode_dx_kernel(const float* __restrict__ x, const __grid_constant__ DxLev
     }
     float acc[3] = {0.f, 0.f, 0.f};
     if (s < n) {
-        const float2* drow = dout + (size_t)s * n_levels;
+        const R* drow = dout + (size_t)s * n_levels;
 #pragma unroll 1
         for (int l0 = 0; l0 < n_levels; l0 += kDxLanes) {
             const int l = l0 + j;
-            float2 g, v[8];
+            R g, v[8];
             float w1[3], sc[3];
             if (l < n_levels) g = __ldcs(drow + l);
             // the level's cell and its 8 corner rows: every load before any
@@ -359,7 +423,7 @@ grid_encode_dx_kernel(const float* __restrict__ x, const __grid_constant__ DxLev
                     }
                     const uint32_t m = (uint32_t)hdr.y;
                     const uint32_t base = (cu[0] + cu[1] * (uint32_t)hk.x + cu[2] * (uint32_t)hk.y) & (uint32_t)hk.z;
-                    const float2* tl = table + hdr.z;
+                    const R* tl = table + hdr.z;
                     const uint32_t sh[8] = {(uint32_t)sa.x, (uint32_t)sa.y, (uint32_t)sa.z, (uint32_t)sa.w,
                                             (uint32_t)sb.x, (uint32_t)sb.y, (uint32_t)sb.z, (uint32_t)sb.w};
 #pragma unroll
@@ -370,7 +434,7 @@ grid_encode_dx_kernel(const float* __restrict__ x, const __grid_constant__ DxLev
             if (l < n_levels) {
                 float gc[8];
 #pragma unroll
-                for (int c = 0; c < 8; ++c) gc[c] = fmaf(g.x, v[c].x, g.y * v[c].y);
+                for (int c = 0; c < 8; ++c) gc[c] = dot_row<F>(g, v[c]);
                 const float dd[3] = {lerp2(gc[1] - gc[0], gc[3] - gc[2], gc[5] - gc[4], gc[7] - gc[6], w1[1], w1[2]),
                                      lerp2(gc[2] - gc[0], gc[3] - gc[1], gc[6] - gc[4], gc[7] - gc[5], w1[0], w1[2]),
                                      lerp2(gc[4] - gc[0], gc[5] - gc[1], gc[6] - gc[2], gc[7] - gc[3], w1[0], w1[1])};
@@ -447,19 +511,25 @@ grid_encode_dx_kernel(const float* __restrict__ x, const __grid_constant__ DxLev
 //   combined by xor shuffles in a fixed order: the same bits every run.
 constexpr int kJTile = kThreads / kDxLanes;  // samples a block
 
-// the stage's row stride in float2 for n_levels levels: at least n_levels,
-// even, and = kDxLanes mod 16, so that a half-warp's 16 lanes (8 samples, 2
-// levels each) read 16 distinct 8-byte bank pairs
-__host__ __device__ inline int j_stride(int n_levels) { return n_levels + ((kDxLanes - n_levels) & 15); }
+// the stage's row stride in rows of F features for n_levels levels: at
+// least n_levels and = kDxLanes mod 16 rows at F = 2 (a half-warp's 16
+// lanes, 8 samples at 2 levels each, read 16 distinct 8-byte bank pairs) or
+// mod 8 at F = 4 (a quarter-warp's 8 lanes, 4 samples, 8 distinct 16-byte
+// bank quads)
+__host__ __device__ inline int j_stride(int n_levels, int f) {
+    const int period = f == 4 ? 8 : 16;
+    return n_levels + ((kDxLanes - n_levels) & (period - 1));
+}
 
-__host__ __device__ inline size_t j_smem_bytes(int n_levels) {
-    return (size_t)kJTile * j_stride(n_levels) * sizeof(float2);
+__host__ __device__ inline size_t j_smem_bytes(int n_levels, int f) {
+    return (size_t)kJTile * j_stride(n_levels, f) * f * sizeof(float);
 }
 
 // one level of one sample, as kernel F: the folded fractions w1, each
 // axis's scale where it moves (0 where clamped) and the 8 corner rows
-__device__ __forceinline__ void j_corners(const DxLevels& lv, int l, const float xs[3], const float2* __restrict__ table,
-                                          float2 r[8], float w1[3], float sc[3]) {
+template <typename R>
+__device__ __forceinline__ void j_corners(const DxLevels& lv, int l, const float xs[3], const R* __restrict__ table,
+                                          R r[8], float w1[3], float sc[3]) {
     const int4 hdr = lv.r[4 * l];  // res - 1, m, offset, scale
     const int4 hk = lv.r[4 * l + 1];  // k1, k2, mask
     const int4 sa = lv.r[4 * l + 2];  // corner shifts 0-3
@@ -479,7 +549,7 @@ __device__ __forceinline__ void j_corners(const DxLevels& lv, int l, const float
     }
     const uint32_t m = (uint32_t)hdr.y;
     const uint32_t base = (cu[0] + cu[1] * (uint32_t)hk.x + cu[2] * (uint32_t)hk.y) & (uint32_t)hk.z;
-    const float2* tl = table + hdr.z;
+    const R* tl = table + hdr.z;
     const uint32_t sh[8] = {(uint32_t)sa.x, (uint32_t)sa.y, (uint32_t)sa.z, (uint32_t)sa.w,
                             (uint32_t)sb.x, (uint32_t)sb.y, (uint32_t)sb.z, (uint32_t)sb.w};
 #pragma unroll
@@ -504,37 +574,42 @@ __device__ __forceinline__ void j_feature(float a0, float a1, float a2, float a3
     t[2] = fmaf(w[1], eyz, fmaf(w[0], h[1], ez));
 }
 
-// a block: a tile of kJTile samples at every level
-__global__ void __launch_bounds__(kThreads, 4)
+// a block: a tile of kJTile samples at every level. The launch bounds ask
+// for 4 blocks an SM at F = 2 (64 registers); at F = 4 a corner row holds 4
+// floats, so 3 (80 registers)
+template <int F>
+__global__ void __launch_bounds__(kThreads, F == 4 ? 3 : 4)
 grid_encode_dx_bwd_kernel(const float* __restrict__ x, const __grid_constant__ DxLevels lv,
-                          const float2* __restrict__ table, const float2* __restrict__ g,
-                          const float* __restrict__ v, float2* __restrict__ dh, float* __restrict__ dx2,
+                          const Row<F>* __restrict__ table, const Row<F>* __restrict__ g,
+                          const float* __restrict__ v, Row<F>* __restrict__ dh, float* __restrict__ dx2,
                           int n, int n_levels) {
+    using R = Row<F>;
+    constexpr int kPiece = 16 / sizeof(R);  // rows a 16-byte piece holds
     extern __shared__ float4 j_smem[];
-    float2* s_g = reinterpret_cast<float2*>(j_smem);  // [tile, j_stride]: g, then dh over it
+    R* s_g = reinterpret_cast<R*>(j_smem);  // [tile, j_stride]: g, then dh over it
     const long long n0 = (long long)blockIdx.x * kJTile;
     const int rows = (int)min((long long)kJTile, (long long)n - n0);
     const int s = threadIdx.x / kDxLanes;  // the sample in the tile
     const int j = threadIdx.x % kDxLanes;
     const bool live = s < rows;
     const long long sg = n0 + s;
-    const int stride = j_stride(n_levels);
-    const int pieces = rows * n_levels;  // float2 pieces of the tile's g (and dh) rows
-    const bool pairs = n_levels % 2 == 0;  // 16-byte pieces where the rows hold whole pairs
+    const int stride = j_stride(n_levels, F);
+    const int pieces = rows * n_levels;  // rows of F of the tile's g (and dh)
+    const bool whole = n_levels % kPiece == 0;  // 16-byte pieces where the g rows hold whole ones
     // the tile's g rows into the stage
-    const float2* src = g + n0 * n_levels;
-    if (pairs) {
-        const int half = n_levels / 2;
+    const R* src = g + n0 * n_levels;
+    if (whole) {
+        const int half = n_levels / kPiece;
 #pragma unroll 1
-        for (int k = threadIdx.x; k < pieces / 2; k += kThreads) {
-            const int row = k / half, col = 2 * (k - row * half);
+        for (int k = threadIdx.x; k < pieces / kPiece; k += kThreads) {
+            const int row = k / half, col = kPiece * (k - row * half);
             __pipeline_memcpy_async(s_g + row * stride + col, src + (size_t)row * n_levels + col, 16);
         }
     } else {
 #pragma unroll 1
         for (int k = threadIdx.x; k < pieces; k += kThreads) {
             const int row = k / n_levels, col = k - row * n_levels;
-            __pipeline_memcpy_async(s_g + row * stride + col, src + (size_t)row * n_levels + col, 8);
+            __pipeline_memcpy_async(s_g + row * stride + col, src + (size_t)row * n_levels + col, sizeof(R));
         }
     }
     __pipeline_commit();
@@ -546,7 +621,7 @@ grid_encode_dx_bwd_kernel(const float* __restrict__ x, const __grid_constant__ D
             vs[d] = __ldcs(v + 3 * sg + d);
         }
     }
-    float2* srow = s_g + s * stride;
+    R* srow = s_g + s * stride;
     float acc[3] = {0.f, 0.f, 0.f};
     // a level at a time, its corner loads first; every thread runs every
     // round, so that the block's one wait for the staged copies comes
@@ -555,7 +630,7 @@ grid_encode_dx_bwd_kernel(const float* __restrict__ x, const __grid_constant__ D
     for (int l0 = 0; l0 < n_levels; l0 += kDxLanes) {
         const int l = l0 + j;
         const bool work = live && l < n_levels;
-        float2 r[8];
+        R r[8];
         float w1[3], sc[3];
         if (work) j_corners(lv, l, xs, table, r, w1, sc);
         if (l0 == 0) {
@@ -563,16 +638,26 @@ grid_encode_dx_bwd_kernel(const float* __restrict__ x, const __grid_constant__ D
             __syncthreads();
         }
         if (work) {
-            const float2 gc = srow[l];
-            float tx[3], hx[3], ty[3], hy[3];
-            j_feature(r[0].x, r[1].x, r[2].x, r[3].x, r[4].x, r[5].x, r[6].x, r[7].x, w1, tx, hx);
-            j_feature(r[0].y, r[1].y, r[2].y, r[3].y, r[4].y, r[5].y, r[6].y, r[7].y, w1, ty, hy);
+            const R gc = srow[l];
             const float sv[3] = {sc[0] * vs[0], sc[1] * vs[1], sc[2] * vs[2]};
-            srow[l] = make_float2(fmaf(sv[2], tx[2], fmaf(sv[1], tx[1], sv[0] * tx[0])),
-                                  fmaf(sv[2], ty[2], fmaf(sv[1], ty[1], sv[0] * ty[0])));
-            const float h01 = fmaf(gc.x, hx[0], gc.y * hy[0]);
-            const float h02 = fmaf(gc.x, hx[1], gc.y * hy[1]);
-            const float h12 = fmaf(gc.x, hx[2], gc.y * hy[2]);
+            // features from the last down, each folded in at once: dh's
+            // component, and the mixed terms dotted with g (at F = 2:
+            // h01 = fmaf(g.x, hx[0], g.y * hy[0]))
+            float d[F], h01 = 0.f, h02 = 0.f, h12 = 0.f;
+#pragma unroll
+            for (int f = F - 1; f >= 0; --f) {
+                float t[3], h[3];
+                j_feature(at(r[0], f), at(r[1], f), at(r[2], f), at(r[3], f), at(r[4], f), at(r[5], f), at(r[6], f),
+                          at(r[7], f), w1, t, h);
+                d[f] = fmaf(sv[2], t[2], fmaf(sv[1], t[1], sv[0] * t[0]));
+                const float gf = at(gc, f);
+                if (f == F - 1) {
+                    h01 = gf * h[0], h02 = gf * h[1], h12 = gf * h[2];
+                } else {
+                    h01 = fmaf(gf, h[0], h01), h02 = fmaf(gf, h[1], h02), h12 = fmaf(gf, h[2], h12);
+                }
+            }
+            srow[l] = make_row<R>(d);
             acc[0] = fmaf(sc[0], fmaf(sv[1], h01, sv[2] * h02), acc[0]);
             acc[1] = fmaf(sc[1], fmaf(sv[0], h01, sv[2] * h12), acc[1]);
             acc[2] = fmaf(sc[2], fmaf(sv[0], h02, sv[1] * h12), acc[2]);
@@ -591,12 +676,12 @@ grid_encode_dx_bwd_kernel(const float* __restrict__ x, const __grid_constant__ D
     }
     // the tile's dh rows from the stage: contiguous streaming stores
     __syncthreads();
-    float2* dst = dh + n0 * n_levels;
-    if (pairs) {
-        const int half = n_levels / 2;
+    R* dst = dh + n0 * n_levels;
+    if (whole) {
+        const int half = n_levels / kPiece;
 #pragma unroll 1
-        for (int k = threadIdx.x; k < pieces / 2; k += kThreads) {
-            const int row = k / half, col = 2 * (k - row * half);
+        for (int k = threadIdx.x; k < pieces / kPiece; k += kThreads) {
+            const int row = k / half, col = kPiece * (k - row * half);
             __stcs(reinterpret_cast<float4*>(dst + (size_t)row * n_levels + col),
                    *reinterpret_cast<const float4*>(s_g + row * stride + col));
         }
@@ -611,92 +696,111 @@ grid_encode_dx_bwd_kernel(const float* __restrict__ x, const __grid_constant__ D
 
 }  // namespace
 
-// samples per block of a launch at n_levels levels (the tile that
-// nst_grid_encode uses)
-extern "C" int nst_grid_encode_tile(int n_levels) {
-    return kThreads / threads_per_sample(n_levels < kGroup ? n_levels : kGroup);
+// samples per block of a launch at n_levels levels and f features a level
+// (the tile that nst_grid_encode uses)
+extern "C" int nst_grid_encode_tile(int n_levels, int f) {
+    return kThreads / threads_per_sample(n_levels < kGroup ? n_levels : kGroup, f);
 }
 
-template <int D>
+template <int D, int F>
 static void launch_encode(dim3 grid, size_t smem, cudaStream_t st, const void* x, const void* meta_i,
                           const void* meta_f, const void* table, void* out, void* idx, void* w1, int n,
                           int n_levels, int group) {
+    using R = Row<F>;
     if (idx != nullptr) {
-        grid_encode_kernel<D, true><<<grid, kThreads, smem, st>>>(
-            (const float*)x, (const int*)meta_i, (const float*)meta_f, (const float2*)table, (float2*)out,
-            (int*)idx, (float*)w1, n, n_levels, group);
+        grid_encode_kernel<D, F, true><<<grid, kThreads, smem, st>>>(
+            (const float*)x, (const int*)meta_i, (const float*)meta_f, (const R*)table, (R*)out, (int*)idx,
+            (float*)w1, n, n_levels, group);
     } else {
-        grid_encode_kernel<D, false><<<grid, kThreads, smem, st>>>(
-            (const float*)x, (const int*)meta_i, (const float*)meta_f, (const float2*)table, (float2*)out,
-            nullptr, nullptr, n, n_levels, group);
+        grid_encode_kernel<D, F, false><<<grid, kThreads, smem, st>>>(
+            (const float*)x, (const int*)meta_i, (const float*)meta_f, (const R*)table, (R*)out, nullptr, nullptr,
+            n, n_levels, group);
     }
 }
 
 // x [n, d] f32, d = 2 or 3; meta_i [L, 12] int32 (res, m, offset, dense, 8
 // shifts, the last 4 unused at d = 2) and meta_f [L] f32 (scales) on the
-// device; idx and w1 are null in the fracs-free mode.
+// device; the table [sum m, f] and out [n, L*f], f = 2 or 4 (16-byte
+// aligned at f = 4); idx and w1 are null in the fracs-free mode.
 extern "C" int nst_grid_encode(const void* x, const void* meta_i, const void* meta_f, const void* table,
-                               void* out, void* idx, void* w1, int n, int n_levels, int d, void* stream) {
-    if (n_levels < 0 || (d != 2 && d != 3) || (idx == nullptr) != (w1 == nullptr)) return (int)cudaErrorInvalidValue;
+                               void* out, void* idx, void* w1, int n, int n_levels, int d, int f, void* stream) {
+    if (n_levels < 0 || (d != 2 && d != 3) || (f != 2 && f != 4) || (idx == nullptr) != (w1 == nullptr))
+        return (int)cudaErrorInvalidValue;
     if (n == 0 || n_levels == 0) return (int)cudaGetLastError();
     const int group = n_levels < kGroup ? n_levels : kGroup;
-    const int tile = nst_grid_encode_tile(n_levels);
+    const int tile = nst_grid_encode_tile(n_levels, f);
     const dim3 grid((n + tile - 1) / tile, (n_levels + group - 1) / group);
+    // the metadata, x, the pad that aligns the stage to a row, the stage
+    const int pad = (-(group + tile * d)) & (f - 1);
     const size_t smem = (size_t)group * (3 * sizeof(int4) + sizeof(float)) + (size_t)tile * d * sizeof(float) +
-                        (group & 1) * sizeof(float) + (size_t)tile * (group + 1) * sizeof(float2);
+                        pad * sizeof(float) + (size_t)tile * stage_stride(group, f) * f * sizeof(float);
     cudaStream_t st = (cudaStream_t)stream;
-    if (d == 3) launch_encode<3>(grid, smem, st, x, meta_i, meta_f, table, out, idx, w1, n, n_levels, group);
-    else launch_encode<2>(grid, smem, st, x, meta_i, meta_f, table, out, idx, w1, n, n_levels, group);
+    if (d == 3 && f == 2) launch_encode<3, 2>(grid, smem, st, x, meta_i, meta_f, table, out, idx, w1, n, n_levels, group);
+    else if (d == 2 && f == 2) launch_encode<2, 2>(grid, smem, st, x, meta_i, meta_f, table, out, idx, w1, n, n_levels, group);
+    else if (d == 3) launch_encode<3, 4>(grid, smem, st, x, meta_i, meta_f, table, out, idx, w1, n, n_levels, group);
+    else launch_encode<2, 4>(grid, smem, st, x, meta_i, meta_f, table, out, idx, w1, n, n_levels, group);
     return (int)cudaGetLastError();
 }
 
 
 // Kernel F: dx [N, 3] f32 from x [N, 3], its level records [L, 16] int32
 // in host memory (copied into the launch's parameters, L <= kDxMaxLevels),
-// the table and dout [N, L*2].
+// the table [sum m, f] and dout [N, L*f], f = 2 or 4 (dout 8- or 16-byte
+// aligned, a row).
 extern "C" int nst_grid_encode_dx(const void* x, const void* rec, const void* table, const void* dout, void* dx,
-                                  int n, int n_levels, void* stream) {
-    if (n < 0 || n_levels < 0 || n_levels > kDxMaxLevels) return (int)cudaErrorInvalidValue;
+                                  int n, int n_levels, int f, void* stream) {
+    if (n < 0 || n_levels < 0 || n_levels > kDxMaxLevels || (f != 2 && f != 4)) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     DxLevels lv;
     memset(&lv, 0, sizeof(lv));
     memcpy(lv.r, rec, (size_t)n_levels * 4 * sizeof(int4));
     const long long threads = (long long)n * kDxLanes;
     const dim3 grid((unsigned)((threads + kThreads - 1) / kThreads));
-    grid_encode_dx_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, lv, (const float2*)table, (const float2*)dout, (float*)dx, n, n_levels);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (f == 2) {
+        grid_encode_dx_kernel<2><<<grid, kThreads, 0, st>>>((const float*)x, lv, (const float2*)table,
+                                                            (const float2*)dout, (float*)dx, n, n_levels);
+    } else {
+        grid_encode_dx_kernel<4><<<grid, kThreads, 0, st>>>((const float*)x, lv, (const float4*)table,
+                                                            (const float4*)dout, (float*)dx, n, n_levels);
+    }
     return (int)cudaGetLastError();
 }
 
 
-// Kernel J: dh [N, L*2] and dx2 [N, 3] f32 from x [N, 3], F's level records
-// (as nst_grid_encode_dx), the table, g [N, L*2] (F's dout; 16-byte aligned)
-// and v [N, 3] (the cotangent on F's output).
+// Kernel J: dh [N, L*f] and dx2 [N, 3] f32 from x [N, 3], F's level records
+// (as nst_grid_encode_dx), the table [sum m, f], g [N, L*f] (F's dout;
+// 16-byte aligned) and v [N, 3] (the cotangent on F's output); f = 2 or 4.
 extern "C" int nst_grid_encode_dx_bwd(const void* x, const void* rec, const void* table, const void* g,
-                                      const void* v, void* dh, void* dx2, int n, int n_levels, void* stream) {
-    if (n < 0 || n_levels < 0 || n_levels > kDxMaxLevels) return (int)cudaErrorInvalidValue;
+                                      const void* v, void* dh, void* dx2, int n, int n_levels, int f, void* stream) {
+    if (n < 0 || n_levels < 0 || n_levels > kDxMaxLevels || (f != 2 && f != 4)) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
     DxLevels lv;
     memset(&lv, 0, sizeof(lv));
     memcpy(lv.r, rec, (size_t)n_levels * 4 * sizeof(int4));
     const dim3 grid((unsigned)((n + (long long)kJTile - 1) / kJTile));
-    grid_encode_dx_bwd_kernel<<<grid, kThreads, j_smem_bytes(n_levels), (cudaStream_t)stream>>>(
-        (const float*)x, lv, (const float2*)table, (const float2*)g, (const float*)v, (float2*)dh, (float*)dx2, n,
-        n_levels);
+    const size_t smem = j_smem_bytes(n_levels, f);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (f == 2) {
+        grid_encode_dx_bwd_kernel<2><<<grid, kThreads, smem, st>>>(
+            (const float*)x, lv, (const float2*)table, (const float2*)g, (const float*)v, (float2*)dh, (float*)dx2, n,
+            n_levels);
+    } else {
+        grid_encode_dx_bwd_kernel<4><<<grid, kThreads, smem, st>>>(
+            (const float*)x, lv, (const float4*)table, (const float4*)g, (const float*)v, (float4*)dh, (float*)dx2, n,
+            n_levels);
+    }
     return (int)cudaGetLastError();
 }
 
-// Kernel J's build and launch at n_levels levels → out[5]: registers a
-// thread, static shared memory, local memory a thread (bytes;
-// cudaFuncGetAttributes), the dynamic shared memory a block and the blocks
-// an SM holds at it (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int nst_grid_encode_dx_bwd_attrs(int n_levels, int* out) {
+template <typename K>
+static int j_attrs(K kernel, int n_levels, int f, int* out) {
     cudaFuncAttributes a;
-    cudaError_t e = cudaFuncGetAttributes(&a, grid_encode_dx_bwd_kernel);
+    cudaError_t e = cudaFuncGetAttributes(&a, kernel);
     if (e != cudaSuccess) return (int)e;
-    const size_t smem = j_smem_bytes(n_levels);
+    const size_t smem = j_smem_bytes(n_levels, f);
     int blocks = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, grid_encode_dx_bwd_kernel, kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
     if (e != cudaSuccess) return (int)e;
     out[0] = a.numRegs;
     out[1] = (int)a.sharedSizeBytes;
@@ -704,4 +808,14 @@ extern "C" int nst_grid_encode_dx_bwd_attrs(int n_levels, int* out) {
     out[3] = (int)smem;
     out[4] = blocks;
     return 0;
+}
+
+// Kernel J's build and launch at n_levels levels of f features → out[5]:
+// registers a thread, static shared memory, local memory a thread (bytes;
+// cudaFuncGetAttributes), the dynamic shared memory a block and the blocks
+// an SM holds at it (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int nst_grid_encode_dx_bwd_attrs(int n_levels, int f, int* out) {
+    if (f == 2) return j_attrs(grid_encode_dx_bwd_kernel<2>, n_levels, f, out);
+    if (f == 4) return j_attrs(grid_encode_dx_bwd_kernel<4>, n_levels, f, out);
+    return (int)cudaErrorInvalidValue;
 }

@@ -4,12 +4,19 @@
 // Pallas kernel behind the hash-table backward). Same inputs and output:
 //   key_s  [N]    int32, sorted ascending, each in [0, m)
 //   w1_s   [N, D] f32 folded lerp fractions, in sorted order
-//   dout_s [N, 2] f32 output cotangents, in sorted order
-//   out    [m, W] f32, W = 2^D * 2: row r = sum over n with key_n == r of
-//          w8_n (x) dout_n, column c*2 + f (corner c, feature f),
+//   dout_s [N, F] f32 output cotangents, in sorted order
+//   out    [m, W] f32, W = 2^D * F: row r = sum over n with key_n == r of
+//          w8_n (x) dout_n, column c*F + f (corner c, feature f),
 //          w8_c = prod_d lerp(w1_d).
-// D is a template parameter: 3 (16-float rows: NeRF, SDF and Volume) or 2
-// (8-float rows: the Image testbed's 2-D grid). The numbers below are D = 3's.
+// D is a template parameter: 3 (NeRF, SDF and Volume) or 2 (the Image
+// testbed's 2-D grid); so is F, the features a level: 2 (16-float rows at
+// D = 3, 8 at D = 2) or 4 (configs/nerf/tpu_hash_fast.json: 32-float rows,
+// 128 bytes, at D = 3, 16 at D = 2). The numbers below are D = 3, F = 2's.
+// At F = 4, D = 3 a tile's closed runs (512 rows of 128 bytes) outgrow the
+// 48 KB of static shared memory, so that instance stages them in dynamic
+// shared memory (64 KB a block, 3 blocks an SM), and the second launch
+// sweeps 2 steps of 32 tiles before a ballot round instead of 4, so that a
+// lane's pieces stay in registers.
 //
 // What bounds it on the H100: bytes, N*24 + m*64 per level (each sample read
 // once, each row written once: 6.3 + 33.5 = 39.8 MB at N = 2^18, m = 2^19).
@@ -76,50 +83,62 @@ constexpr int kPer = 4;  // samples per thread
 constexpr int kTile = kThreads * kPer;  // samples per block; ops/segsum.py TILE
 constexpr int kWarps = kThreads / 32;
 constexpr int kWindow = 512;  // rows of out a block writes per round
-constexpr int kSweep = 4;  // second launch: steps of 32 tiles read before one ballot round
+// second launch: steps of 32 tiles read before one ballot round (the
+// pieces a lane holds: 4 of 16 floats at F = 2, 2 of 32 at F = 4)
+__host__ __device__ constexpr int sweep_steps(int f) { return 8 / f; }
 constexpr int kFill = 2048;  // rows of out per zero block of the second launch
 constexpr int kLong = kFill;  // a tile owning more rows than this leaves their zeros to the second launch
 constexpr int kEdgeThreads = 256;  // threads per block of the second launch
 constexpr unsigned kFull = 0xffffffffu;
 
-// row width in floats (W) and in float4 (Q) at D
-template <int D>
+// row width in floats (W) and in float4 (Q) at D and F; whether the tile
+// kernel's closed runs go to dynamic shared memory (more than 48 KB)
+template <int D, int F>
 struct Row {
-    static constexpr int W = (1 << D) * 2;
+    static constexpr int W = (1 << D) * F;
     static constexpr int Q = W / 4;
+    static constexpr bool kDynamic = sizeof(float4) * kTile * Q > 48 * 1024;
 };
 
-template <int D>
-__device__ __forceinline__ void add_sample(float* acc, const float* a, float g0, float g1) {
+template <int D, int F>
+__device__ __forceinline__ void add_sample(float* acc, const float* a, const float* g) {
 #pragma unroll
     for (int c = 0; c < (1 << D); ++c) {
         float w = ((c & 1) ? a[0] : 1.f - a[0]);
 #pragma unroll
         for (int d = 1; d < D; ++d) w = w * (((c >> d) & 1) ? a[d] : 1.f - a[d]);
-        acc[2 * c + 0] += w * g0;
-        acc[2 * c + 1] += w * g1;
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[F * c + f] += w * g[f];
     }
 }
 
-template <int D, typename Dst>
+template <int D, int F, typename Dst>
 __device__ __forceinline__ void store_row(Dst* dst, const float* v) {
 #pragma unroll
-    for (int q = 0; q < Row<D>::Q; ++q) dst[q] = make_float4(v[4 * q + 0], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    for (int q = 0; q < Row<D, F>::Q; ++q) dst[q] = make_float4(v[4 * q + 0], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
-template <int D>
+template <int D, int F>
 __device__ __forceinline__ void store_scratch(float* scratch, int tile, int slot, const float* v) {
-    store_row<D>(reinterpret_cast<float4*>(scratch + (2 * (size_t)tile + slot) * Row<D>::W), v);
+    store_row<D, F>(reinterpret_cast<float4*>(scratch + (2 * (size_t)tile + slot) * Row<D, F>::W), v);
 }
 
-template <int D, bool kVec>
+template <int D, int F, bool kVec>
 __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __restrict__ key_s,
                                                                 const float* __restrict__ w1_s,
                                                                 const float* __restrict__ dout_s,
                                                                 float4* __restrict__ out, float* __restrict__ scratch,
                                                                 int n, int m) {
-    constexpr int W = Row<D>::W, Q = Row<D>::Q;
-    __shared__ float4 vals[kTile][Q];  // rows of the runs that closed, by (thread, sample)
+    constexpr int W = Row<D, F>::W, Q = Row<D, F>::Q;
+    // rows of the runs that closed, by (thread, sample)
+    float4 (*vals)[Q];
+    if constexpr (Row<D, F>::kDynamic) {
+        extern __shared__ float4 seg_dyn[];
+        vals = reinterpret_cast<float4 (*)[Q]>(seg_dyn);
+    } else {
+        __shared__ float4 seg_vals[kTile][Q];
+        vals = seg_vals;
+    }
     __shared__ int slot_of[kWindow];  // a round's rows → their entry of vals, or -1
     __shared__ float warp_sum[kWarps][W];
     __shared__ int warp_reset[kWarps];
@@ -133,7 +152,7 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
 
     // this thread's samples; past n the key is m (a run that is never written)
     int k[kPer];
-    float w[D * kPer], g[2 * kPer];
+    float w[D * kPer], g[F * kPer];
     if (kVec && s0 + kPer <= n) {
         const int4 kk = __ldg(reinterpret_cast<const int4*>(key_s + s0));
         k[0] = kk.x; k[1] = kk.y; k[2] = kk.z; k[3] = kk.w;
@@ -143,8 +162,8 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
             w[4 * q + 0] = v.x; w[4 * q + 1] = v.y; w[4 * q + 2] = v.z; w[4 * q + 3] = v.w;
         }
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(dout_s + 2 * (size_t)s0) + q);
+        for (int q = 0; q < F; ++q) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(dout_s + F * (size_t)s0) + q);
             g[4 * q + 0] = v.x; g[4 * q + 1] = v.y; g[4 * q + 2] = v.z; g[4 * q + 3] = v.w;
         }
     } else {
@@ -156,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
 #pragma unroll
             for (int d = 0; d < D; ++d) w[D * j + d] = in ? __ldg(w1_s + D * (size_t)s + d) : 0.f;
 #pragma unroll
-            for (int f = 0; f < 2; ++f) g[2 * j + f] = in ? __ldg(dout_s + 2 * (size_t)s + f) : 0.f;
+            for (int f = 0; f < F; ++f) g[F * j + f] = in ? __ldg(dout_s + F * (size_t)s + f) : 0.f;
         }
     }
     const int key_next = s0 + kPer < n ? __ldg(key_s + s0 + kPer) : m;
@@ -175,9 +194,9 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
     int jh = -1;
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-        add_sample<D>(acc, w + D * j, g[2 * j], g[2 * j + 1]);
+        add_sample<D, F>(acc, w + D * j, g + F * j);
         if (j + 1 < kPer && k[j] != k[j + 1]) {
-            store_row<D>(vals[t * kPer + j], acc);
+            store_row<D, F>(vals[t * kPer + j], acc);
             if (jh < 0) jh = j;
             to_out |= 1u << j;
 #pragma unroll
@@ -242,10 +261,10 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
         if (carry) {
 #pragma unroll
             for (int i = 0; i < W; ++i) h[i] = prev[i] + h[i];
-            store_row<D>(hv, h);
+            store_row<D, F>(hv, h);
         }
         if (open_left && k[0] == tile_first) {
-            store_scratch<D>(scratch, tile, 0, h);
+            store_scratch<D, F>(scratch, tile, 0, h);
             to_out &= ~(1u << jh);
         }
     }
@@ -256,10 +275,10 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
     if (kl < m && (key_next != kl || tile_last)) {
         const bool first_piece = open_left && kl == tile_first;
         const bool last_piece = open_right && tile_last;
-        if (first_piece) store_scratch<D>(scratch, tile, 0, acc);
-        if (last_piece) store_scratch<D>(scratch, tile, 1, acc);
+        if (first_piece) store_scratch<D, F>(scratch, tile, 0, acc);
+        if (last_piece) store_scratch<D, F>(scratch, tile, 1, acc);
         if (!first_piece && !last_piece) {
-            store_row<D>(vals[t * kPer + kPer - 1], acc);
+            store_row<D, F>(vals[t * kPer + kPer - 1], acc);
             to_out |= 1u << (kPer - 1);
         }
     }
@@ -309,10 +328,11 @@ __global__ void __launch_bounds__(kThreads) segsum_tile_kernel(const int* __rest
 // end, sum the run's pieces in tile order and write its row
 // (scratch is written by launch 1 while this grid may already run, so it is
 // read with plain loads, not through the read-only path)
-template <int D>
+template <int D, int F>
 __device__ void cross_run(const int* __restrict__ key_s, const float* scratch, float4* __restrict__ out, int n,
                           int tiles) {
-    constexpr int W = Row<D>::W, Q = Row<D>::Q;
+    constexpr int W = Row<D, F>::W, Q = Row<D, F>::Q;
+    constexpr int kSweep = sweep_steps(F);
     const int tile = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
     // the keys are inputs: read them before the wait
@@ -367,7 +387,7 @@ __device__ void cross_run(const int* __restrict__ key_s, const float* scratch, f
 #pragma unroll
         for (int i = 0; i < W; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], off);
     }
-    if (lane == 0) store_row<D>(out + Q * (size_t)key, acc);
+    if (lane == 0) store_row<D, F>(out + Q * (size_t)key, acc);
 }
 
 // the tile that owns row r: the last tile whose stretch starts at or before
@@ -394,9 +414,9 @@ __device__ int owner_tile(const int* __restrict__ key_s, int tiles, int r, int l
 // Only the tiles that own the first and the last row can own a long stretch
 // here; for each, its keys are marked in shared memory and its other rows in
 // the block's rows are zeroed (16 bytes a thread, coalesced)
-template <int D>
+template <int D, int F>
 __device__ void fill_zeros(const int* __restrict__ key_s, float4* __restrict__ out, int n, int m, int tiles, int w0) {
-    constexpr int Q = Row<D>::Q;
+    constexpr int Q = Row<D, F>::Q;
     __shared__ unsigned char hit[kFill];
     __shared__ int owner[2];
     const int t = threadIdx.x;
@@ -434,22 +454,46 @@ __device__ void fill_zeros(const int* __restrict__ key_s, float4* __restrict__ o
 
 // launch 2: blocks [0, cross_blocks) sum the runs that cross tile edges, the
 // rest write the zeros of the long stretches, kFill rows each
-template <int D>
+template <int D, int F>
 __global__ void __launch_bounds__(kEdgeThreads) segsum_edge_kernel(const int* __restrict__ key_s,
                                                                     const float* scratch,
                                                                     float4* __restrict__ out, int n, int m, int tiles,
                                                                     int cross_blocks) {
-    if ((int)blockIdx.x < cross_blocks) cross_run<D>(key_s, scratch, out, n, tiles);
-    else fill_zeros<D>(key_s, out, n, m, tiles, ((int)blockIdx.x - cross_blocks) * kFill);
+    if ((int)blockIdx.x < cross_blocks) cross_run<D, F>(key_s, scratch, out, n, tiles);
+    else fill_zeros<D, F>(key_s, out, n, m, tiles, ((int)blockIdx.x - cross_blocks) * kFill);
 }
 
-template <int D>
+// the tile kernel's dynamic shared memory: its closed runs where they
+// outgrow the static 48 KB (the limit raised once an instance and device)
+template <int D, int F, bool kVec>
+int tile_smem(size_t* bytes) {
+    *bytes = 0;
+    if constexpr (Row<D, F>::kDynamic) {
+        *bytes = sizeof(float4) * kTile * Row<D, F>::Q;
+        static unsigned long long raised = 0;  // bit i: device i
+        int dev = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e != cudaSuccess) return (int)e;
+        if (dev >= 64 || !((raised >> dev) & 1ull)) {
+            e = cudaFuncSetAttribute(segsum_tile_kernel<D, F, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)*bytes);
+            if (e != cudaSuccess) return (int)e;
+            if (dev < 64) raised |= 1ull << dev;
+        }
+    }
+    return 0;
+}
+
+template <int D, int F>
 int launch_segsum(const int* k, const float* w, const float* g, float4* o, float* sc, int n, int m, int vec,
                   cudaStream_t st) {
     const int tiles = (n + kTile - 1) / kTile;
-    if (vec) segsum_tile_kernel<D, true><<<tiles, kThreads, 0, st>>>(k, w, g, o, sc, n, m);
-    else segsum_tile_kernel<D, false><<<tiles, kThreads, 0, st>>>(k, w, g, o, sc, n, m);
-    const int err = (int)cudaGetLastError();
+    size_t smem = 0;
+    int err = vec ? tile_smem<D, F, true>(&smem) : tile_smem<D, F, false>(&smem);
+    if (err) return err;
+    if (vec) segsum_tile_kernel<D, F, true><<<tiles, kThreads, smem, st>>>(k, w, g, o, sc, n, m);
+    else segsum_tile_kernel<D, F, false><<<tiles, kThreads, smem, st>>>(k, w, g, o, sc, n, m);
+    err = (int)cudaGetLastError();
     if (err) return err;
     const int cross_blocks = (int)((32LL * tiles + kEdgeThreads - 1) / kEdgeThreads);
     const int fill_blocks = (m + kFill - 1) / kFill;
@@ -462,24 +506,29 @@ int launch_segsum(const int* k, const float* w, const float* g, float4* o, float
     attr.val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    return (int)cudaLaunchKernelEx(&cfg, segsum_edge_kernel<D>, k, (const float*)sc, o, n, m, tiles, cross_blocks);
+    return (int)cudaLaunchKernelEx(&cfg, segsum_edge_kernel<D, F>, k, (const float*)sc, o, n, m, tiles,
+                                   cross_blocks);
 }
 
 }  // namespace
 
-// out [m, 2^d * 2] from n sorted samples, d = 2 or 3; scratch
-// [ceil(n / kTile), 2, 2^d * 2] f32. vec: key_s, w1_s and dout_s are
-// 16-byte aligned (16-byte loads).
+// out [m, 2^d * f] from n sorted samples, d = 2 or 3, f = 2 or 4 (dout_s
+// [n, f]); scratch [ceil(n / kTile), 2, 2^d * f] f32. vec: key_s, w1_s and
+// dout_s are 16-byte aligned (16-byte loads).
 extern "C" int nst_segsum(const void* key_s, const void* w1_s, const void* dout_s, void* out, void* scratch, int n,
-                          int m, int d, int vec, void* stream) {
+                          int m, int d, int f, int vec, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    if (d != 2 && d != 3) return (int)cudaErrorInvalidValue;
+    if ((d != 2 && d != 3) || (f != 2 && f != 4)) return (int)cudaErrorInvalidValue;
     if (m <= 0) return (int)cudaGetLastError();
-    if (n <= 0) return (int)cudaMemsetAsync(out, 0, (size_t)m * (4 << d) * 2, st);
+    if (n <= 0) return (int)cudaMemsetAsync(out, 0, (size_t)m * (4 << d) * f, st);
     const int* k = (const int*)key_s;
     const float* w = (const float*)w1_s;
     const float* g = (const float*)dout_s;
     float4* o = (float4*)out;
     float* sc = (float*)scratch;
-    return d == 3 ? launch_segsum<3>(k, w, g, o, sc, n, m, vec, st) : launch_segsum<2>(k, w, g, o, sc, n, m, vec, st);
+    if (f == 2) {
+        return d == 3 ? launch_segsum<3, 2>(k, w, g, o, sc, n, m, vec, st)
+                      : launch_segsum<2, 2>(k, w, g, o, sc, n, m, vec, st);
+    }
+    return d == 3 ? launch_segsum<3, 4>(k, w, g, o, sc, n, m, vec, st) : launch_segsum<2, 4>(k, w, g, o, sc, n, m, vec, st);
 }

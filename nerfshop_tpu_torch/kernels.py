@@ -175,17 +175,17 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nst_segsum.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.nst_segsum.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.nst_segsum.restype = i
-        lib.nst_grid_encode.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.nst_grid_encode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
         lib.nst_grid_encode.restype = i
-        lib.nst_grid_encode_dx.argtypes = [p, p, p, p, p, i, i, p]
+        lib.nst_grid_encode_dx.argtypes = [p, p, p, p, p, i, i, i, p]
         lib.nst_grid_encode_dx.restype = i
-        lib.nst_grid_encode_dx_bwd.argtypes = [p, p, p, p, p, p, p, i, i, p]
+        lib.nst_grid_encode_dx_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.nst_grid_encode_dx_bwd.restype = i
-        lib.nst_grid_encode_dx_bwd_attrs.argtypes = [i, p]
+        lib.nst_grid_encode_dx_bwd_attrs.argtypes = [i, i, p]
         lib.nst_grid_encode_dx_bwd_attrs.restype = i
-        lib.nst_grid_encode_tile.argtypes = [i]
+        lib.nst_grid_encode_tile.argtypes = [i, i]
         lib.nst_grid_encode_tile.restype = i
         lib.nst_fused_mlp.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.nst_fused_mlp.restype = i
@@ -246,7 +246,8 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device
 
 def counted(*names: str):
     """Decorator of a kernel wrapper: give it the integer counters ``names``
-    (``launches``, and for kernel B ``fracs_launches``), 0 to begin with,
+    (``launches``, and for kernel B ``fracs_launches``; ``f4_launches`` for
+    the F = 4 instances of kernels A, B, F and J), 0 to begin with,
     which the wrapper advances where it launches its kernel. They count
     Python calls; :func:`launch_counts` and :func:`add_launches` let a
     replayed CUDA graph count the launches it captured."""

@@ -12,9 +12,13 @@ when it is imported.
 :meth:`MLP.forward` picks its path by device and grad mode, never by
 failure: a CPU tensor runs the plain version
 (:func:`~nerfshop_tpu_torch.ops.fused_mlp.fused_mlp_plain`); a CUDA tensor
-runs kernel C (``csrc/fused_mlp.cu``) when no gradient is needed (render,
-grid refresh) and raises if the MLP is out of the kernel's range; a CUDA
-forward that needs a gradient (training) runs the plain version under
+runs, when no gradient is needed (render, grid refresh), the route its
+shapes chose when it was built (``MLP.route``,
+:func:`~nerfshop_tpu_torch.ops.fused_mlp.route`): kernel C
+(``csrc/fused_mlp.cu``) where the kernel takes the MLP, else the GEMM route
+(:func:`~nerfshop_tpu_torch.ops.fused_mlp.gemm_mlp`: the 256-wide, 4-layer
+``CutlassMLP`` of ``configs/nerf/tpu_flagship.json``, a sigmoid output...);
+a CUDA forward that needs a gradient (training) runs the plain version under
 autograd, because kernel C has no backward yet.
 """
 
@@ -69,6 +73,10 @@ class MLP(nn.Module):
             w = torch.empty((fan_in, fan_out), dtype=torch.float32, device=device)
             ws.append(nn.Parameter(w.uniform_(-bound, bound, generator=generator)))
         self.weights = nn.ParameterList(ws)
+        #: what a CUDA forward without a gradient runs: "fused" (kernel C)
+        #: or "gemm" (the GEMM route), from the shapes
+        self.route = fused_mlp.route(n_input_dims, n_neurons, n_hidden_layers, n_output_dims, activation,
+                                     output_activation)
 
     def layer_dims(self, n_neurons: int, n_hidden_layers: int) -> List[tuple]:
         dims = [self.n_input_dims] + [n_neurons] * n_hidden_layers + [self.n_output_dims]
@@ -80,9 +88,8 @@ class MLP(nn.Module):
             return fused_mlp.fused_mlp_plain(x, ws, activation(self.activation), activation(self.output_activation))
         if x.device.type != "cuda":
             raise ValueError(f"MLP: unsupported device {x.device}")
-        fused_mlp.check_supported(
-            self.n_input_dims, ws[0].shape[1], len(ws) - 1, self.n_output_dims, self.activation, self.output_activation
-        )
+        if self.route == "gemm":
+            return fused_mlp.gemm_mlp(x, ws, self.activation, self.output_activation)
         return fused_mlp.fused_mlp_cuda(x.contiguous(), ws)
 
 

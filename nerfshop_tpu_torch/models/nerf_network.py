@@ -29,7 +29,7 @@ from torch import nn
 
 from nerfshop_tpu_torch.models import encodings as enc
 from nerfshop_tpu_torch.models import mlp as mlp_lib
-from nerfshop_tpu_torch.ops import fused_mlp, xor_encode
+from nerfshop_tpu_torch.ops import table_ops, xor_encode
 
 DENSITY_FEATURES = 16
 EXP_CLAMP = 15.0
@@ -164,56 +164,34 @@ def forward_with(model: NerfNetwork, params: Optional[dict], pos: torch.Tensor, 
 FIELD_SHAPES = {"sdf": (3, 1), "image": (2, 3), "volume": (3, 4)}
 
 
-def check_kernel_range(config: dict, device, mode="nerf", n_extra_dims: int = 0) -> None:
-    """Raise ``ValueError`` when ``config`` builds a network that the CUDA
-    kernels do not compute on ``device`` in testbed ``mode`` (a
-    ``TestbedMode`` or its value): a brick grid level set other than (D,
-    F) = (3, 2) or (2, 2) (kernels B and A; the Image mode's grid is 2-D,
-    the others' 3-D), a plain grid or a Takikawa encoding outside kernels K
-    and L (:func:`~nerfshop_tpu_torch.ops.xor_encode.check_supported`:
-    plain at (3, 2) and (2, 2), Takikawa at D = 3 with F 2, 4 or 8), or an
-    MLP outside kernel C's range
-    (:func:`~nerfshop_tpu_torch.ops.fused_mlp.check_supported`): NeRF's
-    density and rgb MLPs, or the other modes' one MLP from the encoding's
-    width (the elementwise encodings' too) to 1 (SDF), 3 (Image) or 4
-    (Volume) outputs. A grid layout the port lacks raises
-    ``NotImplementedError`` naming it. The dir encoding takes 3 +
-    ``n_extra_dims`` inputs, as :func:`build_nerf_network` builds it. Reads the config only and
+def check_kernel_range(config: dict, device, mode="nerf") -> None:
+    """Raise ``ValueError`` when ``config`` builds a network whose encoding
+    the CUDA kernels do not compute on ``device`` in testbed ``mode`` (a
+    ``TestbedMode`` or its value): a brick grid level set outside kernels B
+    and A (:func:`~nerfshop_tpu_torch.ops.table_ops.check_supported`: (D, F)
+    in {3, 2} × {2, 4}; the Image mode's grid is 2-D, the others' 3-D), a
+    plain grid or a Takikawa encoding outside kernels K and L
+    (:func:`~nerfshop_tpu_torch.ops.xor_encode.check_supported`: plain at
+    (3, 2) and (2, 2), Takikawa at D = 3 with F 2, 4 or 8). A grid layout
+    the port lacks raises ``NotImplementedError`` naming it. Every MLP is
+    in range: one that kernel C takes (hidden width 64, 1 or 2 hidden
+    layers, ReLU, no output activation, 1-128 inputs, 1-16 outputs:
+    :func:`~nerfshop_tpu_torch.ops.fused_mlp.check_supported`) runs kernel C,
+    any other the GEMM route (:func:`~nerfshop_tpu_torch.ops.fused_mlp.
+    gemm_mlp`), as ``MLP.route`` names it. Reads the config only and
     allocates nothing; the CPU's plain paths take every config, so a CPU
     device passes."""
     if torch.device(device).type != "cuda":
         return
-    mode = getattr(mode, "value", mode)
-    n_in, n_out = FIELD_SHAPES.get(mode, (3, None))
-    pos_width, sets = enc.encoding_shape(dict(config.get("encoding", {})), n_in)
+    n_in = FIELD_SHAPES.get(getattr(mode, "value", mode), (3, None))[0]
+    _, sets = enc.encoding_shape(dict(config.get("encoding", {})), n_in)
     for kind, D, F, L in sets:
         if kind in ("plain", "takikawa"):
             xor_encode.check_supported(D, F, kind == "takikawa", L)
         elif kind != "brick":
             raise NotImplementedError(f"grid layout {kind!r} is not ported (brick and plain only)")
-        elif (D, F) not in ((3, 2), (2, 2)):
-            raise ValueError(
-                "kernels B (grid_encode) and A (segsum) take n_input_dims 3 or 2 and n_features_per_level 2 only; "
-                f"the encoding has n_input_dims {D}, n_features_per_level {F}"
-            )
-    if n_out is not None:
-        mlps = (("MLP", "network", pos_width, n_out),)
-    else:
-        dir_cfg = config.get("dir_encoding")
-        dir_width = enc.encoding_shape(dict(dir_cfg), 3 + n_extra_dims)[0] if dir_cfg else 0
-        mlps = (
-            ("density MLP", "network", pos_width, DENSITY_FEATURES),
-            ("rgb MLP", "rgb_network", DENSITY_FEATURES + dir_width, 3),
-        )
-    for name, key, n_in, n_out in mlps:
-        cfg = dict(config.get(key, config.get("network", {})))
-        try:
-            fused_mlp.check_supported(
-                n_in, cfg.get("n_neurons", 64), cfg.get("n_hidden_layers", 1), n_out,
-                cfg.get("activation", "ReLU"), cfg.get("output_activation", "None"),
-            )
-        except ValueError as e:
-            raise ValueError(f"{name} ('{key}'): {e}") from None
+        else:
+            table_ops.check_supported(D, F)
 
 
 def build_nerf_network(
@@ -231,7 +209,7 @@ def build_nerf_network(
     device a config outside the kernels' range raises
     (:func:`check_kernel_range`) before anything is allocated."""
     if device is not None:
-        check_kernel_range(config, device, n_extra_dims=n_extra_dims)
+        check_kernel_range(config, device)
     enc_cfg = dict(config.get("encoding", {}))
     n_levels = enc_cfg.get("n_levels", 16)
     base_res = enc_cfg.get("base_resolution", 16)

@@ -1,12 +1,21 @@
-"""Fused bias-free ReLU MLP forward: kernel C and its plain version.
+"""The MLP forward on the card: kernel C, the GEMM route, and their plain
+version.
 
 Counterpart of the Pallas fused MLP ``scratch/probe_arch.py:52-65``
 (``mlp_kern``), which computes ``nerfshop_tpu/models/mlp.py::MLP.apply``:
 operands rounded to bf16, fp32 products, each hidden activation rounded back
-to bf16, no activation after the last layer. On a CUDA tensor
+to bf16, the last product kept in fp32. On a CUDA tensor
 :func:`fused_mlp_cuda` launches kernel C (``csrc/fused_mlp.cu``) or raises;
 :func:`fused_mlp_plain` is the plain version, which the CPU and every
 forward that needs a gradient run (kernel C has no backward).
+
+An MLP outside kernel C's range (:func:`check_supported`: another hidden
+width or depth, a non-ReLU activation, an output activation, more than 128
+inputs or more than 16 outputs) takes :func:`gemm_mlp` instead, a chain of
+cuBLAS GEMMs: JAX computes every MLP as a chain of ``dot_general``s outside
+any Pallas kernel (tcnn's ``CutlassMLP`` is a GEMM chain too), so no
+hand-written kernel replaces it. :func:`route` names the path an MLP's
+shapes take, once, when the MLP is built.
 """
 
 from __future__ import annotations
@@ -49,21 +58,74 @@ def fused_mlp_plain(
     return h if out_act is None else out_act(h)
 
 
+def _rounds_with_bf16(name: str) -> bool:
+    """True when the activation commutes with rounding to bf16
+    (act(bf16(h)) = bf16(act(h))): ReLU and the identity."""
+    return (name or "None").lower() in ("relu", "none")
+
+
+@kernels.counted("launches")
+def gemm_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor], activation: str = "ReLU",
+             output_activation: str = "None") -> torch.Tensor:
+    """The GEMM route: x [..., n_in] f32, weights [fan_in, fan_out] f32
+    (any widths and depth) → [..., n_out] f32, what
+    :func:`fused_mlp_plain` computes. A hidden layer is one bf16 GEMM (cuBLAS,
+    fp32 sums) whose output is rounded to bf16 once, as the plain version
+    rounds each hidden activation, then the activation; where the activation
+    does not commute with that rounding (not ReLU or the identity) the layer
+    is an fp32 GEMM of the bf16-rounded operands, the activation in fp32,
+    then the rounding, as the plain version. The last layer is an fp32 GEMM
+    of the bf16-rounded operands (exact products: TF32 is off), then the
+    output activation. The bf16 GEMMs sum in fp32 as JAX's do: cuBLAS's
+    reduced-precision bf16 reductions are off for the call and restored
+    after it. Records no gradient. On CPU tensors the same chain
+    runs through PyTorch's CPU GEMMs (the tests hold it to the plain
+    version there); ``launches`` counts the calls on the card."""
+    from nerfshop_tpu_torch.models.mlp import activation as act_fn
+
+    act, out_act = act_fn(activation), act_fn(output_activation)
+    fast = _rounds_with_bf16(activation)
+    matmul_flags = torch.backends.cuda.matmul
+    reduced = matmul_flags.allow_bf16_reduced_precision_reduction
+    matmul_flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        with torch.no_grad():
+            h = x.to(torch.bfloat16)
+            n = len(weights)
+            for i, w in enumerate(weights):
+                wb = w.detach().to(torch.bfloat16)
+                if i == n - 1:
+                    h = torch.matmul(h.float(), wb.float())
+                elif fast:
+                    h = act(torch.matmul(h, wb))
+                else:
+                    h = act(torch.matmul(h.float(), wb.float())).to(torch.bfloat16)
+            out = out_act(h)
+    finally:
+        matmul_flags.allow_bf16_reduced_precision_reduction = reduced
+    gemm_mlp.launches += x.device.type == "cuda"
+    return out
+
+
+def route(n_input_dims: int, n_neurons: int, n_hidden_layers: int, n_output_dims: int, activation: str,
+          output_activation: str) -> str:
+    """The path a CUDA forward that records no gradient takes for this MLP:
+    ``"fused"`` (kernel C) where :func:`check_supported` accepts it, else
+    ``"gemm"`` (:func:`gemm_mlp`). Chosen from the shapes, never from a
+    failure."""
+    return "gemm" if _problems(n_input_dims, n_neurons, n_hidden_layers, n_output_dims, activation,
+                               output_activation) else "fused"
+
+
 def needs_grad(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> bool:
     """True when autograd would record this forward: the plain version must
     run then, since kernel C has no backward."""
     return torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in weights))
 
 
-def check_supported(
-    n_input_dims: int,
-    n_neurons: int,
-    n_hidden_layers: int,
-    n_output_dims: int,
-    activation: str,
-    output_activation: str,
-) -> None:
-    """Raise ``ValueError`` unless kernel C computes this MLP."""
+def _problems(n_input_dims: int, n_neurons: int, n_hidden_layers: int, n_output_dims: int, activation: str,
+              output_activation: str) -> list:
+    """What keeps kernel C from computing this MLP (empty: nothing)."""
     problems = []
     if (activation or "None").lower() != "relu":
         problems.append(f"activation {activation!r} (ReLU only)")
@@ -77,6 +139,19 @@ def check_supported(
         problems.append(f"{n_hidden_layers} hidden layers (1 or 2)")
     if not 1 <= n_output_dims <= MAX_OUTPUT:
         problems.append(f"output width {n_output_dims} (1..{MAX_OUTPUT})")
+    return problems
+
+
+def check_supported(
+    n_input_dims: int,
+    n_neurons: int,
+    n_hidden_layers: int,
+    n_output_dims: int,
+    activation: str,
+    output_activation: str,
+) -> None:
+    """Raise ``ValueError`` unless kernel C computes this MLP."""
+    problems = _problems(n_input_dims, n_neurons, n_hidden_layers, n_output_dims, activation, output_activation)
     if problems:
         raise ValueError("kernel C (fused_mlp) does not take this MLP: " + "; ".join(problems))
 

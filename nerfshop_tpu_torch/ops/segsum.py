@@ -40,40 +40,43 @@ def sorted_segment_rowsum_plain(key_s: torch.Tensor, w1_s: torch.Tensor, dout_s:
     return out.index_add_(0, key_s.long(), ct)
 
 
-@kernels.counted("launches", "d2_launches")
+@kernels.counted("launches", "d2_launches", "f4_launches")
 def sorted_segment_rowsum_cuda(key_s: torch.Tensor, w1_s: torch.Tensor, dout_s: torch.Tensor, m: int) -> torch.Tensor:
-    """Kernel A → [m, 2^D·2]. Takes D = 3 or D = 2 (from w1_s), F = 2, and
-    raises on anything else. Two launches (N = 0: one memset);
-    deterministic. ``d2_launches`` counts the D = 2 instance."""
+    """Kernel A → [m, 2^D·F]. Takes D = 3 or D = 2 (from w1_s), F = 2 or 4
+    (from dout_s), and raises on anything else. Two launches (N = 0: one
+    memset); deterministic. ``d2_launches`` counts the D = 2 instances,
+    ``f4_launches`` the F = 4 ones."""
     dev = key_s.device
     if dev.type != "cuda":
         raise ValueError(f"segsum kernel: key_s on {dev}, expected a CUDA device")
     N = key_s.shape[0]
     D = w1_s.shape[-1] if w1_s.ndim == 2 else 0
+    F = dout_s.shape[-1] if dout_s.ndim == 2 else 0
     if not (
         key_s.dtype == torch.int32 and w1_s.dtype == torch.float32 and dout_s.dtype == torch.float32
-        and key_s.ndim == 1 and D in (2, 3) and w1_s.shape == (N, D) and dout_s.shape == (N, 2)
+        and key_s.ndim == 1 and D in (2, 3) and F in (2, 4) and w1_s.shape == (N, D) and dout_s.shape == (N, F)
         and w1_s.device == dev and dout_s.device == dev
         and key_s.is_contiguous() and w1_s.is_contiguous() and dout_s.is_contiguous()
     ):
         raise ValueError(
-            "segsum kernel takes contiguous key_s [N] int32, w1_s [N, D] f32 with D = 2 or 3, dout_s [N, 2] f32 "
-            "on one device; got "
+            "segsum kernel takes contiguous key_s [N] int32, w1_s [N, D] f32 with D = 2 or 3, dout_s [N, F] f32 "
+            "with F = 2 or 4 on one device; got "
             + ", ".join(f"{name} {tuple(t.shape)} {t.dtype} on {t.device}{'' if t.is_contiguous() else ' (strided)'}"
                         for name, t in (("key_s", key_s), ("w1_s", w1_s), ("dout_s", dout_s)))
         )
-    W = (1 << D) * 2
+    W = (1 << D) * F
     # the scratch of the runs that cross a tile edge (two rows per tile)
     # follows the m output rows in one allocation
     buf = torch.empty((m + 2 * (-(-N // TILE)), W), dtype=torch.float32, device=dev)
     out_p = buf.data_ptr()
     err = kernels.load().nst_segsum(
-        key_s.data_ptr(), w1_s.data_ptr(), dout_s.data_ptr(), out_p, out_p + 4 * W * m, N, m, D,
+        key_s.data_ptr(), w1_s.data_ptr(), dout_s.data_ptr(), out_p, out_p + 4 * W * m, N, m, D, F,
         kernels.aligned16(key_s, w1_s, dout_s), kernels.stream_ptr(dev),
     )
     kernels.check(err, "segsum")
     sorted_segment_rowsum_cuda.launches += 1
     sorted_segment_rowsum_cuda.d2_launches += D == 2
+    sorted_segment_rowsum_cuda.f4_launches += F == 4
     return buf[:m]
 
 

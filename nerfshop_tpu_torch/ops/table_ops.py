@@ -3,7 +3,10 @@
 Counterpart of ``nerfshop_tpu/ops/table_ops.py::make_brick_encode``. The
 forward gathers each sample's 2^D cell corners straight from the canonical
 ``[Σm, F]`` table at ``(base + shift_c) mod m`` (no brick tables); on a CUDA
-tensor it is kernel B (``csrc/grid_encode.cu``). Only a forward that
+tensor it is kernel B (``csrc/grid_encode.cu``). Kernels B, A, F and J take
+F = 2 (the default configs) or 4 (``configs/nerf/tpu_hash_fast.json``), each
+F an instance of its own with its own launch counter (``f4_launches``);
+:func:`check_supported` names what they take. Only a forward that
 autograd records needs the base slots and fractions (``with_fracs``); the
 render and grid-refresh forwards ask for the features alone. The backward
 sorts each level's ``(idx, w1, dout)`` by slot, sums each sorted run with kernel A
@@ -34,6 +37,30 @@ from nerfshop_tpu_torch.ops import segsum
 from nerfshop_tpu_torch.ops.segsum import corner_products
 
 
+#: the features a level that kernels B, A, F and J take (a template
+#: parameter of each: a row is one 8- or 16-byte access)
+FEATURES = (2, 4)
+
+
+def check_supported(D: int, F: int) -> None:
+    """Raise ``ValueError`` unless kernels B and A take a brick grid of ``D``
+    input dimensions and ``F`` features a level (kernels F and J take the
+    same F at D = 3)."""
+    if D not in (2, 3) or F not in FEATURES:
+        raise ValueError(
+            "kernels B (grid_encode) and A (segsum) take n_input_dims 3 or 2 and n_features_per_level 2 or 4 only; "
+            f"the encoding has n_input_dims {D}, n_features_per_level {F}"
+        )
+
+
+def _require_table(table: torch.Tensor, enc, dev: torch.device) -> None:
+    """The table of ``enc`` on ``dev``, its rows one aligned access (16 bytes at F = 4)."""
+    F = enc.n_features_per_level
+    kernels.require(table, "table", torch.float32, (enc.table_size, F), dev)
+    if table.data_ptr() % (4 * F):
+        raise ValueError(f"table: not {4 * F}-byte aligned (the kernels read a row of {F} features in one access)")
+
+
 def encode_from_fracs(table: torch.Tensor, idx: torch.Tensor, w1: torch.Tensor, enc) -> torch.Tensor:
     """Plain forward from base slots idx [L, N] and fracs w1 [L, N, D] →
     [N, L·F]. Differentiable in ``table`` through ordinary autograd (its
@@ -59,35 +86,37 @@ def grid_encode_plain(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: boo
     return (out, idx, w1) if with_fracs else (out, None, None)
 
 
-@kernels.counted("launches", "fracs_launches", "d2_launches")
+@kernels.counted("launches", "fracs_launches", "d2_launches", "f4_launches")
 def grid_encode_cuda(table: torch.Tensor, x: torch.Tensor, enc, with_fracs: bool = True):
-    """Kernel B → (out [N, L·2], idx [L, N] int32, w1 [L, N, D]); without
+    """Kernel B → (out [N, L·F], idx [L, N] int32, w1 [L, N, D]); without
     fracs it writes out only and returns (out, None, None). Takes D = 3 or
-    D = 2, F = 2, and raises on anything else. ``d2_launches`` counts the
-    D = 2 instance."""
+    D = 2, F = 2 or 4, and raises on anything else. ``d2_launches`` counts
+    the D = 2 instances, ``f4_launches`` the F = 4 ones."""
     dev = x.device
     N = x.shape[0]
     L = enc.n_levels
     D = enc.n_input_dims
-    if D not in (2, 3) or enc.n_features_per_level != 2:
-        raise ValueError("grid_encode kernel supports D=2 or 3, F=2 only")
+    F = enc.n_features_per_level
+    if D not in (2, 3) or F not in FEATURES:
+        raise ValueError("grid_encode kernel supports D=2 or 3, F=2 or 4 only")
     kernels.require(x, "x", torch.float32, (N, D), dev)
-    kernels.require(table, "table", torch.float32, (enc.table_size, 2), dev)
+    _require_table(table, enc, dev)
     meta_i, meta_f = enc.kernel_meta(dev)
-    out = torch.empty((N, L * 2), dtype=torch.float32, device=dev)
+    out = torch.empty((N, L * F), dtype=torch.float32, device=dev)
     idx = w1 = None
     if with_fracs:
         idx = torch.empty((L, N), dtype=torch.int32, device=dev)
         w1 = torch.empty((L, N, D), dtype=torch.float32, device=dev)
     err = kernels.load().nst_grid_encode(
         x.data_ptr(), meta_i.data_ptr(), meta_f.data_ptr(), table.data_ptr(), out.data_ptr(),
-        idx.data_ptr() if with_fracs else None, w1.data_ptr() if with_fracs else None, N, L, D,
+        idx.data_ptr() if with_fracs else None, w1.data_ptr() if with_fracs else None, N, L, D, F,
         kernels.stream_ptr(dev),
     )
     kernels.check(err, "grid_encode")
     grid_encode_cuda.launches += 1
     grid_encode_cuda.fracs_launches += with_fracs
     grid_encode_cuda.d2_launches += D == 2
+    grid_encode_cuda.f4_launches += F == 4
     return out, idx, w1
 
 
@@ -116,30 +145,34 @@ def grid_encode_dx_plain(table: torch.Tensor, x: torch.Tensor, dout: torch.Tenso
 DX_MAX_LEVELS = 32
 
 
-@kernels.counted("launches")
+@kernels.counted("launches", "f4_launches")
 def grid_encode_dx_cuda(table: torch.Tensor, x: torch.Tensor, dout: torch.Tensor, enc) -> torch.Tensor:
-    """Kernel F → d_x [N, 3] f32 from x [N, 3], the table [Σm, 2] and the
-    output cotangent dout [N, L·2]. Takes D = 3, F = 2 and at most
-    ``DX_MAX_LEVELS`` levels, and raises on anything else."""
+    """Kernel F → d_x [N, 3] f32 from x [N, 3], the table [Σm, F] and the
+    output cotangent dout [N, L·F]. Takes D = 3, F = 2 or 4 and at most
+    ``DX_MAX_LEVELS`` levels, and raises on anything else. ``f4_launches``
+    counts the F = 4 instance."""
     dev = x.device
     N = x.shape[0]
     L = enc.n_levels
-    if enc.n_input_dims != 3 or enc.n_features_per_level != 2 or L > DX_MAX_LEVELS:
-        raise ValueError(f"grid_encode_dx kernel supports D=3, F=2 and at most {DX_MAX_LEVELS} levels only")
+    F = enc.n_features_per_level
+    if enc.n_input_dims != 3 or F not in FEATURES or L > DX_MAX_LEVELS:
+        raise ValueError(f"grid_encode_dx kernel supports D=3, F=2 or 4 and at most {DX_MAX_LEVELS} levels only")
     if dev.type != "cuda":
         raise ValueError(f"grid_encode_dx kernel: x on {dev}, expected a CUDA device")
     kernels.require(x, "x", torch.float32, (N, 3), dev)
-    kernels.require(table, "table", torch.float32, (enc.table_size, 2), dev)
-    kernels.require(dout, "dout", torch.float32, (N, L * 2), dev)
-    if dout.data_ptr() % 8:
-        dout = dout.clone()  # the kernel reads float2 pairs
+    _require_table(table, enc, dev)
+    kernels.require(dout, "dout", torch.float32, (N, L * F), dev)
+    if dout.data_ptr() % (4 * F):
+        dout = dout.clone()  # the kernel reads a level's F cotangents in one access
     rec = enc.kernel_records()
     dx = torch.empty((N, 3), dtype=torch.float32, device=dev)
     err = kernels.load().nst_grid_encode_dx(
-        x.data_ptr(), rec.data_ptr(), table.data_ptr(), dout.data_ptr(), dx.data_ptr(), N, L, kernels.stream_ptr(dev)
+        x.data_ptr(), rec.data_ptr(), table.data_ptr(), dout.data_ptr(), dx.data_ptr(), N, L, F,
+        kernels.stream_ptr(dev),
     )
     kernels.check(err, "grid_encode_dx")
     grid_encode_dx_cuda.launches += 1
+    grid_encode_dx_cuda.f4_launches += F == 4
     return dx
 
 
@@ -207,44 +240,48 @@ def grid_encode_dx_bwd_plain(table: torch.Tensor, x: torch.Tensor, g: torch.Tens
     return torch.cat(dh, dim=1), dx2
 
 
-@kernels.counted("launches")
+@kernels.counted("launches", "f4_launches")
 def grid_encode_dx_bwd_cuda(table: torch.Tensor, x: torch.Tensor, g: torch.Tensor, v: torch.Tensor, enc):
-    """Kernel J → (dh [N, L·2], d_x2 [N, 3]) f32 from x [N, 3], the table
-    [Σm, 2], kernel F's output cotangent g [N, L·2] and the cotangent v
-    [N, 3] on kernel F's output. Takes D = 3, F = 2 and at most
-    ``DX_MAX_LEVELS`` levels, and raises on anything else."""
+    """Kernel J → (dh [N, L·F], d_x2 [N, 3]) f32 from x [N, 3], the table
+    [Σm, F], kernel F's output cotangent g [N, L·F] and the cotangent v
+    [N, 3] on kernel F's output. Takes D = 3, F = 2 or 4 and at most
+    ``DX_MAX_LEVELS`` levels, and raises on anything else. ``f4_launches``
+    counts the F = 4 instance."""
     dev = x.device
     N = x.shape[0]
     L = enc.n_levels
-    if enc.n_input_dims != 3 or enc.n_features_per_level != 2 or L > DX_MAX_LEVELS:
-        raise ValueError(f"grid_encode_dx_bwd kernel supports D=3, F=2 and at most {DX_MAX_LEVELS} levels only")
+    F = enc.n_features_per_level
+    if enc.n_input_dims != 3 or F not in FEATURES or L > DX_MAX_LEVELS:
+        raise ValueError(f"grid_encode_dx_bwd kernel supports D=3, F=2 or 4 and at most {DX_MAX_LEVELS} levels only")
     if dev.type != "cuda":
         raise ValueError(f"grid_encode_dx_bwd kernel: x on {dev}, expected a CUDA device")
     kernels.require(x, "x", torch.float32, (N, 3), dev)
-    kernels.require(table, "table", torch.float32, (enc.table_size, 2), dev)
-    kernels.require(g, "g", torch.float32, (N, L * 2), dev)
+    _require_table(table, enc, dev)
+    kernels.require(g, "g", torch.float32, (N, L * F), dev)
     kernels.require(v, "v", torch.float32, (N, 3), dev)
     if not kernels.aligned16(g):
         g = g.clone()  # the kernel stages g by 16-byte copies
     rec = enc.kernel_records()
-    dh = torch.empty((N, L * 2), dtype=torch.float32, device=dev)
+    dh = torch.empty((N, L * F), dtype=torch.float32, device=dev)
     dx2 = torch.empty((N, 3), dtype=torch.float32, device=dev)
     err = kernels.load().nst_grid_encode_dx_bwd(
         x.data_ptr(), rec.data_ptr(), table.data_ptr(), g.data_ptr(), v.data_ptr(), dh.data_ptr(), dx2.data_ptr(),
-        N, L, kernels.stream_ptr(dev),
+        N, L, F, kernels.stream_ptr(dev),
     )
     kernels.check(err, "grid_encode_dx_bwd")
     grid_encode_dx_bwd_cuda.launches += 1
+    grid_encode_dx_bwd_cuda.f4_launches += F == 4
     return dh, dx2
 
 
-def grid_encode_dx_bwd_attrs(n_levels: int) -> dict:
-    """Kernel J as built, for a launch at ``n_levels`` levels: registers a
-    thread, static shared memory, local memory a thread (bytes), dynamic
-    shared memory a block (bytes) and blocks an SM at it. Builds the kernels
-    and needs a CUDA device."""
+def grid_encode_dx_bwd_attrs(n_levels: int, n_features: int = 2) -> dict:
+    """Kernel J as built, for a launch at ``n_levels`` levels of
+    ``n_features`` features: registers a thread, static shared memory,
+    local memory a thread (bytes), dynamic shared memory a block (bytes) and
+    blocks an SM at it. Builds the kernels and needs a CUDA device."""
     out = (ctypes.c_int * 5)()
-    kernels.check(kernels.load().nst_grid_encode_dx_bwd_attrs(n_levels, ctypes.addressof(out)), "grid_encode_dx_bwd")
+    kernels.check(kernels.load().nst_grid_encode_dx_bwd_attrs(n_levels, n_features, ctypes.addressof(out)),
+                  "grid_encode_dx_bwd")
     return dict(zip(("registers", "static_smem", "local_bytes", "dynamic_smem", "blocks_per_sm"), out))
 
 

@@ -17,6 +17,10 @@ builds a fresh network for it, so the snapshot's weights are put back.
 
 Usage examples:
     python -m nerfshop_tpu_torch.run --scene data/nerf/fox --n_steps 2000 --save_snapshot fox.nst
+    # the shipped NeRF configs: 8 levels of 4 features (kernels A, B, F, J at
+    # F = 4), and Frequency + a 256-wide, 4-layer MLP (the GEMM route)
+    python -m nerfshop_tpu_torch.run --scene data/nerf/fox --network configs/nerf/tpu_hash_fast.json --n_steps 2000
+    python -m nerfshop_tpu_torch.run --scene data/nerf/fox --network configs/nerf/tpu_flagship.json --n_steps 2000
     python -m nerfshop_tpu_torch.run --mode sdf --scene armadillo.obj --n_steps 1000 --batch_size 65536
     python -m nerfshop_tpu_torch.run --scene albert.png --n_steps 1000   # Image mode, from the suffix
     python -m nerfshop_tpu_torch.run --load_snapshot fox.nst \\

@@ -4,6 +4,7 @@
 Run from the root of a checkout:
   python3 profile_render.py [--out FILE] [--compact FRAC | --edited | --normals | --train | --distill | --sdf | --volume
                              | --takikawa | --baked]
+  python3 profile_render.py [--train | --density] --config configs/nerf/tpu_hash_fast.json
   python3 profile_render.py --save-chunk FILE
   python3 profile_render.py --kernels --chunk FILE [--root DIR]
   python3 profile_render.py --save-edit DIR
@@ -45,6 +46,11 @@ grid through the stack, runs 8 distillation steps of the default
 ``DistillConfig`` at the trained scale as a warm-up and profiles 8 more:
 per step, wall, device busy, idle share, launches, and device ms and
 launches by kernel name.
+
+With ``--config FILE`` (a NeRF network config, e.g.
+``configs/nerf/tpu_hash_fast.json`` or ``tpu_flagship.json``) the model is
+trained with that config instead of the default (256 captured steps on the
+same sphere), for the frame mode, ``--train`` and ``--density``.
 
 With ``--train`` it profiles training of that model instead (after its
 256 steps): one 16-step call of the eager loop and one of the captured loop
@@ -89,10 +95,10 @@ version timed without depth (as the preview calls it) by both of
 ``chip_smoke.both_ms``'s methods, old, new, new, old.
 
 With ``--dx-bwd --parent FILE`` it times kernel J (the encode's second
-order) of ``FILE`` (an older ``csrc/grid_encode.cu`` with the same
-``nst_grid_encode_dx_bwd`` entry, e.g. ``git show
-9fc2711:nerfshop_tpu_torch/csrc/grid_encode.cu >
-build/grid_encode_parent.cu``, the first version) against this
+order) of ``FILE`` (another ``csrc/grid_encode.cu`` with the same
+``nst_grid_encode_dx_bwd`` entry, the one that takes the features a level,
+e.g. ``git show HEAD:nerfshop_tpu_torch/csrc/grid_encode.cu >
+build/grid_encode_parent.cu``) against this
 checkout's on the inputs of [density]'s double backward (327,680
 positions, ``chip_smoke.density_inputs``) and on its 2^16 near-surface
 positions alone: both built into libraries of their own under
@@ -478,7 +484,7 @@ def time_dx_bwd(tb, parent: Path) -> None:
                                    kernels.BUILD_DIR.parent / "dx_bwd_versions", "dx_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
     for label, (lib, log) in libs.items():
-        lib.nst_grid_encode_dx_bwd.argtypes = [p] * 7 + [i, i, p]
+        lib.nst_grid_encode_dx_bwd.argtypes = [p] * 7 + [i, i, i, p]
         lib.nst_grid_encode_dx_bwd.restype = i
         print(f"[dx-bwd] ptxas {label}: {' | '.join(time_bvh.ptxas_lines(log, 'grid_encode_dx_bwd_kernel'))}",
               flush=True)
@@ -488,6 +494,7 @@ def time_dx_bwd(tb, parent: Path) -> None:
         mod.fns.bwd_bwd_input_density(x, d_out, d_dpos)
     table, xx, g, v = calls[0]
     enc = tb.model.pos_encoding
+    F = enc.n_features_per_level
     rec = enc.kernel_records()
     dev = xx.device
     stream = kernels.stream_ptr(dev)
@@ -496,11 +503,11 @@ def time_dx_bwd(tb, parent: Path) -> None:
     def run(label, x_, g_, v_, dh, dx2):
         err = libs[label][0].nst_grid_encode_dx_bwd(
             x_.data_ptr(), rec.data_ptr(), table.data_ptr(), g_.data_ptr(), v_.data_ptr(), dh.data_ptr(),
-            dx2.data_ptr(), x_.shape[0], enc.n_levels, stream)
+            dx2.data_ptr(), x_.shape[0], enc.n_levels, F, stream)
         kernels.check(err, label)
 
     def outputs(n):
-        return torch.empty((n, 2 * enc.n_levels), device=dev), torch.empty((n, 3), device=dev)
+        return torch.empty((n, F * enc.n_levels), device=dev), torch.empty((n, 3), device=dev)
 
     cases = {f"[density]'s {xx.shape[0]} positions": (xx, g, v),
              f"its {n_near} near-surface positions alone": tuple(t[-n_near:] for t in (xx, g, v))}
@@ -524,7 +531,7 @@ def time_dx_bwd(tb, parent: Path) -> None:
             dh, dx2 = outputs(N)
             times[label].append(chip_smoke.both_ms(lambda: run(label, x_, g_, v_, dh, dx2)))
         touched = chip_smoke.touched_rows(enc, enc.brick_fracs(x_)[0])
-        b_ms, b_by = chip_smoke.bound(chip_smoke.nbytes(x_, g_, v_, *outs[v1]) + touched * 2 * 4)
+        b_ms, b_by = chip_smoke.bound(chip_smoke.nbytes(x_, g_, v_, *outs[v1]) + touched * F * 4)
         med = {label: statistics.median(t[1] for t in times[label]) for label in libs}
         for label in libs:
             print(f"[dx-bwd] {case}, {label}: device {' / '.join(f'{t[1]:.4f}' for t in times[label])} ms, events "
@@ -553,16 +560,20 @@ def plain_table_module(tb):
     return NerfDensityModule(model, params)
 
 
-def profile_density(tb, out: Path | None = None) -> None:
+def profile_density(tb, out: Path | None = None, plain: bool = True) -> None:
     """One eikonal step of [density] (its double backward) under the
     profiler after a warm-up step, over ``tb``'s network (the brick table,
-    kernel J) and over it with the plain table (:func:`plain_table_module`,
-    kernel M): wall, busy, idle share, launches, device ms by kernel name,
-    and the host operators with the most self time."""
+    kernel J) and, with ``plain``, over it with the plain table
+    (:func:`plain_table_module`, kernel M): wall, busy, idle share,
+    launches, device ms by kernel name, and the host operators with the most
+    self time."""
     from torch.profiler import ProfilerActivity, profile
 
-    x, _, _, brick, _, _ = chip_smoke.density_inputs(tb)
-    for label, mod in (("brick table", brick), ("plain table", plain_table_module(tb))):
+    x, _, _, own, _, _ = chip_smoke.density_inputs(tb)
+    enc = tb.model.pos_encoding
+    first = "brick table" if getattr(enc, "layout", None) == "brick" else type(enc).__name__
+    mods = ((first, own),) + ((("plain table", plain_table_module(tb)),) if plain else ())
+    for label, mod in mods:
         def step():
             chip_smoke.eikonal_step(mod, x)
             torch.cuda.synchronize()
@@ -582,7 +593,7 @@ def profile_density(tb, out: Path | None = None) -> None:
         print(f"[density-profile] {label}: eikonal step at {x.shape[0]} positions: unprofiled "
               f"{[round(t, 3) for t in times]} ms (median {statistics.median(times):.3f}); profiled wall {wall:.2f} ms, "
               f"{len(events)} device events, device busy {busy:.2f} ms, idle share {1.0 - busy / wall:.3f}", flush=True)
-        write_table(by_name, out if label == "brick table" else None)
+        write_table(by_name, out if label == first else None)
         host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]
         print(f"[density-profile] {label}: host operators by self time (ms, calls):", flush=True)
         for e in host:
@@ -1185,6 +1196,8 @@ def main() -> None:
     ap.add_argument("--root", default=None, help="with --kernels or --warp: the checkout whose package is timed")
     ap.add_argument("--chunk", type=Path, default=None, help="with --kernels: the file --save-chunk wrote")
     ap.add_argument("--edit", type=Path, default=None, help="with --warp: the directory --save-edit wrote")
+    ap.add_argument("--config", type=Path, default=None,
+                    help="with --train, --density or the frame mode: train this NeRF network config instead of the default")
     ap.add_argument("--parent", type=Path, default=None,
                     help="with --composite: the older csrc/baked.cu; with --dx-bwd: the older csrc/grid_encode.cu; "
                          "with --xor: the older csrc/xor_encode.cu")
@@ -1197,6 +1210,11 @@ def main() -> None:
                                      or args.save_chunk is not None
                                      or args.save_edit is not None):
         ap.error("--compact goes with the frame mode only")
+    if args.config is not None and (args.edited or args.normals or args.distill or args.kernels or args.warp
+                                    or args.sdf or args.volume or args.takikawa or args.baked or args.composite
+                                    or args.dx_bwd or args.xor or args.save_chunk is not None
+                                    or args.save_edit is not None):
+        ap.error("--config goes with --train, --density or the frame mode")
     if args.root is not None and not (args.kernels or args.warp):
         ap.error("--root goes with --kernels or --warp")
     if (args.chunk is not None) != args.kernels:
@@ -1242,11 +1260,19 @@ def main() -> None:
         if args.sdf:
             profile_sdf_train(tb, args.out)
         return
-    tb, focal, principal, *_ = chip_smoke.phase_main_path(dev)
+    if args.config is None:
+        tb, focal, principal, *_ = chip_smoke.phase_main_path(dev)
+    else:
+        from nerfshop_tpu_torch.config import load_network_config
+
+        tb, focal, principal, *_ = chip_smoke.phase_main_path(
+            dev, load_network_config(args.config), f"train {args.config.name}", path_kernels=("gather",),
+            graph_kernels=("gather_cuda",))
     print(f"[profile] card: {smi}")
     if args.train:
         profile_train(tb, args.out)
-        profile_segsum(dev)
+        if args.config is None:  # kernel A alone at the default config's shapes
+            profile_segsum(dev)
         return
     if args.distill:
         gs, op = build_edit(tb, focal, principal, dev)
@@ -1263,7 +1289,7 @@ def main() -> None:
         time_dx_bwd(tb, args.parent.resolve())
         return
     if args.density:
-        profile_density(tb, args.out)
+        profile_density(tb, args.out, plain=args.config is None)
         return
     if args.edited:
         tb.set_look_at(eye=chip_smoke.SIDE_EYE)

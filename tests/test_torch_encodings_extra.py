@@ -20,6 +20,7 @@ from nerfshop_tpu_torch.models.nerf_network import build_nerf_network as tbuild,
 from nerfshop_tpu_torch.testbed import Testbed
 
 from test_torch_ingp import _dataset
+from test_torch_kernel_range import field_mlp
 from torch_one_thread import one_thread  # noqa: F401
 
 #: sin/cos of the same float32 angles (up to 2^11·π) in two libms
@@ -61,13 +62,16 @@ def test_elementwise_encodings_match(cfg):
 
 @pytest.mark.parametrize("otype,width", [("Frequency", 72), ("TriangleWave", 36), ("OneBlob", 48)])
 def test_kernel_range_takes_the_elementwise_encodings(otype, width):
-    # the SDF mode's MLP from each default width through kernel C
+    # the SDF mode's MLP from each default width through kernel C; past
+    # kernel C's 128 inputs, the GEMM route
     cfg = {"encoding": {"otype": otype}, "network": {"n_neurons": 64, "n_hidden_layers": 2}}
     assert tenc.encoding_shape(cfg["encoding"], 3)[0] == width
     check_kernel_range(cfg, torch.device("cuda"), "sdf")
+    assert field_mlp(cfg, "sdf").route == "fused"
     wide = {"encoding": {"otype": "Frequency", "n_frequencies": 22}, "network": cfg["network"]}  # 132 inputs
-    with pytest.raises(ValueError, match="kernel C.*input width 132"):
-        check_kernel_range(wide, torch.device("cuda"), "sdf")
+    assert tenc.encoding_shape(wide["encoding"], 3)[0] == 132
+    check_kernel_range(wide, torch.device("cuda"), "sdf")
+    assert field_mlp(wide, "sdf").route == "gemm"
 
 
 def _frequency_nerf_config():

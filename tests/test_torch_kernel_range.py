@@ -1,11 +1,16 @@
 """The network configs the CUDA kernels compute are checked where the network
 is built (``models/nerf_network.check_kernel_range``): on a CUDA device a
-config outside kernels A/B (a grid of D = 3 or 2, F = 2) or kernel C (the
-fused MLP's widths and depth) raises ``ValueError`` naming the kernel before
-anything is allocated, so these tests run without a card; the CPU, whose
-plain paths take every config, still builds them. The check reads the
-testbed's mode: the Image mode's grid is 2-D, and the SDF, Image and Volume
-modes have one MLP with 1, 3 and 4 outputs."""
+config whose encoding lies outside kernels A/B (a brick grid of D = 3 or 2,
+F = 2 or 4) or K/L (a plain grid at F = 2, Takikawa at F = 2, 4, 8) raises
+``ValueError`` naming the kernel before anything is allocated, so these
+tests run without a card; the CPU, whose plain paths take every config,
+still builds them. Every MLP is in range: kernel C takes the ones its
+template does (hidden width 64, 1 or 2 hidden layers, ReLU, no output
+activation, 1-128 inputs, 1-16 outputs), the GEMM route
+(``ops/fused_mlp.gemm_mlp``) every other, chosen from the shapes when the
+MLP is built (``MLP.route``). The check reads
+the testbed's mode: the Image mode's grid is 2-D, and the SDF, Image and
+Volume modes have one MLP with 1, 3 and 4 outputs."""
 
 from pathlib import Path
 
@@ -16,7 +21,8 @@ import torch
 from nerfshop_tpu_torch import testbed
 from nerfshop_tpu_torch.config import default_nerf_config, load_network_config
 from nerfshop_tpu_torch.models import encodings
-from nerfshop_tpu_torch.models.nerf_network import build_nerf_network, check_kernel_range
+from nerfshop_tpu_torch.models import mlp as tmlp
+from nerfshop_tpu_torch.models.nerf_network import FIELD_SHAPES, build_nerf_network, check_kernel_range
 from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -30,19 +36,31 @@ def _with(**blocks):
     return cfg
 
 
-#: (label, config, the text the error names)
-OUTSIDE = (
-    ("tpu_hash_fast F=4", lambda: load_network_config(ROOT / "configs/nerf/tpu_hash_fast.json"), "n_features_per_level 4"),
-    ("128-wide network", lambda: _with(network={"n_neurons": 128}), "density MLP.*kernel C.*hidden width 128"),
-    ("128-wide rgb network", lambda: _with(rgb_network={"n_neurons": 128}), "rgb MLP.*kernel C.*hidden width 128"),
-    ("3 hidden layers", lambda: _with(rgb_network={"n_hidden_layers": 3}), "kernel C.*3 hidden layers"),
-    ("sigmoid output", lambda: _with(network={"output_activation": "Sigmoid"}), "kernel C.*output activation"),
-    ("140-wide encoding", lambda: _with(encoding={"n_levels": 70}), "kernel C.*input width 140"),
-    # a 2-D grid is in B's and A's range since they took D = 2 (the Image
-    # testbed); F = 4 in one is not
-    ("2-D grid", lambda: _with(encoding={"otype": "Composite", "nested": [
+def field_mlp(cfg, mode):
+    """The SDF, Image or Volume mode's one MLP as ``FieldModel.build`` makes
+    it, on the CPU, without the encoding's tables (the Image one is 2^24
+    rows a level)."""
+    n_in, n_out = FIELD_SHAPES[mode]
+    width = encodings.encoding_shape(dict(cfg["encoding"]), n_in)[0]
+    return tmlp.build_network(dict(cfg.get("network", {})), width, n_out, device="cpu")
+
+
+def _grid_2d(F):
+    return _with(encoding={"otype": "Composite", "nested": [
         {"n_dims_to_encode": 1, "otype": "Identity"},
-        {"otype": "HashGrid", "n_levels": 15, "n_features_per_level": 4}]}), "n_input_dims 2, n_features_per_level 4"),
+        {"otype": "HashGrid", "n_levels": 15, "n_features_per_level": F}]})
+
+
+#: (label, config, the text the error names): encodings outside the kernels
+OUTSIDE = (
+    ("brick F=8", lambda: _with(encoding={"n_levels": 8, "n_features_per_level": 8}), "kernels B.*n_input_dims 3, n_features_per_level 8"),
+    ("brick F=1", lambda: _with(encoding={"n_features_per_level": 1}), "kernels B.*n_input_dims 3, n_features_per_level 1"),
+    ("2-D grid F=8", lambda: _grid_2d(8), "kernels B.*n_input_dims 2, n_features_per_level 8"),
+    ("2-D grid F=1", lambda: _grid_2d(1), "kernels B.*n_input_dims 2, n_features_per_level 1"),
+    # an .ingp snapshot's table of a tpu_hash_fast network: kernels K and L read F = 2 only
+    ("plain F=4", lambda: {**load_network_config(ROOT / "configs/nerf/tpu_hash_fast.json"),
+                           "encoding": {**load_network_config(ROOT / "configs/nerf/tpu_hash_fast.json")["encoding"],
+                                        "layout": "plain"}}, "kernels K and L.*n_features_per_level 4"),
 )
 
 
@@ -59,6 +77,33 @@ def test_cuda_build_raises_before_allocating(label, make, match):
     model = build_nerf_network(cfg, device=torch.device("cpu"))
     assert sum(p.numel() for p in model.parameters()) > 0
     check_kernel_range(cfg, "cpu")
+
+
+#: (label, config, its grids (layout, D, F, L), the density and rgb MLPs'
+#: routes): configs that raised before the F = 4 instances of kernels A, B,
+#: F and J and the GEMM route, each now taken
+INSIDE = (
+    ("tpu_hash_fast F=4", lambda: load_network_config(ROOT / "configs/nerf/tpu_hash_fast.json"),
+     [("brick", 3, 4, 8)], ("fused", "fused")),
+    ("128-wide network", lambda: _with(network={"n_neurons": 128}), [("brick", 3, 2, 16)], ("gemm", "fused")),
+    ("128-wide rgb network", lambda: _with(rgb_network={"n_neurons": 128}), [("brick", 3, 2, 16)], ("fused", "gemm")),
+    ("3 hidden layers", lambda: _with(rgb_network={"n_hidden_layers": 3}), [("brick", 3, 2, 16)], ("fused", "gemm")),
+    ("sigmoid output", lambda: _with(network={"output_activation": "Sigmoid"}), [("brick", 3, 2, 16)], ("gemm", "fused")),
+    ("140-wide encoding", lambda: _with(encoding={"n_levels": 70}), [("brick", 3, 2, 70)], ("gemm", "fused")),
+    ("2-D grid", lambda: _grid_2d(4), [("brick", 2, 4, 15)], ("fused", "fused")),
+    ("tpu_flagship", lambda: load_network_config(ROOT / "configs/nerf/tpu_flagship.json"), [], ("gemm", "fused")),
+)
+
+
+@pytest.mark.parametrize("label,make,grids,routes", INSIDE, ids=[o[0] for o in INSIDE])
+def test_cuda_build_takes_the_config(label, make, grids, routes):
+    # the check passes for the card; the grids are the kernels' instances;
+    # the MLPs built (on the CPU) carry the route their shapes chose
+    cfg = make()
+    check_kernel_range(cfg, CUDA)
+    assert encodings.encoding_shape(dict(cfg["encoding"]), 3)[1] == grids
+    model = build_nerf_network(cfg, device=torch.device("cpu"))
+    assert (model.density_mlp.route, model.rgb_mlp.route) == routes
 
 
 @pytest.mark.parametrize("mode,encoding", [
@@ -79,6 +124,8 @@ def test_kernel_range_takes_the_xor_and_elementwise_encodings(mode, encoding):
 def test_kernel_range_takes_the_default_configs(config):
     cfg = default_nerf_config() if config is None else load_network_config(ROOT / "configs/nerf" / config)
     check_kernel_range(cfg, CUDA)
+    model = build_nerf_network(cfg, device=torch.device("cpu"))
+    assert (model.density_mlp.route, model.rgb_mlp.route) == ("fused", "fused")
 
 
 @pytest.mark.parametrize("mode", ["sdf", "image", "volume"])
@@ -86,14 +133,14 @@ def test_kernel_range_takes_the_mode_configs(mode):
     # each shipped config of the other modes, and the mode's default
     from nerfshop_tpu_torch import config as tconfig
 
-    check_kernel_range(load_network_config(ROOT / "configs" / mode / "base.json"), CUDA, mode)
-    check_kernel_range(getattr(tconfig, f"default_{mode}_config")(), CUDA, testbed.TestbedMode(mode))
+    for cfg in (load_network_config(ROOT / "configs" / mode / "base.json"), getattr(tconfig, f"default_{mode}_config")()):
+        check_kernel_range(cfg, CUDA, testbed.TestbedMode(mode))
+        assert field_mlp(cfg, mode).route == "fused"
 
 
 @pytest.mark.parametrize("mode,change,match", [
-    ("image", {"encoding": {"n_features_per_level": 4}}, "n_input_dims 2, n_features_per_level 4"),
-    ("sdf", {"network": {"n_hidden_layers": 3}}, "MLP.*kernel C.*3 hidden layers"),
-    ("volume", {"encoding": {"n_levels": 70}}, "MLP.*kernel C.*input width 140"),
+    ("image", {"encoding": {"n_features_per_level": 8}}, "n_input_dims 2, n_features_per_level 8"),
+    ("volume", {"encoding": {"n_features_per_level": 1}}, "n_input_dims 3, n_features_per_level 1"),
     ("sdf", {"encoding": {"otype": "Takikawa", "n_features_per_level": 3}}, "Takikawa.*n_features_per_level 3"),
     ("sdf", {"encoding": {"layout": "paired"}}, "paired"),
 ])
@@ -107,6 +154,19 @@ def test_mode_configs_outside_raise(mode, change, match):
     with pytest.raises(error, match=match):
         testbed.Testbed(mode, config=cfg, device="cuda")
     check_kernel_range(cfg, "cpu", mode)
+
+
+@pytest.mark.parametrize("mode,change,route", [
+    ("image", {"encoding": {"n_features_per_level": 4}}, "fused"),  # kernels B and A at D = 2, F = 4
+    ("sdf", {"network": {"n_hidden_layers": 3}}, "gemm"),
+    ("volume", {"encoding": {"n_levels": 70}}, "gemm"),  # 140 inputs
+])
+def test_mode_configs_inside(mode, change, route):
+    cfg = load_network_config(ROOT / "configs" / mode / "base.json")
+    for key, block in change.items():
+        cfg[key] = {**cfg[key], **block}
+    check_kernel_range(cfg, CUDA, mode)
+    assert field_mlp(cfg, mode).route == route
 
 
 @pytest.mark.parametrize("otype,cfg,n_in", [
@@ -125,19 +185,20 @@ def test_encoding_shape_matches_built_encoding(otype, cfg, n_in):
 
 
 def test_snapshot_of_an_unsupported_config_fails_at_load(tmp_path):
-    cfg = load_network_config(ROOT / "configs/nerf/tpu_hash_fast.json")
+    # a brick grid at F = 8 (outside kernels B and A), saved from the CPU
+    cfg = _with(encoding={"n_levels": 4, "n_features_per_level": 8, "log2_hashmap_size": 12})
     src = testbed.Testbed(config=cfg, device="cpu", seed=0)
-    path = tmp_path / "f4.snap"
+    path = tmp_path / "f8.snap"
     src.save_snapshot(str(path))
     tb = testbed.Testbed(device="cpu", seed=1)
     before = dict(tb._network_config)
     tb.device = CUDA  # what a testbed on the card checks; nothing reaches the card
-    with pytest.raises(ValueError, match="n_features_per_level 4"):
+    with pytest.raises(ValueError, match="n_features_per_level 8"):
         tb.load_snapshot(str(path))
     assert dict(tb._network_config) == before  # the testbed was left as it was
     tb.device = torch.device("cpu")
     tb.load_snapshot(str(path))
-    assert tb.model.pos_encoding.n_features_per_level == 4
+    assert tb.model.pos_encoding.n_features_per_level == 8
     np.testing.assert_array_equal(
         tb.model.pos_encoding.table.detach().numpy(), src.model.pos_encoding.table.detach().numpy()
     )

@@ -24,6 +24,7 @@ from nerfshop_tpu_torch import weights
 from nerfshop_tpu_torch.geometry import bvh as tbvh
 from nerfshop_tpu_torch.geometry import mesh_io as tmesh_io
 from nerfshop_tpu_torch.ops import brdf as tbrdf
+from nerfshop_tpu_torch.models.nerf_network import check_kernel_range
 from nerfshop_tpu_torch.ops import fused_mlp
 from nerfshop_tpu_torch.ops import rays as trays
 from nerfshop_tpu_torch.testbed import Testbed
@@ -407,9 +408,11 @@ def test_testbed_sdf_mode_round_trip(tmp_path):
 
 
 def test_kernel_range_by_mode_raises_early():
+    # a 128-wide MLP is in range (the GEMM route: the SDF testbed built on
+    # the CPU carries the route); an encoding outside the kernels raises
     cfg = {**CONFIG, "network": {"n_neurons": 128, "n_hidden_layers": 2}}
-    with pytest.raises(ValueError, match="kernel C.*hidden width 128"):
-        Testbed("sdf", config=cfg, device="cuda")
+    check_kernel_range(cfg, torch.device("cuda"), "sdf")
+    assert Testbed("sdf", config=cfg, device="cpu").model.network.route == "gemm"
     with pytest.raises(ValueError, match="kernels K and L.*Takikawa.*n_features_per_level 3"):
         Testbed("sdf", config={**CONFIG, "encoding": {"otype": "Takikawa", "n_features_per_level": 3}}, device="cuda")
 
