@@ -1,5 +1,7 @@
-// Kernel G: signed distance to a closed triangle mesh by walking its BVH.
+// Kernels G and N: signed distance to a closed triangle mesh, and the
+// nearest hit of rays on it, by walking its BVH.
 //
+// Kernel G:
 // Replaces the XLA while_loop of nerfshop_tpu/geometry/bvh.py::signed_distance
 // (:196-268, vmapped over the points; the SDF testbed's ground truth, not a
 // Pallas kernel) with _closest_point_tri (:138-188). Same inputs and output:
@@ -238,5 +240,171 @@ extern "C" int nst_bvh_sdf(const BvhArgs* args, const void* points, void* out, i
     if (n == 0) return (int)cudaGetLastError();
     const dim3 grid((unsigned)((n + kGroups - 1) / kGroups));
     bvh_sdf_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*args, (const float*)points, (float*)out, n);
+    return (int)cudaGetLastError();
+}
+
+// Kernel N: the nearest hit of rays on the mesh, by walking the same packed
+// BVH as G (a mesh packed once serves both).
+//
+// Replaces the XLA while_loop of nerfshop_tpu/geometry/bvh.py::ray_intersect
+// (:271-338, vmapped over the rays; not a Pallas kernel). Same inputs and
+// outputs:
+//   origins, directions [N, 3] f32
+//   t [N] f32: the nearest hit's distance along the ray, 1e8 on a miss
+//   tri [N] int32: the hit triangle's index, -1 on a miss.
+// JAX's arithmetic: the direction's inverse 1 / where(|d| < 1e-12, 1e-12, d)
+// (a tiny negative component becomes +1e-12), the slab test tf >= max(tn, 0)
+// && tn < t_best, Moller-Trumbore with det clamped the same way, a hit on
+// u >= 0, v >= 0, u + v <= 1 and 1e-6 < t < t_best. The walk visits the
+// nearer child first (JAX's pops the right one first), so at an exact tie in
+// t it may keep another triangle than JAX; nvcc contracts the products into
+// FMAs, so a ray that grazes an edge may flip between hit and miss.
+//
+// What bounds it on the H100: neither bytes nor operations at the floor.
+// The least it must move is the rays, t and tri once (32 B a ray) and the
+// packed tree once (~6 MB at 81920 faces): ~0.02 ms for a 1080p frame at
+// 3.35 TB/s. Each ray walks a chain of dependent loads through the tree,
+// held in L2, as G's points do; rays that miss the root's children stop
+// after one record.
+//
+// Design (a simple walk, in the style of G's):
+// - One record visit tests both children's boxes (4 float4 loads, no
+//   dependent load between them) and goes to the nearer entry first; the
+//   farther child is pushed with its entry distance tn and tested again
+//   against t_best when it is popped. An empty box (lo > hi: the second
+//   child of a root leaf) is never entered.
+// - One thread a ray: it tests its leaf's triangles in slot order, keeping
+//   the first strictly nearer. (Splitting a leaf over 4 lanes, as G does,
+//   measured 1.2x slower at a 1080p camera's rays: PERF.md.) The stack is
+//   G's: kStack entries in local memory.
+
+namespace {
+
+constexpr int kRayThreads = 128;  // rays a block
+constexpr float kFar = 1e8f;      // geometry/bvh.py _FAR
+
+__device__ __forceinline__ float inv_dir(float d) { return 1.f / (fabsf(d) < 1e-12f ? 1e-12f : d); }
+
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+    return V3{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+
+// the slab test of box (lo, hi) for the ray (o, inv): whether the ray meets
+// it at t >= 0 and enters it before t_best; its entry distance in tn
+__device__ __forceinline__ bool slab(V3 o, V3 inv, V3 lo, V3 hi, float t_best, float& tn) {
+    const float t0x = (lo.x - o.x) * inv.x, t1x = (hi.x - o.x) * inv.x;
+    const float t0y = (lo.y - o.y) * inv.y, t1y = (hi.y - o.y) * inv.y;
+    const float t0z = (lo.z - o.z) * inv.z, t1z = (hi.z - o.z) * inv.z;
+    tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    return tf >= fmaxf(tn, 0.f) && tn < t_best && lo.x <= hi.x;
+}
+
+// Moller-Trumbore on the triangle in packed slot s: its hit distance when
+// the ray hits it strictly before `limit`, else +inf
+__device__ __forceinline__ float tri_t(const float4* __restrict__ tris, V3 o, V3 d, long long s, float limit) {
+    const float4 t0 = __ldg(tris + 3 * s), t1 = __ldg(tris + 3 * s + 1), t2 = __ldg(tris + 3 * s + 2);
+    const V3 a{t0.x, t0.y, t0.z}, ab{t1.x, t1.y, t1.z}, ac{t2.x, t2.y, t2.z};
+    const V3 pvec = cross(d, ac);
+    const float det = dot(ab, pvec);
+    const float inv_det = 1.f / (fabsf(det) < 1e-12f ? 1e-12f : det);
+    const V3 tvec = sub(o, a);
+    const float u = dot(tvec, pvec) * inv_det;
+    const V3 qvec = cross(tvec, ab);
+    const float v = dot(d, qvec) * inv_det;
+    const float t = dot(ac, qvec) * inv_det;
+    const bool ok = u >= 0.f && v >= 0.f && u + v <= 1.f && t > 1e-6f && t < limit;
+    return ok ? t : __int_as_float(0x7f800000);
+}
+
+// the nearest hit before t_best among a leaf's triangles (link `code`) →
+// its distance (+inf for none) in lt and its packed slot in ls; ties go to
+// the lower slot
+__device__ __forceinline__ void leaf_hit(const float4* __restrict__ tris, V3 o, V3 d, int code, float t_best,
+                                         float& lt, int& ls) {
+    const int start = (~code) >> 2, count = ((~code) & 3) + 1;
+    lt = __int_as_float(0x7f800000);
+    ls = start + kLeafSize;
+    for (int k = 0; k < count; ++k) {
+        const float t = tri_t(tris, o, d, (long long)start + k, fminf(lt, t_best));
+        if (t < lt) lt = t, ls = start + k;
+    }
+}
+
+__global__ void __launch_bounds__(kRayThreads)
+bvh_ray_kernel(const BvhArgs b, const float* __restrict__ origins, const float* __restrict__ dirs,
+               float* __restrict__ t_out, int* __restrict__ tri_out, int n) {
+    int st_link[kStack];  // the farther children pushed, and their entry distances
+    float st_t[kStack];
+    const long long i = (long long)blockIdx.x * kRayThreads + threadIdx.x;
+    if (i >= n) return;
+    const V3 o = ld3(origins, i), d = ld3(dirs, i);
+    const V3 inv{inv_dir(d.x), inv_dir(d.y), inv_dir(d.z)};
+    float t_best = kFar;
+    int best_slot = -1;
+    int sp = 0;
+    int node = 0;
+    for (;;) {
+        // visit inner record `node`: test both children
+        const float4* r = b.nodes + 4LL * node;
+        const float4 r0 = __ldg(r), r1 = __ldg(r + 1), r2 = __ldg(r + 2);
+        const int4 r3 = __ldg(reinterpret_cast<const int4*>(r) + 3);
+        float tl, tr;
+        const bool hl = slab(o, inv, V3{r0.x, r0.y, r0.z}, V3{r0.w, r1.x, r1.y}, t_best, tl);
+        const bool hr = slab(o, inv, V3{r1.z, r1.w, r2.x}, V3{r2.y, r2.z, r2.w}, t_best, tr);
+        int next = 0;
+        bool go = true;
+        if (hl && hr) {
+            const bool left_first = tl <= tr;
+            next = left_first ? r3.x : r3.y;
+            st_link[sp] = left_first ? r3.y : r3.x;
+            st_t[sp] = left_first ? tr : tl;
+            ++sp;
+        } else if (hl) {
+            next = r3.x;
+        } else if (hr) {
+            next = r3.y;
+        } else {
+            go = false;
+        }
+        // leaves, and pops, until the next inner record
+        for (;;) {
+            if (go) {
+                if (next >= 0) break;
+                float lt;
+                int ls;
+                leaf_hit(b.tris, o, d, next, t_best, lt, ls);
+                if (lt < t_best) t_best = lt, best_slot = ls;
+            }
+            go = false;
+            while (sp > 0) {
+                --sp;
+                if (st_t[sp] < t_best) {
+                    next = st_link[sp];
+                    go = true;
+                    break;
+                }
+            }
+            if (!go) break;
+        }
+        if (!go) break;
+        node = next;
+    }
+    t_out[i] = t_best;
+    tri_out[i] = best_slot < 0 ? -1 : __float_as_int(__ldg(&b.tris[3LL * best_slot].w));
+}
+
+}  // namespace
+
+// t [n] f32 and tri [n] int32 from origins and directions [n, 3] f32 and the
+// packed BVH *args (all on the device)
+extern "C" int nst_bvh_ray(const BvhArgs* args, const void* origins, const void* directions, void* t_out,
+                           void* tri_out, int n, void* stream) {
+    if (args == nullptr || n < 0) return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaGetLastError();
+    const dim3 grid((unsigned)((n + kRayThreads - 1) / kRayThreads));
+    bvh_ray_kernel<<<grid, kRayThreads, 0, (cudaStream_t)stream>>>(*args, (const float*)origins,
+                                                                  (const float*)directions, (float*)t_out,
+                                                                  (int*)tri_out, n);
     return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@
 Counterpart of ``nerfshop_tpu/editing/mvc.py``: batched ``[P, F]`` math on
 the device of the inputs, with the same sign-preserving division (a concave
 cage sees some triangles back-facing), the same on-triangle and on-vertex
-cases and the same γ-sharpened variant.
+cases and the same γ-sharpened variant, and the interpolation of cage
+attributes by the weights.
 """
 
 from __future__ import annotations
@@ -95,3 +96,8 @@ def mvc_gamma_weights(points, cage_v, cage_f, gamma: float = 1.0) -> torch.Tenso
     wg = torch.sign(w) * w.abs() ** gamma
     total = wg.sum(dim=1, keepdim=True)
     return wg / torch.where(total.abs() < _EPS, torch.ones_like(total), total)
+
+
+def interpolate_with_mvc(weights: torch.Tensor, cage_values: torch.Tensor) -> torch.Tensor:
+    """[P, V] weights × [V, D] cage attributes (positions, SH, …) → [P, D]."""
+    return weights @ cage_values

@@ -1,10 +1,12 @@
-"""Signed distance to a closed triangle mesh, on the device.
+"""Signed distance to a closed triangle mesh and the nearest ray hit, on
+the device.
 
 Counterpart of ``nerfshop_tpu/geometry/bvh.py``: the host build of the
 triangle BVH (:func:`build_bvh`: median split over centroids, leaves of
 ``LEAF_SIZE`` triangles padded with a sentinel triangle, angle-weighted
-vertex pseudo-normals and edge pseudo-normals) and ``signed_distance``
-with the same closest-point routine and the same pseudo-normal sign rule.
+vertex pseudo-normals and edge pseudo-normals), ``signed_distance`` with
+the same closest-point routine and the same pseudo-normal sign rule, and
+``ray_intersect`` with the same slab test and Möller–Trumbore arithmetic.
 
 :func:`signed_distance` takes a :class:`PackedBvh`, a :class:`BvhArrays`
 or a :class:`TriangleSet`. On a CUDA tensor a BVH is walked by kernel G
@@ -15,7 +17,10 @@ device, every point is tested against every triangle
 (:func:`signed_distance_plain`, G's plain version), in chunks of points.
 The brute force suits the cages the editing path queries (at most ~10³
 faces, no tree to build); the SDF testbed's meshes (~10⁵ faces) need the
-BVH.
+BVH. :func:`ray_intersect` dispatches the same way: kernel N
+(``csrc/bvh.cu``, the same packed layout, so a mesh packed once serves
+both kernels) or :func:`ray_intersect_plain`, every ray against every
+triangle.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ LEAF_SIZE = 4
 MAX_DEPTH = 33
 _FAR = 1e8
 
-#: point × triangle pairs per chunk of :func:`signed_distance_plain`
+#: point × triangle pairs per chunk of :func:`signed_distance_plain` and
+#: :func:`ray_intersect_plain`
 PAIRS_PER_CHUNK = 1 << 20
 
 
@@ -372,3 +378,96 @@ def signed_distance(mesh: Union[PackedBvh, BvhArrays, TriangleSet], points: torc
         raise ValueError(f"signed_distance: unsupported device {points.device}")
     packed = mesh if isinstance(mesh, PackedBvh) else pack_bvh(mesh)
     return bvh_signed_distance_cuda(packed, points.contiguous())
+
+
+# ------------------------------------------------------- nearest ray hit
+
+
+def _cross(a, b):
+    """JAX's ``jnp.cross`` of [..., 3] vectors, component by component."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1], a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def ray_triangle_t(origins, directions, a, ab, ac) -> torch.Tensor:
+    """Möller–Trumbore in JAX ``ray_intersect``'s arithmetic, broadcast over
+    leading dims → the hit distance, or ``_FAR`` where the ray misses the
+    triangle (barycentrics outside [0, 1], t ≤ 1e-6 or t ≥ ``_FAR``)."""
+    d = torch.broadcast_to(directions, torch.broadcast_shapes(directions.shape, ab.shape))
+    pvec = _cross(d, ac)
+    det = (ab * pvec).sum(-1)
+    inv_det = 1.0 / torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    tvec = origins - a
+    u = (tvec * pvec).sum(-1) * inv_det
+    qvec = _cross(tvec, ab)
+    v = (d * qvec).sum(-1) * inv_det
+    t = (ac * qvec).sum(-1) * inv_det
+    ok = (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 1e-6) & (t < _FAR)
+    return torch.where(ok, t, torch.full_like(t, _FAR))
+
+
+def ray_intersect_plain(tris: TriangleSet, origins: torch.Tensor, directions: torch.Tensor):
+    """origins, directions [N, 3] on ``tris``' device → (t [N] f32, ``_FAR``
+    on a miss; tri [N] int32, −1 on a miss): every triangle against a chunk
+    of rays, the nearest hit, the lowest triangle index on a tie. Kernel
+    N's plain version."""
+    F, N, dev = tris.tri_a.shape[0], origins.shape[0], origins.device
+    t_out = torch.full((N,), _FAR, dtype=torch.float32, device=dev)
+    tri_out = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    if F == 0:
+        return t_out, tri_out
+    step = max(1, PAIRS_PER_CHUNK // F)
+    index = torch.arange(F, device=dev)
+    for i in range(0, N, step):
+        t = ray_triangle_t(origins[i : i + step, None], directions[i : i + step, None], tris.tri_a[None],
+                           tris.tri_ab[None], tris.tri_ac[None])  # [R, F]
+        best = t.amin(dim=1)
+        first = torch.where(t == best[:, None], index, F).amin(dim=1)
+        hit = best < _FAR
+        t_out[i : i + step] = best
+        tri_out[i : i + step] = torch.where(hit, first, -1).to(torch.int32)
+    return t_out, tri_out
+
+
+@kernels.counted("launches")
+def bvh_ray_intersect_cuda(packed: PackedBvh, origins: torch.Tensor, directions: torch.Tensor):
+    """Kernel N: origins, directions [N, 3] f32 → (t [N] f32, tri [N]
+    int32), the nearest hit through ``packed``. Raises on anything but a
+    :class:`PackedBvh`, contiguous f32 rays and a BVH on their CUDA device."""
+    if not isinstance(packed, PackedBvh):
+        raise TypeError(f"kernel N walks a PackedBvh (pack_bvh), got {type(packed).__name__}")
+    dev = origins.device
+    if dev.type != "cuda":
+        raise ValueError(f"bvh ray kernel: rays on {dev}, expected a CUDA device")
+    N = origins.shape[0]
+    kernels.require(origins, "origins", torch.float32, (N, 3), dev)
+    kernels.require(directions, "directions", torch.float32, (N, 3), dev)
+    kernels.require(packed.nodes, "nodes", torch.float32, (packed.nodes.shape[0], 16), dev)
+    kernels.require(packed.tris, "tris", torch.float32, (packed.bvh.tri_a.shape[0] - 1, 12), dev)
+    t = torch.empty((N,), dtype=torch.float32, device=dev)
+    tri = torch.empty((N,), dtype=torch.int32, device=dev)
+    if N == 0:
+        return t, tri
+    args = kernels.BvhArgs(*(t_.data_ptr() for t_ in (packed.nodes, packed.tris, packed.bvh.tri_pseudo_v,
+                                                       packed.bvh.tri_pseudo_e, packed.bvh.tri_n)))
+    err = kernels.load().nst_bvh_ray(ctypes.byref(args), origins.data_ptr(), directions.data_ptr(), t.data_ptr(),
+                                     tri.data_ptr(), N, kernels.stream_ptr(dev))
+    kernels.check(err, "bvh_ray_intersect")
+    bvh_ray_intersect_cuda.launches += 1
+    return t, tri
+
+
+def ray_intersect(mesh: Union[PackedBvh, BvhArrays, TriangleSet], origins: torch.Tensor, directions: torch.Tensor):
+    """Nearest hit of rays [N, 3] → (t [N], ``_FAR`` on a miss; tri [N]
+    int32, −1 on a miss). A BVH on CUDA tensors launches kernel N or raises;
+    CPU tensors, and a bare :class:`TriangleSet` on any device, take
+    :func:`ray_intersect_plain`."""
+    if isinstance(mesh, TriangleSet):
+        return ray_intersect_plain(mesh, origins, directions)
+    if origins.device.type == "cpu":
+        return ray_intersect_plain((mesh.bvh if isinstance(mesh, PackedBvh) else mesh).triangles(), origins,
+                                   directions)
+    if origins.device.type != "cuda":
+        raise ValueError(f"ray_intersect: unsupported device {origins.device}")
+    packed = mesh if isinstance(mesh, PackedBvh) else pack_bvh(mesh)
+    return bvh_ray_intersect_cuda(packed, origins.contiguous(), directions.contiguous())

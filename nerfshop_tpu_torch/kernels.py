@@ -77,7 +77,7 @@ class CageArgs(ctypes.Structure):
 
 
 class BvhArgs(ctypes.Structure):
-    """The BVH of one launch of kernel G, field for field ``struct BvhArgs``
+    """The BVH of one launch of kernel G or N, field for field ``struct BvhArgs``
     of ``csrc/bvh.cu``: the arrays of ``geometry/bvh.py::PackedBvh`` and the
     pseudo-normals of its ``BvhArrays``."""
 
@@ -142,7 +142,8 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless a library of the same hash exists: one
-    ``nvcc -c`` per source, all started together, then one link."""
+    ``nvcc -c -Xptxas -v`` per source, all started together, then one link.
+    The compilers' output is kept beside the library (:func:`build_log`)."""
     so = library_path()
     if so.exists():
         return so
@@ -152,7 +153,7 @@ def build() -> Path:
         objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
         procs = [
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o],
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / s), "-o", o],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for s, o in zip(SOURCES, objs)
@@ -165,8 +166,35 @@ def build() -> Path:
         proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        log_tmp = os.path.join(tmp, "build.log")
+        Path(log_tmp).write_text("".join(f"== {s}\n{log}" for s, log in zip(SOURCES, logs)))
+        os.replace(log_tmp, so.with_suffix(".log"))
         os.replace(lib, so)
     return so
+
+
+def build_log() -> str:
+    """The compilers' output of the library's build: every kernel's ptxas
+    registers, stack frame, spills and shared memory ("" where the library
+    was built without it)."""
+    path = build().with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def ptxas_lines(log: str, kernel: str) -> List[str]:
+    """The ptxas lines of the entry ``kernel`` (a part of its mangled name)
+    in an ``nvcc -Xptxas -v`` log: its registers, stack frame, spills and
+    shared memory."""
+    lines = log.splitlines()
+    out = []
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for s in lines[k + 1 : k + 4]:
+                if "Compiling" in s:
+                    break
+                if "bytes" in s or "Used" in s:
+                    out.append(s.replace("ptxas info    :", "").strip())
+    return out
 
 
 def load() -> ctypes.CDLL:
@@ -195,6 +223,8 @@ def load() -> ctypes.CDLL:
         lib.nst_cage.restype = i
         lib.nst_bvh_sdf.argtypes = [ctypes.POINTER(BvhArgs), p, p, i, p]
         lib.nst_bvh_sdf.restype = i
+        lib.nst_bvh_ray.argtypes = [ctypes.POINTER(BvhArgs), p, p, p, p, i, p]
+        lib.nst_bvh_ray.restype = i
         lib.nst_shear_composite.argtypes = [ctypes.POINTER(FrameArgs), p, p, p]
         lib.nst_shear_composite.restype = i
         lib.nst_shear_composite_paths.argtypes = [ctypes.POINTER(FrameArgs), p, p, p, p]

@@ -1,9 +1,12 @@
 """Scene box, position/direction warps, the cone step size and morton order.
 
-Counterpart of the parts of ``nerfshop_tpu/ops/coords.py`` that training,
-rendering and snapshots use: ``BoundingBox`` (``from_aabb_scale``, ``unit``,
-``ray_intersect``), ``warp_position``, ``warp_direction``, ``calc_dt``,
-``mip_from_pos``, ``cascaded_grid_coords`` and the morton helpers.
+Counterpart of ``nerfshop_tpu/ops/coords.py``: ``BoundingBox``
+(``from_aabb_scale``, ``unit``, ``contains``, ``ray_intersect``), the
+position, direction and step-size warps and their inverses, the cone step
+(``calc_cone_angle``, ``calc_dt``), the DDA step to the next voxel, the
+cascade of a position and of a step (``mip_from_pos``, ``mip_from_dt``),
+``cascaded_grid_coords`` and the morton helpers, with JAX's arithmetic in
+JAX's order.
 """
 
 from __future__ import annotations
@@ -38,6 +41,10 @@ class BoundingBox(NamedTuple):
     def relative_pos(self, pos: torch.Tensor) -> torch.Tensor:
         return (pos - self.min) / self.diag
 
+    def contains(self, pos: torch.Tensor) -> torch.Tensor:
+        """[..., 3] → [...] bool: inside the box, faces included."""
+        return ((pos >= self.min) & (pos <= self.max)).all(dim=-1)
+
     def ray_intersect(self, origin: torch.Tensor, direction: torch.Tensor):
         """Slab test → (tmin, tmax); tmin > tmax means a miss."""
         inv = 1.0 / torch.where(direction.abs() < 1e-12, torch.full_like(direction, 1e-12), direction)
@@ -53,12 +60,52 @@ def warp_position(pos: torch.Tensor, aabb: BoundingBox) -> torch.Tensor:
     return aabb.relative_pos(pos)
 
 
+def unwarp_position(pos: torch.Tensor, aabb: BoundingBox) -> torch.Tensor:
+    """[0,1]³ network-input space → world."""
+    return aabb.min + pos * aabb.diag
+
+
 def warp_direction(direction: torch.Tensor) -> torch.Tensor:
     return (direction + 1.0) * 0.5
 
 
+def unwarp_direction(direction: torch.Tensor) -> torch.Tensor:
+    return direction * 2.0 - 1.0
+
+
+def _max_stepsize(n_cascades: int) -> float:
+    return MIN_CONE_STEPSIZE * (1 << (n_cascades - 1))
+
+
+def warp_dt(dt: torch.Tensor, n_cascades: int) -> torch.Tensor:
+    """Step size → [0, 1] between the smallest step and the largest of
+    ``n_cascades`` cascades."""
+    return (dt - MIN_CONE_STEPSIZE) / (_max_stepsize(n_cascades) - MIN_CONE_STEPSIZE)
+
+
+def unwarp_dt(dt: torch.Tensor, n_cascades: int) -> torch.Tensor:
+    return dt * (_max_stepsize(n_cascades) - MIN_CONE_STEPSIZE) + MIN_CONE_STEPSIZE
+
+
+def calc_cone_angle(cosine: torch.Tensor, focal_y, cone_angle_constant: float) -> torch.Tensor:
+    """The pixel-footprint cone angle, at most ``cone_angle_constant``."""
+    return torch.clamp_max(cosine / focal_y, cone_angle_constant)
+
+
 def calc_dt(t: torch.Tensor, cone_angle) -> torch.Tensor:
     return torch.clamp(t * cone_angle, MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE)
+
+
+def distance_to_next_voxel(pos: torch.Tensor, direction: torch.Tensor, inv_dir: torch.Tensor, res) -> torch.Tensor:
+    """DDA distance from ``pos`` [..., 3] in [0,1]³ to the next voxel
+    boundary of a res³ grid, at least 0. ``res`` is a number or a tensor of
+    one resolution an element [...] (a cascade's)."""
+    per_element = isinstance(res, torch.Tensor) and res.dim() > 0
+    p = res[..., None] * pos if per_element else res * pos
+    bound = torch.floor(p + 0.5 + 0.5 * torch.sign(direction))
+    t = ((bound - p) * inv_dir).amin(dim=-1)
+    r = res if per_element else torch.as_tensor(res, dtype=pos.dtype, device=pos.device)
+    return torch.clamp_min(t / r, 0.0)
 
 
 def mip_from_pos(pos: torch.Tensor, n_cascades: int) -> torch.Tensor:
@@ -67,6 +114,17 @@ def mip_from_pos(pos: torch.Tensor, n_cascades: int) -> torch.Tensor:
     maxval = (pos - 0.5).abs().amax(dim=-1)
     exponent = torch.floor(torch.log2(torch.clamp_min(maxval, 1e-12))).to(torch.int64) + 2
     return torch.clamp(exponent, 0, n_cascades - 1)
+
+
+def mip_from_dt(dt: torch.Tensor, pos: torch.Tensor, n_cascades: int) -> torch.Tensor:
+    """The cascade of ``pos``, coarsened while the step ``dt`` is wider than
+    a cell of it → int64 (the march's cell choice)."""
+    mip = mip_from_pos(pos, n_cascades)
+    d = dt * (2 * GRID_RESOLUTION)
+    # frexp's exponent of d (for d ≥ 1): floor(log2(d)) + 1
+    expo = torch.floor(torch.log2(torch.clamp_min(d, 1e-12))).to(torch.int64) + 1
+    coarse = torch.clamp(torch.maximum(expo, mip), 0, n_cascades - 1)
+    return torch.where(d < 1.0, mip, coarse)
 
 
 def cascaded_grid_coords(pos: torch.Tensor, mip: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,10 @@ occupancy bitfield thresholds it at min(mean, 0.01 / Δmin), each coarser
 cascade OR-ing in a 2× max-pool of the finer one.
 
 The slab offset ``z_lo`` and the jitter are inputs; :func:`draw_refresh`
-draws them from a ``torch.Generator``.
+draws them from a ``torch.Generator``. :func:`ema_update` is JAX's EMA rule;
+:func:`update_density_grid` applies it in place to the sampled slab, with
+the −1 kill sentinel, and decays the rest. :func:`occupancy_at` and :func:`density_at` read
+the grids at positions of given cascades.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from nerfshop_tpu_torch.common import (
     MIN_CONE_STEPSIZE,
     NERF_MIN_OPTICAL_THICKNESS,
 )
+from nerfshop_tpu_torch.ops import coords
 
 R = GRID_RESOLUTION
 #: positions per density-network call during a refresh
@@ -53,6 +57,13 @@ def cell_world_positions(cell_idx: torch.Tensor, mip: torch.Tensor, jitter: torc
     p = (cell_idx.to(torch.float32) + jitter) / R
     scale = torch.exp2(mip.to(torch.float32))[..., None]
     return (p - 0.5) * scale + 0.5
+
+
+def ema_update(density: torch.Tensor, fresh: torch.Tensor, sampled: torch.Tensor,
+               decay: float = DENSITY_GRID_DECAY) -> torch.Tensor:
+    """Every cell decays by ``decay``; the ``sampled`` ones take the max
+    with their ``fresh`` density (max-splat semantics) → a new grid."""
+    return torch.maximum(density * decay, torch.where(sampled, fresh, torch.zeros_like(fresh)))
 
 
 def slab_size(full_refresh: bool) -> int:
@@ -100,10 +111,12 @@ def update_density_grid(
     pos = slab_positions(n_cascades_active, z_lo, z_size, jitter)
     sigma = torch.cat([density_fn(pos[i : i + CHUNK]) for i in range(0, pos.shape[0], CHUNK)])
     fresh = sigma.to(torch.float32).reshape(n_cascades_active, R, R, z_size)
-    grid.density.mul_(DENSITY_GRID_DECAY)
     slab = grid.density[:n_cascades_active, :, :, z_lo : z_lo + z_size]
     # fresh < 0 is the operator-kill sentinel of the JAX grid: clear hard
-    slab.copy_(torch.where(fresh < 0, torch.zeros_like(fresh), torch.maximum(slab, fresh)))
+    kill = fresh < 0
+    new_slab = torch.where(kill, torch.zeros_like(fresh), ema_update(slab, fresh, ~kill))
+    grid.density.mul_(DENSITY_GRID_DECAY)
+    slab.copy_(new_slab)
     return grid
 
 
@@ -124,6 +137,18 @@ def update_bitfield(grid: OccupancyGrid) -> OccupancyGrid:
     grid.occupancy = torch.stack(levels)
     grid.mean_density = mean
     return grid
+
+
+def occupancy_at(grid: OccupancyGrid, pos: torch.Tensor, mip: torch.Tensor) -> torch.Tensor:
+    """The occupancy bit at warped positions [..., 3] of cascades ``mip`` [...]."""
+    cell = coords.cascaded_grid_coords(pos, mip)
+    return grid.occupancy[mip.long(), cell[..., 0], cell[..., 1], cell[..., 2]]
+
+
+def density_at(grid: OccupancyGrid, pos: torch.Tensor, mip: torch.Tensor) -> torch.Tensor:
+    """The grid's density at warped positions [..., 3] of cascades ``mip`` [...]."""
+    cell = coords.cascaded_grid_coords(pos, mip)
+    return grid.density[mip.long(), cell[..., 0], cell[..., 1], cell[..., 2]]
 
 
 @torch.no_grad()

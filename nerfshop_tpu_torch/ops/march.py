@@ -77,25 +77,18 @@ def step_ladder(t0: torch.Tensor, m: torch.Tensor, cone_angle: float) -> Tuple[t
 
 
 def _candidate_cells(origins, directions, T, dt, n_cascades: int, resolution: Optional[int] = None):
-    """Ladder positions → flat cascaded-grid indices [R, M] (mip from the
-    position's extent, coarsened by the step width)."""
-    Rg = GRID_RESOLUTION
-    px = origins[:, 0:1] + T * directions[:, 0:1]
-    py = origins[:, 1:2] + T * directions[:, 1:2]
-    pz = origins[:, 2:3] + T * directions[:, 2:3]
-    maxval = torch.maximum(torch.maximum((px - 0.5).abs(), (py - 0.5).abs()), (pz - 0.5).abs())
-    mip_pos = torch.clamp(torch.floor(torch.log2(torch.clamp_min(maxval, 1e-12))).to(torch.int64) + 2, 0, n_cascades - 1)
-    d_scaled = dt * (2 * Rg)
-    expo = torch.floor(torch.log2(torch.clamp_min(d_scaled, 1e-12))).to(torch.int64) + 1
-    mip = torch.where(d_scaled < 1.0, mip_pos, torch.clamp(torch.maximum(expo, mip_pos), 0, n_cascades - 1))
+    """Ladder positions → flat cascaded-grid indices [R, M] (the cascade of
+    ``coords.mip_from_dt``: the position's, coarsened by the step width)."""
+    pos = origins[:, None, :] + T[..., None] * directions[:, None, :]
+    mip = coords.mip_from_dt(dt, pos, n_cascades)
     mip_scale = torch.exp2(-mip.to(torch.float32))
-    Ro = Rg if resolution is None else resolution
+    Ro = GRID_RESOLUTION if resolution is None else resolution
 
     def cell_of(p):
         q = (p - 0.5) * mip_scale + 0.5
         return torch.clamp(torch.floor(q * Ro).to(torch.int64), 0, Ro - 1)
 
-    ix, iy, iz = cell_of(px), cell_of(py), cell_of(pz)
+    ix, iy, iz = (cell_of(pos[..., k]) for k in range(3))
     return ((mip * Ro + ix) * Ro + iy) * Ro + iz
 
 

@@ -6,7 +6,9 @@ Counterpart of ``nerfshop_tpu/ops/rays.py``: ``pixel_to_ray`` with
 field, ``latlong_to_dir``/``dir_to_latlong``, ``latlong_ray``,
 ``ftheta_ray``, ``rays_for_image``, ``rodrigues`` / ``apply_pose_delta``,
 the uniform branch of ``sample_training_pixels`` and its error-map branch
-from given draws (:func:`pixels_from_error_map`), and
+from given draws (:func:`pixels_from_error_map`), ``sample_training_rays``
+split into its draws (:func:`draw_training_rays`) and the rays, targets
+and images of given draws (:func:`training_rays_from_draws`), and
 ``rays_from_pixels`` with the learnable camera parameters (pose deltas and
 the screen-space distortion map) and with rolling shutter and motion blur
 (:func:`pose_lerp`, :func:`shutter_times`). Random draws are inputs
@@ -261,6 +263,67 @@ def sample_training_pixels(n_rays: int, images: torch.Tensor, generator: torch.G
     img_idx = torch.randint(0, images.shape[0], (n_rays,), generator=generator, device=dev)
     u = torch.rand((n_rays, 2), generator=generator, device=dev)
     return pixels_from_uniform(img_idx, u, images)
+
+
+def draw_training_rays(n_rays: int, n_images: int, generator: torch.Generator, device,
+                       image_pmf: Optional[torch.Tensor] = None, error_map: Optional[torch.Tensor] = None):
+    """The draws of JAX's ``sample_training_rays`` from ``generator``:
+    (img_idx [n] int64: uniform, or ∝ ``image_pmf`` + 1e-12; u [n, 2] in
+    [0, 1): the pixel's uniforms, or with ``error_map`` [N, h, w] the jitter
+    within the cell; cells [n] int64 ∝ the image's map + 1e-8, or None)."""
+    if image_pmf is not None:
+        cdf = torch.cumsum(image_pmf.double().to(device) + 1e-12, dim=0)
+        xi = torch.rand((n_rays,), generator=generator, device=device, dtype=torch.float64)
+        img_idx = torch.searchsorted(cdf / cdf[-1], xi, right=True).clamp_max(n_images - 1)
+    else:
+        img_idx = torch.randint(0, n_images, (n_rays,), generator=generator, device=device)
+    cells = None
+    if error_map is not None:
+        eh, ew = error_map.shape[1:]
+        xi = torch.rand((n_rays,), generator=generator, device=device)
+        cells = error_map_cells(img_idx, xi, error_map_cdf(error_map), eh * ew)
+    u = torch.rand((n_rays, 2), generator=generator, device=device)
+    return img_idx, u, cells
+
+
+def training_rays_from_draws(
+    img_idx: torch.Tensor,
+    u: torch.Tensor,
+    cells: Optional[torch.Tensor],
+    images: torch.Tensor,  # [N, H, W, 4]
+    xforms: torch.Tensor,  # [N, 3, 4]
+    focals: torch.Tensor,  # [N, 2]
+    principals: torch.Tensor,  # [N, 2]
+    distortions: Optional[torch.Tensor] = None,  # [N, 4]
+    map_shape: Optional[Tuple[int, int]] = None,  # (h, w) of the error map the cells index
+):
+    """JAX's ``sample_training_rays`` from the draws of
+    :func:`draw_training_rays`: the pixels (``floor(u · [W, H])``, or the
+    error-map cells at ``map_shape`` with ``u`` as jitter), clipped to the
+    image, their rgba and their rays through the pixel centres → (rays,
+    targets [n, 4], img_idx)."""
+    N, H, W = images.shape[:3]
+    if cells is not None:
+        pix = pixels_from_cells(cells, u, map_shape, W, H)
+    else:
+        pix = pixels_from_uniform(img_idx, u, images)[1]
+    i, ipix = img_idx.long(), pix.long()
+    targets = images[i, ipix[:, 1], ipix[:, 0]]
+    res = torch.tensor([W, H], dtype=torch.float32, device=images.device)
+    dist = distortions[i] if distortions is not None else None
+    return pixel_to_ray(pix, xforms[i], focals[i], principals[i], res, dist), targets, img_idx
+
+
+def sample_training_rays(n_rays: int, images: torch.Tensor, xforms: torch.Tensor, focals: torch.Tensor,
+                         principals: torch.Tensor, generator: torch.Generator,
+                         distortions: Optional[torch.Tensor] = None, image_pmf: Optional[torch.Tensor] = None,
+                         error_map: Optional[torch.Tensor] = None):
+    """Random (image, pixel) pairs → (rays [n_rays], rgba targets [n_rays,
+    4], image indices): :func:`draw_training_rays`, then
+    :func:`training_rays_from_draws`."""
+    img_idx, u, cells = draw_training_rays(n_rays, images.shape[0], generator, images.device, image_pmf, error_map)
+    map_shape = tuple(error_map.shape[1:]) if error_map is not None else None
+    return training_rays_from_draws(img_idx, u, cells, images, xforms, focals, principals, distortions, map_shape)
 
 
 def distortion_map_offset(dm: torch.Tensor, pix: torch.Tensor, resolution: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,9 @@
 growing's selection, the cell clearing and ``GrowingSelection.vanish``; and
 a build that fails raises."""
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ from test_concave_cage import _l_shape_cage
 from torch_one_thread import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(scope="module")
@@ -81,6 +85,43 @@ def test_voxelize_native_matches_numpy_and_jax(tet_meshes, name, res, max_t):
                 np.testing.assert_array_equal(a, c)
     if max_t == 4:
         assert ours[3] > max_t
+
+
+@pytest.mark.parametrize("res,max_t", [(16, 64), (64, 32)])
+@pytest.mark.parametrize("name", ["cube", "lshape"])
+def test_lut_differences_are_rounding_ties(tet_meshes, name, res, max_t):
+    # chip_smoke.lut_differences, [native]'s rule on the card: every tet
+    # that the library's LUT and the numpy path's list differently in a
+    # cell is decided within LUT_TIE_REL of the box's largest coordinate
+    # (the L-shape at res 64 has one such cell); a tet planted in a cell
+    # far outside it, or dropped from a cell it covers, is off by more
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    ttm = _port(tet_meshes[name])
+    for verts in (ttm.vertices_original, ttm.vertices_deformed):
+        ours = ttm._voxelize(verts, res, max_t)[2]
+        plain = ttm._voxelize_plain(verts, res, max_t)[2]
+        n_rows, extra, worst = chip_smoke.lut_differences(ttm, verts, res, ours, plain)
+        assert n_rows == _cell_sets_differ(ours, plain)[0] and extra <= 1 and worst <= chip_smoke.LUT_TIE_REL
+        # tet 0 dropped from the cell of its centroid, and planted in the
+        # cell at the box's far corner from it
+        _, lo, inv_cell = ttm._box(verts, res)
+        ijk = ((verts[ttm.tets[0]].mean(0) - lo) * inv_cell).astype(int)
+        far = np.where(ijk < res // 2, res - 1, 0)
+        padded = np.pad(plain, ((0, 0), (0, 1)), constant_values=-1)
+        for (i, j, k), listed in ((ijk, True), (far, False)):
+            broken = padded.copy()
+            row = broken[(i * res + j) * res + k]
+            assert (row == 0).any() == listed
+            if listed:
+                row[row == 0] = -1
+            else:
+                row[-1] = 0
+            n_bad, extra_bad, worst_bad = chip_smoke.lut_differences(ttm, verts, res, broken, padded)
+            assert n_bad == 1 and extra_bad == 1 and worst_bad > 1e3 * chip_smoke.LUT_TIE_REL, worst_bad
 
 
 def test_library_voxelize_raw_matches_jax_native(tet_meshes):

@@ -91,7 +91,7 @@ def test_time_bvh_reads_the_walks_ptxas_lines():
         "ptxas info    : Used 40 registers, used 0 barriers, 256 bytes cumulative stack size",
     ])
     # the walk's lines only: its stack frame and spills, then its registers
-    assert time_bvh.ptxas_lines(log) == [
+    assert time_bvh.ptxas_lines(log, "bvh_sdf_kernel") == [
         "256 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 40 registers, used 0 barriers, 256 bytes cumulative stack size",
     ]

@@ -1,9 +1,19 @@
 #!/usr/bin/env python3
 """Kernel G's first version against this checkout's, timed on one NVIDIA
-GPU on the same seeded points.
+GPU on the same seeded points; with ``--ray``, two versions of kernel N.
 
 Run from the root of a checkout:
   python3 time_bvh.py --parent FILE
+  python3 time_bvh.py --ray --parent FILE
+
+With ``--ray``, ``FILE`` is another ``csrc/bvh.cu`` with kernel N
+(``nst_bvh_ray``), for example an earlier commit's (``git show
+<commit>:nerfshop_tpu_torch/csrc/bvh.cu``): both are built as below, their
+ray walks' registers, stack frames and spills printed, and both walks timed by
+``chip_smoke.both_ms`` on ``chip_smoke.n_rays``' sets (the 1080p frame of the
+[sdf] testbed's camera, rays from outside, from inside, axis-parallel), the
+file's first, then this checkout's, then reversed; their t and triangles
+are compared.
 
 ``FILE`` is the first version's ``csrc/bvh.cu`` (one thread a point over
 the ``BvhArrays``, C entry ``nst_bvh_sdf(args, points, out, n, stream)``),
@@ -36,6 +46,7 @@ from pathlib import Path
 import torch
 
 import chip_smoke
+from nerfshop_tpu_torch.kernels import ptxas_lines  # profile_render.py takes it from here too
 
 #: the points timed: chip_smoke.g_points's training batch ("2^15"), its
 #: near-surface three quarters and its uniform quarter alone, and its 2^18
@@ -89,23 +100,9 @@ def build_both(parent: Path, out_dir: Path) -> dict:
     return libs
 
 
-def ptxas_lines(log: str, kernel: str = "bvh_sdf_kernel") -> list:
-    """The ptxas lines of ``kernel`` (a part of its mangled name): its
-    registers, stack frame, spills and shared memory."""
-    lines = log.splitlines()
-    out = []
-    for k, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
-            for s in lines[k + 1 : k + 4]:
-                if "Compiling" in s:
-                    break
-                if "bytes" in s or "Used" in s:
-                    out.append(s.replace("ptxas info    :", "").strip())
-    return out
-
-
 def sdf_testbed(dev):
-    """The [sdf] testbed of chip_smoke.py with its mesh loaded, untrained."""
+    """The [sdf] testbed of chip_smoke.py with its mesh loaded, untrained (the
+    facade; its ``.sdf`` holds the mesh and the packed BVH)."""
     from nerfshop_tpu_torch.geometry import mesh_io
     from nerfshop_tpu_torch.testbed import Testbed
 
@@ -114,24 +111,75 @@ def sdf_testbed(dev):
         path = Path(tmp) / "bumpy.obj"
         mesh_io.save_obj(path, chip_smoke.bumpy_mesh())
         tb.load_training_data(str(path))
-    return tb.sdf
+    return tb
+
+
+def time_rays(other: Path, dev, smi: str) -> None:
+    """``--ray``: kernel N of ``other`` against this checkout's."""
+    from nerfshop_tpu_torch import kernels
+
+    labels = (f"{other.name}", "this checkout")
+    libs = build_versions(dict(zip(labels, (other, kernels.CSRC / "bvh.cu"))), kernels.BUILD_DIR.parent / "bvh_versions",
+                          "bvh_ray")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for label, (lib, log) in libs.items():
+        lib.nst_bvh_ray.restype = i
+        lib.nst_bvh_ray.argtypes = [ctypes.POINTER(kernels.BvhArgs), p, p, p, p, i, p]
+        print(f"[ptxas] {label}: {' | '.join(ptxas_lines(log, 'bvh_ray_kernel'))}", flush=True)
+    tb = sdf_testbed(dev)
+    W, H = 1920, 1080
+    sets = chip_smoke.n_rays(tb.sdf, W, H, tb.camera_matrix, tb._focal_for(W, H))
+    packed = tb.sdf.packed_bvh
+    args = kernels.BvhArgs(*(t.data_ptr() for t in (packed.nodes, packed.tris, packed.bvh.tri_pseudo_v,
+                                                    packed.bvh.tri_pseudo_e, packed.bvh.tri_n)))
+    stream = kernels.stream_ptr(dev)
+    packed_bytes = chip_smoke.nbytes(packed.nodes, packed.tris)
+    for name in ("frame", "outside", "inside", "axis"):
+        o, d = sets[name]
+        N = o.shape[0]
+        t_out = {label: torch.empty(N, device=dev) for label in labels}
+        tri_out = {label: torch.empty(N, dtype=torch.int32, device=dev) for label in labels}
+
+        def run(label):
+            kernels.check(libs[label][0].nst_bvh_ray(ctypes.byref(args), o.data_ptr(), d.data_ptr(),
+                                                     t_out[label].data_ptr(), tri_out[label].data_ptr(), N, stream),
+                          label)
+
+        times = {label: [] for label in labels}
+        for order in (labels, labels[::-1]):
+            for label in order:
+                times[label].append(chip_smoke.both_ms(lambda: run(label)))
+        torch.cuda.synchronize()
+        b_ms, _ = chip_smoke.bound(chip_smoke.nbytes(o, d) + 8 * N + packed_bytes)
+        same = torch.equal(t_out[labels[0]], t_out[labels[1]]) and torch.equal(tri_out[labels[0]], tri_out[labels[1]])
+        hit = float((tri_out[labels[1]] >= 0).float().mean())
+        for label in labels:
+            print(f"[ray] {name} ({N} rays, hit share {hit:.4f}) {label}: device "
+                  f"{' / '.join(f'{t[1]:.4f}' for t in times[label])} ms, events "
+                  f"{' / '.join(f'{t[0]:.4f}' for t in times[label])} ms (forward / reversed pass), bound {b_ms:.4f} "
+                  f"ms; outputs equal: {same}", flush=True)
+    print(f"[ray] {smi}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", type=Path, required=True, help="the first version's bvh.cu")
+    ap.add_argument("--parent", type=Path, required=True, help="the other version's bvh.cu")
+    ap.add_argument("--ray", action="store_true", help="time kernel N (the nearest ray hit) instead of G")
     args = ap.parse_args()
     smi = chip_smoke.phase_device()
     dev = torch.device("cuda", 0)
     chip_smoke.phase_build()
+    if args.ray:
+        time_rays(args.parent.resolve(), dev, smi)
+        return
     from nerfshop_tpu_torch import kernels
     from nerfshop_tpu_torch.geometry import bvh as bvh_lib
 
     libs = build_both(args.parent.resolve(), kernels.BUILD_DIR.parent / "bvh_versions")
     for label, (_, log) in libs.items():
-        print(f"[ptxas] {label}: {' | '.join(ptxas_lines(log))}", flush=True)
+        print(f"[ptxas] {label}: {' | '.join(ptxas_lines(log, 'bvh_sdf_kernel'))}", flush=True)
 
-    sdf = sdf_testbed(dev)
+    sdf = sdf_testbed(dev).sdf
     packed = sdf.packed_bvh
     bvh = packed.bvh
     pts = chip_smoke.g_points(sdf)
